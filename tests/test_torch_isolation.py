@@ -1,0 +1,39 @@
+"""The port stands alone: importing it (every submodule) and chip_smoke.py
+loads no JAX, no flax and nothing of the JAX package, and its entry points
+refuse to fall back to the CPU quietly when no CUDA device is present."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import torch
+import sdeflow_tpu_torch
+for m in pkgutil.walk_packages(sdeflow_tpu_torch.__path__, "sdeflow_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdeflow_tpu"))
+assert not bad, bad
+from sdeflow_tpu_torch.serving import make_sampler_fn
+if not torch.cuda.is_available():
+    try:
+        make_sampler_fn(None, 4, 256, 2)
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("make_sampler_fn fell back to the CPU")
+print("isolated")
+"""
+
+
+def test_port_imports_no_jax_and_refuses_missing_cuda():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("isolated")
