@@ -2,9 +2,9 @@
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
 ExperimentConfig and the ``_piv_large`` → ``_grf`` chain, :318-359), with
-the fields that chain sets and the serve path reads; each keeps the JAX
-default. The other presets, the SGM-arm and training knobs and the plot
-options come with ROADMAP Queue 1 items 1 and 13.
+the fields that chain sets and the serve and training paths read; each
+keeps the JAX default. The other presets, the SGM-arm knobs and the plot
+options come with ROADMAP Queue 1 items 2 and 13.
 """
 
 from __future__ import annotations
@@ -25,14 +25,23 @@ class TrainConfig:
     nn_archi: str = "MLP"  # MLP | Unet | Unet1D | DiT | DiT2D
     compute_dtype: str = "float32"
     num_samples_init_max: int = 100_000
+    vtype: str = "rademacher"
     lr: float = 1e-3
-    use_checkpoint: bool = False
+    grad_clip: Optional[float] = None
+    weight_decay: float = 0.0
+    lr_warmup_steps: int = 0
+    print_every: int = 10_000
+    save_every: int = 100_000
+    use_checkpoint: bool = False  # on-disk checkpoints (Queue 1 item 12)
+    ema_rate: Optional[float] = None
+    ema_warmup: bool = True
     num_steps_forward: int = 16
     base_channels: int = 32
     channel_mults: Tuple[int, ...] = (1, 2, 4)
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (2, 4)
     attention_impl: str = "auto"
+    steps_per_dispatch: int = 256
 
 
 @dataclass(frozen=True)
@@ -41,6 +50,7 @@ class SweepConfig:
     num_stepss_backward: Tuple[int, ...] = (128,)
     batch_sizes: Tuple[int, ...] = (256,)
     fair_comparison: bool = True
+    ssm_intT_ref: bool = False
     backward_method: str = "rk4"
 
 

@@ -10,7 +10,8 @@ maps by name onto the port's module of the same dotted path:
   keeps flax's names and layout.
 
 A flax leaf without a torch counterpart, a torch parameter without a flax
-leaf, or a shape mismatch raises.
+leaf, or a shape mismatch raises. ``state_dict_to_flax`` is the inverse
+map, for parameters or their gradients.
 """
 
 from __future__ import annotations
@@ -62,3 +63,23 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     `params`."""
     model.load_state_dict(flax_to_state_dict(params, model))
     return model
+
+
+def state_dict_to_flax(tensors, model: nn.Module) -> dict:
+    """The flax-shaped tree (nested dicts of float32 numpy arrays) of
+    `tensors`, a dict from `model`'s parameter names to tensors of their
+    shapes (the parameters themselves, or their gradients)."""
+    modules = dict(model.named_modules())
+    tree = {}
+    for key, t in tensors.items():
+        *mod_path, name = key.split(".")
+        mod = modules[".".join(mod_path)]
+        arr = t.detach().to("cpu", torch.float32)
+        if isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
+            name = "kernel"
+            arr = arr.permute(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = tree
+        for part in mod_path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr.numpy())
+    return tree

@@ -3,9 +3,11 @@
 Port of sdeflow_tpu/ops/integrators.py: the EM, Heun and RK4 steps and the
 fixed-step solve. The JAX package runs the solve as one ``lax.scan``; here it
 is a Python loop (a CUDA graph of the loop is later work). One Wiener
-increment per step is shared by all Runge-Kutta stages. ``integrate_select``
-and the whole-step override hook come with ROADMAP Queue 1 item 1, the
-Langevin corrector with item 3.
+increment per step is shared by all Runge-Kutta stages. A flow may override
+a whole step (``ForwardFlow.rk4_step`` runs the circulant MSGM forward step
+as kernel K2). ``integrate_select`` keeps, per sample, the state after its
+own number of steps. The Langevin corrector comes with ROADMAP Queue 1
+item 3.
 
 The flow protocol: ``T``; ``mu(t, y, lmbd)`` (Itô drift, EM);
 ``mu_strato(t, y, lmbd)`` (Stratonovich drift, Heun / RK4);
@@ -50,6 +52,16 @@ def rk4_step(flow, t, x, delta, dW, lmbd=0.0):
 STEP_FNS = {"em": em_step, "heun": heun_step, "rk4": rk4_step}
 
 
+def _resolve_step_fn(flow, method):
+    """The flow's whole-step override ``<method>_step`` if it has one (e.g.
+    ForwardFlow.rk4_step), else the generic per-stage composition."""
+    override = getattr(flow, f"{method}_step", None)
+    if override is not None:
+        return lambda flow, t, x, delta, dW, lmbd: override(
+            t, x, delta, dW, lmbd)
+    return STEP_FNS[method]
+
+
 def _norm_project(x, norm0):
     """Exact norm re-projection x ← x·‖x_0‖/‖x‖."""
     n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
@@ -66,12 +78,10 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     keep_all returns the trajectory (S, B, d), S = num_steps (+1 with
     include_t0). Times are Python numbers: t = i·δ.
     """
-    step_fn = STEP_FNS[method]
+    step_fn = _resolve_step_fn(flow, method)
     delta = float(flow.T) / num_steps
     sqrt_delta = delta ** 0.5
-    if noise is not None and tuple(noise.shape) != (num_steps, *x0.shape):
-        raise ValueError(f"noise {tuple(noise.shape)} != "
-                         f"{(num_steps, *x0.shape)}")
+    _check_noise(noise, num_steps, x0)
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)
     x = x0
@@ -86,3 +96,35 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
         if keep_all:
             traj.append(x)
     return torch.stack(traj) if keep_all else x
+
+
+def integrate_select(flow, x0, generator, num_steps, select_idx, *,
+                     method="rk4", lmbd=0.0, norm_correction=False,
+                     noise=None):
+    """Integrate `flow` from x0 (B, d) and return, per sample b, the state
+    after select_idx[b] steps (select_idx (B,) integers in [0, num_steps];
+    0 returns x0). A masked ``kept`` buffer replaces the trajectory, as in
+    the JAX package; all num_steps steps run. noise: optional
+    (num_steps, B, d) standard normal draws, as for integrate_sde."""
+    step_fn = _resolve_step_fn(flow, method)
+    delta = float(flow.T) / num_steps
+    sqrt_delta = delta ** 0.5
+    _check_noise(noise, num_steps, x0)
+    norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
+             if norm_correction else None)
+    x = kept = x0
+    sel = select_idx.reshape(-1, 1)
+    for i in range(num_steps):
+        z = noise[i] if noise is not None else torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        x = step_fn(flow, i * delta, x, delta, sqrt_delta * z, lmbd)
+        if norm_correction:
+            x = _norm_project(x, norm0)
+        kept = torch.where(sel == i + 1, x, kept)
+    return kept
+
+
+def _check_noise(noise, num_steps, x0):
+    if noise is not None and tuple(noise.shape) != (num_steps, *x0.shape):
+        raise ValueError(f"noise {tuple(noise.shape)} != "
+                         f"{(num_steps, *x0.shape)}")

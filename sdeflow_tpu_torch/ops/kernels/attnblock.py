@@ -5,9 +5,11 @@ softmax attention (q and k each scaled by ch^-1/4, heads laid out as
 interleaved [q_h k_h v_h] channel slices) → output projection → residual.
 
 Replaces the Pallas kernel ``_attn_block_pallas`` (sdeflow_tpu/ops/pallas/
-attnblock.py:75-265). ``fused_attention_block`` launches
-``csrc/attnblock.cu`` on a CUDA tensor and runs the plain version
-``attn_block_math`` on a CPU tensor (ops/kernels/common.py). The kernel
+attnblock.py:75-265). ``fused_attention_block`` goes through its
+``torch.autograd.Function``: it launches ``csrc/attnblock.cu`` on CUDA
+tensors and runs the plain version ``attn_block_math`` on CPU tensors, and
+differentiates the plain version in both cases (ops/kernels/common.py). The
+kernel
 covers float32, T ≤ 256, heads 1–8 and shapes whose working set fits one
 block's shared memory; anything else raises on CUDA (bf16 and T > 256 are
 queued in ROADMAP).
@@ -71,12 +73,8 @@ def query_chunk(t, c, groups):
     return tq
 
 
-def fused_attention_block(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,
-                          groups, heads=1):
-    """x: (B, T, C) -> (B, T, C); the whole 1-8-head AttentionBlock."""
+def _launch(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups, heads):
     args = (x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj)
-    if not common.use_kernel(*args):
-        return attn_block_math(*args, groups, heads)
     b, t, c = x.shape
     if any(a.dtype != torch.float32 for a in args):
         raise NotImplementedError(
@@ -107,3 +105,13 @@ def fused_attention_block(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,
               smem_bytes(t, c, groups, tq),
               1.0 / math.sqrt(math.sqrt(c // heads)))
     return out
+
+
+AttnBlock = common.kernel_function("AttnBlock", attn_block_math, _launch, 7)
+
+
+def fused_attention_block(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,
+                          groups, heads=1):
+    """x: (B, T, C) -> (B, T, C); the whole 1-8-head AttentionBlock."""
+    return AttnBlock.apply(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,
+                           groups, heads)

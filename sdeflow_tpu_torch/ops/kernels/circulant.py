@@ -1,10 +1,14 @@
-"""K1: the circulant-G diffusion stencil as a CUDA kernel.
+"""K1 and K2: the circulant-G diffusion stencil and the fused zero-drift
+RK4 forward step, as CUDA kernels.
 
-Replaces the Pallas kernel ``_circ_pallas`` (sdeflow_tpu/ops/pallas/
-circulant.py:35-75). ``circulant_apply`` launches ``csrc/circulant.cu`` on a
-CUDA tensor and runs the plain version ``circ_math`` on a CPU tensor (see
-ops/kernels/common.py for the dispatch rule). Unlike the JAX entry point,
-which keeps the kernel for d ≥ 128, the CUDA kernel takes any B and d.
+K1 replaces the Pallas kernel ``_circ_pallas`` (sdeflow_tpu/ops/pallas/
+circulant.py:35-75), K2 replaces ``_rk4_pallas`` (:98-146). Both wrappers,
+``circulant_apply`` and ``circulant_rk4_step``, go through their
+``torch.autograd.Function``: the kernel (``csrc/circulant.cu``,
+``csrc/rk4.cu``) on CUDA tensors, the plain versions ``circ_math`` and
+``rk4_math_fwd`` on CPU tensors, and the plain versions' derivatives in
+every case (ops/kernels/common.py). Unlike the JAX entry points, which keep
+the Pallas kernels for d ≥ 128, the CUDA kernels take any B and d.
 """
 
 from __future__ import annotations
@@ -21,30 +25,95 @@ K1 = common.register(common.Kernel(
     "circulant_apply", "circulant.cu",
     {"circulant_apply_f32": [_P, _P, _P, _P, _I, _I, _P]},
 ))
+K2 = common.register(common.Kernel(
+    "circulant_rk4_step", "rk4.cu",
+    {"circulant_rk4_step_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                ctypes.c_int, _P]},
+))
 
+_THREADS = 256  # threads of one K2 block (must match rk4.cu)
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 # plain version, c·(roll(√β·y, −1)·w − roll(√β·y·w, +1)): the roll stencil
 circ_math = circulant_sigma_apply
 
 
+def rk4_math_fwd(sb3, x, w):
+    """Plain version of K2, a copy of ``_rk4_math_fwd`` (sdeflow_tpu/ops/
+    pallas/circulant.py:87-95) with its operation order: one RK4 step of the
+    zero-drift circulant flow, stage √β = sb3[:, 0], sb3[:, 1] (twice),
+    sb3[:, 2], one shared increment w."""
+    k1 = circ_math(sb3[:, 0:1], x, w)
+    k2 = circ_math(sb3[:, 1:2], x + 0.5 * k1, w)
+    k3 = circ_math(sb3[:, 1:2], x + 0.5 * k2, w)
+    k4 = circ_math(sb3[:, 2:3], x + k3, w)
+    return x + (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
+
+
+def _check(name, x, w):
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes float32 inputs")
+    if w.shape != x.shape or x.ndim != 2:
+        raise ValueError(f"w {tuple(w.shape)} and x {tuple(x.shape)} must "
+                         "be the same (B, d)")
+
+
+def _launch_k1(sb, y, w):
+    _check("circulant_apply", y, w)
+    b, d = y.shape
+    sb, y, w = sb.contiguous(), y.contiguous(), w.contiguous()
+    out = torch.empty_like(y)
+    K1.launch("circulant_apply_f32", common.ptr(sb), common.ptr(y),
+              common.ptr(w), common.ptr(out), b, d)
+    return out
+
+
+def rk4_layout(b, d):
+    """K2's launch layout: rows per block (whole rows, several when
+    d < 256), the blocks, and whether the two stage buffers (2·rows·d
+    floats) fit shared memory; if not they live in a global scratch."""
+    rows = max(1, _THREADS // d) if d else 1
+    blocks = -(-b // rows)
+    return rows, blocks, 8 * rows * d <= _SMEM_LIMIT
+
+
+def _launch_k2(sb3, x, w):
+    _check("circulant_rk4_step", x, w)
+    b, d = x.shape
+    if tuple(sb3.shape) != (b, 3) or sb3.dtype != torch.float32:
+        raise ValueError(f"sb3 {tuple(sb3.shape)} {sb3.dtype}: expected "
+                         f"float32 {(b, 3)}")
+    sb3, x, w = sb3.contiguous(), x.contiguous(), w.contiguous()
+    out = torch.empty_like(x)
+    rows, blocks, in_smem = rk4_layout(b, d)
+    scratch = (None if in_smem else
+               torch.empty(blocks * 2 * rows * d, dtype=x.dtype,
+                           device=x.device))
+    K2.launch("circulant_rk4_step_f32", common.ptr(sb3), common.ptr(x),
+              common.ptr(w), common.ptr(out),
+              ctypes.c_void_p(0 if scratch is None else scratch.data_ptr()),
+              b, d, rows, int(in_smem))
+    return out
+
+
+CircApply = common.kernel_function("CircApply", circ_math, _launch_k1, 3)
+RK4Step = common.kernel_function("RK4Step", rk4_math_fwd, _launch_k2, 3)
+
+
 def circulant_apply(sqrt_beta, y, w):
     """(g·w) for the circulant G: sqrt_beta a number, (B,) or (B, 1);
     y, w (B, d). Returns (B, d)."""
-    b, d = y.shape
+    b = y.shape[0]
     if isinstance(sqrt_beta, torch.Tensor):
         sb = sqrt_beta.to(y.dtype).reshape(-1, 1).expand(b, 1)
     else:  # a fill, not a host-to-device copy
         sb = torch.full((b, 1), float(sqrt_beta), dtype=y.dtype,
                         device=y.device)
-    if not common.use_kernel(sb, y, w):
-        return circ_math(sb, y, w)
-    if y.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("circulant_apply kernel takes float32 y and w")
-    if w.shape != y.shape:
-        raise ValueError(f"w {tuple(w.shape)} != y {tuple(y.shape)}")
-    sb = sb.contiguous()
-    y, w = y.contiguous(), w.contiguous()
-    out = torch.empty_like(y)
-    K1.launch("circulant_apply_f32", common.ptr(sb), common.ptr(y),
-              common.ptr(w), common.ptr(out), b, d)
-    return out
+    return CircApply.apply(sb, y, w)
+
+
+def circulant_rk4_step(sb3, x, w):
+    """One fused RK4 step of the zero-drift circulant flow: sb3 (B, 3) √β
+    at the stage times (t, t+δ/2, t+δ); x, w (B, d) the state and the
+    Wiener increment. Returns (B, d)."""
+    return RK4Step.apply(sb3.to(x.dtype).expand(x.shape[0], 3), x, w)

@@ -1,16 +1,22 @@
 """Shared plumbing for the hand-written CUDA kernels.
 
 Counterpart of the JAX package's ops/pallas/common.py. Dispatch rule for
-every kernel wrapper in this package:
+every kernel wrapper in this package: the device alone decides.
 
-- a tensor on the CPU goes to the kernel's plain PyTorch version (the CPU
-  tests and nothing else take this branch);
-- a CUDA tensor with no autograd recording (``torch.no_grad()``, or no
-  input that requires grad) launches the kernel;
-- a CUDA tensor with autograd recording raises: the kernels have no
-  ``torch.autograd.Function`` yet (the JAX package differentiates through
-  ``custom_jvp`` rules instead, ops/pallas/circulant.py:167-179 and
-  ops/pallas/attnblock.py:268-272; the training slice brings them).
+- Every wrapper goes through its ``torch.autograd.Function``
+  (``kernel_function`` below). Its ``forward`` launches the kernel on CUDA
+  tensors and runs the plain PyTorch version on CPU tensors (the CPU tests
+  and nothing else take that branch).
+- Its ``backward`` and its forward-mode rule ``jvp`` are the plain
+  version's, taken with ``torch.func.vjp`` / ``torch.func.jvp``, as the JAX
+  package's ``custom_jvp`` rules evaluate the plain math
+  (ops/pallas/circulant.py:149-179, ops/pallas/attnblock.py:268-272). So a
+  kernel runs under autograd and under ``torch.func.jvp`` alike, and the
+  gradient of a JVP (the SSM loss) flows through the plain rules. Under
+  ``torch.func.jvp`` the rule recomputes the primal: that duplicates the
+  kernel's work, and is accepted.
+- Raw pointers are taken only inside ``forward``, which receives plain
+  tensors even under ``torch.func`` transforms.
 
 There is no fallback from a failed build or launch to the plain version.
 
@@ -152,20 +158,61 @@ def reset_launches():
 
 
 def use_kernel(*tensors) -> bool:
-    """True if the wrapper must launch its kernel, False if it must run its
-    plain version (every input on the CPU). Raises for mixed devices and
-    for CUDA inputs under autograd recording."""
+    """True if the wrapper must launch its kernel (every input on CUDA),
+    False if it must run its plain version (every input on the CPU).
+    Raises for mixed devices."""
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return False
     if devs != {"cuda"}:
         raise ValueError(f"inputs on mixed devices: {sorted(devs)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the CUDA kernels have no autograd rule yet (ROADMAP Queue 1, "
-            "training slice); call under torch.no_grad()"
-        )
     return True
+
+
+def kernel_function(name, plain, launch, n_tensors):
+    """A ``torch.autograd.Function`` (setup_context style, so that
+    ``torch.func`` transforms it) for one kernel.
+
+    ``plain(*tensors, *static)`` is the plain version and ``launch(*tensors,
+    *static)`` the kernel's launcher; the first ``n_tensors`` arguments are
+    tensors, the rest static values (no gradient). ``forward`` picks by
+    device (``use_kernel``); ``backward`` and ``jvp`` are the plain
+    version's vector-Jacobian and Jacobian-vector products. Call it as
+    ``Fn.apply(*tensors, *static)``."""
+
+    def forward(*args):
+        if use_kernel(*args[:n_tensors]):
+            return launch(*args)
+        return plain(*args)
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_tensors])
+        ctx.save_for_forward(*inputs[:n_tensors])
+        ctx.static = inputs[n_tensors:]
+
+    def _plain_of(ctx):
+        return lambda *ts: plain(*ts, *ctx.static)
+
+    def backward(ctx, grad):
+        _, vjp = torch.func.vjp(_plain_of(ctx), *ctx.saved_tensors)
+        return (*vjp(grad), *(None,) * len(ctx.static))
+
+    def jvp(ctx, *tangents):
+        # J·t as the vjp of the (linear) vjp map, so that the rule also runs
+        # inside torch.autograd.forward_ad, where a nested jvp cannot
+        primals = ctx.saved_tensors
+        tans = tuple(torch.zeros_like(p) if t is None else t
+                     for p, t in zip(primals, tangents))
+        out, vjp = torch.func.vjp(_plain_of(ctx), *primals)
+        _, vjp_of_vjp = torch.func.vjp(vjp, torch.zeros_like(out))
+        return vjp_of_vjp(tans)[0]
+
+    return type(name, (torch.autograd.Function,), {
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(setup_context),
+        "backward": staticmethod(backward),
+        "jvp": staticmethod(jvp),
+    })
 
 
 def ptr(t: torch.Tensor):

@@ -16,8 +16,9 @@ EPS = 1e-5
 
 
 def gn_math(x, gamma, beta, groups, silu):
-    """x (B, S, C) channels-last, gamma/beta (C,); fp32 only."""
-    if x.dtype != torch.float32:
+    """x (B, S, C) channels-last, gamma/beta (C,); float32 (float64 runs
+    the same math, for the autograd checks)."""
+    if x.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             "GroupNorm runs in float32 only (bf16: ROADMAP Queue 1 item 8)")
     b, s, c = x.shape

@@ -1,10 +1,11 @@
 """Multiplicative SGM SDE dY = √β(t) G(Y) ∘ dB, circulant G.
 
-Port of sdeflow_tpu/sde/msgm.py for the serve path: the circulant G (its
-action is kernel K1, ops/kernels/circulant.py) and the ecdf radial latent
-prior, with the optional log map of the radii. The forward perturbation of
-the training loss comes with ROADMAP Queue 1 item 1, the dense G and the
-KDE prior with item 2.
+Port of sdeflow_tpu/sde/msgm.py: the circulant G (its action is kernel
+K1, one whole forward RK4 step kernel K2, ops/kernels/circulant.py), the
+forward perturbation of the training loss (sde/base.py), the ecdf radial
+latent prior with the optional log map of the radii, the conditional latent
+and the KDE log density of the ELBO. The dense G and the KDE radius sampler
+come with ROADMAP Queue 1 item 2.
 
 Sign convention (as in the JAX package): the Itô drift is f = β(t)·L_G·y with
 L_G = −½I for the circulant G, so f = −½β(t)y.
@@ -19,8 +20,11 @@ from typing import Optional
 import torch
 
 from sdeflow_tpu_torch.ops.hutchinson import randu_on_sphere
-from sdeflow_tpu_torch.ops.kernels.circulant import circulant_apply
-from sdeflow_tpu_torch.sde.base import _tcol, beta_linear
+from sdeflow_tpu_torch.ops.kde import (
+    gaussian_kde_logpdf, kde_normalization_log_constant)
+from sdeflow_tpu_torch.ops.kernels.circulant import (
+    circulant_apply, circulant_rk4_step)
+from sdeflow_tpu_torch.sde.base import SDEBehavior, _tcol
 
 _LOG_EPS = 1e-6  # sdeflow_tpu/sde/msgm.py:45
 
@@ -30,7 +34,7 @@ def _sqrt(v):
 
 
 @dataclass(frozen=True)
-class MSGMSde:
+class MSGMSde(SDEBehavior):
     """Norm-preserving multiplicative SDE with an empirical radial prior."""
 
     beta_min: float
@@ -38,6 +42,8 @@ class MSGMSde:
     T: float
     t_epsilon: float
     r_T: torch.Tensor  # (N,) (possibly log-mapped) training norms, SORTED
+    kde_bandwidth: torch.Tensor  # () 0.1·std(r_T)
+    cst_log_dens: torch.Tensor  # () log KDE normalizing constant, or 0
     dim: int
     num_steps_forward: int = 100
     circulant: bool = True
@@ -48,9 +54,12 @@ class MSGMSde:
     @classmethod
     def create(cls, y0, *, beta_min=0.1, beta_max=20.0, T=1.0,
                t_epsilon=0.001, num_steps_forward=100, dense_tensor=True,
-               norm_sampler="ecdf", norm_map=None):
+               norm_sampler="ecdf", norm_map=None,
+               estimate_norm_constant=True):
         """Build the SDE from data y0 (N, d) on y0's device: the sorted
-        empirical norms, log-mapped when norm_map == "log"."""
+        empirical norms, log-mapped when norm_map == "log", the KDE
+        bandwidth 0.1·std(r_T) and, with estimate_norm_constant, the KDE's
+        log normalizing constant (else 0)."""
         if dense_tensor:
             raise NotImplementedError(
                 "dense G: ROADMAP Queue 1 item 2 (SDE core)")
@@ -61,16 +70,17 @@ class MSGMSde:
         r_T = torch.linalg.vector_norm(y0, dim=1)
         if norm_map == "log":
             r_T = torch.log(r_T + _LOG_EPS)
+        bandwidth = 0.1 * torch.std(r_T, correction=0)
         r_T = torch.sort(r_T).values
+        cst = (kde_normalization_log_constant(r_T, bandwidth)
+               if estimate_norm_constant else torch.zeros_like(bandwidth))
         name = "MSGM_sparseTens" + ("logNorm" if norm_map == "log" else "")
         return cls(beta_min=float(beta_min), beta_max=float(beta_max),
                    T=float(T), t_epsilon=float(t_epsilon), r_T=r_T,
+                   kde_bandwidth=bandwidth, cst_log_dens=cst,
                    dim=int(y0.shape[1]),
                    num_steps_forward=int(num_steps_forward),
                    norm_sampler=norm_sampler, norm_map=norm_map, name=name)
-
-    def beta(self, t):
-        return beta_linear(t, self.beta_min, self.beta_max)
 
     # -- drift / diffusion ---------------------------------------------------
     def f(self, t, y):
@@ -88,6 +98,27 @@ class MSGMSde:
     def sigma_apply(self, t, y, w):
         """g(t,y)·w through the circulant stencil kernel K1."""
         return circulant_apply(_sqrt(self.beta(_tcol(t, y))), y, w)
+
+    def fused_forward_rk4_step(self, t, x, delta, dW):
+        """One whole RK4 forward step (Stratonovich drift ≡ 0) as kernel
+        K2: √β at t, t+δ/2 and t+δ as sb3 (B, 3). A number t is written
+        by three fills, not copied from the host."""
+        b = x.shape[0]
+        if isinstance(t, torch.Tensor):
+            tc = _tcol(t, x)
+            sb3 = torch.cat([torch.sqrt(self.beta(tc + s * delta)).expand(b, 1)
+                             for s in (0.0, 0.5, 1.0)], dim=-1)
+        else:
+            sb3 = torch.empty((b, 3), dtype=x.dtype, device=x.device)
+            for j, s in enumerate((0.0, 0.5, 1.0)):
+                sb3[:, j].fill_(math.sqrt(self.beta(t + s * delta)))
+        return circulant_rk4_step(sb3, x, dW)
+
+    # -- forward perturbation ----------------------------------------------
+    def sample(self, generator, t, y0, *, noise=None, noise_one=None):
+        """y_t | y_0 by the numeric forward solve (sde/base.py)."""
+        return self.sample_scheme(generator, t, y0, noise=noise,
+                                  noise_one=noise_one)
 
     # -- radial latent prior ---------------------------------------------------
     def radii_from_uniform(self, u):
@@ -116,3 +147,20 @@ class MSGMSde:
         s = randu_on_sphere(generator, (num_samples, self.dim),
                             device=self.r_T.device, dtype=self.r_T.dtype)
         return r * s
+
+    def cond_latent_sample(self, generator, t, x, *, z=None):
+        """y_T | x: the data point's own radius times a direction uniform
+        on the sphere (z: optional (B, d) normal draw behind it)."""
+        r_x = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        if z is None:
+            z = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+        return r_x * (z / torch.linalg.vector_norm(z, dim=-1, keepdim=True))
+
+    def log_latent_pdf(self, yT):
+        """KDE log density of ‖y_T‖ minus the normalizing constant, with
+        the reference's two approximations kept (sdeflow_tpu/sde/msgm.py:
+        263-275). Returns (B,)."""
+        r = torch.linalg.vector_norm(yT, dim=1)
+        return (gaussian_kde_logpdf(r, self.r_T, self.kde_bandwidth)
+                - self.cst_log_dens)

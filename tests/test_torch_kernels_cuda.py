@@ -5,9 +5,12 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 rtol/atol 1e-6 (the kernel rounds each product like the plain
-version; only FMA-free reordering could differ); K3 rtol/atol 1e-5 (fp32
-sums in another order; TF32 is off for the plain version's matmuls).
+Tolerances: K1 and K2 rtol/atol 1e-6 (the kernels round each product like
+the plain versions; only FMA-free reordering could differ); K3 rtol/atol
+1e-5 (fp32 sums in another order; TF32 is off for the plain version's
+matmuls). Through autograd, the jvp and the gradient of each Function (the
+kernel's forward, the plain version's rules) against the plain version
+with the same tolerances.
 """
 
 import numpy as np
@@ -17,7 +20,8 @@ import torch
 from sdeflow_tpu_torch.models.common import group_count
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
     K3, attn_block_math, fused_attention_block)
-from sdeflow_tpu_torch.ops.kernels.circulant import K1, circ_math, circulant_apply
+from sdeflow_tpu_torch.ops.kernels.circulant import (
+    K1, K2, circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,10 +57,59 @@ def test_circulant_kernel_matches_plain(dev, shape):
                                    circ_math(2.5, y, w), rtol=1e-6, atol=1e-6)
 
 
-def test_kernels_refuse_autograd(dev):
-    y = torch.ones(2, 8, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="autograd"):
-        circulant_apply(1.0, y, y)
+@pytest.mark.parametrize("shape", [(128, 256), (1000, 256), (1024, 1024),
+                                   (3, 5), (2, 1), (2, 100_000)])
+def test_rk4_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(0)
+    x, w = _rand(rng, *shape).to(dev), 0.3 * _rand(rng, *shape).to(dev)
+    sb3 = torch.from_numpy(1.0 + rng.random((shape[0], 3)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        before = K2.launches
+        out = circulant_rk4_step(sb3, x, w)
+        torch.cuda.synchronize()
+        assert K2.launches == before + 1
+        torch.testing.assert_close(out, rk4_math_fwd(sb3, x, w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _through_autograd(fn, args, rng):
+    """fn's jvp (random tangents on every argument) and the gradients of
+    sum(fn(args)·g) for a random cotangent g."""
+    def draw(a):
+        return torch.from_numpy(rng.standard_normal(a.shape).astype(
+            np.float32)).to(a.device)
+
+    out, tan = torch.func.jvp(fn, tuple(args), tuple(map(draw, args)))
+    diff = [a.detach().requires_grad_() for a in args]
+    grads = torch.autograd.grad((fn(*diff) * draw(out)).sum(), diff)
+    return (out, tan, *grads)
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3"])
+def test_autograd_through_kernels_matches_plain(dev, name):
+    rng = np.random.default_rng(5)
+    if name == "K3":
+        args = _block_args(rng, 128, 64, 64, dev)
+        kern = lambda *a: fused_attention_block(*a, 32, 1)  # noqa: E731
+        plain = lambda *a: attn_block_math(*a, 32, 1)  # noqa: E731
+        kernel, tol = K3, 1e-5
+    else:
+        y, w = _rand(rng, 128, 256).to(dev), _rand(rng, 128, 256).to(dev)
+        if name == "K1":
+            args = [(1.0 + _rand(rng, 128, 1).abs()).to(dev), y, w]
+            kern, plain, kernel = circulant_apply, circ_math, K1
+        else:
+            args = [(1.0 + _rand(rng, 128, 3).abs()).to(dev), y, 0.3 * w]
+            kern, plain, kernel = circulant_rk4_step, rk4_math_fwd, K2
+        tol = 1e-6
+    before = kernel.launches
+    got = _through_autograd(kern, args, np.random.default_rng(6))
+    assert kernel.launches == before + 2  # the jvp's forward, the grad's
+    want = _through_autograd(plain, args, np.random.default_rng(6))
+    for a, b in zip(got, want):  # output, tangent, then each gradient
+        torch.testing.assert_close(a, b, rtol=tol,
+                                   atol=tol * b.abs().max().item())
 
 
 def _block_args(rng, b, t, c, dev):
