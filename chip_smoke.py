@@ -19,15 +19,19 @@ kernel of those paths against its plain PyTorch version:
 4. serves three requests of 1024 samples with 32 RK4 steps each: finite
    (1024, 256) samples, every latent norm kept to rtol 1e-5, and exactly
    8·32 launches of K1 and 44·32 of K3 per request;
-5. replays the last request (same x0 and noise) four times, plain,
-   kernel, kernel, plain, the plain runs with the plain versions in place of
-   the kernels: max |Δ| ≤ 1e-3·max |x| against the request, no launch in a
-   plain run, the exact counts in a kernel run;
+5. replays the last request (same x0 and noise) ten times: plain, twice
+   kernel, direct, direct, kernel, then plain. The plain runs put the
+   plain versions in place of the kernel wrappers, the direct runs launch
+   each kernel without its autograd.Function; max |Δ| ≤ 1e-3·max |x|
+   against the request, no launch in a plain run, the exact counts in the
+   others;
 6. traces a 2-step request with torch.profiler: device time by kernel,
    the device's busy time and idle share;
 7. times each kernel (CUDA events around back-to-back wrapper calls, and
-   its device time from the trace) beside its bound and its plain version.
-   No single PyTorch call computes K1, K2 or K3, so library_ms is null;
+   its device time from the trace) beside its bound, its plain version and
+   a direct launch without the autograd.Function (direct_ms, under
+   no_grad). No single PyTorch call computes K1, K2 or K3, so library_ms
+   is null;
 8. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
    and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
    ForwardFlow.rk4_step (kernel K2) against the generic rk4_step on the
@@ -42,7 +46,8 @@ kernel of those paths against its plain PyTorch version:
    driver's Trainer (train_msgm_arm); 20 timed bare train steps with
    exactly 64 K2, 5 K1 and 11 K3 launches each; then a train step
    replayed plain, kernel, kernel, plain;
-11. traces one train step with torch.profiler.
+11. traces one train step with torch.profiler, on the kernel path and on
+   the plain path.
 
 Ends with the kernel table as one JSON line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero without a
@@ -211,6 +216,24 @@ def plain_path():
         unet2d.fused_attention_block = fused_attention_block
 
 
+@contextlib.contextmanager
+def direct_path():
+    """Swap every kernel wrapper for a direct launch of its kernel, without
+    its autograd.Function, where the serve path calls it (no_grad runs)."""
+    from sdeflow_tpu_torch.models import unet2d
+    from sdeflow_tpu_torch.ops.kernels import attnblock, circulant
+    from sdeflow_tpu_torch.sde import msgm
+
+    msgm.circulant_apply = lambda s, y, w: circulant._launch_k1(
+        circulant.sqrt_beta_column(s, y), y, w)
+    unet2d.fused_attention_block = attnblock._launch
+    try:
+        yield
+    finally:
+        msgm.circulant_apply = circulant.circulant_apply
+        unet2d.fused_attention_block = attnblock.fused_attention_block
+
+
 def launch_counts():
     from sdeflow_tpu_torch.ops.kernels import common
 
@@ -222,7 +245,7 @@ def check_k2(gen, g, dev):
     step against the generic stages on the plain versions."""
     from sdeflow_tpu_torch.ops.integrators import rk4_step
     from sdeflow_tpu_torch.ops.kernels.circulant import (
-        circulant_rk4_step, rk4_math_fwd)
+        _launch_k2, circulant_rk4_step, rk4_math_fwd)
     from sdeflow_tpu_torch.sde import ForwardFlow
 
     row = {}
@@ -243,7 +266,9 @@ def check_k2(gen, g, dev):
                        "ms": cuda_ms(lambda: circulant_rk4_step(sb3, x, w),
                                      200),
                        "plain_ms": cuda_ms(lambda: rk4_math_fwd(sb3, x, w),
-                                           200)}
+                                           200),
+                       "direct_ms": cuda_ms(lambda: _launch_k2(sb3, x, w),
+                                            200)}
         flow = ForwardFlow(base_sde=gen.base_sde, T=gen.base_sde.T)
         x = gen.latent_sample(g, TRAIN_BATCH)
         dw = delta**0.5 * torch.randn(x.shape, generator=g, device=dev)
@@ -490,9 +515,9 @@ def main(argv=None):
     from sdeflow_tpu_torch import build_msgm_arm, get_preset, make_sampler_fn
     from sdeflow_tpu_torch.ops.kernels import common
     from sdeflow_tpu_torch.ops.kernels.attnblock import (
-        K3, attn_block_math, fused_attention_block)
+        K3, _launch, attn_block_math, fused_attention_block)
     from sdeflow_tpu_torch.ops.kernels.circulant import (
-        K1, K2, circ_math, circulant_apply)
+        K1, K2, _launch_k1, circ_math, circulant_apply)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -529,6 +554,7 @@ def main(argv=None):
                 k1_err = err
                 k1_ms = cuda_ms(lambda: circulant_apply(sb, y, w), 200)
                 k1_plain_ms = cuda_ms(lambda: circ_math(sb, y, w), 200)
+                k1_direct_ms = cuda_ms(lambda: _launch_k1(sb, y, w), 200)
             log(f"K1 ({b}, {d}): max |kernel - plain| = {err:.3g}")
 
     # -- 3. K3 against its plain version ------------------------------------
@@ -557,6 +583,7 @@ def main(argv=None):
                         *args, 32, heads)),
                     "plain_ms": cuda_ms(lambda: attn_block_math(
                         *args, 32, heads)),
+                    "direct_ms": cuda_ms(lambda: _launch(*args, 32, heads)),
                     "bound_ms": bound_ms(nbytes, flops)[0],
                     "bound_by": bound_ms(nbytes, flops)[1],
                 }
@@ -600,13 +627,17 @@ def main(argv=None):
             f" launches {launches}")
     record["requests"] = requests
 
-    # -- 5. replay the last request: plain, kernel, kernel, plain -----------
-    # the plain runs swap the kernel wrappers for their plain versions where
-    # the path calls them; alternating the order keeps drift out of the
-    # comparison
+    # -- 5. replay the last request: plain, (kernel, direct, direct, kernel)
+    # twice, plain; the plain runs swap the kernel wrappers for their plain
+    # versions where the path calls them, the direct runs for launches
+    # without the autograd.Function; the mirrored order keeps drift out of
+    # the comparison
     replay = []
-    for mode in ("plain", "kernel", "kernel", "plain"):
-        with plain_path() if mode == "plain" else contextlib.nullcontext():
+    swaps = {"plain": plain_path, "direct": direct_path,
+             "kernel": contextlib.nullcontext}
+    for mode in ("plain", *("kernel", "direct", "direct", "kernel") * 2,
+                 "plain"):
+        with swaps[mode]():
             common.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -614,7 +645,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         launched = {k.name: k.launches for k in common.KERNELS.values()}
-        if launched != (want if mode == "kernel" else
+        if launched != (want if mode != "plain" else
                         {k: 0 for k in launched}):
             raise AssertionError(f"{mode} replay launched {launched}")
         rel = ((x - x_r).abs().max() / x_r.abs().max()).item()
@@ -650,6 +681,7 @@ def main(argv=None):
          "launches": requests[-1]["launches"][K1.name],
          "launches_per": "serve request",
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "direct_ms": k1_direct_ms,
          "bound_ms": bound_ms(b1, f1)[0], "bound_by": bound_ms(b1, f1)[1],
          "library_ms": None, "shape": [N_SAMPLES, DIM],
          "device_ms": prof["per_launch_ms"].get("circulant_apply_kernel")},
@@ -660,7 +692,7 @@ def main(argv=None):
          "launches_per": "serve request",
          "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
          "ms": avg("ms"), "plain_ms": avg("plain_ms"),
-         "bound_ms": avg("bound_ms"),
+         "direct_ms": avg("direct_ms"), "bound_ms": avg("bound_ms"),
          "bound_by": "operations" if all(
              v["bound_by"] == "operations" for v in k3.values()) else "bytes",
          "library_ms": None,
@@ -688,6 +720,13 @@ def main(argv=None):
         "kernels")
     for row in prof_train["top"]:
         log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
+    with plain_path():
+        prof_plain = trace(step)
+    record["train_profile_plain"] = prof_plain
+    log(f"profiled one plain train step: wall {prof_plain['wall_ms']:.1f} ms,"
+        f" device busy {prof_plain['busy_ms']:.1f} ms (idle share "
+        f"{prof_plain['idle_share']:.3f}), {prof_plain['kernel_launches']} "
+        "kernels")
 
     b2, f2 = k2_cost(TRAIN_BATCH, DIM)
     kernels.insert(1, {
@@ -697,6 +736,7 @@ def main(argv=None):
         "launches": train["launches_per_step"][K2.name],
         "launches_per": "train step", "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "direct_ms": k2["direct_ms"],
         "bound_ms": bound_ms(b2, f2)[0], "bound_by": bound_ms(b2, f2)[1],
         "library_ms": None, "shape": k2["shape"],
         "device_ms": prof_train["per_launch_ms"].get("rk4_step_kernel")})
@@ -705,10 +745,11 @@ def main(argv=None):
         k["train_device_ms"] = prof_train["per_launch_ms"].get(
             {K1.name: "circulant_apply_kernel", K2.name: "rk4_step_kernel",
              K3.name: "attn_block_kernel"}[k["name"]])
-        log(f"{k['name']}: {k['ms']:.4f} ms per call (device "
-            f"{k['device_ms']} ms), bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}), plain version {k['plain_ms']:.4f} ms; no "
-            "single PyTorch call computes it, so no library time")
+        log(f"{k['name']}: {k['ms']:.4f} ms per call (direct launch "
+            f"{k['direct_ms']:.4f} ms, device {k['device_ms']} ms), bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
+            f"{k['plain_ms']:.4f} ms; no single PyTorch call computes it, "
+            "so no library time")
     record["kernels"] = kernels
     if opts.record:
         os.makedirs(os.path.dirname(os.path.abspath(opts.record)),

@@ -31,7 +31,7 @@ class TrainConfig:
     weight_decay: float = 0.0
     lr_warmup_steps: int = 0
     print_every: int = 10_000
-    save_every: int = 100_000
+    save_every: int = 100_000  # on-disk checkpoints (Queue 1 item 12)
     use_checkpoint: bool = False  # on-disk checkpoints (Queue 1 item 12)
     ema_rate: Optional[float] = None
     ema_warmup: bool = True
@@ -41,7 +41,6 @@ class TrainConfig:
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (2, 4)
     attention_impl: str = "auto"
-    steps_per_dispatch: int = 256
 
 
 @dataclass(frozen=True)

@@ -17,7 +17,7 @@ from sdeflow_tpu_torch.models.vorticity import VorticityUNet
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.sde.msgm import MSGMSde
 from sdeflow_tpu_torch.sde.reverse import PluginReverseSDE
-from sdeflow_tpu_torch.training.train import Trainer, build_optimizer
+from sdeflow_tpu_torch.training.train import Trainer
 
 
 def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
@@ -97,7 +97,7 @@ def fair_budgets(cfg: ExperimentConfig, is_msgm, ssm_intT, dim,
 
 
 def make_trainer(cfg: ExperimentConfig, gen, sampler, batch_size,
-                 iterations, log_fn=print):
+                 log_fn=print):
     """The arm's Trainer with the config's optimizer, cadence and EMA, as
     the JAX driver builds it. No on-disk checkpoints: ``use_checkpoint``
     (ROADMAP Queue 1 item 12) is logged and skipped."""
@@ -106,16 +106,10 @@ def make_trainer(cfg: ExperimentConfig, gen, sampler, batch_size,
         log_fn("use_checkpoint: on-disk checkpoints are not ported yet "
                "(ROADMAP Queue 1 item 12); training without them")
     return Trainer(
-        gen, sampler, lr=tc.lr, batch_size=batch_size,
-        optimizer=build_optimizer(
-            gen.score_net.parameters(), tc.lr, grad_clip=tc.grad_clip,
-            weight_decay=tc.weight_decay,
-            lr_warmup_steps=tc.lr_warmup_steps),
-        loss="ssm", print_every=tc.print_every, save_every=tc.save_every,
-        log_fn=log_fn,
-        steps_per_dispatch=min(tc.steps_per_dispatch,
-                               max(1, iterations // 2)),
-        ema_rate=tc.ema_rate, ema_warmup=tc.ema_warmup)
+        gen, sampler, lr=tc.lr, batch_size=batch_size, loss="ssm",
+        print_every=tc.print_every, log_fn=log_fn, ema_rate=tc.ema_rate,
+        ema_warmup=tc.ema_warmup, grad_clip=tc.grad_clip,
+        weight_decay=tc.weight_decay, lr_warmup_steps=tc.lr_warmup_steps)
 
 
 def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
@@ -143,7 +137,7 @@ def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
         x_test = sampler.sample(generator, 1000)
     log_fn(f"name_SDE = {gen.base_sde.name}  iterations = {iterations}  "
            f"batch_size = {batch_size}  ssm_intT = {gen.ssm_intT}")
-    trainer = make_trainer(cfg, gen, sampler, batch_size, iterations, log_fn)
+    trainer = make_trainer(cfg, gen, sampler, batch_size, log_fn)
     state, loss = trainer.run(generator, iterations, x_test=x_test[:1000])
     # with ema_rate, sampling and evaluation use the averaged weights
     gen = trainer.ema_gen_sde if cfg.train.ema_rate else state.gen_sde

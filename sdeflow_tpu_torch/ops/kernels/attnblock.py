@@ -8,9 +8,8 @@ Replaces the Pallas kernel ``_attn_block_pallas`` (sdeflow_tpu/ops/pallas/
 attnblock.py:75-265). ``fused_attention_block`` goes through its
 ``torch.autograd.Function``: it launches ``csrc/attnblock.cu`` on CUDA
 tensors and runs the plain version ``attn_block_math`` on CPU tensors, and
-differentiates the plain version in both cases (ops/kernels/common.py). The
-kernel
-covers float32, T ≤ 256, heads 1–8 and shapes whose working set fits one
+differentiates the plain version in both cases (ops/kernels/common.py;
+forward mode through the closed form ``attn_block_jvp``). The kernel covers float32, T ≤ 256, heads 1–8 and shapes whose working set fits one
 block's shared memory; anything else raises on CUDA (bf16 and T > 256 are
 queued in ROADMAP).
 """
@@ -23,7 +22,7 @@ import math
 import torch
 
 from sdeflow_tpu_torch.ops.kernels import common
-from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math
+from sdeflow_tpu_torch.ops.kernels.groupnorm import EPS, gn_math
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K3 = common.register(common.Kernel(
@@ -52,6 +51,63 @@ def attn_block_math(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
     w = torch.softmax(w, dim=-1)
     out = torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c)
     return x + (out @ wproj + bproj)
+
+
+def attn_block_jvp(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
+                   heads, dx, dgn_scale, dgn_bias, dwqkv, dbqkv, dwproj,
+                   dbproj):
+    """Tangent of ``attn_block_math`` in closed form (None: no tangent).
+    It recomputes the GroupNorm statistics, qkv and the softmax weights;
+    the terms of absent tangents (the weights', under the SSM loss's JVP in
+    the input) are skipped."""
+    add = common.add
+    b, t, c = x.shape
+    xg = x.reshape(b, t, groups, c // groups)
+    xc = xg - xg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt((xc**2).mean(dim=(1, 3), keepdim=True) + EPS)
+    xhat = xc * rstd
+    h = xhat.reshape(b, t, c) * gn_scale + gn_bias
+    dh = None
+    if dx is not None:
+        dxg = dx.reshape(b, t, groups, c // groups)
+        dxc = dxg - dxg.mean(dim=(1, 3), keepdim=True)
+        dxhat = rstd * (dxc - xhat * (xhat * dxc).mean(dim=(1, 3),
+                                                      keepdim=True))
+        dh = dxhat.reshape(b, t, c) * gn_scale
+    if dgn_scale is not None:
+        dh = add(dh, xhat.reshape(b, t, c) * dgn_scale)
+    dh = add(dh, dgn_bias)
+    dqkv = None if dh is None else dh.expand(b, t, c) @ wqkv
+    if dwqkv is not None:
+        dqkv = add(dqkv, h @ dwqkv)
+    dqkv = add(dqkv, dbqkv)
+    dout = out = None
+    if dqkv is not None or dwproj is not None:
+        ch = c // heads
+        scale = 1.0 / math.sqrt(math.sqrt(ch))
+        qkv = (h @ wqkv + bqkv).reshape(b, t, heads, 3 * ch)
+        q, k, v = qkv.split(ch, dim=-1)
+        qs, ks = q * scale, k * scale
+        p = torch.softmax(torch.einsum("bthc,bshc->bhts", qs, ks), dim=-1)
+        if dwproj is not None:
+            out = torch.einsum("bhts,bshc->bthc", p, v).reshape(b, t, c)
+    if dqkv is not None:
+        dq, dk, dv = dqkv.expand(b, t, 3 * c).reshape(
+            b, t, heads, 3 * ch).split(ch, dim=-1)
+        ds = (torch.einsum("bthc,bshc->bhts", dq * scale, ks)
+              + torch.einsum("bthc,bshc->bhts", qs, dk * scale))
+        dp = p * (ds - (p * ds).sum(dim=-1, keepdim=True))
+        dout = (torch.einsum("bhts,bshc->bthc", dp, v)
+                + torch.einsum("bhts,bshc->bthc", p, dv)).reshape(b, t, c)
+    dy = dx
+    if dout is not None:
+        dy = add(dy, dout @ wproj)
+    if out is not None:
+        dy = add(dy, out @ dwproj)
+    dy = add(dy, dbproj)
+    if dy is None:
+        return torch.zeros_like(x)
+    return dy if dy.shape == x.shape else dy.expand_as(x).contiguous()
 
 
 def smem_bytes(t, c, groups, tq):
@@ -107,7 +163,8 @@ def _launch(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups, heads):
     return out
 
 
-AttnBlock = common.kernel_function("AttnBlock", attn_block_math, _launch, 7)
+AttnBlock = common.kernel_function("AttnBlock", attn_block_math, _launch,
+                                   attn_block_jvp, 7)
 
 
 def fused_attention_block(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,

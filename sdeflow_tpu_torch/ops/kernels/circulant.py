@@ -7,7 +7,8 @@ circulant.py:35-75), K2 replaces ``_rk4_pallas`` (:98-146). Both wrappers,
 ``torch.autograd.Function``: the kernel (``csrc/circulant.cu``,
 ``csrc/rk4.cu``) on CUDA tensors, the plain versions ``circ_math`` and
 ``rk4_math_fwd`` on CPU tensors, and the plain versions' derivatives in
-every case (ops/kernels/common.py). Unlike the JAX entry points, which keep
+every case (ops/kernels/common.py): their closed-form tangents
+``circ_math_jvp`` and ``rk4_math_jvp`` for forward mode. Unlike the JAX entry points, which keep
 the Pallas kernels for d ≥ 128, the CUDA kernels take any B and d.
 """
 
@@ -48,6 +49,34 @@ def rk4_math_fwd(sb3, x, w):
     k3 = circ_math(sb3[:, 1:2], x + 0.5 * k2, w)
     k4 = circ_math(sb3[:, 2:3], x + k3, w)
     return x + (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
+
+
+def circ_math_jvp(sb, y, w, dsb, dy, dw):
+    """Tangent of ``circ_math``, which is trilinear in (√β, y, w): the sum
+    of circ_math with one argument swapped for its tangent, over the
+    tangents that are not None."""
+    out = None
+    for args, d in (((dsb, y, w), dsb), ((sb, dy, w), dy),
+                    ((sb, y, dw), dw)):
+        if d is not None:
+            out = common.add(out, circ_math(*args))
+    return torch.zeros_like(y) if out is None else out
+
+
+def rk4_math_jvp(sb3, x, w, dsb3, dx, dw):
+    """Tangent of ``rk4_math_fwd``, stage by stage (None: no tangent)."""
+    ks, dks = [], []
+    xs, dxs = x, dx
+    for col, frac in ((0, 0.5), (1, 0.5), (1, 1.0), (2, None)):
+        sb = sb3[:, col:col + 1]
+        dsb = None if dsb3 is None else dsb3[:, col:col + 1]
+        ks.append(circ_math(sb, xs, w))
+        dks.append(circ_math_jvp(sb, xs, w, dsb, dxs, dw))
+        if frac is not None:
+            xs = x + frac * ks[-1]
+            dxs = common.add(dx, frac * dks[-1])
+    return common.add(dx, (dks[0] + 2.0 * dks[1] + 2.0 * dks[2] + dks[3])
+                      / 6.0)
 
 
 def _check(name, x, w):
@@ -96,20 +125,26 @@ def _launch_k2(sb3, x, w):
     return out
 
 
-CircApply = common.kernel_function("CircApply", circ_math, _launch_k1, 3)
-RK4Step = common.kernel_function("RK4Step", rk4_math_fwd, _launch_k2, 3)
+CircApply = common.kernel_function("CircApply", circ_math, _launch_k1,
+                                   circ_math_jvp, 3)
+RK4Step = common.kernel_function("RK4Step", rk4_math_fwd, _launch_k2,
+                                 rk4_math_jvp, 3)
+
+
+def sqrt_beta_column(sqrt_beta, y):
+    """√β as the (B, 1) column K1 takes: from a number, (B,) or (B, 1)."""
+    b = y.shape[0]
+    if isinstance(sqrt_beta, torch.Tensor):
+        return sqrt_beta.to(y.dtype).reshape(-1, 1).expand(b, 1)
+    # a fill, not a host-to-device copy
+    return torch.full((b, 1), float(sqrt_beta), dtype=y.dtype,
+                      device=y.device)
 
 
 def circulant_apply(sqrt_beta, y, w):
     """(g·w) for the circulant G: sqrt_beta a number, (B,) or (B, 1);
     y, w (B, d). Returns (B, d)."""
-    b = y.shape[0]
-    if isinstance(sqrt_beta, torch.Tensor):
-        sb = sqrt_beta.to(y.dtype).reshape(-1, 1).expand(b, 1)
-    else:  # a fill, not a host-to-device copy
-        sb = torch.full((b, 1), float(sqrt_beta), dtype=y.dtype,
-                        device=y.device)
-    return CircApply.apply(sb, y, w)
+    return CircApply.apply(sqrt_beta_column(sqrt_beta, y), y, w)
 
 
 def circulant_rk4_step(sb3, x, w):

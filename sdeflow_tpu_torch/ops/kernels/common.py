@@ -7,14 +7,16 @@ every kernel wrapper in this package: the device alone decides.
   (``kernel_function`` below). Its ``forward`` launches the kernel on CUDA
   tensors and runs the plain PyTorch version on CPU tensors (the CPU tests
   and nothing else take that branch).
-- Its ``backward`` and its forward-mode rule ``jvp`` are the plain
-  version's, taken with ``torch.func.vjp`` / ``torch.func.jvp``, as the JAX
-  package's ``custom_jvp`` rules evaluate the plain math
-  (ops/pallas/circulant.py:149-179, ops/pallas/attnblock.py:268-272). So a
-  kernel runs under autograd and under ``torch.func.jvp`` alike, and the
-  gradient of a JVP (the SSM loss) flows through the plain rules. Under
-  ``torch.func.jvp`` the rule recomputes the primal: that duplicates the
-  kernel's work, and is accepted.
+- Its ``backward`` is the plain version's vector-Jacobian product, taken
+  with ``torch.func.vjp``. Its forward-mode rule ``jvp`` is a closed form
+  written beside each plain version (``circ_math_jvp``, ``rk4_math_jvp``,
+  ``attn_block_jvp``), in plain PyTorch, as the JAX package's
+  ``custom_jvp`` rules evaluate the plain math (ops/pallas/circulant.py:
+  149-179, ops/pallas/attnblock.py:268-272). So a kernel runs under
+  autograd and under ``torch.func.jvp`` alike, and the gradient of a JVP
+  (the SSM loss) flows through the plain rules. A rule recomputes the
+  plain intermediates it needs (for K3 the GroupNorm statistics, qkv and
+  the softmax), which the kernel does not keep.
 - Raw pointers are taken only inside ``forward``, which receives plain
   tensors even under ``torch.func`` transforms.
 
@@ -169,15 +171,17 @@ def use_kernel(*tensors) -> bool:
     return True
 
 
-def kernel_function(name, plain, launch, n_tensors):
+def kernel_function(name, plain, launch, tangent, n_tensors):
     """A ``torch.autograd.Function`` (setup_context style, so that
     ``torch.func`` transforms it) for one kernel.
 
-    ``plain(*tensors, *static)`` is the plain version and ``launch(*tensors,
-    *static)`` the kernel's launcher; the first ``n_tensors`` arguments are
-    tensors, the rest static values (no gradient). ``forward`` picks by
-    device (``use_kernel``); ``backward`` and ``jvp`` are the plain
-    version's vector-Jacobian and Jacobian-vector products. Call it as
+    ``plain(*tensors, *static)`` is the plain version, ``launch(*tensors,
+    *static)`` the kernel's launcher and ``tangent(*tensors, *static,
+    *tangents)`` the plain version's Jacobian-vector product, a tangent
+    being None where its input has none; the first ``n_tensors`` arguments
+    are tensors, the rest static values (no gradient). ``forward`` picks by
+    device (``use_kernel``); ``backward`` is the plain version's
+    vector-Jacobian product and ``jvp`` is ``tangent``. Call it as
     ``Fn.apply(*tensors, *static)``."""
 
     def forward(*args):
@@ -190,22 +194,14 @@ def kernel_function(name, plain, launch, n_tensors):
         ctx.save_for_forward(*inputs[:n_tensors])
         ctx.static = inputs[n_tensors:]
 
-    def _plain_of(ctx):
-        return lambda *ts: plain(*ts, *ctx.static)
-
     def backward(ctx, grad):
-        _, vjp = torch.func.vjp(_plain_of(ctx), *ctx.saved_tensors)
+        _, vjp = torch.func.vjp(lambda *ts: plain(*ts, *ctx.static),
+                                *ctx.saved_tensors)
         return (*vjp(grad), *(None,) * len(ctx.static))
 
     def jvp(ctx, *tangents):
-        # J·t as the vjp of the (linear) vjp map, so that the rule also runs
-        # inside torch.autograd.forward_ad, where a nested jvp cannot
-        primals = ctx.saved_tensors
-        tans = tuple(torch.zeros_like(p) if t is None else t
-                     for p, t in zip(primals, tangents))
-        out, vjp = torch.func.vjp(_plain_of(ctx), *primals)
-        _, vjp_of_vjp = torch.func.vjp(vjp, torch.zeros_like(out))
-        return vjp_of_vjp(tans)[0]
+        return tangent(*ctx.saved_tensors, *ctx.static,
+                       *tangents[:n_tensors])
 
     return type(name, (torch.autograd.Function,), {
         "forward": staticmethod(forward),
@@ -213,6 +209,13 @@ def kernel_function(name, plain, launch, n_tensors):
         "backward": staticmethod(backward),
         "jvp": staticmethod(jvp),
     })
+
+
+def add(a, b):
+    """a + b, where None stands for a zero tangent."""
+    if a is None:
+        return b
+    return a if b is None else a + b
 
 
 def ptr(t: torch.Tensor):

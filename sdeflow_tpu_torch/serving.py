@@ -2,7 +2,7 @@
 
 Port of ``make_sampler_fn`` (sdeflow_tpu/serving.py:27-82), ``sampler="sde"``
 branch: a latent draw, then the reverse-SDE solve with the score net inside
-it, under ``torch.no_grad()`` so that the CUDA kernels run. The JAX
+it, under ``torch.no_grad()``: sampling records no graph. The JAX
 package's export/reload (``export_sampler``, ``Sampler``), the PF-ODE and
 DPM-Solver samplers and the Langevin corrector come with ROADMAP Queue 1
 items 10 and 12.

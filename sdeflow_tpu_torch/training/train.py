@@ -5,8 +5,10 @@ data batch (for MSGM the 64-step forward RK4 solve of kernel K2, the one
 JVP of the score net), ``.backward()``, and the optimizer's update. The JAX
 package returns a new state from a jitted step; here the step updates the
 score net's parameters, the optimizer and the state in place and returns
-the state. ``make_train_chunk`` runs n steps with the data drawn on the
-device and no host synchronisation between them. The sharded trainer
+the state. Eager PyTorch has no dispatch to amortize, so the Trainer takes
+one step at a time (the JAX package's ``steps_per_dispatch`` has no
+counterpart); ``make_train_chunk`` is the loop of n such steps with the
+data drawn on the device. The sharded trainer
 (``mesh``) and on-disk checkpoints come with ROADMAP Queue 1 items 14
 and 12.
 """
@@ -147,15 +149,16 @@ def make_train_chunk(optimizer, sample_fn, batch_size, loss="ssm",
 
 class Trainer:
     """Host-side loop with the JAX Trainer's cadence: loss and ELBO prints
-    with ms/step at step 1, every print_every steps and at the end."""
+    with ms/step at step 1, every print_every steps and at the end. The
+    optimizer is ``build_optimizer``'s over the score net's parameters."""
 
     def __init__(self, gen_sde, sampler, *, lr=1e-3, batch_size=256,
-                 loss="ssm", print_every=10_000, save_every=100_000,
+                 loss="ssm", print_every=10_000,
                  checkpoint_path: Optional[str] = None,
-                 log_fn: Callable[[str], None] = print,
-                 steps_per_dispatch: int = 1, mesh=None,
+                 log_fn: Callable[[str], None] = print, mesh=None,
                  print_ram: bool = False, ema_rate: Optional[float] = None,
-                 ema_warmup: bool = True, optimizer=None):
+                 ema_warmup: bool = True, grad_clip: Optional[float] = None,
+                 weight_decay: float = 0.0, lr_warmup_steps: int = 0):
         if checkpoint_path is not None:
             raise NotImplementedError(
                 "on-disk checkpoints: ROADMAP Queue 1 item 12")
@@ -165,22 +168,18 @@ class Trainer:
         if print_ram:
             raise NotImplementedError("print_ram: ROADMAP Queue 1 item 15")
         net = gen_sde.score_net
-        self.optimizer = (optimizer if optimizer is not None
-                          else torch.optim.Adam(net.parameters(), lr=lr))
+        self.optimizer = build_optimizer(
+            net.parameters(), lr, grad_clip=grad_clip,
+            weight_decay=weight_decay, lr_warmup_steps=lr_warmup_steps)
         self.state = TrainState(gen_sde=gen_sde, ema_params=(
             {k: p.detach().clone() for k, p in net.named_parameters()}
             if ema_rate is not None else None))
         self.sampler = sampler
         self.batch_size = batch_size
         self.print_every = print_every
-        self.save_every = save_every
         self.log_fn = log_fn
-        self.steps_per_dispatch = int(steps_per_dispatch)
         self.train_step = make_train_step(self.optimizer, loss, ema_rate,
                                           ema_warmup)
-        self.train_chunk = make_train_chunk(
-            self.optimizer, sampler.sample, batch_size, loss, ema_rate,
-            ema_warmup)
         self.history = []
 
     @property
@@ -197,23 +196,12 @@ class Trainer:
         """Train for `iterations` steps; returns (state, last loss)."""
         start_time = time.time()
         loss = None
-        i = 0
         steps_since_print = 0
-        while i < iterations:
-            if self.steps_per_dispatch > 1 and i > 0:
-                boundary = min(
-                    iterations,
-                    ((i // self.print_every) + 1) * self.print_every,
-                    ((i // self.save_every) + 1) * self.save_every)
-                n = min(self.steps_per_dispatch, max(1, boundary - i))
-                self.state, loss = self.train_chunk(self.state, generator, n)
-            else:
-                n = 1
-                x = self.sampler.sample(generator, self.batch_size)
-                self.state, loss = self.train_step(self.state, generator, x)
-            i += n
-            steps_since_print += n
-            if (i == 1) or (i % self.print_every == 0) or i >= iterations:
+        for i in range(1, iterations + 1):
+            x = self.sampler.sample(generator, self.batch_size)
+            self.state, loss = self.train_step(self.state, generator, x)
+            steps_since_print += 1
+            if i == 1 or i % self.print_every == 0 or i == iterations:
                 x_eval = (x_test if x_test is not None else
                           self.sampler.sample(generator, self.batch_size))
                 with torch.no_grad():
@@ -223,7 +211,7 @@ class Trainer:
                 self.log_fn(
                     "| iter {:6d} | {:5.2f} ms/step | loss {:8.3f} | "
                     "elbo {:8.3f} | elbo std {:8.3f}".format(
-                        i, elapsed * 1000 / max(1, steps_since_print),
+                        i, elapsed * 1000 / steps_since_print,
                         float(loss), float(elbo), float(elbo_std)))
                 self.history.append(dict(step=i, loss=float(loss),
                                          elbo=float(elbo)))

@@ -275,7 +275,7 @@ def test_trainer_runs_three_steps_on_the_cpu():
     before = [p.detach().clone() for p in net.parameters()]
     logs = []
     trainer = Trainer(gen, data, lr=1e-3, batch_size=3, print_every=2,
-                      steps_per_dispatch=2, ema_rate=0.9, log_fn=logs.append)
+                      ema_rate=0.9, log_fn=logs.append)
     common.reset_launches()
     state, loss = trainer.run(torch.Generator().manual_seed(3), 3,
                               x_test=data.sample(torch.Generator(), 3))
