@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py [--record PATH]
 
-Drives the port's two paths on the grf16 MSGM arm at full width (the
+Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
 SDE at d=256 built from 100k SmoothedGRF samples): sampling with
-norm-corrected RK4, and SSM training at batch 128. It holds every CUDA
-kernel of those paths against its plain PyTorch version:
+norm-corrected RK4 and SSM training at batch 128, each on the U-Net's
+"auto" AttentionBlock route (kernel K3) and on its "unfused" route
+(GroupNorm K5, the attention core K6, two products), and the unfused
+AttentionBlock at a long sequence (kernel K4). It holds every CUDA kernel of
+those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -16,50 +19,76 @@ kernel of those paths against its plain PyTorch version:
 3. K3 fused_attention_block against attn_block_math at (1024, 64, 64) and
    (1024, 16, 128) with one head and at (1024, 64, 64) with four heads,
    all weights random and non-zero, TF32 off, rtol/atol 1e-5;
-4. serves three requests of 1024 samples with 32 RK4 steps each: finite
-   (1024, 256) samples, every latent norm kept to rtol 1e-5, and exactly
-   8·32 launches of K1 and 44·32 of K3 per request;
-5. replays the last request (same x0 and noise) ten times: plain, twice
+4. builds the arm (make_model, build_msgm_arm) on both routes with the same
+   weights, and finds the (C, S) of every GroupNorm of one forward;
+5. K5 group_norm_silu against gn_math at each of those shapes at B = 1024,
+   SiLU on and off, and at odd sizes (slabs of 15, 15 and 8,192 floats),
+   rtol/atol 1e-5; times it at the path's shapes beside
+   torch.nn.functional.group_norm;
+6. K6 qkv_attention against attention_math at (1024, 64, 64) and
+   (1024, 16, 128) with one head and (1024, 64, 64) with four, atol 1e-5,
+   and as K4 at (4, 4096, 64) with one and two heads and (2, 2048, 128),
+   atol 2e-5 (the online softmax sums thousands of terms in another order
+   than the plain softmax); times it beside
+   torch.nn.functional.scaled_dot_product_attention;
+7. serves three requests of 1024 samples with 32 RK4 steps each on the
+   auto route: finite (1024, 256) samples, every latent norm kept to rtol
+   1e-5, and exactly 8·32 launches of K1, 44·32 of K3 and 140·32 of K5 per
+   request;
+8. replays the last request (same x0 and noise) ten times: plain, twice
    kernel, direct, direct, kernel, then plain. The plain runs put the
    plain versions in place of the kernel wrappers, the direct runs launch
    each kernel without its autograd.Function; max |Δ| ≤ 1e-3·max |x|
    against the request, no launch in a plain run, the exact counts in the
    others;
-6. traces a 2-step request with torch.profiler: device time by kernel,
+9. traces a 2-step request with torch.profiler: device time by kernel,
    the device's busy time and idle share;
-7. times each kernel (CUDA events around back-to-back wrapper calls, and
-   its device time from the trace) beside its bound, its plain version and
-   a direct launch without the autograd.Function (direct_ms, under
-   no_grad). No single PyTorch call computes K1, K2 or K3, so library_ms
-   is null;
-8. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
+10. the unfused route: one request on the same x0 and noise (exactly 256
+   K1, 184·32 K5 and 44·32 K6 launches, no K3; within 1e-3·max |x| of the
+   auto route's), replayed plain, kernel, direct, direct, kernel, plain,
+   requests of the two routes in turns (auto, unfused, unfused, auto),
+   and a traced 2-step request;
+11. K4 on its path: one unfused AttentionBlock at (B = 4, 64×64, C = 64),
+   T = 4096: the forward under no_grad, a torch.func.jvp and a gradient,
+   each against the plain path (output and tangent 2e-5·max |plain|,
+   gradients 1e-4·max |g|), exactly 3 launches each of K5 and K6, and a
+   trace of three forwards;
+12. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
    and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
    ForwardFlow.rk4_step (kernel K2) against the generic rk4_step on the
    plain versions;
-9. autograd through the kernels: torch.func.jvp and torch.autograd.grad
+13. autograd through the kernels: torch.func.jvp and torch.autograd.grad
    through each kernel's Function against the plain version at the paths'
-   shapes (K1, K2 1e-6; K3 1e-5), and a ResBlock's gradient through its
-   JVP on cuDNN against the CPU (1e-4);
-10. training: on one batch of 128 with injected draws, the loss and every
-   parameter gradient of the kernel path against the plain path (loss
-   rtol 1e-4, each gradient max |Δ| ≤ 1e-3·max |g|); three steps of the
-   driver's Trainer (train_msgm_arm); 20 timed bare train steps with
-   exactly 64 K2, 5 K1 and 11 K3 launches each; then a train step
-   replayed plain, kernel, kernel, plain;
-11. traces one train step with torch.profiler, on the kernel path and on
-   the plain path.
+   shapes (K1, K2 1e-6; K3, K5, K6 1e-5), and a ResBlock's gradient
+   through its JVP on cuDNN and K5 against the CPU (1e-4);
+14. training on the auto route: on one batch of 128 with injected draws,
+   the loss and every parameter gradient of the kernel path against the
+   plain path (loss rtol 1e-4, each gradient max |Δ| ≤ 1e-3·max |g|); three
+   steps of the driver's Trainer (train_msgm_arm); 20 timed bare train
+   steps with exactly 64 K2, 5 K1, 11 K3 and 35 K5 launches each; then a
+   train step replayed plain, kernel, kernel, plain;
+15. traces one train step with torch.profiler, on the kernel path and on
+   the plain path;
+16. training on the unfused route: the same agreement check, 10 timed bare
+   train steps with exactly 64 K2, 5 K1, 46 K5 and 11 K6 launches each,
+   5 steps of each route in turns (auto, unfused, unfused, auto), and one
+   traced step.
 
-Ends with the kernel table as one JSON line, then
+Ends with the kernel table as one JSON line (per call through the
+autograd.Function and as a direct launch, device time, bound, plain
+version, and the library call where one computes the same function), then
 {"ok": true, "device": {...}} as the last line. Exits non-zero without a
 CUDA device, outside the repository, or when any check fails. With
---record, also writes the full record (every measurement, the profile's
+--record, also writes the full record (every measurement, the profiles'
 top kernels) as JSON to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -73,24 +102,57 @@ from torch.profiler import ProfilerActivity, profile
 
 N_SAMPLES, DIM, STEPS, REQUESTS = 1024, 256, 32, 3
 PROFILED_STEPS = 2
-K1_PER_STEP, K3_PER_STEP = 8, 44
+FORWARDS_PER_STEP = 4  # RK4
+K1_PER_STEP = 8
+GROUP_NORMS, ATTN_BLOCKS = 35, 11  # per grf16 U-Net forward
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
 K1_SHAPES = [(1024, 256), (1000, 256), (1024, 1024)]
 K2_SHAPES = [(128, 256), (1000, 256), (1024, 1024)]
 TRAIN_BATCH, TRAIN_STEPS = 128, 64  # grf16: batch 128, 64 forward steps
 WARM_STEPS, TIMED_STEPS, REPLAY_STEPS = 3, 20, 5
+TIMED_STEPS_UNFUSED = 10
 # launches per bare train step: K2 once per forward step; K1 four times
-# in the one-step fallback and once in the loss field; K3 once per
-# AttentionBlock of the one U-Net forward under the JVP (the jvp and
+# in the one-step fallback and once in the loss field; the U-Net's kernels
+# once per call of the one U-Net forward under the JVP (the jvp and
 # backward rules run the plain versions)
-K1_PER_TRAIN, K2_PER_TRAIN, K3_PER_TRAIN = 5, 64, 11
+K1_PER_TRAIN, K2_PER_TRAIN = 5, 64
 K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
-K3_PATH_MIX = {(64, 64): 5, (16, 128): 6}  # blocks per U-Net forward
+BLOCK_MIX = {(64, 64): 5, (16, 128): 6}  # AttentionBlocks per forward
+# (B, C, S, groups): slabs of 15, 15 and 8,192 floats (the strided path)
+K5_ODD = [(3, 5, 7, 5), (2, 10, 3, 2), (2, 64, 4096, 32)]
+K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
+K4_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
+LONG_BLOCK = (4, 64, 64, 64)  # (B, C, H, W): T = 4096
+KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
+                  "attn_block_kernel", "gn_silu_kernel",
+                  "qkv_attention_kernel")
+SYMBOL = dict(zip(("circulant_apply", "circulant_rk4_step",
+                   "fused_attention_block", "group_norm_silu",
+                   "qkv_attention"), KERNEL_SYMBOLS))
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def per_forward(route):
+    """Kernel launches of one U-Net forward on an AttentionBlock route."""
+    fused = route == "auto"
+    return {"fused_attention_block": ATTN_BLOCKS if fused else 0,
+            "group_norm_silu": GROUP_NORMS + (0 if fused else ATTN_BLOCKS),
+            "qkv_attention": 0 if fused else ATTN_BLOCKS}
+
+
+def serve_want(route):
+    forwards = FORWARDS_PER_STEP * STEPS
+    return {"circulant_apply": K1_PER_STEP * STEPS, "circulant_rk4_step": 0,
+            **{k: n * forwards for k, n in per_forward(route).items()}}
+
+
+def train_want(route):
+    return {"circulant_apply": K1_PER_TRAIN,
+            "circulant_rk4_step": K2_PER_TRAIN, **per_forward(route)}
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -132,11 +194,24 @@ def k3_cost(b, t, c, heads):
     return nbytes, b * per_sample
 
 
-def randomize_(model, generator):
+def k5_cost(b, c, s, silu):
+    # reads x, gamma, beta once and writes out; per element 1 flop for the
+    # mean, 3 for the variance, 4 for the affine, 4 more for the SiLU
+    return 4 * (2 * b * c * s + 2 * c), (8 + 4 * silu) * b * c * s
+
+
+def k6_cost(b, t, c, heads):
+    # reads qkv (3C) and writes out (C) per row; 2·T·C each for q·kᵀ and
+    # p·v per row, 2 to scale q and k, ~5 per score for the softmax
+    return 16 * b * t * c, b * (4 * t * t * c + 5 * heads * t * t
+                                + 2 * t * c)
+
+
+def randomize_(module, generator):
     """Random non-zero values for every parameter, in place: weights
     N(0, 1/fan_in), norm scales 1 + N(0, 0.01), biases N(0, 0.01)."""
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in module.named_parameters():
             z = torch.randn(p.shape, generator=generator, device=p.device)
             if p.ndim >= 2:
                 # DenseParams keep (in, out); Linear and Conv2d lead with out
@@ -146,12 +221,6 @@ def randomize_(model, generator):
                 p.copy_(1.0 + 0.1 * z)
             else:
                 p.copy_(0.1 * z)
-        # a gentler score head: |a| ~ 1 instead of ~10
-        model.core.conv_out.weight.mul_(0.1)
-
-
-KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
-                  "attn_block_kernel")
 
 
 def trace(fn):
@@ -195,43 +264,58 @@ def trace(fn):
     }
 
 
+def log_trace(what, prof):
+    log(f"profiled {what}: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), "
+        f"{prof['kernel_launches']} kernels")
+    for row in prof["top"]:
+        log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
+
+
 @contextlib.contextmanager
+def swapped(pairs):
+    """Set each (module, name) to its value; restore on exit."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, v in pairs:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
 def plain_path():
     """Swap every kernel wrapper for its plain version where the paths
     call it (the plain runs of the replays)."""
-    from sdeflow_tpu_torch.models import unet2d
-    from sdeflow_tpu_torch.ops.kernels.attnblock import (
-        attn_block_math, fused_attention_block)
-    from sdeflow_tpu_torch.ops.kernels.circulant import (
-        circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
+    from sdeflow_tpu_torch.models import common as mcommon, unet2d
+    from sdeflow_tpu_torch.ops.kernels.attention import attention_math
+    from sdeflow_tpu_torch.ops.kernels.attnblock import attn_block_math
+    from sdeflow_tpu_torch.ops.kernels.circulant import circ_math, rk4_math_fwd
+    from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math
     from sdeflow_tpu_torch.sde import msgm
 
-    msgm.circulant_apply, msgm.circulant_rk4_step = circ_math, rk4_math_fwd
-    unet2d.fused_attention_block = attn_block_math
-    try:
-        yield
-    finally:
-        msgm.circulant_apply = circulant_apply
-        msgm.circulant_rk4_step = circulant_rk4_step
-        unet2d.fused_attention_block = fused_attention_block
+    return swapped([(msgm, "circulant_apply", circ_math),
+                    (msgm, "circulant_rk4_step", rk4_math_fwd),
+                    (unet2d, "fused_attention_block", attn_block_math),
+                    (mcommon, "group_norm_silu", gn_math),
+                    (unet2d, "attention_core", attention_math)])
 
 
-@contextlib.contextmanager
 def direct_path():
     """Swap every kernel wrapper for a direct launch of its kernel, without
     its autograd.Function, where the serve path calls it (no_grad runs)."""
-    from sdeflow_tpu_torch.models import unet2d
-    from sdeflow_tpu_torch.ops.kernels import attnblock, circulant
+    from sdeflow_tpu_torch.models import common as mcommon, unet2d
+    from sdeflow_tpu_torch.ops.kernels import (
+        attention, attnblock, circulant, groupnorm)
     from sdeflow_tpu_torch.sde import msgm
 
-    msgm.circulant_apply = lambda s, y, w: circulant._launch_k1(
-        circulant.sqrt_beta_column(s, y), y, w)
-    unet2d.fused_attention_block = attnblock._launch
-    try:
-        yield
-    finally:
-        msgm.circulant_apply = circulant.circulant_apply
-        unet2d.fused_attention_block = attnblock.fused_attention_block
+    return swapped([
+        (msgm, "circulant_apply", lambda s, y, w: circulant._launch_k1(
+            circulant.sqrt_beta_column(s, y), y, w)),
+        (unet2d, "fused_attention_block", attnblock._launch),
+        (mcommon, "group_norm_silu", groupnorm._launch),
+        (unet2d, "attention_core", attention._launch)])
 
 
 def launch_counts():
@@ -240,8 +324,123 @@ def launch_counts():
     return {k.name: k.launches for k in common.KERNELS.values()}
 
 
+def gn_mix(model, dev):
+    """(C, S, silu) of every GroupNorm32 call of one forward, counted."""
+    from sdeflow_tpu_torch.models.common import GroupNorm32
+
+    seen = collections.Counter()
+
+    def hook(mod, inp):
+        seen[(inp[0].shape[1], math.prod(inp[0].shape[2:]), mod.silu)] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, GroupNorm32)]
+    try:
+        with torch.no_grad():
+            model(torch.randn(2, DIM, device=dev), torch.rand(2, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def weighted(rows, key):
+    """Mean of rows[i][key] per launch, each row weighted by its calls."""
+    n = sum(r["calls_per_forward"] for r in rows)
+    return sum(r[key] * r["calls_per_forward"] for r in rows) / n
+
+
+def check_k5(g, dev, mixes):
+    """Phase 5: K5 against gn_math at every GroupNorm shape of both routes
+    and at odd sizes; times at the auto route's shapes."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
+
+    def args(b, c, s, groups):
+        return (2.0 * torch.randn(b, c, s, generator=g, device=dev) + 0.5,
+                1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
+                0.1 * torch.randn(c, generator=g, device=dev), groups)
+
+    shapes = sorted({(c, s) for mix in mixes for c, s, _ in mix})
+    cases = [(N_SAMPLES, c, s, group_count(c)) for c, s in shapes] + K5_ODD
+    worst = 0.0
+    with torch.no_grad():
+        for b, c, s, groups in cases:
+            a = args(b, c, s, groups)
+            for silu in (False, True):
+                out = gnk.group_norm_silu(*a, silu)
+                torch.cuda.synchronize()
+                ref = gnk.gn_math(*a, silu)
+                torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+                worst = max(worst, (out - ref).abs().max().item())
+        log(f"K5 at {len(cases)} shapes (B = {N_SAMPLES}: {shapes}; odd "
+            f"{K5_ODD}), SiLU on and off: max |kernel - plain| = "
+            f"{worst:.3g} (tolerance 1e-5)")
+        rows = []
+        for (c, s, silu), n in sorted(mixes[0].items()):
+            x, gamma, beta, groups = a = args(N_SAMPLES, c, s, group_count(c))
+            nbytes, flops = k5_cost(N_SAMPLES, c, s, silu)
+            bound, by = bound_ms(nbytes, flops)
+            rows.append({
+                "shape": [N_SAMPLES, c, s], "silu": silu,
+                "calls_per_forward": n,
+                "ms": cuda_ms(lambda: gnk.group_norm_silu(*a, silu)),
+                "direct_ms": cuda_ms(lambda: gnk._launch(*a, silu)),
+                "plain_ms": cuda_ms(lambda: gnk.gn_math(*a, silu)),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.group_norm(
+                    x, groups, gamma, beta, eps=1e-5)),
+                "bound_ms": bound, "bound_by": by})
+    return {"max_abs_err": worst, "per_shape": rows}
+
+
+def sdpa_args(qkv, heads):
+    """q, k, v as (B, H, T, ch) from the interleaved qkv (B, T, 3C)."""
+    b, t, c3 = qkv.shape
+    ch = c3 // 3 // heads
+    return [a.permute(0, 2, 1, 3).contiguous() for a in
+            qkv.reshape(b, t, heads, 3 * ch).split(ch, dim=-1)]
+
+
+def check_k6(g, dev):
+    """Phase 6: K6 (and K4, T > 1024) against attention_math; times with
+    one head at the path's shapes and at (4, 4096, 64)."""
+    from sdeflow_tpu_torch.ops.kernels import attention as ak
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, long_err = {}, 0.0
+    with torch.no_grad():
+        for b, t, c, heads in K6_SHAPES + K4_SHAPES:
+            qkv = 1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)
+            out = ak.qkv_attention(qkv, heads)
+            torch.cuda.synchronize()
+            ref = ak.attention_math(qkv, heads)
+            tol = 2e-5 if t >= 2048 else 1e-5
+            torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+            err = (out - ref).abs().max().item()
+            if t > 1024:
+                long_err = max(long_err, err)
+            log(f"{'K4' if t > 1024 else 'K6'} ({b}, {t}, {c}) heads={heads}:"
+                f" max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
+            if heads != 1 or (b, t, c, heads) == K4_SHAPES[2]:
+                continue
+            q, k, v = sdpa_args(qkv, heads)
+            lib = sdpa(q, k, v).permute(0, 2, 1, 3).reshape(b, t, c)
+            nbytes, flops = k6_cost(b, t, c, heads)
+            bound, by = bound_ms(nbytes, flops)
+            rows[(t, c)] = {
+                "shape": [b, t, c], "heads": heads, "max_abs_err": err,
+                "library_max_abs_diff": (lib - ref).abs().max().item(),
+                "ms": cuda_ms(lambda: ak.qkv_attention(qkv, heads)),
+                "direct_ms": cuda_ms(lambda: ak._launch(qkv, heads)),
+                "plain_ms": cuda_ms(lambda: ak.attention_math(qkv, heads)),
+                "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
+                "bound_ms": bound, "bound_by": by}
+    rows[K4_SHAPES[0][1:3]]["max_abs_err"] = long_err  # over every K4 shape
+    return rows
+
+
 def check_k2(gen, g, dev):
-    """Phase 8: K2 against its plain version, and the forward flow's fused
+    """Phase 12: K2 against its plain version, and the forward flow's fused
     step against the generic stages on the plain versions."""
     from sdeflow_tpu_torch.ops.integrators import rk4_step
     from sdeflow_tpu_torch.ops.kernels.circulant import (
@@ -307,14 +506,17 @@ def block_args(g, dev, b, t, c):
 
 
 def check_autograd(g, dev):
-    """Phase 9: jvp and grad through each kernel's Function (kernel
+    """Phase 13: jvp and grad through each kernel's Function (kernel
     forward, plain rules) against the plain version; a ResBlock's gradient
-    through its JVP on cuDNN against the CPU."""
+    through its JVP on cuDNN and K5 against the CPU."""
     from sdeflow_tpu_torch.models.unet2d import ResBlock
+    from sdeflow_tpu_torch.ops.kernels.attention import (
+        attention_math, qkv_attention)
     from sdeflow_tpu_torch.ops.kernels.attnblock import (
         attn_block_math, fused_attention_block)
     from sdeflow_tpu_torch.ops.kernels.circulant import (
         circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
+    from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math, group_norm_silu
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
@@ -325,11 +527,21 @@ def check_autograd(g, dev):
          [1.0 + rnd(b, 1).abs(), rnd(b, d), rnd(b, d)], 1e-6),
         ("K2", circulant_rk4_step, rk4_math_fwd,
          [1.0 + rnd(b, 3).abs(), rnd(b, d), 0.125 * rnd(b, d)], 1e-6)]
-    for t, c in K3_PATH_MIX:
+    for t, c in BLOCK_MIX:
         cases.append((f"K3 ({b}, {t}, {c})",
                       lambda *a: fused_attention_block(*a, 32, 1),
                       lambda *a: attn_block_math(*a, 32, 1),
                       block_args(g, dev, b, t, c), 1e-5))
+        cases.append((f"K6 ({b}, {t}, {c})",
+                      lambda q: qkv_attention(q, 1),
+                      lambda q: attention_math(q, 1),
+                      [1.5 * rnd(b, t, 3 * c)], 1e-5))
+    for c, s, silu in [(32, 256, True), (192, 16, True), (64, 64, False)]:
+        cases.append((f"K5 ({b}, {c}, {s}) silu={silu}",
+                      lambda *a, silu=silu: group_norm_silu(*a, 32, silu),
+                      lambda *a, silu=silu: gn_math(*a, 32, silu),
+                      [2.0 * rnd(b, c, s) + 0.5, 1.0 + 0.1 * rnd(c),
+                       0.1 * rnd(c)], 1e-5))
     errs = {}
     for name, kern, plain, args, tol in cases:
         got = through_autograd(kern, args, 1)
@@ -342,7 +554,8 @@ def check_autograd(g, dev):
         errs[name] = worst
         log(f"{name} through jvp and grad: max |Δ| / max |plain| = "
             f"{worst:.3g} (tolerance {tol:g})")
-    # reverse over forward through cuDNN's convolutions, fp32 without TF32
+    # reverse over forward through cuDNN's convolutions and K5, fp32
+    # without TF32
     torch.manual_seed(0)
     block = ResBlock(64, 128)
     with torch.no_grad():
@@ -363,40 +576,31 @@ def check_autograd(g, dev):
     worst = max((a.cpu() - r).abs().max().item()
                 / max(r.abs().max().item(), 1e-6 * gmax)
                 for a, r in zip(got, ref))
-    log(f"ResBlock grad of its JVP, cuDNN vs CPU: max |Δ| / max |g| = "
-        f"{worst:.3g} (tolerance 1e-4)")
+    log(f"ResBlock grad of its JVP, cuDNN and K5 vs CPU: max |Δ| / max |g| "
+        f"= {worst:.3g} (tolerance 1e-4)")
     if not worst <= 1e-4:
         raise AssertionError(f"ResBlock reverse over forward: {worst:.3g}")
     errs["ResBlock"] = worst
     return errs
 
 
-def check_training(cfg, model, gen, g, dev):
-    """Phase 10: the kernel path against the plain path on one batch, the
-    driver's Trainer, timed bare train steps with their launch counts, and
-    the plain, kernel, kernel, plain replay of a train step."""
-    from sdeflow_tpu_torch import train_msgm_arm
-    from sdeflow_tpu_torch.experiments.driver import make_data_sampler
+def train_draws(gen, sampler, g, dev):
     from sdeflow_tpu_torch.ops.hutchinson import sample_v
-    from sdeflow_tpu_torch.ops.kernels import common
 
-    b = cfg.sweep.batch_sizes[0]
-    if (b, cfg.train.num_steps_forward) != (TRAIN_BATCH, TRAIN_STEPS):
-        raise AssertionError("grf16 trains at batch 128 with 64 steps")
-    names = {k.name: k for k in common.KERNELS.values()}
-    want = {"circulant_apply": K1_PER_TRAIN,
-            "circulant_rk4_step": K2_PER_TRAIN,
-            "fused_attention_block": K3_PER_TRAIN}
-    assert set(want) == set(names)
-    none = {k: 0 for k in want}
-    rec = {}
-    sampler = make_data_sampler(cfg, DIM, dev)
+    b = TRAIN_BATCH
     x = sampler.sample(g, b)
-    draws = dict(
+    return x, dict(
         t=gen.sample_t(g, b),
         noise=torch.randn(TRAIN_STEPS, b, DIM, generator=g, device=dev),
         noise_one=torch.randn(b, DIM, generator=g, device=dev),
         v=sample_v(g, (b, DIM), gen.vtype, device=dev))
+
+
+def train_agreement(model, gen, g, x, draws, want):
+    """On one batch with injected draws: the kernel path's loss and every
+    parameter gradient against the plain path's, and the kernel path's
+    exact launch counts."""
+    from sdeflow_tpu_torch.ops.kernels import common
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
@@ -412,7 +616,7 @@ def check_training(cfg, model, gen, g, dev):
     common.reset_launches()
     with plain_path():
         loss_p, grads_p = loss_and_grads()
-    if launch_counts() != none:
+    if any(launch_counts().values()):
         raise AssertionError(f"plain loss launched {launch_counts()}")
     model.zero_grad(set_to_none=True)
     rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -431,11 +635,66 @@ def check_training(cfg, model, gen, g, dev):
         f"{len(grads_p)} tensors have no gradient in exact arithmetic)")
     if not (torch.isfinite(loss_k) and rel_loss <= 1e-4 and worst <= 1e-3):
         raise AssertionError("kernel and plain training paths disagree")
-    rec["agreement"] = {"loss_kernel": loss_k.item(),
-                        "loss_plain": loss_p.item(), "loss_rel": rel_loss,
-                        "grad_worst_rel": worst, "grad_worst": worst_name,
-                        "grad_tensors": len(grads_p),
-                        "grad_tensors_zero": dead}
+    return {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+            "loss_rel": rel_loss, "grad_worst_rel": worst,
+            "grad_worst": worst_name, "grad_tensors": len(grads_p),
+            "grad_tensors_zero": dead}
+
+
+def timed_train_steps(step, model, n, want):
+    """n bare train steps, each with exactly `want` launches; ms per step,
+    peak memory, the losses, and that the parameters moved."""
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    losses, counts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(step())
+        counts.append(launch_counts())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launches per train step {per_step} != {want}")
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError("non-finite training loss")
+    moved = max((p.detach() - q).abs().max().item()
+                for p, q in zip(model.parameters(), before))
+    if not moved > 0:
+        raise AssertionError("the parameters did not move")
+    rec = dict(ms_per_step=dt * 1e3 / n, steps_per_s=n / dt,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches_per_step=per_step[-1],
+               losses=[v.item() for v in losses], param_moved=moved)
+    log(f"{n} train steps at batch {TRAIN_BATCH}: {rec['ms_per_step']:.2f} "
+        f"ms/step, {rec['steps_per_s']:.2f} steps/s, peak memory "
+        f"{rec['max_memory_allocated'] / 2**20:.1f} MiB, launches per step "
+        f"{per_step[-1]}, loss {losses[0].item():.3f} -> "
+        f"{losses[-1].item():.3f}")
+    return rec
+
+
+def check_training(cfg, model, gen, g, dev):
+    """Phase 14: the kernel path against the plain path on one batch, the
+    driver's Trainer, timed bare train steps with their launch counts, and
+    the plain, kernel, kernel, plain replay of a train step."""
+    from sdeflow_tpu_torch import train_msgm_arm
+    from sdeflow_tpu_torch.experiments.driver import make_data_sampler
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    b = cfg.sweep.batch_sizes[0]
+    if (b, cfg.train.num_steps_forward) != (TRAIN_BATCH, TRAIN_STEPS):
+        raise AssertionError("grf16 trains at batch 128 with 64 steps")
+    want = train_want("auto")
+    assert set(want) == set(common.KERNELS)
+    sampler = make_data_sampler(cfg, DIM, dev)
+    x, draws = train_draws(gen, sampler, g, dev)
+    rec = {"agreement": train_agreement(model, gen, g, x, draws, want)}
 
     # the driver's Trainer: three steps with ELBO prints at 1 and 3
     t0 = time.perf_counter()
@@ -451,37 +710,7 @@ def check_training(cfg, model, gen, g, dev):
         xb = sampler.sample(g, b)
         return trainer.train_step(trainer.state, g, xb)[1]
 
-    before = [p.detach().clone() for p in model.parameters()]
-    torch.cuda.reset_peak_memory_stats()
-    common.reset_launches()
-    losses, counts = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        losses.append(step())
-        counts.append(launch_counts())
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
-                for i, c in enumerate(counts)]
-    if any(c != want for c in per_step):
-        raise AssertionError(f"launches per train step {per_step} != {want}")
-    if not torch.isfinite(torch.stack(losses)).all():
-        raise AssertionError("non-finite training loss")
-    moved = max((p.detach() - q).abs().max().item()
-                for p, q in zip(model.parameters(), before))
-    if not moved > 0:
-        raise AssertionError("the parameters did not move")
-    rec.update(ms_per_step=dt * 1e3 / TIMED_STEPS,
-               steps_per_s=TIMED_STEPS / dt,
-               max_memory_allocated=torch.cuda.max_memory_allocated(),
-               launches_per_step=per_step[-1],
-               losses=[v.item() for v in losses], param_moved=moved)
-    log(f"{TIMED_STEPS} train steps at batch {b}: {rec['ms_per_step']:.2f} "
-        f"ms/step, {rec['steps_per_s']:.2f} steps/s, peak memory "
-        f"{rec['max_memory_allocated'] / 2**20:.1f} MiB, launches per step "
-        f"{per_step[-1]}, loss {losses[0].item():.3f} -> "
-        f"{losses[-1].item():.3f}")
+    rec.update(timed_train_steps(step, model, TIMED_STEPS, want))
 
     replay = []
     for mode in ("plain", "kernel", "kernel", "plain"):
@@ -494,14 +723,180 @@ def check_training(cfg, model, gen, g, dev):
                 step()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        expect = ({k: n * REPLAY_STEPS for k, n in want.items()}
-                  if mode == "kernel" else none)
+        expect = {k: (n * REPLAY_STEPS if mode == "kernel" else 0)
+                  for k, n in want.items()}
         if launch_counts() != expect:
             raise AssertionError(f"{mode} replay launched {launch_counts()}")
         replay.append({"mode": mode, "ms_per_step": dt * 1e3 / REPLAY_STEPS})
         log(f"{mode} train replay: {dt * 1e3 / REPLAY_STEPS:.2f} ms/step")
     rec["replay"] = replay
     return rec, step
+
+
+def serve_runs(sample, g, x0, noise, ref, modes, want):
+    """Runs of `sample` on x0 and noise in the given modes ("kernel",
+    "direct", "plain"): launches exactly `want` (none when plain), and
+    max |ref - run| ≤ 1e-3·max |run|."""
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    swaps = {"plain": plain_path, "direct": direct_path,
+             "kernel": contextlib.nullcontext}
+    runs = []
+    for mode in modes:
+        with swaps[mode]():
+            common.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x_r = sample(g, x0=x0, noise=noise)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launched = launch_counts()
+        if launched != (want if mode != "plain" else
+                        {k: 0 for k in launched}):
+            raise AssertionError(f"{mode} replay launched {launched}")
+        rel = ((ref - x_r).abs().max() / x_r.abs().max()).item()
+        log(f"{mode} replay: {dt * 1e3:.1f} ms; max |request - replay| / "
+            f"max |x| = {rel:.3g}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"{mode} replay disagrees: {rel:.3g}")
+        runs.append({"mode": mode, "ms": dt * 1e3, "rel_err": rel})
+    return runs
+
+
+def in_turns(fns, reps=1):
+    """Wall ms per call of fns["auto"] and fns["unfused"], in the turns
+    auto, unfused, unfused, auto (each turn `reps` calls)."""
+    out = {k: [] for k in fns}
+    for k in ("auto", "unfused", "unfused", "auto"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[k]()
+        torch.cuda.synchronize()
+        out[k].append((time.perf_counter() - t0) * 1e3 / reps)
+    log(f"in turns, ms per call: auto {out['auto']}, unfused "
+        f"{out['unfused']}")
+    return out
+
+
+def serve_unfused(cfg, gen_u, g, dev, x0, noise, x_auto, sample_auto):
+    """Phase 10: one request on the unfused route, its replays, the two
+    routes' requests in turns, and a traced 2-step request."""
+    from sdeflow_tpu_torch import make_sampler_fn
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    want = serve_want("unfused")
+    sample = make_sampler_fn(gen_u, N_SAMPLES, DIM, STEPS,
+                             method=cfg.sweep.backward_method,
+                             norm_correction=True, device=dev)
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = sample(g, x0=x0, noise=noise)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    if not torch.isfinite(x).all() or tuple(x.shape) != (N_SAMPLES, DIM):
+        raise AssertionError(f"unfused request: bad samples {tuple(x.shape)}")
+    torch.testing.assert_close(x.norm(dim=1), x0.norm(dim=1), rtol=1e-5,
+                               atol=0)
+    if launches != want:
+        raise AssertionError(f"unfused request: launches {launches} != {want}")
+    rel = ((x - x_auto).abs().max() / x_auto.abs().max()).item()
+    log(f"unfused request: {dt * 1e3:.1f} ms, {N_SAMPLES / dt:.1f} samples/s,"
+        f" launches {launches}; max |unfused - auto| / max |x| = {rel:.3g}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"the unfused and auto routes disagree: {rel:.3g}")
+    rec = {"request": {"ms": dt * 1e3, "samples_per_s": N_SAMPLES / dt,
+                       "launches": launches, "rel_to_auto": rel}}
+    rec["replay"] = serve_runs(sample, g, x0, noise, x, (
+        "plain", "kernel", "direct", "direct", "kernel", "plain"), want)
+    rec["in_turns"] = in_turns({
+        "auto": lambda: sample_auto(g, x0=x0, noise=noise),
+        "unfused": lambda: sample(g, x0=x0, noise=noise)})
+    sample2 = make_sampler_fn(gen_u, N_SAMPLES, DIM, PROFILED_STEPS,
+                              method="rk4", norm_correction=True, device=dev)
+    rec["profile"] = dict(trace(lambda: sample2(g)), steps=PROFILED_STEPS)
+    log_trace(f"{PROFILED_STEPS} unfused RK4 steps", rec["profile"])
+    return rec
+
+
+def train_unfused(cfg, model_u, gen_u, g, dev, step_auto):
+    """Phase 16: the unfused route's training: agreement with the plain
+    path, timed bare train steps, steps of both routes in turns and a
+    traced step."""
+    from sdeflow_tpu_torch.experiments.driver import (
+        make_data_sampler, make_trainer)
+
+    want = train_want("unfused")
+    sampler = make_data_sampler(cfg, DIM, dev)
+    x, draws = train_draws(gen_u, sampler, g, dev)
+    rec = {"agreement": train_agreement(model_u, gen_u, g, x, draws, want)}
+    trainer = make_trainer(cfg, gen_u, sampler, TRAIN_BATCH, log_fn=log)
+
+    def step():
+        xb = sampler.sample(g, TRAIN_BATCH)
+        return trainer.train_step(trainer.state, g, xb)[1]
+
+    step()  # warm
+    rec.update(timed_train_steps(step, model_u, TIMED_STEPS_UNFUSED, want))
+    rec["in_turns"] = in_turns({"auto": step_auto, "unfused": step},
+                               REPLAY_STEPS)
+    rec["profile"] = trace(step)
+    log_trace("one unfused train step", rec["profile"])
+    return rec
+
+
+def check_long_attention(g, dev):
+    """Phase 11: one unfused AttentionBlock at T = 4096, where the
+    attention core is K4: forward, jvp and gradient against the plain
+    path, with their launch counts, and a trace of three forwards."""
+    from sdeflow_tpu_torch.models.unet2d import AttentionBlock
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    b, c, h, w = LONG_BLOCK
+    block = AttentionBlock(c, 1, "unfused").to(dev)
+    randomize_(block, g)
+    x = 2.0 * torch.randn(b, c, h, w, generator=g, device=dev) + 0.5
+    v = torch.randn(x.shape, generator=g, device=dev)
+    cot = torch.randn(x.shape, generator=g, device=dev)
+    params = list(block.parameters())
+
+    def run():
+        with torch.no_grad():
+            out = block(x)
+        _, tan = torch.func.jvp(block, (x,), (v,))
+        xg = x.detach().requires_grad_()
+        grads = torch.autograd.grad((block(xg) * cot).sum(), [xg, *params])
+        return out, tan, grads
+
+    common.reset_launches()
+    out, tan, grads = run()
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    want = {k: 0 for k in launched}
+    want.update(group_norm_silu=3, qkv_attention=3)
+    if launched != want:
+        raise AssertionError(f"long attention launched {launched} != {want}")
+    with plain_path():
+        out_p, tan_p, grads_p = run()
+    errs = {}
+    for name, a, r, tol in [("output", out, out_p, 2e-5),
+                            ("tangent", tan, tan_p, 2e-5),
+                            *[(f"grad {i}", a, r, 1e-4) for i, (a, r)
+                              in enumerate(zip(grads, grads_p))]]:
+        errs[name] = (a - r).abs().max().item() / r.abs().max().item()
+        if not errs[name] <= tol:
+            raise AssertionError(f"long attention {name}: {errs[name]:.3g}")
+    log(f"unfused AttentionBlock at (B, C, H, W) = {LONG_BLOCK}, T = {h * w}:"
+        f" launches {launched}; max |Δ| / max |plain|: output "
+        f"{errs['output']:.3g}, tangent {errs['tangent']:.3g} (tolerance "
+        f"2e-5), gradients {max(v for k, v in errs.items() if 'grad' in k):.3g}"
+        " (tolerance 1e-4)")
+    with torch.no_grad():
+        prof = trace(lambda: [block(x) for _ in range(3)])
+    log_trace("three forwards of the T = 4096 block", prof)
+    return {"launches": launched, "rel_err": errs, "profile": prof}
 
 
 def main(argv=None):
@@ -513,6 +908,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from sdeflow_tpu_torch import build_msgm_arm, get_preset, make_sampler_fn
+    from sdeflow_tpu_torch.experiments.driver import make_model
     from sdeflow_tpu_torch.ops.kernels import common
     from sdeflow_tpu_torch.ops.kernels.attnblock import (
         K3, _launch, attn_block_math, fused_attention_block)
@@ -561,13 +957,7 @@ def main(argv=None):
     k3 = {}
     with torch.no_grad():
         for b, t, c, heads in K3_SHAPES:
-            args = [2.0 * torch.randn(b, t, c, generator=g, device=dev) + 0.5,
-                    1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
-                    0.1 * torch.randn(c, generator=g, device=dev),
-                    torch.randn(c, 3 * c, generator=g, device=dev) / c**0.5,
-                    0.1 * torch.randn(3 * c, generator=g, device=dev),
-                    torch.randn(c, c, generator=g, device=dev) / c**0.5,
-                    0.1 * torch.randn(c, generator=g, device=dev)]
+            args = block_args(g, dev, b, t, c)
             out = fused_attention_block(*args, 32, heads)
             torch.cuda.synchronize()
             ref = attn_block_math(*args, 32, heads)
@@ -579,6 +969,7 @@ def main(argv=None):
                 nbytes, flops = k3_cost(b, t, c, heads)
                 k3[(t, c)] = {
                     "shape": [b, t, c], "heads": heads, "max_abs_err": err,
+                    "calls_per_forward": BLOCK_MIX[(t, c)],
                     "ms": cuda_ms(lambda: fused_attention_block(
                         *args, 32, heads)),
                     "plain_ms": cuda_ms(lambda: attn_block_math(
@@ -588,18 +979,43 @@ def main(argv=None):
                     "bound_by": bound_ms(nbytes, flops)[1],
                 }
 
-    # -- 4. serve three requests on the main path ------------------------------
+    # -- 4. the arm on both routes, and the GroupNorm shapes of a forward ----
     cfg = get_preset("grf16")
     if STEPS not in cfg.sweep.num_stepss_backward:
         raise AssertionError(f"{STEPS} steps is not a grf16 setting")
     t0 = time.perf_counter()
     model, gen = build_msgm_arm(cfg, g, device=dev)
     randomize_(model, g)
+    with torch.no_grad():  # a gentler score head: |a| ~ 1 instead of ~10
+        model.core.conv_out.weight.mul_(0.1)
     sample = make_sampler_fn(gen, N_SAMPLES, DIM, STEPS,
                              method=cfg.sweep.backward_method,
                              norm_correction=True, device=dev)
     torch.cuda.synchronize()
     record["setup_s"] = time.perf_counter() - t0
+    cfg_u = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, attention_impl="unfused"))
+    model_u = make_model(cfg_u, DIM, "NormalizeLogRadius", device=dev)
+    model_u.load_state_dict(model.state_dict())
+    gen_u = dataclasses.replace(gen, score_net=model_u)
+    mixes = [gn_mix(model, dev), gn_mix(model_u, dev)]
+    for route, mix in zip(("auto", "unfused"), mixes):
+        n = sum(mix.values())
+        if n != per_forward(route)["group_norm_silu"]:
+            raise AssertionError(f"{route}: {n} GroupNorms per forward")
+        log(f"{route} route: {n} GroupNorms per forward, (C, S, silu): "
+            f"{dict(sorted(mix.items()))}")
+
+    # -- 5. K5 against its plain version ------------------------------------
+    k5 = check_k5(g, dev, mixes)
+    record["k5"] = k5
+
+    # -- 6. K6 and K4 against their plain version ----------------------------
+    k6 = check_k6(g, dev)
+    record["k6"] = {f"{t}x{c}": v for (t, c), v in k6.items()}
+
+    # -- 7. serve three requests on the main path ------------------------------
+    want = serve_want("auto")
     requests = []
     for r in range(REQUESTS):
         noise = torch.randn(STEPS, N_SAMPLES, DIM, generator=g, device=dev)
@@ -610,13 +1026,11 @@ def main(argv=None):
         x = sample(g, x0=x0, noise=noise)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in common.KERNELS.values()}
+        launches = launch_counts()
         if not torch.isfinite(x).all() or tuple(x.shape) != (N_SAMPLES, DIM):
             raise AssertionError(f"request {r}: bad samples {tuple(x.shape)}")
         torch.testing.assert_close(x.norm(dim=1), x0.norm(dim=1), rtol=1e-5,
                                    atol=0)
-        want = {K1.name: K1_PER_STEP * STEPS, K2.name: 0,
-                K3.name: K3_PER_STEP * STEPS}
         if launches != want:
             raise AssertionError(f"request {r}: launches {launches} != {want}")
         if (x - x0).abs().max().item() < 0.1:
@@ -627,129 +1041,149 @@ def main(argv=None):
             f" launches {launches}")
     record["requests"] = requests
 
-    # -- 5. replay the last request: plain, (kernel, direct, direct, kernel)
+    # -- 8. replay the last request: plain, (kernel, direct, direct, kernel)
     # twice, plain; the plain runs swap the kernel wrappers for their plain
     # versions where the path calls them, the direct runs for launches
     # without the autograd.Function; the mirrored order keeps drift out of
     # the comparison
-    replay = []
-    swaps = {"plain": plain_path, "direct": direct_path,
-             "kernel": contextlib.nullcontext}
-    for mode in ("plain", *("kernel", "direct", "direct", "kernel") * 2,
-                 "plain"):
-        with swaps[mode]():
-            common.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            x_r = sample(g, x0=x0, noise=noise)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        launched = {k.name: k.launches for k in common.KERNELS.values()}
-        if launched != (want if mode != "plain" else
-                        {k: 0 for k in launched}):
-            raise AssertionError(f"{mode} replay launched {launched}")
-        rel = ((x - x_r).abs().max() / x_r.abs().max()).item()
-        log(f"{mode} replay: {dt * 1e3:.1f} ms; max |request - replay| / "
-            f"max |x| = {rel:.3g}")
-        if not rel <= 1e-3:
-            raise AssertionError(f"{mode} replay disagrees: {rel:.3g}")
-        replay.append({"mode": mode, "ms": dt * 1e3, "rel_err": rel})
-    record["replay"] = replay
+    record["replay"] = serve_runs(
+        sample, g, x0, noise, x,
+        ("plain", *("kernel", "direct", "direct", "kernel") * 2, "plain"),
+        want)
 
-    # -- 6. where one request's time goes: a torch.profiler trace -------------
+    # -- 9. where one request's time goes: a torch.profiler trace -------------
     sample2 = make_sampler_fn(gen, N_SAMPLES, DIM, PROFILED_STEPS,
                               method="rk4", norm_correction=True, device=dev)
     prof = dict(trace(lambda: sample2(g)), steps=PROFILED_STEPS)
     record["profile"] = prof
-    log(f"profiled {PROFILED_STEPS} RK4 steps: wall {prof['wall_ms']:.1f} ms,"
-        f" device busy {prof['busy_ms']:.1f} ms (idle share "
-        f"{prof['idle_share']:.3f}), {prof['kernel_launches']} kernels")
-    for row in prof["top"]:
-        log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
+    log_trace(f"{PROFILED_STEPS} RK4 steps", prof)
 
-    # -- 7. the kernel table -------------------------------------------------
+    # -- 10. the unfused route's serving ---------------------------------------
+    unfused = {"serve": serve_unfused(cfg, gen_u, g, dev, x0, noise, x,
+                                      sample)}
+    record["unfused"] = unfused
+
+    # -- 11. K4 on the unfused block at T = 4096 ------------------------------
+    long = check_long_attention(g, dev)
+    record["long_attention"] = long
+
+    # -- 12. K2 against its plain version -------------------------------------
+    k2 = check_k2(gen, g, dev)
+
+    # -- 13. autograd through the kernels -------------------------------------
+    record["autograd"] = check_autograd(g, dev)
+
+    # -- 14. training at full width ------------------------------------------
+    train, step = check_training(cfg, model, gen, g, dev)
+    record["train"] = train
+
+    # -- 15. where one train step's time goes ---------------------------------
+    prof_train = trace(step)
+    record["train_profile"] = prof_train
+    log_trace("one train step", prof_train)
+    with plain_path():
+        prof_plain = trace(step)
+    record["train_profile_plain"] = prof_plain
+    log_trace("one plain train step", prof_plain)
+
+    # -- 16. the unfused route's training ---------------------------------------
+    unfused["train"] = train_unfused(cfg_u, model_u, gen_u, g, dev, step)
+
+    # -- the kernel table ----------------------------------------------------
     b1, f1 = k1_cost(N_SAMPLES, DIM)
-    mix = sum(K3_PATH_MIX.values())
+    b2, f2 = k2_cost(TRAIN_BATCH, DIM)
+    k3_rows = list(k3.values())
+    k6_rows = [k6[s] for s in BLOCK_MIX]
+    for r in k6_rows:
+        r["calls_per_forward"] = BLOCK_MIX[(r["shape"][1], r["shape"][2])]
+    k4 = k6[(K4_SHAPES[0][1], K4_SHAPES[0][2])]
+    serve_k = requests[-1]["launches"]
+    serve_u = unfused["serve"]["request"]["launches"]
+    train_u = unfused["train"]["launches_per_step"]
 
-    def avg(key):  # per launch, over the main path's mix of block shapes
-        return sum(k3[s][key] * n for s, n in K3_PATH_MIX.items()) / mix
+    def mixed(rows, **extra):  # per launch, over the main path's mix
+        keys = ("ms", "direct_ms", "plain_ms", "bound_ms")
+        out = {k: weighted(rows, k) for k in keys}
+        if "library_ms" in rows[0]:
+            out["library_ms"] = weighted(rows, "library_ms")
+        out["bound_by"] = ("operations" if all(
+            r["bound_by"] == "operations" for r in rows) else "bytes")
+        out["per_shape"] = rows
+        return dict(out, **extra)
 
     kernels = [
-        {"name": K1.name, "route": "cuda",
+        {"name": K1.name, "id": "K1", "route": "cuda",
          "source": "sdeflow_tpu_torch/csrc/circulant.cu",
          "replaces": "sdeflow_tpu/ops/pallas/circulant.py:47",
-         "launches": requests[-1]["launches"][K1.name],
-         "launches_per": "serve request",
+         "launches": serve_k[K1.name], "launches_per": "serve request",
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "direct_ms": k1_direct_ms,
          "bound_ms": bound_ms(b1, f1)[0], "bound_by": bound_ms(b1, f1)[1],
          "library_ms": None, "shape": [N_SAMPLES, DIM],
-         "device_ms": prof["per_launch_ms"].get("circulant_apply_kernel")},
-        {"name": K3.name, "route": "cuda",
-         "source": "sdeflow_tpu_torch/csrc/attnblock.cu",
-         "replaces": "sdeflow_tpu/ops/pallas/attnblock.py:188",
-         "launches": requests[-1]["launches"][K3.name],
-         "launches_per": "serve request",
-         "max_abs_err": max(v["max_abs_err"] for v in k3.values()),
-         "ms": avg("ms"), "plain_ms": avg("plain_ms"),
-         "direct_ms": avg("direct_ms"), "bound_ms": avg("bound_ms"),
-         "bound_by": "operations" if all(
-             v["bound_by"] == "operations" for v in k3.values()) else "bytes",
-         "library_ms": None,
-         "device_ms": prof["per_launch_ms"].get("attn_block_kernel"),
-         "per_shape": [dict(v, blocks_per_forward=K3_PATH_MIX[s])
-                       for s, v in k3.items()]},
+         "device_ms": prof["per_launch_ms"].get(SYMBOL[K1.name]),
+         "train_launches_per_step": train["launches_per_step"][K1.name],
+         "train_device_ms": prof_train["per_launch_ms"].get(
+             SYMBOL[K1.name])},
+        {"name": K2.name, "id": "K2", "route": "cuda",
+         "source": "sdeflow_tpu_torch/csrc/rk4.cu",
+         "replaces": "sdeflow_tpu/ops/pallas/circulant.py:118",
+         "launches": train["launches_per_step"][K2.name],
+         "launches_per": "train step", "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "direct_ms": k2["direct_ms"],
+         "bound_ms": bound_ms(b2, f2)[0], "bound_by": bound_ms(b2, f2)[1],
+         "library_ms": None, "shape": k2["shape"],
+         "device_ms": prof_train["per_launch_ms"].get(SYMBOL[K2.name])},
+        dict(mixed(k3_rows), name=K3.name, id="K3", route="cuda",
+             source="sdeflow_tpu_torch/csrc/attnblock.cu",
+             replaces="sdeflow_tpu/ops/pallas/attnblock.py:188",
+             launches=serve_k[K3.name], launches_per="serve request",
+             max_abs_err=max(r["max_abs_err"] for r in k3_rows),
+             library_ms=None,
+             device_ms=prof["per_launch_ms"].get(SYMBOL[K3.name]),
+             train_launches_per_step=train["launches_per_step"][K3.name],
+             train_device_ms=prof_train["per_launch_ms"].get(
+                 SYMBOL[K3.name])),
+        dict(mixed(k5["per_shape"]), name="group_norm_silu", id="K5",
+             route="cuda", source="sdeflow_tpu_torch/csrc/groupnorm.cu",
+             replaces="sdeflow_tpu/ops/pallas/groupnorm.py:111",
+             launches=serve_k["group_norm_silu"],
+             launches_per="serve request (auto route)",
+             launches_unfused=serve_u["group_norm_silu"],
+             max_abs_err=k5["max_abs_err"],
+             device_ms=prof["per_launch_ms"].get(SYMBOL["group_norm_silu"]),
+             train_launches_per_step=train["launches_per_step"][
+                 "group_norm_silu"],
+             train_device_ms=prof_train["per_launch_ms"].get(
+                 SYMBOL["group_norm_silu"])),
+        dict(mixed(k6_rows), name="qkv_attention", id="K6", route="cuda",
+             source="sdeflow_tpu_torch/csrc/attention.cu",
+             replaces="sdeflow_tpu/ops/pallas/attention.py:225",
+             launches=serve_u["qkv_attention"],
+             launches_per="serve request (unfused route)",
+             max_abs_err=max(r["max_abs_err"] for r in k6_rows),
+             device_ms=unfused["serve"]["profile"]["per_launch_ms"].get(
+                 SYMBOL["qkv_attention"]),
+             train_launches_per_step=train_u["qkv_attention"],
+             train_device_ms=unfused["train"]["profile"][
+                 "per_launch_ms"].get(SYMBOL["qkv_attention"])),
+        dict(k4, name="qkv_attention_flash", id="K4", route="cuda",
+             kernel="qkv_attention",
+             source="sdeflow_tpu_torch/csrc/attention.cu",
+             replaces="sdeflow_tpu/ops/pallas/attention.py:201",
+             launches=long["launches"]["qkv_attention"],
+             launches_per="T = 4096 AttentionBlock forward, jvp and grad",
+             device_ms=long["profile"]["per_launch_ms"].get(
+                 SYMBOL["qkv_attention"])),
     ]
-
-    # -- 8. K2 against its plain version -------------------------------------
-    k2 = check_k2(gen, g, dev)
-
-    # -- 9. autograd through the kernels -------------------------------------
-    record["autograd"] = check_autograd(g, dev)
-
-    # -- 10. training at full width ------------------------------------------
-    train, step = check_training(cfg, model, gen, g, dev)
-    record["train"] = train
-
-    # -- 11. where one train step's time goes ---------------------------------
-    prof_train = trace(step)
-    record["train_profile"] = prof_train
-    log(f"profiled one train step: wall {prof_train['wall_ms']:.1f} ms, "
-        f"device busy {prof_train['busy_ms']:.1f} ms (idle share "
-        f"{prof_train['idle_share']:.3f}), {prof_train['kernel_launches']} "
-        "kernels")
-    for row in prof_train["top"]:
-        log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
-    with plain_path():
-        prof_plain = trace(step)
-    record["train_profile_plain"] = prof_plain
-    log(f"profiled one plain train step: wall {prof_plain['wall_ms']:.1f} ms,"
-        f" device busy {prof_plain['busy_ms']:.1f} ms (idle share "
-        f"{prof_plain['idle_share']:.3f}), {prof_plain['kernel_launches']} "
-        "kernels")
-
-    b2, f2 = k2_cost(TRAIN_BATCH, DIM)
-    kernels.insert(1, {
-        "name": K2.name, "route": "cuda",
-        "source": "sdeflow_tpu_torch/csrc/rk4.cu",
-        "replaces": "sdeflow_tpu/ops/pallas/circulant.py:118",
-        "launches": train["launches_per_step"][K2.name],
-        "launches_per": "train step", "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "direct_ms": k2["direct_ms"],
-        "bound_ms": bound_ms(b2, f2)[0], "bound_by": bound_ms(b2, f2)[1],
-        "library_ms": None, "shape": k2["shape"],
-        "device_ms": prof_train["per_launch_ms"].get("rk4_step_kernel")})
     for k in kernels:
-        k["train_launches_per_step"] = train["launches_per_step"][k["name"]]
-        k["train_device_ms"] = prof_train["per_launch_ms"].get(
-            {K1.name: "circulant_apply_kernel", K2.name: "rk4_step_kernel",
-             K3.name: "attn_block_kernel"}[k["name"]])
-        log(f"{k['name']}: {k['ms']:.4f} ms per call (direct launch "
-            f"{k['direct_ms']:.4f} ms, device {k['device_ms']} ms), bound "
-            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
-            f"{k['plain_ms']:.4f} ms; no single PyTorch call computes it, "
-            "so no library time")
+        lib = ("no single PyTorch call computes it" if k["library_ms"] is None
+               else f"library call {k['library_ms']:.4f} ms")
+        log(f"{k['id']} {k['name']}: {k['ms']:.4f} ms per call (direct "
+            f"launch {k['direct_ms']:.4f} ms, device {k['device_ms']} ms), "
+            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
+            f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
+            f"{k['launches_per']}")
     record["kernels"] = kernels
     if opts.record:
         os.makedirs(os.path.dirname(os.path.abspath(opts.record)),

@@ -21,7 +21,9 @@ from sdeflow_tpu_torch.training.train import Trainer
 
 
 def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
-    """The score net of `cfg` on `device` (random weights)."""
+    """The score net of `cfg` on `device` (random weights); its
+    AttentionBlocks take ``cfg.train.attention_impl`` ("auto" or
+    "unfused"; "ring" raises)."""
     tc = cfg.train
     if tc.nn_archi != "Unet":
         raise NotImplementedError(
@@ -30,10 +32,6 @@ def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
         raise NotImplementedError(
             f"compute_dtype={tc.compute_dtype!r}: float32 only (ROADMAP "
             "Queue 1 item 8)")
-    if tc.attention_impl != "auto":
-        raise NotImplementedError(
-            f"attention_impl={tc.attention_impl!r}: ROADMAP Queue 1 items "
-            "8 and 14")
     npixel = int(round(dim**0.5))
     if dim != npixel**2:
         raise ValueError(f"Incorrect dim to define square image: {dim}")
@@ -45,6 +43,7 @@ def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
         in_space=npixel,
         attention_resolutions=tc.attention_resolutions,
         flatten_order="F",
+        attention_impl=tc.attention_impl,
     ).to(resolve_device(device))
 
 

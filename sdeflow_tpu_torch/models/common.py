@@ -13,7 +13,7 @@ import math
 import torch
 from torch import nn
 
-from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math
+from sdeflow_tpu_torch.ops.kernels.groupnorm import group_norm_silu
 
 
 def normalize_log_radius(x, eps=1e-6):
@@ -46,8 +46,8 @@ def group_count(channels):
 
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 statistics over ``group_count(C)`` groups,
-    optionally followed by SiLU; parameters named like flax's
-    (``scale``, ``bias``)."""
+    optionally followed by SiLU, as kernel K5 (ops/kernels/groupnorm.py);
+    parameters named like flax's (``scale``, ``bias``)."""
 
     def __init__(self, channels, silu=False):
         super().__init__()
@@ -59,6 +59,5 @@ class GroupNorm32(nn.Module):
     def forward(self, x):
         """x (N, C, *spatial) -> same shape."""
         n, c = x.shape[:2]
-        h = gn_math(x.reshape(n, c, -1).transpose(1, 2), self.scale,
-                    self.bias, self.groups, self.silu)
-        return h.transpose(1, 2).reshape(x.shape)
+        return group_norm_silu(x.reshape(n, c, -1), self.scale, self.bias,
+                               self.groups, self.silu).reshape(x.shape)

@@ -5,9 +5,9 @@ maps by name onto the port's module of the same dotted path:
 
 - ``nn.Conv2d``: HWIO ``kernel`` -> OIHW ``weight``;
 - ``nn.Linear``: Dense (in, out) ``kernel`` -> (out, in) ``weight``;
-- anything else (GroupNorm32, and the GNParams / DenseParams holders of the
-  fused AttentionBlock, sdeflow_tpu/models/unet2d.py:157-195, 245-250)
-  keeps flax's names and layout.
+- anything else (GroupNorm32, and the DenseParams holders of the
+  AttentionBlock, sdeflow_tpu/models/unet2d.py:157-195, 245-250) keeps
+  flax's names and layout.
 
 A flax leaf without a torch counterpart, a torch parameter without a flax
 leaf, or a shape mismatch raises. ``state_dict_to_flax`` is the inverse

@@ -4,9 +4,11 @@ Port of sdeflow_tpu/models/unet2d.py for the serve path: 2D, no class
 labels, no learned potential, no checkpointing, fp32. Activations are
 channels-first (N, C, H, W). Submodules and parameters carry the flax names
 (``down_res0.in_conv``, ``mid_attn.qkv.kernel``, ...) so that
-models/convert.py maps a flax tree by name. Every AttentionBlock runs the
-``"auto"`` route: the whole block is kernel K3
-(ops/kernels/attnblock.py).
+models/convert.py maps a flax tree by name. Every GroupNorm is kernel K5
+(ops/kernels/groupnorm.py). An AttentionBlock on the ``"auto"`` route with
+at most 8 heads is kernel K3 (ops/kernels/attnblock.py); otherwise it runs
+the unfused composition with the attention core K6/K4
+(ops/kernels/attention.py).
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdeflow_tpu_torch.models.common import (
-    GroupNorm32, group_count, timestep_embedding)
-from sdeflow_tpu_torch.ops.kernels.attnblock import fused_attention_block
+    GroupNorm32, timestep_embedding)
+from sdeflow_tpu_torch.ops.kernels.attention import attention_core
+from sdeflow_tpu_torch.ops.kernels.attnblock import (
+    MAX_HEADS, fused_attention_block)
 
 
 def _conv3(cin, cout, stride=1, bias=True):
@@ -91,18 +95,9 @@ class ResBlock(nn.Module):
         return skip + h
 
 
-class GNParams(nn.Module):
-    """GroupNorm parameters with flax's names, for the fused block."""
-
-    def __init__(self, channels):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-
 class DenseParams(nn.Module):
     """Dense parameters kept in flax's (in, out) layout, which kernel K3
-    reads directly."""
+    reads directly and the unfused route multiplies by."""
 
     def __init__(self, in_features, features, zero=False):
         super().__init__()
@@ -117,27 +112,43 @@ class DenseParams(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Spatial self-attention over the flattened feature map, as one call of
-    kernel K3 (GroupNorm → qkv → attention → proj → residual)."""
+    """Spatial self-attention over the flattened feature map: GroupNorm →
+    qkv → attention → proj → residual (sdeflow_tpu/models/unet2d.py:
+    227-272). ``attention_impl="auto"`` with at most 8 heads runs the
+    whole block as one call of kernel K3; ``"unfused"``, or more heads,
+    runs it module by module: GroupNorm32 (K5), the qkv product, the
+    attention core (K6/K4) and the output product. Both routes hold the
+    same parameters."""
 
-    def __init__(self, channels, num_heads=1):
+    def __init__(self, channels, num_heads=1, attention_impl="auto"):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"{channels} channels, {num_heads} heads")
+        if attention_impl == "ring":
+            raise NotImplementedError(
+                'attention_impl="ring": ROADMAP Queue 1 item 14')
+        if attention_impl not in ("auto", "unfused"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
         self.num_heads = num_heads
-        self.groups = group_count(channels)
-        self.norm = GNParams(channels)
+        self.fused = attention_impl == "auto" and num_heads <= MAX_HEADS
+        self.norm = GroupNorm32(channels)
         self.qkv = DenseParams(channels, 3 * channels)
         self.proj_out = DenseParams(channels, channels, zero=True)
 
     def forward(self, x):
         n, c, h, w = x.shape
-        x_flat = x.reshape(n, c, h * w).transpose(1, 2)  # (N, T, C)
-        out = fused_attention_block(
-            x_flat, self.norm.scale, self.norm.bias, self.qkv.kernel,
-            self.qkv.bias, self.proj_out.kernel, self.proj_out.bias,
-            self.groups, self.num_heads)
-        return out.transpose(1, 2).reshape(n, c, h, w)
+        if self.fused:
+            x_flat = x.reshape(n, c, h * w).transpose(1, 2)  # (N, T, C)
+            out = fused_attention_block(
+                x_flat, self.norm.scale, self.norm.bias, self.qkv.kernel,
+                self.qkv.bias, self.proj_out.kernel, self.proj_out.bias,
+                self.norm.groups, self.num_heads)
+            return out.transpose(1, 2).reshape(n, c, h, w)
+        hn = self.norm(x).reshape(n, c, h * w).transpose(1, 2)  # (N, T, C)
+        qkv = hn @ self.qkv.kernel + self.qkv.bias
+        out = (attention_core(qkv, self.num_heads) @ self.proj_out.kernel
+               + self.proj_out.bias)
+        return x + out.transpose(1, 2).reshape(n, c, h, w)
 
 
 class UNetModel(nn.Module):
@@ -150,7 +161,8 @@ class UNetModel(nn.Module):
                  channel_mult: Tuple[int, ...] = (1, 2, 4, 8),
                  conv_resample: bool = True, num_heads: int = 1,
                  num_heads_upsample: int = -1, num_classes=None,
-                 use_checkpoint: bool = False, learn_potential: bool = False):
+                 use_checkpoint: bool = False, learn_potential: bool = False,
+                 attention_impl: str = "auto"):
         super().__init__()
         if num_classes is not None or use_checkpoint or learn_potential:
             raise NotImplementedError(
@@ -181,7 +193,7 @@ class UNetModel(nn.Module):
                 ch = out
                 if ds in attention_resolutions:
                     add("mod", f"down_attn{block_id}",
-                        AttentionBlock(ch, num_heads))
+                        AttentionBlock(ch, num_heads, attention_impl))
                 plan.append(("push", None))
                 skips.append(ch)
                 block_id += 1
@@ -192,7 +204,7 @@ class UNetModel(nn.Module):
                 ds *= 2
 
         add("res", "mid_res0", ResBlock(ch, temb))
-        add("mod", "mid_attn", AttentionBlock(ch, num_heads))
+        add("mod", "mid_attn", AttentionBlock(ch, num_heads, attention_impl))
         add("res", "mid_res1", ResBlock(ch, temb))
 
         shapes = [in_space]
@@ -208,7 +220,7 @@ class UNetModel(nn.Module):
                 ch = out
                 if ds in attention_resolutions:
                     add("mod", f"up_attn{block_id}",
-                        AttentionBlock(ch, heads_up))
+                        AttentionBlock(ch, heads_up, attention_impl))
                 if level and i == num_res_blocks:
                     add("mod", f"up_us{level}",
                         Upsample(ch, conv_resample,

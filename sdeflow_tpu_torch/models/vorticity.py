@@ -48,7 +48,8 @@ class VorticityUNet(nn.Module):
     """Flat-vector wrapper around the attention U-Net.
 
     premodule: None (raw x, time-only conditioning) or "NormalizeLogRadius"
-    (x/‖x‖·√d, time + log‖x‖ conditioning)."""
+    (x/‖x‖·√d, time + log‖x‖ conditioning). attention_impl: the
+    AttentionBlocks' route, "auto" or "unfused" (models/unet2d.py)."""
 
     def __init__(self, base_channels: int = 32,
                  channel_mults: Tuple[int, ...] = (1, 2, 4),
@@ -57,7 +58,7 @@ class VorticityUNet(nn.Module):
                  attention_resolutions: Tuple[int, ...] = (2, 4),
                  conv_resample: bool = True, num_heads: int = 1,
                  use_checkpoint: bool = False, learn_potential: bool = False,
-                 flatten_order: str = "C"):
+                 flatten_order: str = "C", attention_impl: str = "auto"):
         super().__init__()
         if premodule not in (None, "NormalizeLogRadius"):
             raise ValueError(f"unknown premodule {premodule!r}")
@@ -77,7 +78,7 @@ class VorticityUNet(nn.Module):
             attention_resolutions=attention_resolutions,
             channel_mult=tuple(channel_mults), conv_resample=conv_resample,
             num_heads=num_heads, use_checkpoint=use_checkpoint,
-            learn_potential=learn_potential)
+            learn_potential=learn_potential, attention_impl=attention_impl)
 
     def forward(self, x, t):
         """x: (B, d=H·W); t: (B,) or (B, 1) -> (B, d)."""

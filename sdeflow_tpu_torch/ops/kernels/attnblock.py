@@ -22,7 +22,9 @@ import math
 import torch
 
 from sdeflow_tpu_torch.ops.kernels import common
-from sdeflow_tpu_torch.ops.kernels.groupnorm import EPS, gn_math
+from sdeflow_tpu_torch.ops.kernels.attention import (
+    attention_jvp, attention_math)
+from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math, gn_parts
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K3 = common.register(common.Kernel(
@@ -40,70 +42,33 @@ def attn_block_math(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
                     heads=1):
     """Plain version. x (B, T, C); wqkv (C, 3C) and wproj (C, C) as
     (in, out); returns (B, T, C)."""
-    h = gn_math(x, gn_scale, gn_bias, groups, False)
-    qkv = h @ wqkv + bqkv
-    b, t, c = x.shape
-    ch = c // heads
-    scale = 1.0 / math.sqrt(math.sqrt(ch))
-    qkv_h = qkv.reshape(b, t, heads, 3 * ch)
-    q, k, v = qkv_h.split(ch, dim=-1)
-    w = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
-    w = torch.softmax(w, dim=-1)
-    out = torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c)
-    return x + (out @ wproj + bproj)
+    h = gn_math(x.transpose(1, 2), gn_scale, gn_bias, groups, False)
+    qkv = h.transpose(1, 2) @ wqkv + bqkv
+    return x + (attention_math(qkv, heads) @ wproj + bproj)
 
 
 def attn_block_jvp(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
                    heads, dx, dgn_scale, dgn_bias, dwqkv, dbqkv, dwproj,
                    dbproj):
-    """Tangent of ``attn_block_math`` in closed form (None: no tangent).
-    It recomputes the GroupNorm statistics, qkv and the softmax weights;
-    the terms of absent tangents (the weights', under the SSM loss's JVP in
-    the input) are skipped."""
+    """Tangent of ``attn_block_math`` (None: no tangent), composed of the
+    GroupNorm's and the attention core's closed forms; the terms of absent
+    tangents (the weights', under the SSM loss's JVP in the input) are
+    skipped."""
     add = common.add
-    b, t, c = x.shape
-    xg = x.reshape(b, t, groups, c // groups)
-    xc = xg - xg.mean(dim=(1, 3), keepdim=True)
-    rstd = torch.rsqrt((xc**2).mean(dim=(1, 3), keepdim=True) + EPS)
-    xhat = xc * rstd
-    h = xhat.reshape(b, t, c) * gn_scale + gn_bias
-    dh = None
-    if dx is not None:
-        dxg = dx.reshape(b, t, groups, c // groups)
-        dxc = dxg - dxg.mean(dim=(1, 3), keepdim=True)
-        dxhat = rstd * (dxc - xhat * (xhat * dxc).mean(dim=(1, 3),
-                                                      keepdim=True))
-        dh = dxhat.reshape(b, t, c) * gn_scale
-    if dgn_scale is not None:
-        dh = add(dh, xhat.reshape(b, t, c) * dgn_scale)
-    dh = add(dh, dgn_bias)
-    dqkv = None if dh is None else dh.expand(b, t, c) @ wqkv
+    h, dh = gn_parts(x.transpose(1, 2), gn_scale, gn_bias, groups,
+                     None if dx is None else dx.transpose(1, 2), dgn_scale,
+                     dgn_bias)
+    h = h.transpose(1, 2)
+    qkv = h @ wqkv + bqkv
+    dqkv = None if dh is None else dh.transpose(1, 2) @ wqkv
     if dwqkv is not None:
         dqkv = add(dqkv, h @ dwqkv)
     dqkv = add(dqkv, dbqkv)
-    dout = out = None
-    if dqkv is not None or dwproj is not None:
-        ch = c // heads
-        scale = 1.0 / math.sqrt(math.sqrt(ch))
-        qkv = (h @ wqkv + bqkv).reshape(b, t, heads, 3 * ch)
-        q, k, v = qkv.split(ch, dim=-1)
-        qs, ks = q * scale, k * scale
-        p = torch.softmax(torch.einsum("bthc,bshc->bhts", qs, ks), dim=-1)
-        if dwproj is not None:
-            out = torch.einsum("bhts,bshc->bthc", p, v).reshape(b, t, c)
-    if dqkv is not None:
-        dq, dk, dv = dqkv.expand(b, t, 3 * c).reshape(
-            b, t, heads, 3 * ch).split(ch, dim=-1)
-        ds = (torch.einsum("bthc,bshc->bhts", dq * scale, ks)
-              + torch.einsum("bthc,bshc->bhts", qs, dk * scale))
-        dp = p * (ds - (p * ds).sum(dim=-1, keepdim=True))
-        dout = (torch.einsum("bhts,bshc->bthc", dp, v)
-                + torch.einsum("bhts,bshc->bthc", p, dv)).reshape(b, t, c)
     dy = dx
-    if dout is not None:
-        dy = add(dy, dout @ wproj)
-    if out is not None:
-        dy = add(dy, out @ dwproj)
+    if dqkv is not None:
+        dy = add(dy, attention_jvp(qkv, heads, dqkv) @ wproj)
+    if dwproj is not None:
+        dy = add(dy, attention_math(qkv, heads) @ dwproj)
     dy = add(dy, dbproj)
     if dy is None:
         return torch.zeros_like(x)

@@ -10,13 +10,14 @@ every kernel wrapper in this package: the device alone decides.
 - Its ``backward`` is the plain version's vector-Jacobian product, taken
   with ``torch.func.vjp``. Its forward-mode rule ``jvp`` is a closed form
   written beside each plain version (``circ_math_jvp``, ``rk4_math_jvp``,
-  ``attn_block_jvp``), in plain PyTorch, as the JAX package's
-  ``custom_jvp`` rules evaluate the plain math (ops/pallas/circulant.py:
-  149-179, ops/pallas/attnblock.py:268-272). So a kernel runs under
-  autograd and under ``torch.func.jvp`` alike, and the gradient of a JVP
-  (the SSM loss) flows through the plain rules. A rule recomputes the
-  plain intermediates it needs (for K3 the GroupNorm statistics, qkv and
-  the softmax), which the kernel does not keep.
+  ``attn_block_jvp``, ``gn_math_jvp``, ``attention_jvp``), in plain
+  PyTorch, as the JAX package's ``custom_jvp`` rules evaluate the plain
+  math (ops/pallas/circulant.py:149-179, ops/pallas/attnblock.py:268-272,
+  ops/pallas/groupnorm.py:147-151, ops/pallas/attention.py:279-288). So a
+  kernel runs under autograd and under ``torch.func.jvp`` alike, and the
+  gradient of a JVP (the SSM loss) flows through the plain rules. A rule
+  recomputes the plain intermediates it needs (the GroupNorm statistics,
+  the softmax weights), which the kernel does not keep.
 - Raw pointers are taken only inside ``forward``, which receives plain
   tensors even under ``torch.func`` transforms.
 

@@ -8,7 +8,10 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: K1 and K2 rtol/atol 1e-6 (the kernels round each product like
 the plain versions; only FMA-free reordering could differ); K3 rtol/atol
 1e-5 (fp32 sums in another order; TF32 is off for the plain version's
-matmuls). Through autograd, the jvp and the gradient of each Function (the
+matmuls); K5 rtol/atol 1e-5 (per-warp sums in another order than
+PyTorch's reductions); K6/K4 atol 1e-5, and 2e-5 at T >= 2048 (the online
+softmax sums thousands of terms in another order than the plain version's
+softmax). Through autograd, the jvp and the gradient of each Function (the
 kernel's forward, the plain version's rules) against the plain version
 with the same tolerances.
 """
@@ -18,10 +21,14 @@ import pytest
 import torch
 
 from sdeflow_tpu_torch.models.common import group_count
+from sdeflow_tpu_torch.ops.kernels.attention import (
+    K6, attention_math, qkv_attention)
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
     K3, attn_block_math, fused_attention_block)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
     K1, K2, circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
+from sdeflow_tpu_torch.ops.kernels.groupnorm import (
+    K5, gn_math, group_norm_silu)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,10 +93,22 @@ def _through_autograd(fn, args, rng):
     return (out, tan, *grads)
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K5", "K6"])
 def test_autograd_through_kernels_matches_plain(dev, name):
     rng = np.random.default_rng(5)
-    if name == "K3":
+    if name == "K5":
+        args = [(2.0 * _rand(rng, 128, 96, 64) + 0.5).to(dev),
+                (1.0 + 0.1 * _rand(rng, 96)).to(dev),
+                (0.1 * _rand(rng, 96)).to(dev)]
+        kern = lambda *a: group_norm_silu(*a, 32, True)  # noqa: E731
+        plain = lambda *a: gn_math(*a, 32, True)  # noqa: E731
+        kernel, tol = K5, 1e-5
+    elif name == "K6":
+        args = [(1.5 * _rand(rng, 128, 64, 192)).to(dev)]
+        kern = lambda q: qkv_attention(q, 2)  # noqa: E731
+        plain = lambda q: attention_math(q, 2)  # noqa: E731
+        kernel, tol = K6, 1e-5
+    elif name == "K3":
         args = _block_args(rng, 128, 64, 64, dev)
         kern = lambda *a: fused_attention_block(*a, 32, 1)  # noqa: E731
         plain = lambda *a: attn_block_math(*a, 32, 1)  # noqa: E731
@@ -144,3 +163,55 @@ def test_attention_block_kernel_rejects_what_it_does_not_cover(dev):
             _block_args(np.random.default_rng(2), 2, 16, 32, dev)]
     with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
         fused_attention_block(*args, 32, 1)
+
+
+@pytest.mark.parametrize("b,c,s,groups", [
+    (1024, 32, 256, 32), (1024, 96, 256, 32), (1024, 64, 64, 32),
+    (1024, 192, 64, 32), (1024, 256, 16, 32), (3, 5, 7, 5), (2, 10, 3, 2),
+    (2, 64, 4096, 32)])
+@pytest.mark.parametrize("silu", [False, True])
+def test_groupnorm_kernel_matches_plain(dev, b, c, s, groups, silu):
+    # (2, 64, 4096) has slabs of 8192 floats: the strided path
+    rng = np.random.default_rng(3)
+    x = (3.0 * _rand(rng, b, c, s) + 1.0).to(dev)
+    gamma = (1.0 + 0.5 * _rand(rng, c)).to(dev)
+    beta = (0.5 * _rand(rng, c)).to(dev)
+    with torch.no_grad():
+        before = K5.launches
+        out = group_norm_silu(x, gamma, beta, groups, silu)
+        torch.cuda.synchronize()
+        assert K5.launches == before + 1
+        ref = gn_math(x, gamma, beta, groups, silu)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    if not silu:  # PyTorch's own GroupNorm computes the same function
+        torch.testing.assert_close(out, torch.nn.functional.group_norm(
+            x, groups, gamma, beta, eps=1e-5), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,c,heads", [
+    (1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
+    (4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1), (3, 37, 48, 3),
+    (2, 5, 256, 2)])
+def test_attention_kernel_matches_plain(dev, b, t, c, heads):
+    rng = np.random.default_rng(4)
+    qkv = (1.5 * _rand(rng, b, t, 3 * c)).to(dev)
+    with torch.no_grad():
+        before = K6.launches
+        out = qkv_attention(qkv, heads)
+        torch.cuda.synchronize()
+        assert K6.launches == before + 1
+        ref = attention_math(qkv, heads)
+    tol = 2e-5 if t >= 2048 else 1e-5
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+def test_attention_kernel_rejects_what_it_does_not_cover(dev):
+    qkv = torch.randn(2, 8, 3 * 256, device=dev)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="128"):
+        qkv_attention(qkv, 1)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
+        qkv_attention(qkv.to(torch.bfloat16), 2)
+    x = torch.randn(2, 8, 5, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(8, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
+        group_norm_silu(x, w, w, 4, True)

@@ -1,5 +1,7 @@
-"""The score net: the JAX package's VorticityUNet against the port's, on the
-same weights (carried over by models/convert.py) and the same inputs.
+"""The score net: the JAX package's VorticityUNet and AttentionBlock against
+the port's, on both attention routes ("auto", which is kernel K3 for up to
+8 heads, and "unfused"), on the same weights (carried over by
+models/convert.py) and the same inputs.
 
 Every parameter, the zero-initialised output layers included, is
 overwritten with random values, so that every block does work. Tolerance:
@@ -14,6 +16,7 @@ import jax.numpy as jnp
 
 from sdeflow_tpu.models.common import normalize_log_radius as jax_nlr
 from sdeflow_tpu.models.common import timestep_embedding as jax_temb
+from sdeflow_tpu.models.unet2d import AttentionBlock as JaxAttentionBlock
 from sdeflow_tpu.models.vorticity import (
     VorticityUNet as JaxVorticityUNet, flat_to_img as jax_f2i,
     img_to_flat as jax_i2f)
@@ -67,8 +70,9 @@ def _pair(arch, batch, seed=0):
     return jmodel, tmodel, params, x, t
 
 
-@pytest.mark.parametrize("arch,batch", [(SMALL, 3), (GRF16, 2)],
-                         ids=["small", "grf16"])
+@pytest.mark.parametrize("arch,batch", [
+    (SMALL, 3), (GRF16, 2), (dict(SMALL, attention_impl="unfused"), 3)],
+    ids=["small", "grf16", "small-unfused"])
 def test_vorticity_unet_matches_jax(arch, batch):
     jmodel, tmodel, params, x, t = _pair(arch, batch)
     ref = np.asarray(jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x),
@@ -77,6 +81,38 @@ def test_vorticity_unet_matches_jax(arch, batch):
         out = tmodel(torch.from_numpy(x), torch.from_numpy(t)).numpy()
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("impl,heads", [
+    ("unfused", 1), ("unfused", 4), ("auto", 16)])
+def test_attention_block_routes_match_jax(impl, heads):
+    # "auto" with more than 8 heads takes the unfused composition, as in the
+    # JAX package (sdeflow_tpu/models/unet2d.py:238)
+    rng = np.random.default_rng(4)
+    c = 32
+    x = (2.0 * rng.standard_normal((2, 8, 8, c)) + 0.5).astype(np.float32)
+    jblock = JaxAttentionBlock(c, num_heads=heads, attention_impl=impl)
+    shapes = jax.eval_shape(jblock.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x))
+    params = randomize(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes["params"]), rng)
+    ref = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    tblock = load_flax_params(AttentionBlock(c, heads, impl), params)
+    assert not tblock.fused
+    with torch.no_grad():
+        out = tblock(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert np.abs(ref - x).max() > 0.1  # the block is not the identity
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=0,
+                               atol=ATOL)
+
+
+def test_attention_block_routes_share_parameters():
+    fused, unfused = AttentionBlock(64, 2), AttentionBlock(64, 2, "unfused")
+    assert fused.fused and not unfused.fused
+    assert ({n: p.shape for n, p in fused.named_parameters()}
+            == {n: p.shape for n, p in unfused.named_parameters()})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        AttentionBlock(64, 2, "ring")
 
 
 def test_grf16_unet_has_the_flagship_attention_shapes():

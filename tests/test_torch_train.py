@@ -2,7 +2,8 @@
 the EMA, the train step and chunk, the Trainer and the driver's training
 half, against the JAX package where it has a counterpart.
 
-The gradients use the small U-Net of test_torch_sampling.py with every
+The gradients use the small U-Net of test_torch_sampling.py, on the fused
+("auto") and the "unfused" AttentionBlock route, with every
 weight random and non-zero, carried over by models/convert.py and mapped
 back by its inverse, and JAX's draws replayed (test_torch_ssm.py); the
 forward solve takes 8 steps under β 0.1→20 (test_torch_forward.py).
@@ -119,14 +120,15 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def test_unet_loss_and_parameter_gradients_match_jax():
+def _check_loss_and_parameter_gradients(attention_impl):
+    arch = dict(ARCH, attention_impl=attention_impl)
     y0 = _data(512, 0)
     jsde = JaxMSGM.create(jax.random.PRNGKey(0), jnp.asarray(y0), **KW)
     tsde = MSGMSde.create(torch.from_numpy(y0), **KW)
     params = _flax_params(0)
-    jgen = JaxReverse.create(jsde, JaxVorticityUNet(**ARCH).apply,
+    jgen = JaxReverse.create(jsde, JaxVorticityUNet(**arch).apply,
                              {"params": params})
-    tnet = load_flax_params(VorticityUNet(**ARCH), params)
+    tnet = load_flax_params(VorticityUNet(**arch), params)
     tgen = PluginReverseSDE.create(tsde, tnet)
     x = _data(B, 3)
     key = jax.random.PRNGKey(13)
@@ -165,6 +167,16 @@ def test_unet_loss_and_parameter_gradients_match_jax():
         err = np.abs(out_leaves[path] - ref).max()
         assert err <= 1e-4 * scale, (path, err, scale)
     assert live >= 0.7 * len(ref_leaves)
+
+
+def test_unet_loss_and_parameter_gradients_match_jax():
+    _check_loss_and_parameter_gradients("auto")
+
+
+def test_unfused_route_loss_and_parameter_gradients_match_jax():
+    # GroupNorm (K5), the attention core (K6) and the two products of every
+    # AttentionBlock as separate Functions and operators
+    _check_loss_and_parameter_gradients("unfused")
 
 
 def test_inverse_converter_round_trips():
