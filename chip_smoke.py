@@ -8,9 +8,11 @@ VorticityUNet score net with random weights from a seed, the circulant MSGM
 SDE at d=256 built from 100k SmoothedGRF samples): sampling with
 norm-corrected RK4 and SSM training at batch 128, each on the U-Net's
 "auto" AttentionBlock route (kernel K3) and on its "unfused" route
-(GroupNorm K5, the attention core K6, two products), and the unfused
-AttentionBlock at a long sequence (kernel K4). It holds every CUDA kernel of
-those paths against its plain PyTorch version:
+(GroupNorm K5, the attention core K6, two products); the unfused
+AttentionBlock at a long sequence (kernel K4, and the reverse-mode pair
+K7a/K7b under autograd); and denoising-score-matching training of the SGM
+arm of the grf U-Net on 128×128 images at batch 128 (K5, K6, K7a, K7b). It
+holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -49,10 +51,12 @@ those paths against its plain PyTorch version:
    requests of the two routes in turns (auto, unfused, unfused, auto),
    and a traced 2-step request;
 11. K4 on its path: one unfused AttentionBlock at (B = 4, 64×64, C = 64),
-   T = 4096: the forward under no_grad, a torch.func.jvp and a gradient,
-   each against the plain path (output and tangent 2e-5·max |plain|,
-   gradients 1e-4·max |g|), exactly 3 launches each of K5 and K6, and a
-   trace of three forwards;
+   T = 4096: the forward under no_grad, a torch.func.jvp and a gradient
+   with the block's parameters requiring grad, each against the plain path
+   (output and tangent 2e-5·max |plain|, gradients 1e-4·max |g|); exactly
+   3 launches of K5, 1 of K4 (the no-grad forward), 2 of K7a (the jvp, the
+   gradient's forward) and 1 of K7b; and a trace of three no-grad
+   forwards;
 12. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
    and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
    ForwardFlow.rk4_step (kernel K2) against the generic rk4_step on the
@@ -72,7 +76,24 @@ those paths against its plain PyTorch version:
 16. training on the unfused route: the same agreement check, 10 timed bare
    train steps with exactly 64 K2, 5 K1, 46 K5 and 11 K6 launches each,
    5 steps of each route in turns (auto, unfused, unfused, auto), and one
-   traced step.
+   traced step;
+17. K7a (flash forward with lse) and K7b (flash backward) against their
+   plain versions, TF32 off, at (4, 4096, 64) with one and two heads,
+   (2, 2048, 128) and the ragged (2, 1000, 64): the output within
+   2e-5·max |plain|, lse within 1e-5, dqkv within 1e-4·max |plain|; their
+   times at (4, 4096, 64) per call through FlashAttention (its forward; its
+   backward alone) and as a direct launch, beside the plain versions, the
+   bound and scaled_dot_product_attention's forward and backward;
+18. DSM training of the SGM arm of _grf(128) (build_sgm_arm, random
+   weights, SmoothedGRF(128, ell 2), lr 1e-4, bare Adam; every
+   AttentionBlock on the unfused route: 5 at T = 4096, 6 at T = 1024): on
+   one batch of 8 with injected t and ε, the loss and every parameter
+   gradient against the plain path (rtol 1e-4, 1e-3·max |g|) with both
+   paths' peak memory; two Trainer(loss="dsm") steps with their ELBO
+   prints; 5 timed bare steps at batch 128 with exactly 46 K5, 6 K6, 5 K7a
+   and 5 K7b launches each (no K1-K4); one step of the plain and the kernel
+   path in turns (plain, kernel, kernel, plain) at batch 8;
+19. traces one DSM step at batch 128 with torch.profiler.
 
 Ends with the kernel table as one JSON line (per call through the
 autograd.Function and as a direct launch, device time, bound, plain
@@ -124,12 +145,26 @@ K5_ODD = [(3, 5, 7, 5), (2, 10, 3, 2), (2, 64, 4096, 32)]
 K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
 K4_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
 LONG_BLOCK = (4, 64, 64, 64)  # (B, C, H, W): T = 4096
+# K7a/K7b: the T = 4096 blocks' shape, two heads, a head width of 128 and a
+# ragged T for the kernels' edge masking
+K7_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1),
+             (2, 1000, 64, 1)]
+# the SGM DSM slice: the grf U-Net on 128×128 SmoothedGRF images at grf's
+# batch; AttentionBlocks per forward at (C, H·W): 5 at T = 4096, 6 at 1024
+SGM_NPIXEL, SGM_BATCH, SGM_AGREE_BATCH, SGM_TIMED_STEPS = 128, 128, 8, 5
+SGM_BLOCKS = {(64, 4096): 5, (128, 1024): 6}
+SGM_WANT = {"group_norm_silu": 46, "qkv_attention": 6,
+            "qkv_attention_stats": 5, "qkv_attention_bwd": 5}
 KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
                   "attn_block_kernel", "gn_silu_kernel",
-                  "qkv_attention_kernel")
+                  "qkv_attention_kernel", "qkv_attention_stats_kernel",
+                  "flash_bwd_d")
 SYMBOL = dict(zip(("circulant_apply", "circulant_rk4_step",
                    "fused_attention_block", "group_norm_silu",
-                   "qkv_attention"), KERNEL_SYMBOLS))
+                   "qkv_attention", "qkv_attention_stats",
+                   "qkv_attention_bwd"), KERNEL_SYMBOLS))
+# device kernels per launch of a wrapper (K7b: the dK/dV and the dQ pass)
+DEVICE_KERNELS = {"flash_bwd_d": 2}
 
 
 def log(*a):
@@ -141,7 +176,8 @@ def per_forward(route):
     fused = route == "auto"
     return {"fused_attention_block": ATTN_BLOCKS if fused else 0,
             "group_norm_silu": GROUP_NORMS + (0 if fused else ATTN_BLOCKS),
-            "qkv_attention": 0 if fused else ATTN_BLOCKS}
+            "qkv_attention": 0 if fused else ATTN_BLOCKS,
+            "qkv_attention_stats": 0, "qkv_attention_bwd": 0}
 
 
 def serve_want(route):
@@ -207,6 +243,20 @@ def k6_cost(b, t, c, heads):
                                 + 2 * t * c)
 
 
+def k7a_cost(b, t, c, heads):
+    # K6's work, and lse written: 4 bytes per head and row
+    nbytes, flops = k6_cost(b, t, c, heads)
+    return nbytes + 4 * b * heads * t, flops
+
+
+def k7b_cost(b, t, c, heads):
+    # reads qkv (3C), dO (C), lse and Δ, writes dqkv (3C) per row;
+    # 2·T·ch per score for each of q·kᵀ, dO·vᵀ, pᵀ·dO, dSᵀ·q and dS·k
+    # (10·T²·ch per head), ~4 per score for p and dS
+    return (4 * b * t * (7 * c + 2 * heads),
+            b * (10 * t * t * c + 4 * heads * t * t))
+
+
 def randomize_(module, generator):
     """Random non-zero values for every parameter, in place: weights
     N(0, 1/fan_in), norm scales 1 + N(0, 0.01), biases N(0, 0.01)."""
@@ -252,7 +302,9 @@ def trace(fn):
     for short in KERNEL_SYMBOLS:
         hits = [(ms, n) for name, (ms, n) in by_name.items() if short in name]
         if hits:
-            per_launch[short] = sum(h[0] for h in hits) / sum(h[1] for h in hits)
+            per_launch[short] = (sum(h[0] for h in hits)
+                                 / sum(h[1] for h in hits)
+                                 * DEVICE_KERNELS.get(short, 1))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "wall_ms": wall_ms, "busy_ms": busy / 1e3,
@@ -596,19 +648,25 @@ def train_draws(gen, sampler, g, dev):
         v=sample_v(g, (b, DIM), gen.vtype, device=dev))
 
 
-def train_agreement(model, gen, g, x, draws, want):
-    """On one batch with injected draws: the kernel path's loss and every
-    parameter gradient against the plain path's, and the kernel path's
-    exact launch counts."""
+def train_agreement(model, per_sample, g, x, draws, want):
+    """On one batch with injected draws: the kernel path's loss
+    (per_sample(g, x, **draws).mean(), the SSM or DSM loss) and every
+    parameter gradient against the plain path's, the kernel path's exact
+    launch counts, and each path's peak memory."""
     from sdeflow_tpu_torch.ops.kernels import common
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        loss = gen.ssm(g, x, **draws).mean()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = per_sample(g, x, **draws).mean()
         loss.backward()
+        torch.cuda.synchronize()
+        peak.append(torch.cuda.max_memory_allocated())
         return loss.detach(), {n: p.grad.detach().clone()
                                for n, p in model.named_parameters()}
 
+    peak = []
     common.reset_launches()
     loss_k, grads_k = loss_and_grads()
     if launch_counts() != want:
@@ -632,16 +690,19 @@ def train_agreement(model, gen, g, x, draws, want):
     log(f"train loss kernel {loss_k.item():.6f}, plain {loss_p.item():.6f} "
         f"(rel {rel_loss:.3g}, tolerance 1e-4); worst gradient max |Δ| / "
         f"max |g| = {worst:.3g} at {worst_name} (tolerance 1e-3; {dead} of "
-        f"{len(grads_p)} tensors have no gradient in exact arithmetic)")
+        f"{len(grads_p)} tensors have no gradient in exact arithmetic); "
+        f"peak memory kernel {peak[0] / 2**20:.1f} MiB, plain "
+        f"{peak[1] / 2**20:.1f} MiB")
     if not (torch.isfinite(loss_k) and rel_loss <= 1e-4 and worst <= 1e-3):
         raise AssertionError("kernel and plain training paths disagree")
     return {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
             "loss_rel": rel_loss, "grad_worst_rel": worst,
             "grad_worst": worst_name, "grad_tensors": len(grads_p),
-            "grad_tensors_zero": dead}
+            "grad_tensors_zero": dead, "peak_memory_kernel": peak[0],
+            "peak_memory_plain": peak[1]}
 
 
-def timed_train_steps(step, model, n, want):
+def timed_train_steps(step, model, n, want, batch=TRAIN_BATCH):
     """n bare train steps, each with exactly `want` launches; ms per step,
     peak memory, the losses, and that the parameters moved."""
     from sdeflow_tpu_torch.ops.kernels import common
@@ -671,7 +732,7 @@ def timed_train_steps(step, model, n, want):
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                launches_per_step=per_step[-1],
                losses=[v.item() for v in losses], param_moved=moved)
-    log(f"{n} train steps at batch {TRAIN_BATCH}: {rec['ms_per_step']:.2f} "
+    log(f"{n} train steps at batch {batch}: {rec['ms_per_step']:.2f} "
         f"ms/step, {rec['steps_per_s']:.2f} steps/s, peak memory "
         f"{rec['max_memory_allocated'] / 2**20:.1f} MiB, launches per step "
         f"{per_step[-1]}, loss {losses[0].item():.3f} -> "
@@ -694,7 +755,7 @@ def check_training(cfg, model, gen, g, dev):
     assert set(want) == set(common.KERNELS)
     sampler = make_data_sampler(cfg, DIM, dev)
     x, draws = train_draws(gen, sampler, g, dev)
-    rec = {"agreement": train_agreement(model, gen, g, x, draws, want)}
+    rec = {"agreement": train_agreement(model, gen.ssm, g, x, draws, want)}
 
     # the driver's Trainer: three steps with ELBO prints at 1 and 3
     t0 = time.perf_counter()
@@ -831,7 +892,8 @@ def train_unfused(cfg, model_u, gen_u, g, dev, step_auto):
     want = train_want("unfused")
     sampler = make_data_sampler(cfg, DIM, dev)
     x, draws = train_draws(gen_u, sampler, g, dev)
-    rec = {"agreement": train_agreement(model_u, gen_u, g, x, draws, want)}
+    rec = {"agreement": train_agreement(model_u, gen_u.ssm, g, x, draws,
+                                        want)}
     trainer = make_trainer(cfg, gen_u, sampler, TRAIN_BATCH, log_fn=log)
 
     def step():
@@ -848,9 +910,10 @@ def train_unfused(cfg, model_u, gen_u, g, dev, step_auto):
 
 
 def check_long_attention(g, dev):
-    """Phase 11: one unfused AttentionBlock at T = 4096, where the
-    attention core is K4: forward, jvp and gradient against the plain
-    path, with their launch counts, and a trace of three forwards."""
+    """Phase 11: one unfused AttentionBlock at T = 4096: the forward under
+    no_grad (the attention core K4), a jvp and a gradient with the block's
+    parameters requiring grad (the pair K7a/K7b) against the plain path,
+    with their launch counts, and a trace of three no-grad forwards."""
     from sdeflow_tpu_torch.models.unet2d import AttentionBlock
     from sdeflow_tpu_torch.ops.kernels import common
 
@@ -875,7 +938,10 @@ def check_long_attention(g, dev):
     torch.cuda.synchronize()
     launched = launch_counts()
     want = {k: 0 for k in launched}
-    want.update(group_norm_silu=3, qkv_attention=3)
+    # K5 in each of the three; K4 in the no-grad forward; K7a in the jvp
+    # and in the gradient's forward; K7b in the gradient's backward
+    want.update(group_norm_silu=3, qkv_attention=1, qkv_attention_stats=2,
+                qkv_attention_bwd=1)
     if launched != want:
         raise AssertionError(f"long attention launched {launched} != {want}")
     with plain_path():
@@ -897,6 +963,170 @@ def check_long_attention(g, dev):
         prof = trace(lambda: [block(x) for _ in range(3)])
     log_trace("three forwards of the T = 4096 block", prof)
     return {"launches": launched, "rel_err": errs, "profile": prof}
+
+
+def check_flash(g, dev):
+    """Phase 17: K7a and K7b against their plain versions at K7_SHAPES, and
+    their times at the first beside the bound and SDPA's forward and
+    backward."""
+    from sdeflow_tpu_torch.ops.kernels import attention as ak
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    errs = {"out": 0.0, "lse": 0.0, "dqkv": 0.0}
+    rows = {}
+    for b, t, c, heads in K7_SHAPES:
+        qkv = 1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)
+        dout = torch.randn(b, t, c, generator=g, device=dev)
+        with torch.no_grad():
+            out, lse = ak._launch_stats(qkv, heads)
+            torch.cuda.synchronize()
+            out_p, lse_p = ak.attention_flash_stats_math(qkv, heads)
+            delta = (ak._heads(dout, heads) * ak._heads(out_p, heads)).sum(-1)
+            dqkv = ak._launch_bwd(qkv, dout, lse_p, delta, heads)
+            torch.cuda.synchronize()
+            dqkv_p = ak.attention_flash_bwd_math(qkv, dout, lse_p, delta,
+                                                 heads)
+        e = {"out": ((out - out_p).abs().max() / out_p.abs().max()).item(),
+             "lse": (lse - lse_p).abs().max().item(),
+             "dqkv": ((dqkv - dqkv_p).abs().max()
+                      / dqkv_p.abs().max()).item()}
+        log(f"K7a/K7b ({b}, {t}, {c}) heads={heads}: max |Δ| / max |plain| "
+            f"out {e['out']:.3g} (tolerance 2e-5), lse max |Δ| "
+            f"{e['lse']:.3g} (1e-5), dqkv {e['dqkv']:.3g} (1e-4)")
+        if not (e["out"] <= 2e-5 and e["lse"] <= 1e-5 and e["dqkv"] <= 1e-4):
+            raise AssertionError(f"K7a/K7b disagree with plain: {e}")
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
+        if (b, t, c, heads) != K7_SHAPES[0]:
+            continue
+        # per call through the Function: its forward (no_grad), and its
+        # backward alone (Δ, then K7b) on a retained graph
+        x = qkv.detach().requires_grad_()
+        y = ak.flash_attention_vjp(x, heads)
+        q, k, v = (a.requires_grad_() for a in sdpa_args(qkv, heads))
+        o = sdpa(q, k, v)
+        do = ak._heads(dout, heads).contiguous()
+        n7a, f7a = k7a_cost(b, t, c, heads)
+        n7b, f7b = k7b_cost(b, t, c, heads)
+        with torch.no_grad():
+            rows["K7a"] = {
+                "shape": [b, t, c], "heads": heads,
+                "ms": cuda_ms(lambda: ak.flash_attention_vjp(qkv, heads)),
+                "direct_ms": cuda_ms(lambda: ak._launch_stats(qkv, heads)),
+                "plain_ms": cuda_ms(
+                    lambda: ak.attention_flash_stats_math(qkv, heads)),
+                "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
+                "bound_ms": bound_ms(n7a, f7a)[0],
+                "bound_by": bound_ms(n7a, f7a)[1]}
+            rows["K7b"] = {
+                "shape": [b, t, c], "heads": heads,
+                "direct_ms": cuda_ms(lambda: ak._launch_bwd(
+                    qkv, dout, lse_p, delta, heads)),
+                "plain_ms": cuda_ms(lambda: ak.attention_flash_bwd_math(
+                    qkv, dout, lse_p, delta, heads), 10),
+                "bound_ms": bound_ms(n7b, f7b)[0],
+                "bound_by": bound_ms(n7b, f7b)[1]}
+        rows["K7b"]["ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, x, dout, retain_graph=True))
+        rows["K7b"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), do, retain_graph=True))
+    rows["K7a"].update(max_abs_err=errs["out"], lse_max_abs_err=errs["lse"])
+    rows["K7b"]["max_abs_err"] = errs["dqkv"]
+    for name, r in rows.items():
+        log(f"{name} at {r['shape']}: {r['ms']:.4f} ms per call (direct "
+            f"{r['direct_ms']:.4f}), plain {r['plain_ms']:.4f}, SDPA "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return rows
+
+
+def check_sgm_training(g, dev):
+    """Phases 18 and 19: the SGM arm of _grf(128) (the grf U-Net at full
+    width on 128×128 SmoothedGRF images, every AttentionBlock on the
+    unfused route) trained by DSM: the kernel path against the plain path
+    at batch 8, two Trainer steps, timed bare steps at batch 128 with their
+    launch counts, the kernel and plain paths in turns at batch 8, and a
+    traced step at batch 128."""
+    from sdeflow_tpu_torch import Trainer, build_sgm_arm
+    from sdeflow_tpu_torch.configs import _grf
+    from sdeflow_tpu_torch.experiments.driver import make_data_sampler
+    from sdeflow_tpu_torch.models.unet2d import AttentionBlock
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    cfg = _grf(SGM_NPIXEL)
+    tc, dim = cfg.train, SGM_NPIXEL**2
+    if (cfg.sweep.batch_sizes[0], tc.lr, tc.attention_impl) != (
+            SGM_BATCH, 1e-4, "auto"):
+        raise AssertionError("grf trains at batch 128, lr 1e-4, auto route")
+    model, gen = build_sgm_arm(cfg, g, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():  # a gentler score head, as for the MSGM arm
+        model.core.conv_out.weight.mul_(0.1)
+    want = {k: SGM_WANT.get(k, 0) for k in common.KERNELS}
+    seen = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.update([(inp[0].shape[1],
+                                       math.prod(inp[0].shape[2:]))]))
+        for m in model.modules() if isinstance(m, AttentionBlock)]
+    sampler = make_data_sampler(cfg, dim, dev)
+    with torch.no_grad():
+        model(sampler.sample(g, 2), torch.rand(2, device=dev))
+    for h in hooks:
+        h.remove()
+    if dict(seen) != SGM_BLOCKS:
+        raise AssertionError(f"AttentionBlocks at (C, T): {dict(seen)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"SGM arm of grf{SGM_NPIXEL}: AttentionBlocks (C, T) {dict(seen)}, "
+        f"all on the unfused route; {n_params} parameters")
+
+    # (a) the kernel path against the plain path on one batch of 8
+    b = SGM_AGREE_BATCH
+    x = sampler.sample(g, b)
+    draws = dict(t=gen.sample_t(g, b),
+                 noise=torch.randn(b, dim, generator=g, device=dev))
+    rec = {"agreement": train_agreement(model, gen.dsm, g, x, draws, want)}
+
+    # (b) the Trainer: two DSM steps with ELBO prints (SSM under no_grad)
+    t0 = time.perf_counter()
+    trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
+                      loss="dsm", log_fn=log)
+    state, loss = trainer.run(g, 2, x_test=sampler.sample(g, SGM_BATCH))
+    torch.cuda.synchronize()
+    rec["trainer_s"] = time.perf_counter() - t0
+    if not (state.step == 2 and math.isfinite(loss)
+            and all(math.isfinite(h["elbo"]) for h in trainer.history)):
+        raise AssertionError(f"SGM Trainer: step {state.step}, {loss}, "
+                             f"{trainer.history}")
+
+    def step(batch=SGM_BATCH):
+        return trainer.train_step(trainer.state, g,
+                                  sampler.sample(g, batch))[1]
+
+    # (c) timed bare steps at grf's batch
+    rec.update(timed_train_steps(step, model, SGM_TIMED_STEPS, want,
+                                 SGM_BATCH))
+
+    # (d) the kernel and the plain path in turns at batch 8
+    turns = []
+    for mode in ("plain", "kernel", "kernel", "plain"):
+        with plain_path() if mode == "plain" else contextlib.nullcontext():
+            common.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(SGM_AGREE_BATCH)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        if launch_counts() != (want if mode == "kernel" else
+                               {k: 0 for k in want}):
+            raise AssertionError(f"{mode} DSM step launched "
+                                 f"{launch_counts()}")
+        turns.append({"mode": mode, "ms": ms})
+        log(f"{mode} DSM step at batch {SGM_AGREE_BATCH}: {ms:.1f} ms")
+    rec["turns"] = turns
+
+    # 19. where one DSM step's time goes at batch 128
+    rec["profile"] = trace(step)
+    log_trace(f"one DSM step at batch {SGM_BATCH}", rec["profile"])
+    return rec
 
 
 def main(argv=None):
@@ -1089,6 +1319,14 @@ def main(argv=None):
     # -- 16. the unfused route's training ---------------------------------------
     unfused["train"] = train_unfused(cfg_u, model_u, gen_u, g, dev, step)
 
+    # -- 17. K7a and K7b against their plain versions ------------------------
+    k7 = check_flash(g, dev)
+    record["k7"] = k7
+
+    # -- 18, 19. DSM training of the SGM arm at 128×128 ----------------------
+    sgm = check_sgm_training(g, dev)
+    record["sgm_train"] = sgm
+
     # -- the kernel table ----------------------------------------------------
     b1, f1 = k1_cost(N_SAMPLES, DIM)
     b2, f2 = k2_cost(TRAIN_BATCH, DIM)
@@ -1172,9 +1410,21 @@ def main(argv=None):
              source="sdeflow_tpu_torch/csrc/attention.cu",
              replaces="sdeflow_tpu/ops/pallas/attention.py:201",
              launches=long["launches"]["qkv_attention"],
-             launches_per="T = 4096 AttentionBlock forward, jvp and grad",
+             launches_per="T = 4096 AttentionBlock: no-grad forward, jvp "
+             "and grad (the jvp and grad take K7a/K7b)",
              device_ms=long["profile"]["per_launch_ms"].get(
                  SYMBOL["qkv_attention"])),
+        *[dict(k7[i], name=name, id=i, route="cuda",
+               source=f"sdeflow_tpu_torch/csrc/{src}",
+               replaces=f"sdeflow_tpu/ops/pallas/attention.py:{line}",
+               launches=sgm["launches_per_step"][name],
+               launches_per=f"DSM train step (grf U-Net, {SGM_NPIXEL}x"
+               f"{SGM_NPIXEL}, batch {SGM_BATCH})",
+               device_ms=sgm["profile"]["per_launch_ms"].get(SYMBOL[name]),
+               device_shape=[SGM_BATCH, 4096, 64])
+          for i, name, src, line in [
+              ("K7a", "qkv_attention_stats", "attention.cu", 344),
+              ("K7b", "qkv_attention_bwd", "attention_bwd.cu", 436)]],
     ]
     for k in kernels:
         lib = ("no single PyTorch call computes it" if k["library_ms"] is None

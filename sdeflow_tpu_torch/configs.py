@@ -1,10 +1,12 @@
-"""Typed experiment configuration and the grf16 preset chain.
+"""Typed experiment configuration and the grf preset chain.
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
 ExperimentConfig and the ``_piv_large`` → ``_grf`` chain, :318-359), with
-the fields that chain sets and the serve and training paths read; each
-keeps the JAX default. The other presets, the SGM-arm knobs and the plot
-options come with ROADMAP Queue 1 items 2 and 13.
+the fields that chain sets and the serve and training paths of the MSGM
+and SGM arms read; each keeps the JAX default. ``_grf(npixel)`` takes any
+square image, as the JAX one does (``_grf(128)`` is the SGM DSM slice's
+configuration); only grf16 and grf32 are registered presets. The other
+presets and the plot options come with ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ class TrainConfig:
     T0: float = 1.0
     beta_min: float = 0.1
     beta_max: float = 20.0
+    beta_min_sgm: float = 0.1
+    beta_max_sgm: float = 20.0
     t_eps: float = 1e-3
     norm_sampler: str = "ecdf"
     norm_map: Optional[str] = "log"
     dense_tensor: bool = True
     nn_archi: str = "MLP"  # MLP | Unet | Unet1D | DiT | DiT2D
     compute_dtype: str = "float32"
+    parameterization: str = "direct"  # "eps": SGM arms only
     num_samples_init_max: int = 100_000
     vtype: str = "rademacher"
     lr: float = 1e-3

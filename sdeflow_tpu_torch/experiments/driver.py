@@ -1,10 +1,10 @@
-"""Model factory and the MSGM arm of the experiment driver.
+"""Model factory and the MSGM and SGM arms of the experiment driver.
 
-Port of ``make_model``'s Unet branch, of the MSGM half of
-``ExperimentDriver._build_arm``, of ``_fair_budgets`` and of the training
-half of ``_run_arm`` (sdeflow_tpu/experiments/driver.py:149-182, 265-319,
-425-506). The SGM arm, the other score nets, the sweep with its sampling
-and plots come with ROADMAP Queue 1 items 2, 11 and 13.
+Port of ``make_model``'s Unet branch, of ``ExperimentDriver._build_arm``
+(both halves), of ``_fair_budgets`` and of the training half of
+``_run_arm`` for the MSGM arm (sdeflow_tpu/experiments/driver.py:149-182,
+265-319, 425-506). The other score nets, the sweep with its sampling and
+plots come with ROADMAP Queue 1 items 11 and 13.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from sdeflow_tpu_torch.models.vorticity import VorticityUNet
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.sde.msgm import MSGMSde
 from sdeflow_tpu_torch.sde.reverse import PluginReverseSDE
+from sdeflow_tpu_torch.sde.sgm import SGMSde
 from sdeflow_tpu_torch.training.train import Trainer
 
 
@@ -76,6 +77,26 @@ def build_msgm_arm(cfg: ExperimentConfig, generator, dim=None,
         norm_map=tc.norm_map, estimate_norm_constant=False)
     return model, PluginReverseSDE.create(sde, model, vtype=tc.vtype,
                                           ssm_intT=sw.ssm_intT_ref)
+
+
+def build_sgm_arm(cfg: ExperimentConfig, generator, dim=None,
+                  device="cuda"):
+    """Score net (random weights, from torch's global seed as in
+    ``build_msgm_arm``) and the reverse SDE of the SGM arm: no premodule,
+    the VP SDE of the config's beta_min_sgm/beta_max_sgm, and the config's
+    parameterization (sdeflow_tpu/experiments/driver.py:306-318, 345-348).
+    `generator` keeps ``build_msgm_arm``'s signature: the SGM arm draws no
+    data at build time."""
+    del generator
+    tc = cfg.train
+    dim = cfg.data.dims[0] if dim is None else dim
+    model = make_model(cfg, dim, None, device=device)
+    sde = SGMSde.create(beta_min=tc.beta_min_sgm, beta_max=tc.beta_max_sgm,
+                        T=tc.T0, t_epsilon=tc.t_eps,
+                        num_steps_forward=tc.num_steps_forward,
+                        device=device)
+    return model, PluginReverseSDE.create(
+        sde, model, vtype=tc.vtype, parameterization=tc.parameterization)
 
 
 def fair_budgets(cfg: ExperimentConfig, is_msgm, ssm_intT, dim,

@@ -6,8 +6,10 @@ channels-first (N, C, H, W). Submodules and parameters carry the flax names
 (``down_res0.in_conv``, ``mid_attn.qkv.kernel``, ...) so that
 models/convert.py maps a flax tree by name. Every GroupNorm is kernel K5
 (ops/kernels/groupnorm.py). An AttentionBlock on the ``"auto"`` route with
-at most 8 heads is kernel K3 (ops/kernels/attnblock.py); otherwise it runs
-the unfused composition with the attention core K6/K4
+at most 8 heads, whose shape kernel K3 holds (T ≤ 256 and a working set
+that fits one block's shared memory), is K3 (ops/kernels/attnblock.py);
+otherwise it runs the unfused composition with the attention core
+K6/K4, or K7a/K7b under autograd above T = 1024
 (ops/kernels/attention.py).
 """
 
@@ -23,7 +25,7 @@ from sdeflow_tpu_torch.models.common import (
     GroupNorm32, timestep_embedding)
 from sdeflow_tpu_torch.ops.kernels.attention import attention_core
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
-    MAX_HEADS, fused_attention_block)
+    MAX_HEADS, MAX_T, fused_attention_block, query_chunk)
 
 
 def _conv3(cin, cout, stride=1, bias=True):
@@ -114,11 +116,15 @@ class DenseParams(nn.Module):
 class AttentionBlock(nn.Module):
     """Spatial self-attention over the flattened feature map: GroupNorm →
     qkv → attention → proj → residual (sdeflow_tpu/models/unet2d.py:
-    227-272). ``attention_impl="auto"`` with at most 8 heads runs the
-    whole block as one call of kernel K3; ``"unfused"``, or more heads,
-    runs it module by module: GroupNorm32 (K5), the qkv product, the
-    attention core (K6/K4) and the output product. Both routes hold the
-    same parameters."""
+    227-272). ``attention_impl="auto"`` with at most 8 heads (``fused``)
+    runs the whole block as one call of kernel K3 when K3 holds the shape:
+    T ≤ 256 and ``query_chunk`` finds a chunk. Otherwise, and on
+    ``"unfused"``, it runs module by module: GroupNorm32 (K5), the qkv
+    product, the attention core (ops/kernels/attention.py) and the output
+    product, the same function as the JAX package's plain composition for
+    "auto" blocks beyond its kernel (ops/pallas/attnblock.py:253-265). The
+    choice depends on the shape only, never on the device. Both routes hold
+    the same parameters."""
 
     def __init__(self, channels, num_heads=1, attention_impl="auto"):
         super().__init__()
@@ -137,14 +143,16 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x):
         n, c, h, w = x.shape
-        if self.fused:
-            x_flat = x.reshape(n, c, h * w).transpose(1, 2)  # (N, T, C)
+        t = h * w
+        if (self.fused and t <= MAX_T
+                and query_chunk(t, c, self.norm.groups) is not None):
+            x_flat = x.reshape(n, c, t).transpose(1, 2)  # (N, T, C)
             out = fused_attention_block(
                 x_flat, self.norm.scale, self.norm.bias, self.qkv.kernel,
                 self.qkv.bias, self.proj_out.kernel, self.proj_out.bias,
                 self.norm.groups, self.num_heads)
             return out.transpose(1, 2).reshape(n, c, h, w)
-        hn = self.norm(x).reshape(n, c, h * w).transpose(1, 2)  # (N, T, C)
+        hn = self.norm(x).reshape(n, c, t).transpose(1, 2)  # (N, T, C)
         qkv = hn @ self.qkv.kernel + self.qkv.bias
         out = (attention_core(qkv, self.num_heads) @ self.proj_out.kernel
                + self.proj_out.bias)

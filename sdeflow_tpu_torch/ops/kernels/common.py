@@ -8,7 +8,9 @@ every kernel wrapper in this package: the device alone decides.
   tensors and runs the plain PyTorch version on CPU tensors (the CPU tests
   and nothing else take that branch).
 - Its ``backward`` is the plain version's vector-Jacobian product, taken
-  with ``torch.func.vjp``. Its forward-mode rule ``jvp`` is a closed form
+  by autograd on detached copies of the saved inputs (``torch.func.vjp``
+  would refuse the checkpoints of the attention core's tiled plain version
+  above T = 1024). Its forward-mode rule ``jvp`` is a closed form
   written beside each plain version (``circ_math_jvp``, ``rk4_math_jvp``,
   ``attn_block_jvp``, ``gn_math_jvp``, ``attention_jvp``), in plain
   PyTorch, as the JAX package's ``custom_jvp`` rules evaluate the plain
@@ -147,8 +149,10 @@ def register(kernel: Kernel) -> Kernel:
 
 
 def build_all():
-    """Build every registered kernel, one nvcc per source, all at once."""
-    handles = [k.start_build() for k in KERNELS.values()]
+    """Build every registered kernel, one nvcc per source (two kernels may
+    share one), all at once."""
+    sources = {k.lib_path(): k for k in KERNELS.values()}
+    handles = [k.start_build() for k in sources.values()]
     for h in handles:
         Kernel.finish_build(h)
     for k in KERNELS.values():
@@ -196,9 +200,11 @@ def kernel_function(name, plain, launch, tangent, n_tensors):
         ctx.static = inputs[n_tensors:]
 
     def backward(ctx, grad):
-        _, vjp = torch.func.vjp(lambda *ts: plain(*ts, *ctx.static),
-                                *ctx.saved_tensors)
-        return (*vjp(grad), *(None,) * len(ctx.static))
+        with torch.enable_grad():
+            ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(plain(*ts, *ctx.static), ts, grad,
+                                        allow_unused=True)
+        return (*grads, *(None,) * len(ctx.static))
 
     def jvp(ctx, *tangents):
         return tangent(*ctx.saved_tensors, *ctx.static,

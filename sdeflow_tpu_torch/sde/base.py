@@ -10,6 +10,8 @@ them.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from sdeflow_tpu_torch.ops.integrators import (
@@ -20,6 +22,11 @@ from sdeflow_tpu_torch.sde.forward import ForwardFlow
 def beta_linear(t, beta_min, beta_max):
     """Linear noise schedule β(t) = β_min + (β_max − β_min)·t."""
     return beta_min + (beta_max - beta_min) * t
+
+
+def _sqrt(v):
+    """√v of a tensor or a Python number."""
+    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
 
 
 def _tcol(t, y):

@@ -24,13 +24,9 @@ from sdeflow_tpu_torch.ops.kde import (
     gaussian_kde_logpdf, kde_normalization_log_constant)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
     circulant_apply, circulant_rk4_step)
-from sdeflow_tpu_torch.sde.base import SDEBehavior, _tcol
+from sdeflow_tpu_torch.sde.base import SDEBehavior, _sqrt, _tcol
 
 _LOG_EPS = 1e-6  # sdeflow_tpu/sde/msgm.py:45
-
-
-def _sqrt(v):
-    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
 
 
 @dataclass(frozen=True)
@@ -81,6 +77,10 @@ class MSGMSde(SDEBehavior):
                    dim=int(y0.shape[1]),
                    num_steps_forward=int(num_steps_forward),
                    norm_sampler=norm_sampler, norm_map=norm_map, name=name)
+
+    @property
+    def device(self):
+        return self.r_T.device
 
     # -- drift / diffusion ---------------------------------------------------
     def f(self, t, y):

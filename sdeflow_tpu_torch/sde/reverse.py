@@ -1,15 +1,17 @@
-"""Plug-in reverse SDE: the generative flow and the SSM loss.
+"""Plug-in reverse SDE: the generative flow and the SSM and DSM losses.
 
 Port of sdeflow_tpu/sde/reverse.py. The learned drift a(y, t) is any
-callable ``score_net(y, t) -> (B, d)``, typically an ``nn.Module``. The SSM
-loss takes the Hutchinson divergence with one forward-mode
-``torch.func.jvp`` (ops/hutchinson.py), and its gradient with respect to
-the score net's parameters comes from ``.backward()`` through that JVP.
-Every draw (t, the forward solve's normals, the probe v, the conditional
-latent's normal) can be injected, so that a test can replay the JAX
-package's keys. Only the "direct" parameterization is ported; DSM and the
-eps parameterization come with the SGM port (ROADMAP Queue 1 item 2), the
-PF-ODE and corrector drifts with item 4.
+callable ``score_net(y, t) -> (B, d)``, typically an ``nn.Module``, in the
+"direct" parameterization, or the noise ε that it scales to a(y, t) under
+"eps" (an SDE with a closed-form kernel: SGM). The SSM loss takes the
+Hutchinson divergence with one forward-mode ``torch.func.jvp``
+(ops/hutchinson.py), and its gradient with respect to the score net's
+parameters comes from ``.backward()`` through that JVP; denoising score
+matching (``dsm``, SGM) is reverse mode only. Every draw (t, the forward
+solve's normals or the closed-form kernel's ε, the probe v, the
+conditional latent's normal) can be injected, so that a test can replay the
+JAX package's keys. The PF-ODE and corrector drifts come with ROADMAP
+Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -45,29 +47,45 @@ class PluginReverseSDE:
     # index of the first forward-grid step with t > t_epsilon (the static
     # slice that replaces the reference's mask, SDEs.py:695-706)
     intT_start: int = 0
+    debias: bool = False
+    # "direct": a = net(y, t); "eps": a = −(g(t)/std(t))·net(y, t), the net
+    # predicting the O(1) noise (sdeflow_tpu/sde/reverse.py:53-65)
+    parameterization: str = "direct"
 
     @classmethod
     def create(cls, base_sde, score_net, T=None, vtype="rademacher",
                ssm_intT=False, debias=False, parameterization="direct"):
-        if parameterization != "direct":
-            raise NotImplementedError(
-                f"parameterization={parameterization!r}: ROADMAP Queue 1 "
-                "item 2 (SGM)")
-        if debias:
+        if parameterization not in ("direct", "eps"):
+            raise ValueError(f"Unknown parameterization: {parameterization}")
+        if parameterization == "eps" and not hasattr(base_sde, "var"):
+            raise ValueError(
+                'parameterization="eps" requires a closed-form forward '
+                "kernel (SGM): the output scale is g(t)/std(t)")
+        if debias and not hasattr(base_sde, "var"):
             raise ValueError(
                 "debias=True requires an SDE with a closed-form forward "
-                "kernel (SGM, ROADMAP Queue 1 item 2)")
+                "kernel (SGM): the debiasing density is g(t)²/std(t)²")
         T = float(base_sde.T if T is None else T)
         num_steps = base_sde.num_steps_forward
         grid = np.linspace(T / num_steps, T, num_steps)
         return cls(base_sde=base_sde, score_net=score_net, T=T, vtype=vtype,
                    ssm_intT=ssm_intT,
-                   intT_start=int(np.sum(grid <= float(base_sde.t_epsilon))))
+                   intT_start=int(np.sum(grid <= float(base_sde.t_epsilon))),
+                   debias=debias, parameterization=parameterization)
 
     # -- learned drift --------------------------------------------------------
     def score(self, y, t):
-        """a(y, t), with t as a (B,) row, cast back to y's dtype."""
-        return self.score_net(y, _trow(t, y.shape[0], y)).to(y.dtype)
+        """a(y, t), with t as a (B,) row, cast back to y's dtype; under
+        "eps" the net's output times −g(t)/std(t), with t clamped below at
+        t_epsilon (std(0) = 0)."""
+        t_row = _trow(t, y.shape[0], y)
+        a = self.score_net(y, t_row).to(y.dtype)
+        if self.parameterization == "eps":
+            tt = torch.clamp(t_row, min=self.base_sde.t_epsilon).reshape(
+                (-1,) + (1,) * (y.ndim - 1))
+            std = torch.sqrt(self.base_sde.var(tt))
+            a = -(self.base_sde.g_diag(tt.reshape(-1), y) / std) * a
+        return a
 
     def ga(self, s, y):
         """g(s, y)·a(y, s)."""
@@ -94,7 +112,7 @@ class PluginReverseSDE:
 
     # -- time sampling ----------------------------------------------------------
     def _device(self):
-        return self.base_sde.r_T.device
+        return self.base_sde.device
 
     def sample_t(self, generator, batch):
         """t ~ U(0, T], raised to t_epsilon below it."""
@@ -160,8 +178,22 @@ class PluginReverseSDE:
         m_nu = 0.5 * torch.sum(a**2, dim=tuple(range(1, a.ndim)))
         return m_mu + m_nu
 
-    def dsm(self, generator, x):
-        raise NotImplementedError("DSM: ROADMAP Queue 1 item 2 (SGM)")
+    def dsm(self, generator, x, *, t=None, noise=None):
+        """Denoising score matching ½‖a·std/g + ε‖² per sample, (B,), for an
+        SDE with a closed-form kernel (SGM): t from the debiasing law when
+        debias, else U(0, T] raised to t_epsilon; ε the kernel's normal. The
+        keywords inject t and ε."""
+        if not hasattr(self.base_sde, "mean_weight"):
+            raise ValueError("DSM requires a closed-form forward kernel (SGM)")
+        if t is None:
+            t = (self.base_sde.sample_debiasing_t(generator, (x.shape[0],))
+                 if self.debias else self.sample_t(generator, x.shape[0]))
+        y, target, std, g = self.base_sde.sample(generator, t, x,
+                                                 noise=noise,
+                                                 return_noise=True)
+        a = self.score(y, t)
+        return 0.5 * torch.sum((a * std / g + target) ** 2,
+                               dim=tuple(range(1, x.ndim)))
 
     def elbo_random_t_slice(self, generator, x, *, t=None, noise=None,
                             noise_one=None, v=None, z=None):

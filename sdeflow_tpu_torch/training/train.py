@@ -1,8 +1,9 @@
-"""Training: the Adam step over the SSM loss and the host-side loop.
+"""Training: the Adam step over the SSM or DSM loss and the host-side loop.
 
-Port of sdeflow_tpu/training/train.py. One train step is the SSM loss of a
-data batch (for MSGM the 64-step forward RK4 solve of kernel K2, the one
-JVP of the score net), ``.backward()``, and the optimizer's update. The JAX
+Port of sdeflow_tpu/training/train.py. One train step is the loss of a data
+batch (SSM: for MSGM the 64-step forward RK4 solve of kernel K2 and the one
+JVP of the score net; DSM, SGM only: the closed-form kernel and one forward
+of the score net), ``.backward()``, and the optimizer's update. The JAX
 package returns a new state from a jitted step; here the step updates the
 score net's parameters, the optimizer and the state in place and returns
 the state. Eager PyTorch has no dispatch to amortize, so the Trainer takes
@@ -100,19 +101,18 @@ def build_optimizer(params, lr, grad_clip=None, weight_decay=0.0,
 
 
 def _loss_fn(loss):
-    if loss == "ssm":
-        return lambda gen, generator, x, draws: gen.ssm(
-            generator, x, **draws).mean()
-    if loss == "dsm":
-        raise NotImplementedError("DSM: ROADMAP Queue 1 item 2 (SGM)")
-    raise ValueError(f"unknown loss {loss}")
+    """The mean of the reverse SDE's per-sample loss "ssm" or "dsm"."""
+    if loss not in ("ssm", "dsm"):
+        raise ValueError(f"unknown loss {loss}")
+    return lambda gen, generator, x, draws: getattr(gen, loss)(
+        generator, x, **draws).mean()
 
 
 def make_train_step(optimizer, loss="ssm", ema_rate=None, ema_warmup=True):
     """A train step ``(state, generator, x, **draws) -> (state, loss)`` over
-    the parameters `optimizer` holds; `draws` inject the loss's draws (t,
-    noise, noise_one, v). The loss comes back as a 0-d device tensor, so
-    the step does not wait for the device."""
+    the parameters `optimizer` holds; `draws` inject the loss's draws
+    (SSM: t, noise, noise_one, v; DSM: t, noise). The loss comes back as a
+    0-d device tensor, so the step does not wait for the device."""
     loss_fn = _loss_fn(loss)
 
     def train_step(state, generator, x, **draws):

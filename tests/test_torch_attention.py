@@ -44,7 +44,10 @@ def test_matches_jax_kernel(b, t, c3, heads):
     out = qkv_attention(qkv, heads)
     assert K6.launches == before  # the CPU path launches nothing
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
-    assert attention_core is qkv_attention
+    # T <= 1024: the AttentionBlock's entry point is qkv_attention
+    qkv.requires_grad_()
+    torch.testing.assert_close(attention_core(qkv, heads),
+                               qkv_attention(qkv, heads), rtol=0, atol=0)
 
 
 def test_matches_jax_flash_kernel():

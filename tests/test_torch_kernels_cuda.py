@@ -13,7 +13,9 @@ PyTorch's reductions); K6/K4 atol 1e-5, and 2e-5 at T >= 2048 (the online
 softmax sums thousands of terms in another order than the plain version's
 softmax). Through autograd, the jvp and the gradient of each Function (the
 kernel's forward, the plain version's rules) against the plain version
-with the same tolerances.
+with the same tolerances. K7a: the output within 2e-5·max |plain| (as K4)
+and lse within 1e-5; K7b: dqkv within 1e-4·max |plain| (each element sums
+T terms in another order).
 """
 
 import numpy as np
@@ -22,7 +24,11 @@ import torch
 
 from sdeflow_tpu_torch.models.common import group_count
 from sdeflow_tpu_torch.ops.kernels.attention import (
-    K6, attention_math, qkv_attention)
+    K6, K7A, K7B, attention_core, attention_flash_bwd_math,
+    attention_flash_stats_math, attention_math, flash_attention_vjp,
+    qkv_attention)
+from sdeflow_tpu_torch.ops.kernels.attention import (
+    _launch_bwd as launch_k7b, _launch_stats as launch_k7a)
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
     K3, attn_block_math, fused_attention_block)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
@@ -215,3 +221,60 @@ def test_attention_kernel_rejects_what_it_does_not_cover(dev):
     w = torch.ones(8, device=dev, dtype=torch.bfloat16)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
         group_norm_silu(x, w, w, 4, True)
+
+
+def _flash_inputs(rng, b, t, c, heads, dev):
+    qkv = (1.5 * _rand(rng, b, t, 3 * c)).to(dev)
+    dout = _rand(rng, b, t, c).to(dev)
+    with torch.no_grad():
+        out, lse = attention_flash_stats_math(qkv, heads)
+    delta = (dout * out).reshape(b, t, heads, -1).sum(-1).transpose(1, 2)
+    return qkv, dout, lse, delta.contiguous()
+
+
+@pytest.mark.parametrize("b,t,c,heads", [
+    (4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1), (2, 1000, 64, 1),
+    (3, 37, 48, 3)])
+def test_flash_pair_kernels_match_plain(dev, b, t, c, heads):
+    qkv, dout, lse, delta = _flash_inputs(np.random.default_rng(7), b, t, c,
+                                          heads, dev)
+    with torch.no_grad():
+        before = K7A.launches, K7B.launches
+        out, lse_k = launch_k7a(qkv, heads)
+        dqkv = launch_k7b(qkv, dout, lse, delta, heads)
+        torch.cuda.synchronize()
+        assert (K7A.launches, K7B.launches) == (before[0] + 1, before[1] + 1)
+        out_p, lse_p = attention_flash_stats_math(qkv, heads)
+        dqkv_p = attention_flash_bwd_math(qkv, dout, lse, delta, heads)
+    torch.testing.assert_close(out, out_p, rtol=0,
+                               atol=2e-5 * out_p.abs().max().item())
+    torch.testing.assert_close(lse_k, lse_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dqkv, dqkv_p, rtol=0,
+                               atol=1e-4 * dqkv_p.abs().max().item())
+
+
+def test_attention_core_takes_the_pair_under_autograd(dev):
+    rng = np.random.default_rng(8)
+    qkv = (1.5 * _rand(rng, 2, 2048, 3 * 64)).to(dev)
+    cot = _rand(rng, 2, 2048, 64).to(dev)
+    counts = lambda: (K6.launches, K7A.launches, K7B.launches)  # noqa: E731
+    before = counts()
+    with torch.no_grad():
+        attention_core(qkv, 2)
+    assert counts() == (before[0] + 1, before[1], before[2])
+    x = qkv.clone().requires_grad_()
+    grad = torch.autograd.grad((attention_core(x, 2) * cot).sum(), x)[0]
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    x = qkv.clone().requires_grad_()
+    want = torch.autograd.grad((attention_math(x, 2) * cot).sum(), x)[0]
+    torch.testing.assert_close(grad, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+
+
+def test_flash_pair_rejects_what_it_does_not_cover(dev):
+    qkv = torch.randn(2, 8, 3 * 256, device=dev)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="128"):
+        flash_attention_vjp(qkv, 1)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
+        flash_attention_vjp(qkv.to(torch.bfloat16), 2)

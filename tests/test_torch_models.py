@@ -106,6 +106,37 @@ def test_attention_block_routes_match_jax(impl, heads):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("side,c", [(17, 16), (16, 96)],
+                         ids=["T289", "T256-C96"])
+def test_auto_block_beyond_kernel_k3_takes_the_unfused_route(monkeypatch,
+                                                             side, c):
+    # T > 256, or a working set beyond one block's shared memory: the plain
+    # composition, as the JAX "auto" block runs there
+    # (sdeflow_tpu/ops/pallas/attnblock.py:253-265), on every device
+    from sdeflow_tpu_torch.models import unet2d
+
+    def refuse(*a):
+        raise AssertionError("fused_attention_block called")
+
+    monkeypatch.setattr(unet2d, "fused_attention_block", refuse)
+    rng = np.random.default_rng(5)
+    x = (2.0 * rng.standard_normal((2, side, side, c)) + 0.5).astype(
+        np.float32)
+    jblock = JaxAttentionBlock(c, num_heads=1, attention_impl="auto")
+    shapes = jax.eval_shape(jblock.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x))
+    params = randomize(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes["params"]), rng)
+    ref = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    tblock = load_flax_params(AttentionBlock(c, 1, "auto"), params)
+    assert tblock.fused
+    with torch.no_grad():
+        out = tblock(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert np.abs(ref - x).max() > 0.1
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=0,
+                               atol=ATOL)
+
+
 def test_attention_block_routes_share_parameters():
     fused, unfused = AttentionBlock(64, 2), AttentionBlock(64, 2, "unfused")
     assert fused.fused and not unfused.fused

@@ -91,8 +91,11 @@ def test_reverse_flow_matches_jax(sdes):
             for a, b in pairs:
                 np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                            rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    # eps and debias need a closed-form kernel (SGM), as in the JAX package
+    with pytest.raises(ValueError, match="closed-form"):
         PluginReverseSDE.create(tsde, lambda yy, tt: yy, parameterization="eps")
+    with pytest.raises(ValueError, match="closed-form"):
+        PluginReverseSDE.create(tsde, lambda yy, tt: yy, debias=True)
 
 
 def test_ecdf_radius_for_given_uniforms(sdes):
