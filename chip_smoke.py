@@ -29,9 +29,10 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    torch.nn.functional.group_norm;
 6. K6 qkv_attention against attention_math at (1024, 64, 64) and
    (1024, 16, 128) with one head and (1024, 64, 64) with four, atol 1e-5,
-   and as K4 at (4, 4096, 64) with one and two heads and (2, 2048, 128),
-   atol 2e-5 (the online softmax sums thousands of terms in another order
-   than the plain softmax); times it beside
+   and K4 (qkv_attention above T = 1024: the tensor-core kernel
+   flash_fwd.cu) at (4, 4096, 64) with one and two heads and
+   (2, 2048, 128), atol 2e-5 (the online softmax sums thousands of terms in
+   another order than the plain softmax); times both beside
    torch.nn.functional.scaled_dot_product_attention;
 7. serves three requests of 1024 samples with 32 RK4 steps each on the
    auto route: finite (1024, 256) samples, every latent norm kept to rtol
@@ -83,7 +84,9 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    2e-5·max |plain|, lse within 1e-5, dqkv within 1e-4·max |plain|; their
    times at (4, 4096, 64) per call through FlashAttention (its forward; its
    backward alone) and as a direct launch, beside the plain versions, the
-   bound and scaled_dot_product_attention's forward and backward;
+   bound and scaled_dot_product_attention's forward and backward; and the
+   direct launches and SDPA's forward and backward at the DSM path's own
+   shape (128, 4096, 64), a few calls each;
 18. DSM training of the SGM arm of _grf(128) (build_sgm_arm, random
    weights, SmoothedGRF(128, ell 2), lr 1e-4, bare Adam; every
    AttentionBlock on the unfused route: 5 at T = 4096, 6 at T = 1024): on
@@ -97,7 +100,10 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
 
 Ends with the kernel table as one JSON line (per call through the
 autograd.Function and as a direct launch, device time, bound, plain
-version, and the library call where one computes the same function), then
+version, and the library call where one computes the same function; the
+bound is the largest of the bytes over 3.35 TB/s, the matrix-product flops
+three times over 494.7 TFLOP/s dense TF32, and the other flops over
+67 TFLOP/s fp32), then
 {"ok": true, "device": {...}} as the last line. Exits non-zero without a
 CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
@@ -128,6 +134,8 @@ K1_PER_STEP = 8
 GROUP_NORMS, ATTN_BLOCKS = 35, 11  # per grf16 U-Net forward
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # dense TF32 on the tensor cores
+TF32_PASSES = 3  # 3xTF32: fp32 accuracy from three TF32 products
 K1_SHAPES = [(1024, 256), (1000, 256), (1024, 1024)]
 K2_SHAPES = [(128, 256), (1000, 256), (1024, 1024)]
 TRAIN_BATCH, TRAIN_STEPS = 128, 64  # grf16: batch 128, 64 forward steps
@@ -157,14 +165,13 @@ SGM_WANT = {"group_norm_silu": 46, "qkv_attention": 6,
             "qkv_attention_stats": 5, "qkv_attention_bwd": 5}
 KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
                   "attn_block_kernel", "gn_silu_kernel",
-                  "qkv_attention_kernel", "qkv_attention_stats_kernel",
-                  "flash_bwd_d")
+                  "qkv_attention_kernel", "flash_fwd_kernel",
+                  "flash_fwd_stats_kernel", "flash_bwd_kernel")
 SYMBOL = dict(zip(("circulant_apply", "circulant_rk4_step",
                    "fused_attention_block", "group_norm_silu",
-                   "qkv_attention", "qkv_attention_stats",
-                   "qkv_attention_bwd"), KERNEL_SYMBOLS))
-# device kernels per launch of a wrapper (K7b: the dK/dV and the dQ pass)
-DEVICE_KERNELS = {"flash_bwd_d": 2}
+                   "qkv_attention", "qkv_attention_flash",
+                   "qkv_attention_stats", "qkv_attention_bwd"),
+                  KERNEL_SYMBOLS))
 
 
 def log(*a):
@@ -177,7 +184,8 @@ def per_forward(route):
     return {"fused_attention_block": ATTN_BLOCKS if fused else 0,
             "group_norm_silu": GROUP_NORMS + (0 if fused else ATTN_BLOCKS),
             "qkv_attention": 0 if fused else ATTN_BLOCKS,
-            "qkv_attention_stats": 0, "qkv_attention_bwd": 0}
+            "qkv_attention_flash": 0, "qkv_attention_stats": 0,
+            "qkv_attention_bwd": 0}
 
 
 def serve_want(route):
@@ -206,55 +214,65 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+def bound_ms(nbytes, product_flops, other_flops):
+    """The least time the card could take: the largest of the bytes over
+    the memory rate, the matrix-product flops over dense TF32 three times
+    over (3xTF32 is how the tensor cores reach fp32 accuracy) and the other
+    flops over the fp32 rate outside the tensor cores."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(
+                 TF32_PASSES * product_flops / TF32_FLOPS_PER_S,
+                 other_flops / FP32_FLOPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
+# each cost: (bytes moved, matrix-product flops, other flops)
 def k1_cost(b, d):
     # reads sqrt_beta, y, w once and writes out; 6 flops per element
-    return 4 * (b + 3 * b * d), 6 * b * d
+    return 4 * (b + 3 * b * d), 0, 6 * b * d
 
 
 def k2_cost(b, d):
     # reads sb3, x, w once and writes out; per element 4 stencil stages of
     # 6 flops, 5 for the stage states, 5 for the sum and 2 to combine
-    return 4 * (3 * b + 3 * b * d), 36 * b * d
+    return 4 * (3 * b + 3 * b * d), 0, 36 * b * d
 
 
 def k3_cost(b, t, c, heads):
+    # products: qkv (2·T·C·3C), q·kᵀ and p·v (4·T²·C), proj (2·T·C²);
+    # the GroupNorm, biases, residual (8 per element) and softmax (~5 per
+    # score) on the CUDA cores
     nbytes = 4 * (2 * b * t * c + 4 * c * c + 6 * c)
-    per_sample = (2 * t * c * 3 * c + 4 * t * t * c + 2 * t * c * c
-                  + 8 * t * c + 5 * heads * t * t)
-    return nbytes, b * per_sample
+    products = 2 * t * c * 3 * c + 4 * t * t * c + 2 * t * c * c
+    return nbytes, b * products, b * (8 * t * c + 5 * heads * t * t)
 
 
 def k5_cost(b, c, s, silu):
     # reads x, gamma, beta once and writes out; per element 1 flop for the
     # mean, 3 for the variance, 4 for the affine, 4 more for the SiLU
-    return 4 * (2 * b * c * s + 2 * c), (8 + 4 * silu) * b * c * s
+    return 4 * (2 * b * c * s + 2 * c), 0, (8 + 4 * silu) * b * c * s
 
 
 def k6_cost(b, t, c, heads):
     # reads qkv (3C) and writes out (C) per row; 2·T·C each for q·kᵀ and
-    # p·v per row, 2 to scale q and k, ~5 per score for the softmax
-    return 16 * b * t * c, b * (4 * t * t * c + 5 * heads * t * t
-                                + 2 * t * c)
+    # p·v per row; 2 to scale q and k, ~5 per score for the softmax
+    return (16 * b * t * c, b * 4 * t * t * c,
+            b * (5 * heads * t * t + 2 * t * c))
 
 
 def k7a_cost(b, t, c, heads):
     # K6's work, and lse written: 4 bytes per head and row
-    nbytes, flops = k6_cost(b, t, c, heads)
-    return nbytes + 4 * b * heads * t, flops
+    nbytes, products, other = k6_cost(b, t, c, heads)
+    return nbytes + 4 * b * heads * t, products, other
 
 
 def k7b_cost(b, t, c, heads):
     # reads qkv (3C), dO (C), lse and Δ, writes dqkv (3C) per row;
     # 2·T·ch per score for each of q·kᵀ, dO·vᵀ, pᵀ·dO, dSᵀ·q and dS·k
     # (10·T²·ch per head), ~4 per score for p and dS
-    return (4 * b * t * (7 * c + 2 * heads),
-            b * (10 * t * t * c + 4 * heads * t * t))
+    return (4 * b * t * (7 * c + 2 * heads), b * 10 * t * t * c,
+            b * 4 * heads * t * t)
 
 
 def randomize_(module, generator):
@@ -303,8 +321,7 @@ def trace(fn):
         hits = [(ms, n) for name, (ms, n) in by_name.items() if short in name]
         if hits:
             per_launch[short] = (sum(h[0] for h in hits)
-                                 / sum(h[1] for h in hits)
-                                 * DEVICE_KERNELS.get(short, 1))
+                                 / sum(h[1] for h in hits))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return {
         "wall_ms": wall_ms, "busy_ms": busy / 1e3,
@@ -431,8 +448,7 @@ def check_k5(g, dev, mixes):
         rows = []
         for (c, s, silu), n in sorted(mixes[0].items()):
             x, gamma, beta, groups = a = args(N_SAMPLES, c, s, group_count(c))
-            nbytes, flops = k5_cost(N_SAMPLES, c, s, silu)
-            bound, by = bound_ms(nbytes, flops)
+            bound, by = bound_ms(*k5_cost(N_SAMPLES, c, s, silu))
             rows.append({
                 "shape": [N_SAMPLES, c, s], "silu": silu,
                 "calls_per_forward": n,
@@ -466,7 +482,7 @@ def check_k6(g, dev):
             out = ak.qkv_attention(qkv, heads)
             torch.cuda.synchronize()
             ref = ak.attention_math(qkv, heads)
-            tol = 2e-5 if t >= 2048 else 1e-5
+            tol = 2e-5 if t > 1024 else 1e-5
             torch.testing.assert_close(out, ref, rtol=0, atol=tol)
             err = (out - ref).abs().max().item()
             if t > 1024:
@@ -477,8 +493,7 @@ def check_k6(g, dev):
                 continue
             q, k, v = sdpa_args(qkv, heads)
             lib = sdpa(q, k, v).permute(0, 2, 1, 3).reshape(b, t, c)
-            nbytes, flops = k6_cost(b, t, c, heads)
-            bound, by = bound_ms(nbytes, flops)
+            bound, by = bound_ms(*k6_cost(b, t, c, heads))
             rows[(t, c)] = {
                 "shape": [b, t, c], "heads": heads, "max_abs_err": err,
                 "library_max_abs_diff": (lib - ref).abs().max().item(),
@@ -940,8 +955,8 @@ def check_long_attention(g, dev):
     want = {k: 0 for k in launched}
     # K5 in each of the three; K4 in the no-grad forward; K7a in the jvp
     # and in the gradient's forward; K7b in the gradient's backward
-    want.update(group_norm_silu=3, qkv_attention=1, qkv_attention_stats=2,
-                qkv_attention_bwd=1)
+    want.update(group_norm_silu=3, qkv_attention_flash=1,
+                qkv_attention_stats=2, qkv_attention_bwd=1)
     if launched != want:
         raise AssertionError(f"long attention launched {launched} != {want}")
     with plain_path():
@@ -1005,8 +1020,8 @@ def check_flash(g, dev):
         q, k, v = (a.requires_grad_() for a in sdpa_args(qkv, heads))
         o = sdpa(q, k, v)
         do = ak._heads(dout, heads).contiguous()
-        n7a, f7a = k7a_cost(b, t, c, heads)
-        n7b, f7b = k7b_cost(b, t, c, heads)
+        bound_7a = bound_ms(*k7a_cost(b, t, c, heads))
+        bound_7b = bound_ms(*k7b_cost(b, t, c, heads))
         with torch.no_grad():
             rows["K7a"] = {
                 "shape": [b, t, c], "heads": heads,
@@ -1015,22 +1030,44 @@ def check_flash(g, dev):
                 "plain_ms": cuda_ms(
                     lambda: ak.attention_flash_stats_math(qkv, heads)),
                 "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
-                "bound_ms": bound_ms(n7a, f7a)[0],
-                "bound_by": bound_ms(n7a, f7a)[1]}
+                "bound_ms": bound_7a[0], "bound_by": bound_7a[1]}
             rows["K7b"] = {
                 "shape": [b, t, c], "heads": heads,
                 "direct_ms": cuda_ms(lambda: ak._launch_bwd(
                     qkv, dout, lse_p, delta, heads)),
                 "plain_ms": cuda_ms(lambda: ak.attention_flash_bwd_math(
                     qkv, dout, lse_p, delta, heads), 10),
-                "bound_ms": bound_ms(n7b, f7b)[0],
-                "bound_by": bound_ms(n7b, f7b)[1]}
+                "bound_ms": bound_7b[0], "bound_by": bound_7b[1]}
         rows["K7b"]["ms"] = cuda_ms(lambda: torch.autograd.grad(
             y, x, dout, retain_graph=True))
         rows["K7b"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             o, (q, k, v), do, retain_graph=True))
     rows["K7a"].update(max_abs_err=errs["out"], lse_max_abs_err=errs["lse"])
     rows["K7b"]["max_abs_err"] = errs["dqkv"]
+    # at the DSM path's own shape: direct launches beside SDPA, few calls
+    b, t, c = SGM_BATCH, 4096, 64
+    qkv = 1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)
+    dout = torch.randn(b, t, c, generator=g, device=dev)
+    q, k, v = (a.requires_grad_() for a in sdpa_args(qkv, 1))
+    o = sdpa(q, k, v)
+    do = ak._heads(dout, 1).contiguous()
+    with torch.no_grad():
+        out, lse = ak._launch_stats(qkv, 1)
+        delta = (ak._heads(dout, 1) * ak._heads(out, 1)).sum(-1)
+        k7a_ms = cuda_ms(lambda: ak._launch_stats(qkv, 1), 5, 1)
+        k7b_ms = cuda_ms(lambda: ak._launch_bwd(qkv, dout, lse, delta, 1),
+                         3, 1)
+        fwd_ms = cuda_ms(lambda: sdpa(q, k, v), 5, 1)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                 retain_graph=True), 3, 1)
+    for name, ms, lib, cost in [("K7a", k7a_ms, fwd_ms, k7a_cost),
+                                ("K7b", k7b_ms, bwd_ms, k7b_cost)]:
+        bound, by = bound_ms(*cost(b, t, c, 1))
+        rows[name]["dsm_shape"] = {"shape": [b, t, c], "heads": 1,
+                                   "direct_ms": ms, "library_ms": lib,
+                                   "bound_ms": bound, "bound_by": by}
+        log(f"{name} at the DSM shape {[b, t, c]}: direct {ms:.3f} ms, SDPA "
+            f"{lib:.3f} ms, bound {bound:.3f} ms ({by})")
     for name, r in rows.items():
         log(f"{name} at {r['shape']}: {r['ms']:.4f} ms per call (direct "
             f"{r['direct_ms']:.4f}), plain {r['plain_ms']:.4f}, SDPA "
@@ -1196,7 +1233,7 @@ def main(argv=None):
             log(f"K3 ({b}, {t}, {c}) heads={heads}: "
                 f"max |kernel - plain| = {err:.3g}")
             if heads == 1:
-                nbytes, flops = k3_cost(b, t, c, heads)
+                bound = bound_ms(*k3_cost(b, t, c, heads))
                 k3[(t, c)] = {
                     "shape": [b, t, c], "heads": heads, "max_abs_err": err,
                     "calls_per_forward": BLOCK_MIX[(t, c)],
@@ -1205,8 +1242,7 @@ def main(argv=None):
                     "plain_ms": cuda_ms(lambda: attn_block_math(
                         *args, 32, heads)),
                     "direct_ms": cuda_ms(lambda: _launch(*args, 32, heads)),
-                    "bound_ms": bound_ms(nbytes, flops)[0],
-                    "bound_by": bound_ms(nbytes, flops)[1],
+                    "bound_ms": bound[0], "bound_by": bound[1],
                 }
 
     # -- 4. the arm on both routes, and the GroupNorm shapes of a forward ----
@@ -1328,8 +1364,8 @@ def main(argv=None):
     record["sgm_train"] = sgm
 
     # -- the kernel table ----------------------------------------------------
-    b1, f1 = k1_cost(N_SAMPLES, DIM)
-    b2, f2 = k2_cost(TRAIN_BATCH, DIM)
+    bound_k1 = bound_ms(*k1_cost(N_SAMPLES, DIM))
+    bound_k2 = bound_ms(*k2_cost(TRAIN_BATCH, DIM))
     k3_rows = list(k3.values())
     k6_rows = [k6[s] for s in BLOCK_MIX]
     for r in k6_rows:
@@ -1356,7 +1392,7 @@ def main(argv=None):
          "launches": serve_k[K1.name], "launches_per": "serve request",
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "direct_ms": k1_direct_ms,
-         "bound_ms": bound_ms(b1, f1)[0], "bound_by": bound_ms(b1, f1)[1],
+         "bound_ms": bound_k1[0], "bound_by": bound_k1[1],
          "library_ms": None, "shape": [N_SAMPLES, DIM],
          "device_ms": prof["per_launch_ms"].get(SYMBOL[K1.name]),
          "train_launches_per_step": train["launches_per_step"][K1.name],
@@ -1369,7 +1405,7 @@ def main(argv=None):
          "launches_per": "train step", "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "direct_ms": k2["direct_ms"],
-         "bound_ms": bound_ms(b2, f2)[0], "bound_by": bound_ms(b2, f2)[1],
+         "bound_ms": bound_k2[0], "bound_by": bound_k2[1],
          "library_ms": None, "shape": k2["shape"],
          "device_ms": prof_train["per_launch_ms"].get(SYMBOL[K2.name])},
         dict(mixed(k3_rows), name=K3.name, id="K3", route="cuda",
@@ -1406,14 +1442,13 @@ def main(argv=None):
              train_device_ms=unfused["train"]["profile"][
                  "per_launch_ms"].get(SYMBOL["qkv_attention"])),
         dict(k4, name="qkv_attention_flash", id="K4", route="cuda",
-             kernel="qkv_attention",
-             source="sdeflow_tpu_torch/csrc/attention.cu",
+             source="sdeflow_tpu_torch/csrc/flash_fwd.cu",
              replaces="sdeflow_tpu/ops/pallas/attention.py:201",
-             launches=long["launches"]["qkv_attention"],
+             launches=long["launches"]["qkv_attention_flash"],
              launches_per="T = 4096 AttentionBlock: no-grad forward, jvp "
              "and grad (the jvp and grad take K7a/K7b)",
              device_ms=long["profile"]["per_launch_ms"].get(
-                 SYMBOL["qkv_attention"])),
+                 SYMBOL["qkv_attention_flash"])),
         *[dict(k7[i], name=name, id=i, route="cuda",
                source=f"sdeflow_tpu_torch/csrc/{src}",
                replaces=f"sdeflow_tpu/ops/pallas/attention.py:{line}",
@@ -1423,7 +1458,7 @@ def main(argv=None):
                device_ms=sgm["profile"]["per_launch_ms"].get(SYMBOL[name]),
                device_shape=[SGM_BATCH, 4096, 64])
           for i, name, src, line in [
-              ("K7a", "qkv_attention_stats", "attention.cu", 344),
+              ("K7a", "qkv_attention_stats", "flash_fwd.cu", 344),
               ("K7b", "qkv_attention_bwd", "attention_bwd.cu", 436)]],
     ]
     for k in kernels:

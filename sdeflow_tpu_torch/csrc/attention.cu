@@ -1,4 +1,4 @@
-// K6 / K4 and K7a: the attention core, float32.
+// K6: the attention core at T <= 1024, float32.
 //
 //   for each sample b and head hh, with the head's interleaved channel slice
 //   [q_h k_h v_h] (width 3*ch) of each qkv row:
@@ -7,25 +7,17 @@
 // qkv is (B, T, 3C), the output (B, T, C) with head hh in channels
 // [hh*ch, (hh+1)*ch).
 //
-// Replaces: the Pallas kernels _attn_kernel / _attention_pallas (T <= 1024,
-// K6) and _flash_kernel / _attention_flash (T > 1024, K4) in
-// sdeflow_tpu/ops/pallas/attention.py:115-142, 152-255 (entry qkv_attention
-// :258-276), through the C entry qkv_attention_f32; and, through the entry
-// qkv_attention_stats_f32, _flash_fwd_stats_kernel / _attention_flash_stats
-// (:299-368, K7a), the forward of the reverse-mode pair, which also writes
-// lse = m + log l of the scaled scores per (sample, head, row) into
-// lse (B, heads, T) for the backward (attention_bwd.cu). The TPU keeps the
-// whole (T, T) score tile in VMEM below T = 1024 and streams 512-row KV
-// tiles above it; one kernel serves every T here, since a block's 227 KB of
-// shared memory holds neither a (T, T) tile nor 512-row tiles. K7a is the
-// same kernel body with the lse store switched on (its own symbol,
-// qkv_attention_stats_kernel, so that traces tell it from K6/K4).
+// Replaces: the Pallas kernel _attn_kernel / _attention_pallas (T <= 1024,
+// K6) in sdeflow_tpu/ops/pallas/attention.py:115-142, 225-255 (entry
+// qkv_attention :258-276), through the C entry qkv_attention_f32. The TPU
+// keeps the whole (T, T) score tile in VMEM; a block's 227 KB of shared
+// memory does not hold it, so this kernel streams key tiles. Above
+// T = 1024 (K4) and for the forward with lse (K7a) the tensor-core kernel
+// flash_fwd.cu takes over.
 //
 // Bound on the H100: bytes at the U-Net's shapes (B, 64, 64) and
 // (B, 16, 128) (qkv read and o written, 16 bytes per channel and row, against
-// 4*T flops per channel and row: 16 flops/byte at T = 64, below the fp32
-// balance point of ~20); operations at T >= 1024 (K4, and K7a, whose lse
-// adds 4 bytes per head and row).
+// 4*T flops per channel and row); operations at T = 1024.
 //
 // Design: one block of 256 threads per (sample, head, tile of 32 query
 // rows). The block's scaled Q rows sit in shared memory; keys and values
@@ -38,7 +30,8 @@
 // broadcasts), the warp takes max and sum by shuffles, and the
 // probabilities go to the warp's row of shared memory; then the lanes split
 // the head's channels (up to four each, ch <= 128) for P*V. All arithmetic
-// is fp32 on the CUDA cores; tensor cores are later work.
+// is fp32 on the CUDA cores; tensor cores, as in flash_fwd.cu, are later
+// work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,10 +55,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <bool kStats>
-__device__ __forceinline__ void attention_body(
-    const float* __restrict__ qkv, float* __restrict__ out,
-    float* __restrict__ lse, int T, int heads, int ch, float scale) {
+__global__ void __launch_bounds__(kThreads)
+qkv_attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                     int T, int heads, int ch, float scale) {
   extern __shared__ float smem[];
   const int ldk = ch + 1;
   float* qs = smem;              // kTq * ch: scaled Q rows of this tile
@@ -157,21 +149,7 @@ __device__ __forceinline__ void attention_body(
       const int c = lane + 32 * k;
       if (c < ch) o[c] = acc[r][k] / l[r];
     }
-    if (kStats && lane == 0) lse[(b * heads + hh) * T + t] = m[r] + logf(l[r]);
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-qkv_attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                     int T, int heads, int ch, float scale) {
-  attention_body<false>(qkv, out, nullptr, T, heads, ch, scale);
-}
-
-__global__ void __launch_bounds__(kThreads)
-qkv_attention_stats_kernel(const float* __restrict__ qkv,
-                           float* __restrict__ out, float* __restrict__ lse,
-                           int T, int heads, int ch, float scale) {
-  attention_body<true>(qkv, out, lse, T, heads, ch, scale);
 }
 
 template <typename Kernel, typename... Args>
@@ -194,12 +172,4 @@ extern "C" int qkv_attention_f32(const float* qkv, float* out, long long B,
                                  float scale, void* stream) {
   return launch(qkv_attention_kernel, B, T, heads, smem, stream, qkv, out, T,
                 heads, ch, scale);
-}
-
-extern "C" int qkv_attention_stats_f32(const float* qkv, float* out,
-                                       float* lse, long long B, int T,
-                                       int heads, int ch, int smem,
-                                       float scale, void* stream) {
-  return launch(qkv_attention_stats_kernel, B, T, heads, smem, stream, qkv,
-                out, lse, T, heads, ch, scale);
 }

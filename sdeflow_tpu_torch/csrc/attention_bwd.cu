@@ -1,4 +1,5 @@
-// K7b: the backward of the attention core from the forward's lse, float32.
+// K7b: the backward of the attention core from the forward's lse, on the
+// tensor cores, float32 in and out.
 //
 //   per sample b and head hh, with q_h, k_h, v_h the head's interleaved
 //   slices [q_h k_h v_h] of each qkv row (width 3*ch), s = ch^-1/4,
@@ -10,303 +11,308 @@
 //   written as dqkv (B, T, 3C) in the layout of qkv: [dq_h dk_h dv_h].
 //
 // Replaces: the Pallas kernel _flash_bwd_kernel / _attention_flash_bwd in
-// sdeflow_tpu/ops/pallas/attention.py:371-452 (K7b), the backward of the
-// reverse-mode pair whose forward is K7a (attention.cu,
+// sdeflow_tpu/ops/pallas/attention.py:371-452 (pallas_call :445), the
+// backward of the reverse-mode pair whose forward is K7a (flash_fwd.cu,
 // qkv_attention_stats_f32). The TPU runs one grid step per sample, in
-// order, keeps the whole sample's q, dO, lse and delta in VMEM and carries
-// dQ in VMEM across its 128-row key tiles while it writes each tile's dK and
-// dV. Hopper's blocks run in parallel and carry nothing between them, so
-// the one C entry launches two kernels instead, each owning what it writes:
+// order, and carries dQ in VMEM across its key tiles. Hopper's blocks run
+// in parallel and carry nothing between them, so each block owns the dK and
+// dV of its keys and adds its share of dQ into dqkv with atomics.
 //
-//  (a) dK/dV: one block of 256 threads per (sample, head, tile of 32 keys).
-//      It keeps the scaled K tile and the V tile in shared memory and
-//      loops over the query tiles of 32 rows (scaled Q, dO, lse, delta in
-//      shared memory). Warp w owns keys w, w+8, w+16, w+24 of the tile; for
-//      the scores lane i owns query i (Q and dO rows padded to ch+1 floats,
-//      so the lanes' reads fall in distinct banks; K and V reads are
-//      broadcasts) and forms s, p and dS for the warp's four keys; the p
-//      and dS rows go to the warp's rows of shared memory, and then the
-//      lanes split the head's channels (up to four each, ch <= 128) to
-//      accumulate dV += p^T dO and dK += dS^T (q s) in registers.
-//  (b) dQ: one block per (sample, head, tile of 32 queries), the same shape
-//      with the roles of queries and keys swapped: scaled Q, dO, lse and
-//      delta of the tile stay in shared memory, the K and V tiles (padded)
-//      stream through it, lane j owns key j for the scores, and the lanes
-//      split the channels to accumulate dQ += dS (k s).
+// Bound on the H100: operations. The five products are 10 T^2 ch flops per
+// head and sample, 3x that in TF32 for the split: 0.26 ms at (4, 4096, 64)
+// at 494.7 TFLOP/s dense TF32, against 0.012 ms for its 40 MB at
+// 3.35 TB/s.
 //
-// No atomics: every output element has one writer, so the result is the
-// same on every run. The two passes recompute s and dO v^T, which the TPU's
-// one pass forms once: 14 T^2 ch flops per head and sample against 10 of
-// the algorithm. Tensor cores and a single pass are later work.
+// Design, one pass: one block of 4 warps per (sample, head, 64 keys); warp
+// w owns keys 16w..16w+15. The block keeps its K rows (times s) and V rows
+// in shared memory and splits their fragments as it loads them. Query
+// tiles of Q rows (64, or 32 at the padded width W = 128, where 64 would
+// spill registers), with their dO rows, lse and delta, stream through a
+// two-stage cp.async ring (16-byte copies where ch and C are multiples of 4
+// and the tensors 16-byte aligned, 4-byte copies otherwise; zeros past T
+// and past ch). Per query tile a warp forms on mma.sync m16n8k8 in 3xTF32
+// (mma_tf32.cuh):
+//   S^T = K Q^T (times s), P^T = exp(S^T - lse), dP^T = V dO^T,
+//   dS^T = P^T o (dP^T - delta), all in registers; then
+//   dV += P^T dO and dK += dS^T Q, accumulated in registers across the
+//   tiles, with P^T and dS^T turned into A operands by quad shuffles.
+// dS^T then goes to a 64 x (rows + 8) tile over the stage's Q and dO rows,
+// which the tile no longer needs; after a barrier each warp forms a 16-row
+// slab (or half of one) of the tile's dQ = dS (K s) from it and the
+// resident K, and adds dQ*s into dqkv's q slots with
+// atomicAdd. The wrapper zeroes dqkv first. Rows past T and keys past T are
+// masked out of P. dK*s and dV have one writer, the keys' owner, which adds
+// its register accumulators into them every kFlush query tiles and restarts
+// them, so that no tensor-core accumulation chain spans more than kFlush
+// tiles (mma_tf32.cuh says why).
 //
-// Bound on the H100: operations at the U-Net's T = 4096 (10 T^2 ch flops
-// per head and sample, against 4 (7C + 2 heads) bytes per row: ~1,000
-// flops/byte at T = 4096, C = 64, far above the fp32 balance point of ~20).
-// All arithmetic is fp32 on the CUDA cores.
+// So the sum behind each dQ element is taken in an order that changes from
+// run to run (the atomics from the T/64 key blocks arrive in any order): two
+// runs on the same inputs agree to rounding, not bit for bit. dK and dV have
+// one writer each and are the same on every run.
+//
+// Shared memory: 105,472 bytes at W = 64, so two blocks (8 warps) share an
+// SM; 135,680 at W = 128 (one block).
+//
+// What it does about the limits of the two-pass CUDA-core kernel it
+// replaces: (1) all five products run on the tensor cores; (2) a
+// shared-memory load feeds a whole 16x8x8 product instead of about one FMA
+// (K and V fragments are loaded once per k-step and reused for every
+// query n-tile; rows padded to W+4 floats, the dS^T tile to rows+8, so most
+// fragment loads fall in distinct banks and the rest in two); (3) one pass:
+// s and dO v^T are formed once, 10 T^2 ch flops instead of 14, and key and
+// query tiles are 64 rows, so each Q/dO row is fetched T/64 times; (4) the
+// copy of the next query tile runs under the current tile's products.
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTile = kWarps * kRowsPerWarp;  // 32: rows of a tile
-constexpr int kChPerLane = 4;                 // head width <= 32 * kChPerLane
+constexpr int kKeys = 16 * kWarps;  // keys per block
+constexpr int kQRows = 64;          // query rows per tile
+constexpr int kQRowsWide = 32;      // ... at the padded width kWideFrom
+constexpr int kWideFrom = 128;
+constexpr int kStages = 2;
+constexpr int kPadQK = 4;  // K, V, Q and dO rows: W + 4 floats
+constexpr int kPadDS = 8;  // dS^T rows: query rows + 8 floats
+constexpr int kFlush = 4;  // query tiles between moves of dK, dV to memory
 
-struct Head {
-  const float* qkv;   // row t of the head at qkv + t * C3
-  const float* dout;  // row t of the head at dout + t * C
-  const float* lse;   // (T,) of the head
-  const float* delta;
-  float* dqkv;        // row t of the head at dqkv + t * C3
-  int t0;             // first row of this block's tile
+template <int W>
+struct Layout {
+  static constexpr int rows = W >= kWideFrom ? kQRowsWide : kQRows;
+  static constexpr int ld = W + kPadQK, lds = rows + kPadDS;
+  static constexpr int kv = 2 * kKeys * ld;               // K (scaled), V
+  static constexpr int stage = 2 * rows * ld + 2 * rows;  // Q, dO, lse, delta
+  static constexpr int floats = kv + kStages * stage;
+  static constexpr int bytes = 4 * floats;
+  // dS^T (kKeys x lds) reuses the Q and dO rows of its stage
+  static_assert(kKeys * lds <= 2 * rows * ld, "dS^T must fit its stage");
 };
 
-__device__ __forceinline__ Head head_of(const float* qkv, const float* dout,
-                                        const float* lse, const float* delta,
-                                        float* dqkv, int T, int heads,
-                                        int ch) {
-  const int ntiles = (T + kTile - 1) / kTile;
-  const int tile = (int)(blockIdx.x % ntiles);
-  const int hh = (int)((blockIdx.x / ntiles) % heads);
-  const long long b = (long long)blockIdx.x / ((long long)ntiles * heads);
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dqkv,
+                 int T, int heads, int ch, float scale, bool vec) {
+  using L = Layout<W>;
+  constexpr int R = L::rows;
+  constexpr int NQ = R / 8;  // query n-tiles of S^T; k-steps of dV, dK
+  constexpr int NO = W / 8;  // channel n-tiles of dK, dV
+  // dQ: R/16 row slabs of 16, each split over kWarps/(R/16) warps by
+  // channel n-tiles
+  constexpr int kSlabWarps = kWarps / (R / 16);
+  constexpr int NQO = NO / kSlabWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;  // the block's keys times s
+  float* vs = ks + kKeys * L::ld;
+  float* ring = vs + kKeys * L::ld;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int nk = (T + kKeys - 1) / kKeys;
+  const int kt = (int)(blockIdx.x % nk);
+  const int hh = (int)((blockIdx.x / nk) % heads);
+  const long long b = (long long)blockIdx.x / ((long long)nk * heads);
   const long long C = (long long)heads * ch, C3 = 3 * C;
   const long long stat = (b * heads + hh) * T;
-  return {qkv + b * T * C3 + hh * 3 * ch, dout + b * T * C + hh * ch,
-          lse + stat, delta + stat, dqkv + b * T * C3 + hh * 3 * ch,
-          tile * kTile};
-}
+  const float* head = qkv + b * T * C3 + hh * 3 * ch;  // row t at + t*C3
+  const float* dohead = dout + b * T * C + hh * ch;    // row t at + t*C
+  float* dhead = dqkv + b * T * C3 + hh * 3 * ch;
+  const int j0 = kt * kKeys;
+  const int nq = (T + R - 1) / R;
 
-// Rows [r0, r0 + kTile) of a head's slice at `src` + offset `off` (row
-// stride `stride`), times `mul`, into `dst` with row stride `ld`; zeros
-// past T.
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* src, long long stride,
-                                          int off, int r0, int T, int ch,
-                                          float mul) {
-  for (int i = threadIdx.x; i < kTile * ch; i += kThreads) {
-    const int r = i / ch, c = i - r * ch;
-    const int t = r0 + r;
-    dst[r * ld + c] = t < T ? src[(long long)t * stride + off + c] * mul : 0.f;
+  auto load_tile = [&](int i) {
+    float* st = ring + (i & 1) * L::stage;
+    tc::load_rows<R, W, kThreads>(st, L::ld, head, C3, i * R, T, ch, vec);
+    tc::load_rows<R, W, kThreads>(st + R * L::ld, L::ld, dohead, C, i * R, T,
+                                  ch, vec);
+    float* ls = st + 2 * R * L::ld;
+    for (int r = tid; r < R; r += kThreads) {
+      const int t = i * R + r;
+      tc::cp_async4(ls + r, lse + stat + (t < T ? t : 0), t < T);
+      tc::cp_async4(ls + R + r, delta + stat + (t < T ? t : 0), t < T);
+    }
+  };
+  load_tile(0);
+  tc::cp_async_commit();
+
+  for (int i = tid; i < kKeys * W; i += kThreads) {
+    const int r = i / W, c = i - r * W, t = j0 + r;
+    const bool ok = t < T && c < ch;
+    const float* row = head + (long long)t * C3;
+    ks[r * L::ld + c] = ok ? row[ch + c] * scale : 0.f;
+    vs[r * L::ld + c] = ok ? row[2 * ch + c] : 0.f;
   }
-}
 
-__device__ __forceinline__ void load_stats(float* ls, float* ds,
-                                           const Head& h, int r0, int T) {
-  if (threadIdx.x < kTile) {
-    const int t = r0 + threadIdx.x;
-    ls[threadIdx.x] = t < T ? h.lse[t] : 0.f;
-    ds[threadIdx.x] = t < T ? h.delta[t] : 0.f;
-  }
-}
-
-// (a) dK and dV of one tile of 32 keys.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dqkv, int T, int heads, int ch,
-                      float scale) {
-  extern __shared__ float smem[];
-  const int ld = ch + 1;
-  const long long C = (long long)heads * ch, C3 = 3 * C;
-  float* ks = smem;                          // kTile * ch: scaled K tile
-  float* vs = ks + kTile * ch;               // kTile * ch: V tile
-  float* qs = vs + kTile * ch;               // kTile * ld: scaled Q rows
-  float* dos = qs + kTile * ld;              // kTile * ld: dO rows
-  float* ls = dos + kTile * ld;              // kTile: lse of the Q rows
-  float* dls = ls + kTile;                   // kTile: delta of the Q rows
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* p = dls + kTile + warp * 2 * kRowsPerWarp * kTile;  // p rows
-  float* dsw = p + kRowsPerWarp * kTile;                     // dS rows
-
-  const Head h = head_of(qkv, dout, lse, delta, dqkv, T, heads, ch);
-  const int j0 = h.t0;
-  load_tile(ks, ch, h.qkv, C3, ch, j0, T, ch, scale);
-  load_tile(vs, ch, h.qkv, C3, 2 * ch, j0, T, ch, 1.f);
-
-  float dk[kRowsPerWarp][kChPerLane], dv[kRowsPerWarp][kChPerLane];
+  float dk[NO][4], dv[NO][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) dk[r][k] = dv[r][k] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int kr0 = warp * 16 + g;  // this lane's keys kr0 and kr0 + 8
+  const bool key_ok[2] = {j0 + kr0 < T, j0 + kr0 + 8 < T};
 
-  for (int i0 = 0; i0 < T; i0 += kTile) {
-    __syncthreads();  // K, V written; the previous tile's Q, dO, p consumed
-    load_tile(qs, ld, h.qkv, C3, 0, i0, T, ch, scale);
-    load_tile(dos, ld, h.dout, C, 0, i0, T, ch, 1.f);
-    load_stats(ls, dls, h, i0, T);
-    __syncthreads();
+  for (int it = 0; it < nq; ++it) {
+    if (it + 1 < nq) load_tile(it + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait_one();  // tile it has landed
+    __syncthreads();          // for every thread's copies (and K, V)
+    float* qs = ring + (it & 1) * L::stage;
+    const float* dos = qs + R * L::ld;
+    const float* ls = dos + R * L::ld;
+    const float* ds = ls + R;
+    float* dst = qs;  // dS^T, once Q and dO are consumed
+    const int i0 = it * R;
 
-    float s[kRowsPerWarp], dp[kRowsPerWarp];
+    float s[NQ][4], dp[NQ][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
-    const float* qr = qs + lane * ld;
-    const float* dor = dos + lane * ld;
-    for (int c = 0; c < ch; ++c) {
-      const float qv = qr[c], dov = dor[c];
+    for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int key = warp + kWarps * r;
-        s[r] = fmaf(qv, ks[key * ch + c], s[r]);
-        dp[r] = fmaf(dov, vs[key * ch + c], dp[r]);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) {
+      const int c = kk * 8 + q4;
+      const int o0 = kr0 * L::ld + c, o1 = o0 + 8 * L::ld;
+      const tc::A ka = tc::split_a(ks[o0], ks[o1], ks[o0 + 4], ks[o1 + 4]);
+      const tc::A va = tc::split_a(vs[o0], vs[o1], vs[o0 + 4], vs[o1 + 4]);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int qo = (n * 8 + g) * L::ld + c;
+        tc::mma3(s[n], ka, tc::split_b(qs[qo], qs[qo + 4]));
+        tc::mma3(dp[n], va, tc::split_b(dos[qo], dos[qo + 4]));
       }
     }
-    const bool valid = i0 + lane < T;
+    // P^T and dS^T; element e of n-tile n: key kr0 + 8(e >> 1), query
+    // n*8 + 2*q4 + (e & 1) of the tile
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float pr = valid ? expf(s[r] - ls[lane]) : 0.f;
-      p[r * kTile + lane] = pr;
-      dsw[r * kTile + lane] = pr * (dp[r] - dls[lane]);
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * q4 + (e & 1);
+        const bool ok = key_ok[e >> 1] && i0 + qi < T;
+        const float p = ok ? expf(s[n][e] * scale - ls[qi]) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - ds[qi]);
+      }
+    // dV += P^T dO and dK += dS^T Q over the tile's queries
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      const tc::A pa = tc::relayout(s[kk], lane);
+      const tc::A da = tc::relayout(dp[kk], lane);
+      const int ro = (kk * 8 + q4) * L::ld + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int o = ro + n * 8;
+        tc::mma3(dv[n], pa, tc::split_b(dos[o], dos[o + 4 * L::ld]));
+        tc::mma3(dk[n], da, tc::split_b(qs[o], qs[o + 4 * L::ld]));
+      }
     }
-    __syncwarp();
+    __syncthreads();  // every warp is done with Q and dO
 #pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < ch) {
-        for (int i = 0; i < kTile; ++i) {
-          const float qv = qs[i * ld + c], dov = dos[i * ld + c];
+    for (int n = 0; n < NQ; ++n)
 #pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            dv[r][k] = fmaf(p[r * kTile + i], dov, dv[r][k]);
-            dk[r][k] = fmaf(dsw[r * kTile + i], qv, dk[r][k]);
+      for (int e = 0; e < 4; ++e)
+        dst[(kr0 + 8 * (e >> 1)) * L::lds + n * 8 + 2 * q4 + (e & 1)] =
+            dp[n][e];
+    __syncthreads();  // dS^T complete
+    {
+      // dQ of the tile: rows 16*slab.., channel n-tiles n0.. of this warp
+      const int slab = warp / kSlabWarps, n0 = (warp % kSlabWarps) * NQO;
+      const int qr = slab * 16 + g;
+      float dq[NQO][4];
+#pragma unroll
+      for (int n = 0; n < NQO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 8; ++kk) {
+        const int key = kk * 8 + q4;
+        const float* d0 = dst + key * L::lds + qr;
+        const float* d1 = d0 + 4 * L::lds;
+        const tc::A a = tc::split_a(d0[0], d0[8], d1[0], d1[8]);
+        const int ko = key * L::ld + n0 * 8 + g;
+#pragma unroll
+        for (int n = 0; n < NQO; ++n) {
+          const int o = ko + n * 8;
+          tc::mma3(dq[n], a, tc::split_b(ks[o], ks[o + 4 * L::ld]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = i0 + qr + 8 * (e >> 1);
+          const int c = (n0 + n) * 8 + 2 * q4 + (e & 1);
+          if (t < T && c < ch)
+            atomicAdd(dhead + (long long)t * C3 + c, dq[n][e] * scale);
+        }
+    }
+    if ((it + 1) % kFlush == 0 || it + 1 == nq) {
+      // add the accumulators into this block's own dK (times s^2) and dV
+      // rows of dqkv (zero on entry) and restart them: no mma chain runs
+      // longer than kFlush tiles (mma_tf32.cuh says why)
+      const float s2 = scale * scale;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = j0 + kr0 + 8 * h;
+        float* row = dhead + (long long)t * C3;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = n * 8 + 2 * q4 + e;
+            if (t < T && c < ch) {
+              row[ch + c] += dk[n][2 * h + e] * s2;
+              row[2 * ch + c] += dv[n][2 * h + e];
+            }
+            dk[n][2 * h + e] = dv[n][2 * h + e] = 0.f;
           }
-        }
       }
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = j0 + warp + kWarps * r;
-    if (t >= T) continue;
-    float* row = h.dqkv + (long long)t * C3;
-#pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < ch) {
-        row[ch + c] = dk[r][k] * scale;
-        row[2 * ch + c] = dv[r][k];
-      }
-    }
+    __syncthreads();  // the stage and dS^T are free again
   }
 }
 
-// (b) dQ of one tile of 32 queries.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ qkv,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    float* __restrict__ dqkv, int T, int heads, int ch,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int ld = ch + 1;
-  const long long C = (long long)heads * ch, C3 = 3 * C;
-  float* qs = smem;                          // kTile * ch: scaled Q rows
-  float* dos = qs + kTile * ch;              // kTile * ch: dO rows
-  float* ks = dos + kTile * ch;              // kTile * ld: scaled K tile
-  float* vs = ks + kTile * ld;               // kTile * ld: V tile
-  float* ls = vs + kTile * ld;               // kTile: lse of the Q rows
-  float* dls = ls + kTile;                   // kTile: delta of the Q rows
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* dsw = dls + kTile + warp * kRowsPerWarp * kTile;  // dS rows
-
-  const Head h = head_of(qkv, dout, lse, delta, dqkv, T, heads, ch);
-  const int t0 = h.t0;
-  load_tile(qs, ch, h.qkv, C3, 0, t0, T, ch, scale);
-  load_tile(dos, ch, h.dout, C, 0, t0, T, ch, 1.f);
-  load_stats(ls, dls, h, t0, T);
-
-  float dq[kRowsPerWarp][kChPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) dq[r][k] = 0.f;
-
-  for (int j0 = 0; j0 < T; j0 += kTile) {
-    __syncthreads();  // Q, dO written; the previous tile's K, V, dS consumed
-    load_tile(ks, ld, h.qkv, C3, ch, j0, T, ch, scale);
-    load_tile(vs, ld, h.qkv, C3, 2 * ch, j0, T, ch, 1.f);
-    __syncthreads();
-
-    float s[kRowsPerWarp], dp[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
-    const float* kr = ks + lane * ld;
-    const float* vr = vs + lane * ld;
-    for (int c = 0; c < ch; ++c) {
-      const float kv = kr[c], vv = vr[c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int row = warp + kWarps * r;
-        s[r] = fmaf(qs[row * ch + c], kv, s[r]);
-        dp[r] = fmaf(dos[row * ch + c], vv, dp[r]);
-      }
-    }
-    const bool valid = j0 + lane < T;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp + kWarps * r;
-      const float pr = valid ? expf(s[r] - ls[row]) : 0.f;
-      dsw[r * kTile + lane] = pr * (dp[r] - dls[row]);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < ch) {
-        for (int j = 0; j < kTile; ++j) {
-          const float kv = ks[j * ld + c];
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r)
-            dq[r][k] = fmaf(dsw[r * kTile + j], kv, dq[r][k]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = t0 + warp + kWarps * r;
-    if (t >= T) continue;
-    float* row = h.dqkv + (long long)t * C3;
-#pragma unroll
-    for (int k = 0; k < kChPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < ch) row[c] = dq[r][k] * scale;
-    }
-  }
+template <int W>
+int launch_w(long long B, int T, int heads, int smem, cudaStream_t stream,
+             const float* qkv, const float* dout, const float* lse,
+             const float* delta, float* dqkv, int ch, float scale, bool vec) {
+  if (smem != Layout<W>::bytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = B * heads * ((T + kKeys - 1) / kKeys);
+  flash_bwd_kernel<W><<<(unsigned int)blocks, kThreads, smem, stream>>>(
+      qkv, dout, lse, delta, dqkv, T, heads, ch, scale, vec);
+  return (int)cudaGetLastError();
 }
+
+bool aligned16(const float* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// smem: the dK/dV kernel's dynamic shared memory (attention.py
-// bwd_smem_bytes); the dQ kernel needs one warp buffer less of it.
+// dqkv must be zero on entry (the q slots take atomic sums). smem: the
+// block's dynamic shared memory as attention.py bwd_smem_bytes computes it;
+// refused (cudaErrorInvalidValue) if it is not this file's Layout<W>::bytes.
 extern "C" int qkv_attention_bwd_f32(const float* qkv, const float* dout,
                                      const float* lse, const float* delta,
                                      float* dqkv, long long B, int T,
                                      int heads, int ch, int smem,
                                      float scale, void* stream) {
   if (B == 0 || T == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = B * heads * ((T + kTile - 1) / kTile);
-  cudaStream_t s = (cudaStream_t)stream;
-  flash_bwd_dkdv_kernel<<<(unsigned int)blocks, kThreads, smem, s>>>(
-      qkv, dout, lse, delta, dqkv, T, heads, ch, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<(unsigned int)blocks, kThreads, smem, s>>>(
-      qkv, dout, lse, delta, dqkv, T, heads, ch, scale);
-  return (int)cudaGetLastError();
+  const bool vec = ch % 4 == 0 && aligned16(qkv) && aligned16(dout);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ch <= 32)
+    return launch_w<32>(B, T, heads, smem, st, qkv, dout, lse, delta, dqkv,
+                        ch, scale, vec);
+  if (ch <= 64)
+    return launch_w<64>(B, T, heads, smem, st, qkv, dout, lse, delta, dqkv,
+                        ch, scale, vec);
+  return launch_w<128>(B, T, heads, smem, st, qkv, dout, lse, delta, dqkv, ch,
+                       scale, vec);
 }

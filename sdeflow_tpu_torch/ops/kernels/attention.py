@@ -6,23 +6,28 @@ channel slice [q_h k_h v_h] of width 3·ch of each row. Port of
 sdeflow_tpu/ops/pallas/attention.py.
 
 - ``qkv_attention`` (:258-288) goes through its ``torch.autograd.Function``
-  (ops/kernels/common.py): it launches ``csrc/attention.cu`` on CUDA
-  tensors and runs the plain version ``attention_reference`` (:106-112) on
-  CPU tensors. The one kernel replaces both TPU kernels: the single-block
-  ``_attention_pallas`` (:225-255, K6, T ≤ 1024; opt-in there under
-  ``SDEFLOW_PALLAS_NN=1``) and the flash-tiled ``_attention_flash``
-  (:201-222, K4, T > 1024). Its rules differentiate the plain math, as the
-  JAX ``custom_jvp`` differentiates ``_attention_reference`` (:279-288): at
+  (ops/kernels/common.py): on CUDA tensors it launches ``csrc/attention.cu``
+  (K6, the single-block ``_attention_pallas`` :225-255, T ≤ 1024; opt-in
+  there under ``SDEFLOW_PALLAS_NN=1``) or, above T = 1024,
+  ``csrc/flash_fwd.cu`` (K4, the flash-tiled ``_attention_flash``
+  :201-222, on the tensor cores in 3xTF32); on CPU tensors it runs the
+  plain version ``attention_reference`` (:106-112). Its rules
+  differentiate the plain math, as the JAX ``custom_jvp`` differentiates
+  ``_attention_reference`` (:279-288): at
   T ≤ 1024 the (T, T) ``attention_math`` (tangent ``attention_jvp``); above
   it the tiled ``attention_flash_math`` (:54-103), whose key tiles are
   checkpointed so that a gradient holds O(T·512) per head, and the tiled
   closed-form tangent ``attention_flash_jvp``.
 - ``flash_attention_vjp`` (:455-488) goes through the Function
-  ``FlashAttention``: its forward is ``csrc/attention.cu``'s second entry,
+  ``FlashAttention``: its forward is ``csrc/flash_fwd.cu``'s second entry,
   K7a (``_attention_flash_stats`` :344-368), which also writes the per-row
   log-sum-exp of the scaled scores; its backward is ``csrc/attention_bwd.cu``,
-  K7b (``_attention_flash_bwd`` :436-452), from the saved lse and
-  Δ = rowsum(dO∘O); its jvp is ``attention_flash_jvp``. On CPU tensors the
+  K7b (``_attention_flash_bwd`` :436-452), one pass from the saved lse and
+  Δ = rowsum(dO∘O) whose dQ sums arrive by atomics (so two runs agree to
+  rounding, not bit for bit); its jvp is ``attention_flash_jvp``. K4, K7a
+  and K7b form every product on the tensor cores in 3xTF32 (fp32 split
+  into two TF32 halves, three products), close enough to fp32 that the
+  tolerances against the plain fp32 versions stand. On CPU tensors the
   plain versions ``attention_flash_stats_math`` and
   ``attention_flash_bwd_math`` run.
 - ``attention_core`` (:491-502), the AttentionBlock's entry point, sends
@@ -61,8 +66,13 @@ K6 = common.register(common.Kernel(
     {"qkv_attention_f32": [_P, _P, ctypes.c_longlong] + [_I] * 4
      + [ctypes.c_float, _P]},
 ))
+K4 = common.register(common.Kernel(
+    "qkv_attention_flash", "flash_fwd.cu",
+    {"qkv_attention_flash_f32": [_P, _P, ctypes.c_longlong] + [_I] * 4
+     + [ctypes.c_float, _P]},
+))
 K7A = common.register(common.Kernel(
-    "qkv_attention_stats", "attention.cu",
+    "qkv_attention_stats", "flash_fwd.cu",
     {"qkv_attention_stats_f32": [_P, _P, _P, ctypes.c_longlong] + [_I] * 4
      + [ctypes.c_float, _P]},
 ))
@@ -73,7 +83,13 @@ K7B = common.register(common.Kernel(
 ))
 
 MAX_HEAD_WIDTH = 128
-_TQ, _TK, _WARPS, _ROWS_PER_WARP = 32, 32, 8, 4  # must match the .cu files
+# tile constants of the .cu files (tests/test_torch_flash_tc.py parses the
+# sources and holds these to them)
+_TQ, _TK, _WARPS, _ROWS_PER_WARP = 32, 32, 8, 4  # attention.cu (K6)
+_FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
+_BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
+_STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
+_WIDTHS = (32, 64, 128)  # the head widths the tensor-core kernels pad to
 _FLASH_SEQ_THRESHOLD = 1024  # attention.py:148
 _FLASH_KV_BLOCK = 512        # :149
 _BWD_KV_BLOCK = 128          # :295
@@ -285,13 +301,39 @@ def smem_bytes(ch):
                 + _WARPS * _ROWS_PER_WARP * _TK)
 
 
+def _padded_width(ch):
+    """The width W ≥ ch that the tensor-core kernels pad a head to (zero
+    channels past ch), one of 32, 64, 128."""
+    return next(w for w in _WIDTHS if ch <= w)
+
+
+def flash_fwd_smem_bytes(ch):
+    """Dynamic shared memory of one block of flash_fwd.cu (K4, K7a): the
+    block's 64 scaled Q rows split into big and small halves (rows of W+4
+    floats) and a two-stage ring of 64-row K tiles (W+4) and V tiles (W+8),
+    float32. 204,800 bytes at W = 128."""
+    w = _padded_width(ch)
+    return 4 * (2 * _FWD_ROWS * (w + _PAD_QK)
+                + _STAGES * _FWD_KEYS * (2 * w + _PAD_QK + _PAD_V))
+
+
+def bwd_query_rows(ch):
+    """Query rows per tile of attention_bwd.cu (K7b): 64, and 32 at the
+    padded width 128, where a 64-row tile's score, dP, dK and dV
+    accumulators would not fit the 255 registers of a thread."""
+    wide = _padded_width(ch) >= _BWD_WIDE_FROM
+    return _BWD_ROWS_WIDE if wide else _BWD_ROWS
+
+
 def bwd_smem_bytes(ch):
-    """Dynamic shared memory of one block of attention_bwd.cu (the dK/dV
-    pass; the dQ pass uses less of it): two tiles of 32 rows read by
-    broadcast (ch), two read by lane (padded to ch+1), 32 lse and 32 Δ,
-    and the p and dS rows of each (warp, row)."""
-    return 4 * (2 * _TQ * ch + 2 * _TQ * (ch + 1) + 2 * _TQ
-                + 2 * _WARPS * _ROWS_PER_WARP * _TK)
+    """Dynamic shared memory of one block of attention_bwd.cu (K7b): the
+    block's 64 keys' scaled K and V rows (W+4 floats) and a two-stage ring
+    of query tiles (Q and dO rows of W+4, lse and Δ), float32; the dSᵀ tile
+    (64 keys × rows+8) reuses its stage's Q and dO rows. 105,472 bytes at
+    W = 64 (two blocks per SM), 135,680 at W = 128."""
+    w, rows = _padded_width(ch), bwd_query_rows(ch)
+    return 4 * (2 * _BWD_KEYS * (w + _PAD_QK)
+                + _STAGES * (2 * rows * (w + _PAD_QK) + 2 * rows))
 
 
 def _checked(qkv, num_heads, what):
@@ -311,10 +353,16 @@ def _checked(qkv, num_heads, what):
 
 
 def _launch(qkv, num_heads):
+    """K6 at T ≤ 1024, K4 above it."""
     qkv, b, t, ch = _checked(qkv, num_heads, "qkv_attention")
     out = qkv.new_empty(b, t, num_heads * ch)
-    K6.launch("qkv_attention_f32", common.ptr(qkv), common.ptr(out), b, t,
-              num_heads, ch, smem_bytes(ch), _scale(qkv, num_heads))
+    args = (common.ptr(qkv), common.ptr(out), b, t, num_heads, ch)
+    if t > _FLASH_SEQ_THRESHOLD:
+        K4.launch("qkv_attention_flash_f32", *args, flash_fwd_smem_bytes(ch),
+                  _scale(qkv, num_heads))
+    else:
+        K6.launch("qkv_attention_f32", *args, smem_bytes(ch),
+                  _scale(qkv, num_heads))
     return out
 
 
@@ -324,8 +372,8 @@ def _launch_stats(qkv, num_heads):
     out = qkv.new_empty(b, t, num_heads * ch)
     lse = qkv.new_empty(b, num_heads, t)
     K7A.launch("qkv_attention_stats_f32", common.ptr(qkv), common.ptr(out),
-               common.ptr(lse), b, t, num_heads, ch, smem_bytes(ch),
-               _scale(qkv, num_heads))
+               common.ptr(lse), b, t, num_heads, ch,
+               flash_fwd_smem_bytes(ch), _scale(qkv, num_heads))
     return out, lse
 
 
@@ -339,7 +387,7 @@ def _launch_bwd(qkv, dout, lse, delta, num_heads):
             raise ValueError(f"{name}: {a.dtype} {tuple(a.shape)}, want "
                              f"float32 {want[name]}")
     dout, lse, delta = (a.contiguous() for a in (dout, lse, delta))
-    dqkv = torch.empty_like(qkv)
+    dqkv = torch.zeros_like(qkv)  # the kernel adds dQ into its q slots
     K7B.launch("qkv_attention_bwd_f32", *map(common.ptr, (
         qkv, dout, lse, delta, dqkv)), b, t, num_heads, ch,
         bwd_smem_bytes(ch), _scale(qkv, num_heads))

@@ -28,8 +28,8 @@ There is no fallback from a failed build or launch to the plain version.
 Build: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, at first use, under
 ``_build/`` beside this package's sources (git ignores it). The library's
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt. The libraries are loaded with ``ctypes``; each C entry point
+file name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt. The libraries are loaded with ``ctypes``; each C entry point
 returns ``cudaGetLastError()`` after its launch, and the wrapper raises if it
 is not 0.
 """
@@ -94,6 +94,8 @@ class Kernel:
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):  # the shared helpers
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
