@@ -28,12 +28,15 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    rtol/atol 1e-5; times it at the path's shapes beside
    torch.nn.functional.group_norm;
 6. K6 qkv_attention against attention_math at (1024, 64, 64) and
-   (1024, 16, 128) with one head and (1024, 64, 64) with four, atol 1e-5,
+   (1024, 16, 128) with one head, (1024, 64, 64) with four and the DSM
+   step's (128, 1024, 128) (there against attention_math in float64, since
+   the fp32 plain version is itself ~1e-5 off), atol 1e-5,
    and K4 (qkv_attention above T = 1024: the tensor-core kernel
    flash_fwd.cu) at (4, 4096, 64) with one and two heads and
    (2, 2048, 128), atol 2e-5 (the online softmax sums thousands of terms in
    another order than the plain softmax); times both beside
-   torch.nn.functional.scaled_dot_product_attention;
+   torch.nn.functional.scaled_dot_product_attention (K6 at the three
+   one-head shapes, the DSM step's among them);
 7. serves three requests of 1024 samples with 32 RK4 steps each on the
    auto route: finite (1024, 256) samples, every latent norm kept to rtol
    1e-5, and exactly 8·32 launches of K1, 44·32 of K3 and 140·32 of K5 per
@@ -62,9 +65,11 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
    ForwardFlow.rk4_step (kernel K2) against the generic rk4_step on the
    plain versions;
-13. autograd through the kernels: torch.func.jvp and torch.autograd.grad
-   through each kernel's Function against the plain version at the paths'
-   shapes (K1, K2 1e-6; K3, K5, K6 1e-5), and a ResBlock's gradient
+13. autograd through the kernels: torch.func.jvp, torch.autograd.grad and
+   a double backward (create_graph: the kernel's forward, the plain
+   version's differentiable backward) through each kernel's Function
+   against the plain version at the paths' shapes (K1, K2 1e-6; K3, K5, K6
+   1e-5, relative to the largest entry), and a ResBlock's gradient
    through its JVP on cuDNN and K5 against the CPU (1e-4);
 14. training on the auto route: on one batch of 128 with injected draws,
    the loss and every parameter gradient of the kernel path against the
@@ -88,14 +93,16 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    direct launches and SDPA's forward and backward at the DSM path's own
    shape (128, 4096, 64), a few calls each;
 18. DSM training of the SGM arm of _grf(128) (build_sgm_arm, random
-   weights, SmoothedGRF(128, ell 2), lr 1e-4, bare Adam; every
-   AttentionBlock on the unfused route: 5 at T = 4096, 6 at T = 1024): on
-   one batch of 8 with injected t and ε, the loss and every parameter
-   gradient against the plain path (rtol 1e-4, 1e-3·max |g|) with both
-   paths' peak memory; two Trainer(loss="dsm") steps with their ELBO
-   prints; 5 timed bare steps at batch 128 with exactly 46 K5, 6 K6, 5 K7a
-   and 5 K7b launches each (no K1-K4); one step of the plain and the kernel
-   path in turns (plain, kernel, kernel, plain) at batch 8;
+   weights, SmoothedGRF(128, ell 2), lr 1e-4, bare Adam; every AttentionBlock
+   on the unfused route: 5 at T = 4096, 6 at T = 1024): K5 timed at the
+   step's GroupNorm shapes at batch 128 beside
+   torch.nn.functional.group_norm and its bound; on one batch of 8 with
+   injected t and ε, the loss and every parameter gradient against the plain
+   path (rtol 1e-4, 1e-3·max |g|) with both paths' peak memory; two
+   Trainer(loss="dsm") steps with their ELBO prints; 5 timed bare steps at
+   batch 128 with exactly 46 K5, 6 K6, 5 K7a and 5 K7b launches each (no
+   K1-K4); one step of the plain and the kernel path in turns (plain,
+   kernel, kernel, plain) at batch 8;
 19. traces one DSM step at batch 128 with torch.profiler.
 
 Ends with the kernel table as one JSON line (per call through the
@@ -150,7 +157,9 @@ K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
 BLOCK_MIX = {(64, 64): 5, (16, 128): 6}  # AttentionBlocks per forward
 # (B, C, S, groups): slabs of 15, 15 and 8,192 floats (the strided path)
 K5_ODD = [(3, 5, 7, 5), (2, 10, 3, 2), (2, 64, 4096, 32)]
-K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
+K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
+             (128, 1024, 128, 1)]
+K6_DSM = (1024, 128)  # (T, C) of K6 on the DSM step: its 32x32 level
 K4_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
 LONG_BLOCK = (4, 64, 64, 64)  # (B, C, H, W): T = 4096
 # K7a/K7b: the T = 4096 blocks' shape, two heads, a head width of 128 and a
@@ -393,8 +402,9 @@ def launch_counts():
     return {k.name: k.launches for k in common.KERNELS.values()}
 
 
-def gn_mix(model, dev):
-    """(C, S, silu) of every GroupNorm32 call of one forward, counted."""
+def gn_mix(model, dev, x=None):
+    """(C, S, silu) of every GroupNorm32 call of one forward on x (two
+    grf16 latents unless given), counted."""
     from sdeflow_tpu_torch.models.common import GroupNorm32
 
     seen = collections.Counter()
@@ -406,7 +416,9 @@ def gn_mix(model, dev):
              if isinstance(m, GroupNorm32)]
     try:
         with torch.no_grad():
-            model(torch.randn(2, DIM, device=dev), torch.rand(2, device=dev))
+            if x is None:
+                x = torch.randn(2, DIM, device=dev)
+            model(x, torch.rand(x.shape[0], device=dev))
     finally:
         for h in hooks:
             h.remove()
@@ -419,6 +431,37 @@ def weighted(rows, key):
     return sum(r[key] * r["calls_per_forward"] for r in rows) / n
 
 
+def gn_args(g, dev, b, c, s, groups):
+    return (2.0 * torch.randn(b, c, s, generator=g, device=dev) + 0.5,
+            1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
+            0.1 * torch.randn(c, generator=g, device=dev), groups)
+
+
+def k5_rows(g, dev, mix, b, iters=50):
+    """K5's times at each (C, S, silu) of a forward's GroupNorm mix at
+    batch b, beside its plain version, torch.nn.functional.group_norm and
+    the bound."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
+
+    rows = []
+    with torch.no_grad():
+        for (c, s, silu), n in sorted(mix.items()):
+            x, gamma, beta, groups = a = gn_args(g, dev, b, c, s,
+                                                 group_count(c))
+            bound, by = bound_ms(*k5_cost(b, c, s, silu))
+            rows.append({
+                "shape": [b, c, s], "silu": silu, "calls_per_forward": n,
+                "ms": cuda_ms(lambda: gnk.group_norm_silu(*a, silu), iters),
+                "direct_ms": cuda_ms(lambda: gnk._launch(*a, silu), iters),
+                "plain_ms": cuda_ms(lambda: gnk.gn_math(*a, silu), iters),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.group_norm(
+                    x, groups, gamma, beta, eps=1e-5), iters),
+                "bound_ms": bound, "bound_by": by})
+            del x, gamma, beta, a
+    return rows
+
+
 def check_k5(g, dev, mixes):
     """Phase 5: K5 against gn_math at every GroupNorm shape of both routes
     and at odd sizes; times at the auto route's shapes."""
@@ -426,9 +469,7 @@ def check_k5(g, dev, mixes):
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
     def args(b, c, s, groups):
-        return (2.0 * torch.randn(b, c, s, generator=g, device=dev) + 0.5,
-                1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
-                0.1 * torch.randn(c, generator=g, device=dev), groups)
+        return gn_args(g, dev, b, c, s, groups)
 
     shapes = sorted({(c, s) for mix in mixes for c, s, _ in mix})
     cases = [(N_SAMPLES, c, s, group_count(c)) for c, s in shapes] + K5_ODD
@@ -445,20 +486,8 @@ def check_k5(g, dev, mixes):
         log(f"K5 at {len(cases)} shapes (B = {N_SAMPLES}: {shapes}; odd "
             f"{K5_ODD}), SiLU on and off: max |kernel - plain| = "
             f"{worst:.3g} (tolerance 1e-5)")
-        rows = []
-        for (c, s, silu), n in sorted(mixes[0].items()):
-            x, gamma, beta, groups = a = args(N_SAMPLES, c, s, group_count(c))
-            bound, by = bound_ms(*k5_cost(N_SAMPLES, c, s, silu))
-            rows.append({
-                "shape": [N_SAMPLES, c, s], "silu": silu,
-                "calls_per_forward": n,
-                "ms": cuda_ms(lambda: gnk.group_norm_silu(*a, silu)),
-                "direct_ms": cuda_ms(lambda: gnk._launch(*a, silu)),
-                "plain_ms": cuda_ms(lambda: gnk.gn_math(*a, silu)),
-                "library_ms": cuda_ms(lambda: torch.nn.functional.group_norm(
-                    x, groups, gamma, beta, eps=1e-5)),
-                "bound_ms": bound, "bound_by": by})
-    return {"max_abs_err": worst, "per_shape": rows}
+    return {"max_abs_err": worst,
+            "per_shape": k5_rows(g, dev, mixes[0], N_SAMPLES)}
 
 
 def sdpa_args(qkv, heads):
@@ -483,6 +512,15 @@ def check_k6(g, dev):
             torch.cuda.synchronize()
             ref = ak.attention_math(qkv, heads)
             tol = 2e-5 if t > 1024 else 1e-5
+            if (t, c) == K6_DSM:
+                # here the fp32 plain version is itself about 1e-5 from the
+                # float64 one: hold the kernel to the plain version run in
+                # float64, and print how far the fp32 one is
+                ref32 = ref
+                ref = ak.attention_math(qkv.double(), heads).float()
+                log(f"  plain fp32 at {[b, t, c]}: max |plain - float64| = "
+                    f"{(ref32 - ref).abs().max().item():.3g}")
+                del ref32
             torch.testing.assert_close(out, ref, rtol=0, atol=tol)
             err = (out - ref).abs().max().item()
             if t > 1024:
@@ -491,17 +529,23 @@ def check_k6(g, dev):
                 f" max |kernel - plain| = {err:.3g} (tolerance {tol:g})")
             if heads != 1 or (b, t, c, heads) == K4_SHAPES[2]:
                 continue
+            iters = 50 if b * t * t <= 2**24 else 10
             q, k, v = sdpa_args(qkv, heads)
             lib = sdpa(q, k, v).permute(0, 2, 1, 3).reshape(b, t, c)
             bound, by = bound_ms(*k6_cost(b, t, c, heads))
             rows[(t, c)] = {
                 "shape": [b, t, c], "heads": heads, "max_abs_err": err,
                 "library_max_abs_diff": (lib - ref).abs().max().item(),
-                "ms": cuda_ms(lambda: ak.qkv_attention(qkv, heads)),
-                "direct_ms": cuda_ms(lambda: ak._launch(qkv, heads)),
-                "plain_ms": cuda_ms(lambda: ak.attention_math(qkv, heads)),
-                "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
+                "ms": cuda_ms(lambda: ak.qkv_attention(qkv, heads), iters),
+                "direct_ms": cuda_ms(lambda: ak._launch(qkv, heads), iters),
+                "plain_ms": cuda_ms(lambda: ak.attention_math(qkv, heads),
+                                    iters),
+                "library_ms": cuda_ms(lambda: sdpa(q, k, v), iters),
                 "bound_ms": bound, "bound_by": by}
+            r = rows[(t, c)]
+            log(f"{'K4' if t > 1024 else 'K6'} at {[b, t, c]}: direct "
+                f"{r['direct_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
     rows[K4_SHAPES[0][1:3]]["max_abs_err"] = long_err  # over every K4 shape
     return rows
 
@@ -572,10 +616,25 @@ def block_args(g, dev, b, t, c):
             0.1 * torch.randn(c, generator=g, device=dev)]
 
 
+def double_backward(fn, args, seed):
+    """∂/∂args of <∂L/∂args[0], v> with L = Σ c·fn(args)² (c, v random):
+    a second reverse pass, through create_graph."""
+    gen = torch.Generator(device=args[0].device).manual_seed(seed)
+    xs = [a.detach().requires_grad_() for a in args]
+    out = fn(*xs)
+    cot = torch.randn(out.shape, generator=gen, device=out.device)
+    (g0,) = torch.autograd.grad((cot * out**2).sum(), xs[0],
+                                create_graph=True)
+    v = torch.randn(g0.shape, generator=gen, device=g0.device)
+    return torch.autograd.grad((g0 * v).sum(), xs, allow_unused=True,
+                               materialize_grads=True)
+
+
 def check_autograd(g, dev):
-    """Phase 13: jvp and grad through each kernel's Function (kernel
-    forward, plain rules) against the plain version; a ResBlock's gradient
-    through its JVP on cuDNN and K5 against the CPU."""
+    """Phase 13: jvp, grad and a double backward through each kernel's
+    Function (kernel forward, plain rules; the second pass through the
+    differentiable plain backward) against the plain version; a ResBlock's
+    gradient through its JVP on cuDNN and K5 against the CPU."""
     from sdeflow_tpu_torch.models.unet2d import ResBlock
     from sdeflow_tpu_torch.ops.kernels.attention import (
         attention_math, qkv_attention)
@@ -611,16 +670,17 @@ def check_autograd(g, dev):
                        0.1 * rnd(c)], 1e-5))
     errs = {}
     for name, kern, plain, args, tol in cases:
-        got = through_autograd(kern, args, 1)
-        want = through_autograd(plain, args, 1)
+        got = through_autograd(kern, args, 1) + double_backward(kern, args, 2)
+        want = (through_autograd(plain, args, 1)
+                + double_backward(plain, args, 2))
         worst = 0.0
-        for a, w in zip(got, want):  # output, tangent, each gradient
-            scale = w.abs().max().item()
+        for a, w in zip(got, want):  # output, tangent, gradients, second
+            scale = max(w.abs().max().item(), 1e-30)
             torch.testing.assert_close(a, w, rtol=tol, atol=tol * scale)
             worst = max(worst, (a - w).abs().max().item() / scale)
         errs[name] = worst
-        log(f"{name} through jvp and grad: max |Δ| / max |plain| = "
-            f"{worst:.3g} (tolerance {tol:g})")
+        log(f"{name} through jvp, grad and double backward: max |Δ| / "
+            f"max |plain| = {worst:.3g} (tolerance {tol:g})")
     # reverse over forward through cuDNN's convolutions and K5, fp32
     # without TF32
     torch.manual_seed(0)
@@ -1114,13 +1174,23 @@ def check_sgm_training(g, dev):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"SGM arm of grf{SGM_NPIXEL}: AttentionBlocks (C, T) {dict(seen)}, "
         f"all on the unfused route; {n_params} parameters")
+    # K5 at the step's own GroupNorm mix, beside F.group_norm and the bound
+    mix = gn_mix(model, dev, sampler.sample(g, 2))
+    if sum(mix.values()) != SGM_WANT["group_norm_silu"]:
+        raise AssertionError(f"DSM GroupNorms per forward: {dict(mix)}")
+    k5_dsm = k5_rows(g, dev, mix, SGM_BATCH, iters=5)
+    for r in k5_dsm:
+        log(f"K5 at {r['shape']} silu={r['silu']} x{r['calls_per_forward']}:"
+            f" direct {r['direct_ms']:.4f} ms, F.group_norm "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
     # (a) the kernel path against the plain path on one batch of 8
     b = SGM_AGREE_BATCH
     x = sampler.sample(g, b)
     draws = dict(t=gen.sample_t(g, b),
                  noise=torch.randn(b, dim, generator=g, device=dev))
-    rec = {"agreement": train_agreement(model, gen.dsm, g, x, draws, want)}
+    rec = {"agreement": train_agreement(model, gen.dsm, g, x, draws, want),
+           "k5_dsm": k5_dsm}
 
     # (b) the Trainer: two DSM steps with ELBO prints (SSM under no_grad)
     t0 = time.perf_counter()
@@ -1419,6 +1489,9 @@ def main(argv=None):
              train_device_ms=prof_train["per_launch_ms"].get(
                  SYMBOL[K3.name])),
         dict(mixed(k5["per_shape"]), name="group_norm_silu", id="K5",
+             dsm_mix=dict(mixed(sgm["k5_dsm"]),
+                          launches_per_step=sgm["launches_per_step"][
+                              "group_norm_silu"]),
              route="cuda", source="sdeflow_tpu_torch/csrc/groupnorm.cu",
              replaces="sdeflow_tpu/ops/pallas/groupnorm.py:111",
              launches=serve_k["group_norm_silu"],
@@ -1431,6 +1504,8 @@ def main(argv=None):
              train_device_ms=prof_train["per_launch_ms"].get(
                  SYMBOL["group_norm_silu"])),
         dict(mixed(k6_rows), name="qkv_attention", id="K6", route="cuda",
+             dsm_shape=dict(k6[K6_DSM], launches_per_step=sgm[
+                 "launches_per_step"]["qkv_attention"]),
              source="sdeflow_tpu_torch/csrc/attention.cu",
              replaces="sdeflow_tpu/ops/pallas/attention.py:225",
              launches=serve_u["qkv_attention"],

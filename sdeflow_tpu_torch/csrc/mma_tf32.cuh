@@ -81,6 +81,18 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a*b on a zero accumulator (no registers zeroed per call).
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  const float z = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(z));
+}
+
 // d += a*b in 3xTF32, the small terms first.
 __device__ __forceinline__ void mma3(float (&d)[4], const A& a, const B& b) {
   mma(d, a.small, b.big[0], b.big[1]);
@@ -96,6 +108,22 @@ __device__ __forceinline__ void mma3_split(float (&big)[4],
   mma(small, a.small, b.big[0], b.big[1]);
   mma(small, a.big, b.small[0], b.small[1]);
   mma(big, a.big, b.big[0], b.big[1]);
+}
+
+// acc += a*b in 3xTF32 through a fresh accumulator: the three products go
+// into d = 0 and d is added to acc in fp32 on the CUDA cores (rounded to
+// nearest), so no mma chain runs longer than three products of one k-step.
+// For the attention of K6 and K3 (attn_tile.cuh; flash_fwd.cuh's scores
+// for K6), whose absolute tolerance of 1e-5 a chain of 16 score k-steps
+// (head width 128) exceeds at T = 1024.
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const A& a,
+                                         const B& b) {
+  float d[4];
+  mma_zero(d, a.small, b.big[0], b.big[1]);
+  mma(d, a.big, b.small[0], b.small[1]);
+  mma(d, a.big, b.big[0], b.big[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
 }
 
 // The accumulator tile c (16 rows x 8 columns, C layout) as the A operand

@@ -6,8 +6,9 @@ channels-first (N, C, H, W). Submodules and parameters carry the flax names
 (``down_res0.in_conv``, ``mid_attn.qkv.kernel``, ...) so that
 models/convert.py maps a flax tree by name. Every GroupNorm is kernel K5
 (ops/kernels/groupnorm.py). An AttentionBlock on the ``"auto"`` route with
-at most 8 heads, whose shape kernel K3 holds (T ≤ 256 and a working set
-that fits one block's shared memory), is K3 (ops/kernels/attnblock.py);
+at most 8 heads, whose shape kernel K3 takes (``block_plan``: T ≤ 256 and
+a working set that fits one block's shared memory), is K3
+(ops/kernels/attnblock.py);
 otherwise it runs the unfused composition with the attention core
 K6/K4, or K7a/K7b under autograd above T = 1024
 (ops/kernels/attention.py).
@@ -25,7 +26,7 @@ from sdeflow_tpu_torch.models.common import (
     GroupNorm32, timestep_embedding)
 from sdeflow_tpu_torch.ops.kernels.attention import attention_core
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
-    MAX_HEADS, MAX_T, fused_attention_block, query_chunk)
+    MAX_HEADS, block_plan, fused_attention_block)
 
 
 def _conv3(cin, cout, stride=1, bias=True):
@@ -118,7 +119,8 @@ class AttentionBlock(nn.Module):
     qkv → attention → proj → residual (sdeflow_tpu/models/unet2d.py:
     227-272). ``attention_impl="auto"`` with at most 8 heads (``fused``)
     runs the whole block as one call of kernel K3 when K3 holds the shape:
-    T ≤ 256 and ``query_chunk`` finds a chunk. Otherwise, and on
+    ``block_plan`` finds one (T ≤ 256 and the working set of the
+    CUDA-core design it replaced within one block). Otherwise, and on
     ``"unfused"``, it runs module by module: GroupNorm32 (K5), the qkv
     product, the attention core (ops/kernels/attention.py) and the output
     product, the same function as the JAX package's plain composition for
@@ -144,8 +146,8 @@ class AttentionBlock(nn.Module):
     def forward(self, x):
         n, c, h, w = x.shape
         t = h * w
-        if (self.fused and t <= MAX_T
-                and query_chunk(t, c, self.norm.groups) is not None):
+        if (self.fused and block_plan(t, c, self.norm.groups,
+                                      self.num_heads) is not None):
             x_flat = x.reshape(n, c, t).transpose(1, 2)  # (N, T, C)
             out = fused_attention_block(
                 x_flat, self.norm.scale, self.norm.bias, self.qkv.kernel,

@@ -8,11 +8,14 @@ sdeflow_tpu/ops/pallas/attention.py.
 - ``qkv_attention`` (:258-288) goes through its ``torch.autograd.Function``
   (ops/kernels/common.py): on CUDA tensors it launches ``csrc/attention.cu``
   (K6, the single-block ``_attention_pallas`` :225-255, T ≤ 1024; opt-in
-  there under ``SDEFLOW_PALLAS_NN=1``) or, above T = 1024,
+  there under ``SDEFLOW_PALLAS_NN=1``; on the tensor cores in 3xTF32, each
+  (sample, head) whole in shared memory up to T = 64 and flash_fwd.cuh's
+  tiles above) or, above T = 1024,
   ``csrc/flash_fwd.cu`` (K4, the flash-tiled ``_attention_flash``
   :201-222, on the tensor cores in 3xTF32); on CPU tensors it runs the
   plain version ``attention_reference`` (:106-112). Its rules
-  differentiate the plain math, as the JAX ``custom_jvp`` differentiates
+  differentiate the plain math (to any order, ops/kernels/common.py), as
+  the JAX ``custom_jvp`` differentiates
   ``_attention_reference`` (:279-288): at
   T ≤ 1024 the (T, T) ``attention_math`` (tangent ``attention_jvp``); above
   it the tiled ``attention_flash_math`` (:54-103), whose key tiles are
@@ -24,8 +27,8 @@ sdeflow_tpu/ops/pallas/attention.py.
   log-sum-exp of the scaled scores; its backward is ``csrc/attention_bwd.cu``,
   K7b (``_attention_flash_bwd`` :436-452), one pass from the saved lse and
   Δ = rowsum(dO∘O) whose dQ sums arrive by atomics (so two runs agree to
-  rounding, not bit for bit); its jvp is ``attention_flash_jvp``. K4, K7a
-  and K7b form every product on the tensor cores in 3xTF32 (fp32 split
+  rounding, not bit for bit); its jvp is ``attention_flash_jvp``. K6, K4,
+  K7a and K7b form every product on the tensor cores in 3xTF32 (fp32 split
   into two TF32 halves, three products), close enough to fp32 that the
   tolerances against the plain fp32 versions stand. On CPU tensors the
   plain versions ``attention_flash_stats_math`` and
@@ -85,7 +88,7 @@ K7B = common.register(common.Kernel(
 MAX_HEAD_WIDTH = 128
 # tile constants of the .cu files (tests/test_torch_flash_tc.py parses the
 # sources and holds these to them)
-_TQ, _TK, _WARPS, _ROWS_PER_WARP = 32, 32, 8, 4  # attention.cu (K6)
+_K6_WARPS, _K6_SHORT_T, _K6_KEYS = 4, 64, 32    # attention.cu (K6)
 _FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
 _BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
 _STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
@@ -293,14 +296,6 @@ def attention_flash_bwd_math(qkv, dout, lse, delta, num_heads):
                              torch.cat(dvs, dim=2)], dim=-1))
 
 
-def smem_bytes(ch):
-    """Dynamic shared memory of one block of attention.cu: the Q rows
-    (32·ch), the K tile padded to ch+1, the V tile and one row of
-    probabilities per (warp, query row), float32."""
-    return 4 * (_TQ * ch + _TK * (ch + 1) + _TK * ch
-                + _WARPS * _ROWS_PER_WARP * _TK)
-
-
 def _padded_width(ch):
     """The width W ≥ ch that the tensor-core kernels pad a head to (zero
     channels past ch), one of 32, 64, 128."""
@@ -315,6 +310,23 @@ def flash_fwd_smem_bytes(ch):
     w = _padded_width(ch)
     return 4 * (2 * _FWD_ROWS * (w + _PAD_QK)
                 + _STAGES * _FWD_KEYS * (2 * w + _PAD_QK + _PAD_V))
+
+
+def smem_bytes(t, ch):
+    """Dynamic shared memory of one block of attention.cu (K6): above
+    T = 64, flash_fwd.cuh's K6 variant: the block's 64 raw scaled Q rows
+    (W+4 floats) and a two-stage ring of 32-row K (W+4) and V (W+8) tiles,
+    102,400 bytes at W = 128; up to T = 64, per unit (sample, head) packed
+    into the block (4 warps of 16 query rows: 4 units at T ≤ 16, 2 at
+    T ≤ 32, else 1), T rounded up to 16 rows of Q and K (w + 4 floats) and
+    of V (w + 8), w = ch rounded up to 8."""
+    if t > _K6_SHORT_T:
+        w = _padded_width(ch)
+        return 4 * (_FWD_ROWS * (w + _PAD_QK)
+                    + _STAGES * _K6_KEYS * (2 * w + _PAD_QK + _PAD_V))
+    tp, w = -(-t // 16) * 16, -(-ch // 8) * 8
+    units = _K6_WARPS // (tp // 16)
+    return 4 * units * tp * (2 * (w + _PAD_QK) + w + _PAD_V)
 
 
 def bwd_query_rows(ch):
@@ -361,7 +373,7 @@ def _launch(qkv, num_heads):
         K4.launch("qkv_attention_flash_f32", *args, flash_fwd_smem_bytes(ch),
                   _scale(qkv, num_heads))
     else:
-        K6.launch("qkv_attention_f32", *args, smem_bytes(ch),
+        K6.launch("qkv_attention_f32", *args, smem_bytes(t, ch),
                   _scale(qkv, num_heads))
     return out
 
@@ -394,8 +406,16 @@ def _launch_bwd(qkv, dout, lse, delta, num_heads):
     return dqkv
 
 
+def _checkpointed(qkv, num_heads):
+    """True where ``attention_reference`` runs the checkpointed tiled math
+    (``attention_flash_math`` with T % 512 == 0 above T = 1024)."""
+    t = qkv.shape[1]
+    return t > _FLASH_SEQ_THRESHOLD and t % _FLASH_KV_BLOCK == 0
+
+
 QKVAttention = common.kernel_function(
-    "QKVAttention", attention_reference, _launch, attention_tangent, 1)
+    "QKVAttention", attention_reference, _launch, attention_tangent, 1,
+    _checkpointed)
 
 
 def qkv_attention(qkv, num_heads=1):

@@ -7,10 +7,16 @@ every kernel wrapper in this package: the device alone decides.
   (``kernel_function`` below). Its ``forward`` launches the kernel on CUDA
   tensors and runs the plain PyTorch version on CPU tensors (the CPU tests
   and nothing else take that branch).
-- Its ``backward`` is the plain version's vector-Jacobian product, taken
-  by autograd on detached copies of the saved inputs (``torch.func.vjp``
-  would refuse the checkpoints of the attention core's tiled plain version
-  above T = 1024). Its forward-mode rule ``jvp`` is a closed form
+- Its ``backward`` is the plain version's vector-Jacobian product. With
+  grad mode off (every training path) autograd takes it on detached copies
+  of the saved inputs. With grad mode on (``create_graph=True``, or inside
+  ``torch.func.grad``) it is itself differentiable, so a second reverse
+  pass is exact, as JAX's ``custom_jvp`` rules are to any order:
+  ``torch.func.vjp`` of the plain version, or, for the attention core's
+  checkpointed tiled plain version above T = 1024 (which ``torch.func``
+  refuses), autograd with ``create_graph`` on the saved tensors; inside a
+  ``torch.func`` transform that last case raises. Its forward-mode rule
+  ``jvp`` is a closed form
   written beside each plain version (``circ_math_jvp``, ``rk4_math_jvp``,
   ``attn_block_jvp``, ``gn_math_jvp``, ``attention_jvp``), in plain
   PyTorch, as the JAX package's ``custom_jvp`` rules evaluate the plain
@@ -178,7 +184,40 @@ def use_kernel(*tensors) -> bool:
     return True
 
 
-def kernel_function(name, plain, launch, tangent, n_tensors):
+def _in_functorch(ts):
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts)
+
+
+def _differentiable_vjp(plain, ctx, grad, checkpointed):
+    """The plain version's vector-Jacobian product as a differentiable
+    function of the saved inputs and of grad (a backward under
+    create_graph, or inside torch.func): ``torch.func.vjp`` of the plain
+    version, or, where the plain version checkpoints (``torch.func``
+    refuses that), autograd with create_graph on the saved tensors
+    themselves; that last case raises inside a torch.func transform."""
+    ts = ctx.saved_tensors
+    if not checkpointed(*ts, *ctx.static):
+        _, vjp = torch.func.vjp(lambda *a: plain(*a, *ctx.static), *ts)
+        return vjp(grad)
+    if _in_functorch((*ts, grad)):
+        raise NotImplementedError(
+            f"a reverse pass inside torch.func through {ctx.name}'s "
+            "checkpointed plain version (the attention core's tiled math "
+            "above T = 1024) is not supported: torch.func refuses "
+            "checkpoints; use torch.autograd.grad(..., create_graph=True)")
+    need = [i for i, t in enumerate(ts) if t.requires_grad]
+    out = plain(*ts, *ctx.static)
+    got = (torch.autograd.grad(out, [ts[i] for i in need], grad,
+                               create_graph=True, allow_unused=True)
+           if need and out.requires_grad else [None] * len(need))
+    grads = [None] * len(ts)
+    for i, gi in zip(need, got):
+        grads[i] = gi
+    return grads
+
+
+def kernel_function(name, plain, launch, tangent, n_tensors,
+                    checkpointed=lambda *args: False):
     """A ``torch.autograd.Function`` (setup_context style, so that
     ``torch.func`` transforms it) for one kernel.
 
@@ -197,15 +236,19 @@ def kernel_function(name, plain, launch, tangent, n_tensors):
         return plain(*args)
 
     def setup_context(ctx, inputs, output):
+        ctx.name = name
         ctx.save_for_backward(*inputs[:n_tensors])
         ctx.save_for_forward(*inputs[:n_tensors])
         ctx.static = inputs[n_tensors:]
 
     def backward(ctx, grad):
-        with torch.enable_grad():
-            ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            grads = torch.autograd.grad(plain(*ts, *ctx.static), ts, grad,
-                                        allow_unused=True)
+        if torch.is_grad_enabled():  # create_graph, or inside torch.func
+            grads = _differentiable_vjp(plain, ctx, grad, checkpointed)
+        else:
+            with torch.enable_grad():
+                ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+                grads = torch.autograd.grad(plain(*ts, *ctx.static), ts,
+                                            grad, allow_unused=True)
         return (*grads, *(None,) * len(ctx.static))
 
     def jvp(ctx, *tangents):

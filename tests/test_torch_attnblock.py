@@ -51,10 +51,15 @@ def test_plain_matches_interpreted_pallas_kernel():
 
 
 def test_query_chunking_fits_shared_memory():
-    # grf16's shapes take all of T at once; T=256 at C=64 needs chunks
-    assert attnblock.query_chunk(64, 64, 32) == 64
-    assert attnblock.query_chunk(16, 128, 32) == 16
-    tq = attnblock.query_chunk(256, 64, 32)
-    assert tq == 64
-    assert attnblock.smem_bytes(256, 64, 32, tq) <= attnblock._SMEM_LIMIT
-    assert attnblock.query_chunk(256, 256, 32) is None
+    # grf16's shapes run all on chip, 1 sample of 64 rows per block at
+    # T = 64 and 2 samples at T = 16, two blocks to an SM; T = 256 at
+    # C = 64 puts qkv in scratch
+    assert attnblock.block_plan(64, 64, 32, 1) == (1, 0)
+    assert attnblock.block_plan(16, 128, 32, 1) == (2, 0)
+    assert attnblock.smem_bytes(16, 128, 32, 1, 2, 0) <= attnblock._TWO_BLOCKS
+    assert attnblock.block_plan(64, 64, 32, 4) == (1, 0)
+    samples, mode = attnblock.block_plan(256, 64, 32, 1)
+    assert (samples, mode) == (1, 1)
+    assert (attnblock.smem_bytes(256, 64, 32, 1, samples, mode)
+            <= attnblock._SMEM_LIMIT)
+    assert attnblock.block_plan(256, 256, 32, 1) is None

@@ -1,5 +1,6 @@
-"""The tensor-core attention kernels (csrc/flash_fwd.cu: K4, K7a;
-csrc/attention_bwd.cu: K7b) on the CPU, where they cannot run: the
+"""The tensor-core attention kernels (csrc/flash_fwd.cu and its body
+csrc/flash_fwd.cuh: K4, K7a, and K6 above T = 64; csrc/attention_bwd.cu:
+K7b) on the CPU, where they cannot run: the
 arithmetic argument for their 3xTF32 products, their tile constants against
 the Python mirrors that size their launches, and their shared memory.
 
@@ -9,7 +10,7 @@ to nearest, ties away from zero) shows that the 3xTF32 product of a
 tests stays within 2e-6·max |float64 product|, and that one TF32 product
 does not (it is beyond 1e-4): so the kernels keep the fp32 tolerances of
 tests/test_torch_kernels_cuda.py, and plain TF32 would not.
-(b) Every ``constexpr int`` tile constant of the three attention sources
+(b) Every ``constexpr int`` tile constant of the attention sources
 against its mirror in ops/kernels/attention.py.
 (c) The shared memory of the new kernels within a block's 232,448 bytes
 for every head width 1–128, computed from the parsed constants and equal to
@@ -91,9 +92,9 @@ def _constants(name):
 
 def test_tile_constants_match_the_python_mirrors():
     k6 = _constants("attention.cu")
-    assert (k6["kTq"], k6["kTk"], k6["kWarps"], k6["kRowsPerWarp"]) == (
-        A._TQ, A._TK, A._WARPS, A._ROWS_PER_WARP)
-    fwd = _constants("flash_fwd.cu")
+    assert (k6["kWarps"], k6["kShortT"]) == (A._K6_WARPS, A._K6_SHORT_T)
+    assert (k6["kPadQK"], k6["kPadV"]) == (A._PAD_QK, A._PAD_V)
+    fwd = _constants("flash_fwd.cuh")
     assert (fwd["kRows"], fwd["kKeys"]) == (A._FWD_ROWS, A._FWD_KEYS)
     bwd = _constants("attention_bwd.cu")
     assert (bwd["kKeys"], bwd["kQRows"], bwd["kQRowsWide"],
@@ -103,16 +104,16 @@ def test_tile_constants_match_the_python_mirrors():
         assert (c["kStages"], c["kPadQK"]) == (A._STAGES, A._PAD_QK)
     assert (fwd["kPadV"], bwd["kPadDS"]) == (A._PAD_V, A._PAD_DS)
     # the widths the C entries pad to (ch <= 32, <= 64, else 128)
-    for name in ("flash_fwd.cu", "attention_bwd.cu"):
+    for name in ("flash_fwd.cu", "attention_bwd.cu", "attention.cu"):
         src = (CSRC / name).read_text()
         cuts = {int(w) for w in re.findall(r"if \(ch <= (\d+)\)", src)}
-        widths = {int(w) for w in re.findall(r"launch_w<(\d+)>", src)}
+        widths = {int(w) for w in re.findall(r"launch_w<(\d+)[,>]", src)}
         assert tuple(sorted(cuts)) + (A.MAX_HEAD_WIDTH,) == A._WIDTHS
         assert widths == set(A._WIDTHS)
 
 
 def _fwd_bytes(c, w):
-    """flash_fwd.cu's Layout<W>::bytes from its parsed constants."""
+    """flash_fwd.cuh's Layout<W>::bytes from its parsed constants."""
     ld, ldv = w + c["kPadQK"], w + c["kPadV"]
     return 4 * (2 * c["kRows"] * ld + c["kStages"] * c["kKeys"] * (ld + ldv))
 
@@ -127,7 +128,7 @@ def _bwd_bytes(c, w):
 
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
 def test_shared_memory_fits_a_block_at_every_head_width(kernel):
-    fwd, bwd = _constants("flash_fwd.cu"), _constants("attention_bwd.cu")
+    fwd, bwd = _constants("flash_fwd.cuh"), _constants("attention_bwd.cu")
     for ch in range(1, A.MAX_HEAD_WIDTH + 1):
         w = A._padded_width(ch)
         assert ch <= w and w % 8 == 0

@@ -7,19 +7,24 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 Tolerances: K1 and K2 rtol/atol 1e-6 (the kernels round each product like
 the plain versions; only FMA-free reordering could differ); K3 rtol/atol
-1e-5 (fp32 sums in another order; TF32 is off for the plain version's
-matmuls); K5 rtol/atol 1e-5 (per-warp sums in another order than
-PyTorch's reductions); K6 atol 1e-5, K4 (T > 1024) 2e-5 (the online
-softmax sums thousands of terms in another order than the plain version's
-softmax; K4's products are 3xTF32 on the tensor cores, within ~2^-21 of
-each fp32 product, tests/test_torch_flash_tc.py). Through autograd, the
-jvp and the gradient of each Function (the kernel's forward, the plain
-version's rules) against the plain version with the same tolerances.
-K7a: the output within 2e-5·max |plain| (as K4) and lse within 1e-5; K7b: dqkv within 1e-4·max |plain| (each element sums
-T terms in another order; its dQ sums arrive by atomics, so two runs on the
-same inputs agree within that tolerance, not bit for bit). The cases cover
-the tensor-core kernels' edges: T past 1024 that is not a multiple of 64,
-head widths that are not multiples of 8 (20) or 4, ch = 8, and 4 heads.
+1e-5 (its four products in 3xTF32 on the tensor cores, within ~2^-21 of each
+fp32 product, tests/test_torch_attn_tc.py; TF32 is off for the plain
+version's matmuls); K5 rtol/atol 1e-5 (per-warp sums in another order than
+PyTorch's reductions); K6 atol 1e-5, K4 (T > 1024) 2e-5 (the online softmax
+sums thousands of terms in another order than the plain version's softmax;
+K6's and K4's products are 3xTF32 on the tensor cores, within ~2^-21 of each
+fp32 product, tests/test_torch_flash_tc.py). Through autograd, the jvp and
+the gradient of each Function (the kernel's forward, the plain version's
+rules) against the plain version with the same tolerances. K7a: the output
+within 2e-5·max |plain| (as K4) and lse within 1e-5; K7b: dqkv within
+1e-4·max |plain| (each element sums T terms in another order; its dQ sums
+arrive by atomics, so two runs on the same inputs agree within that
+tolerance, not bit for bit). The cases cover the tensor-core kernels' edges:
+T past 1024 that is not a multiple of 64, head widths that are not multiples
+of 8 (20) or 4, ch = 8, and 4 heads; K6 at T = 1, 15, 16, 17, 64, 1000 and
+1024 (units packed 4, 2 or 1 to a block up to T = 64, tiles above); K3 with
+qkv in scratch (T = 256 at C = 64) and at B not a multiple of its samples
+per block.
 """
 
 import numpy as np
@@ -165,6 +170,16 @@ def test_attention_block_kernel_matches_plain(dev, b, t, c, heads):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,t,c,heads", [
+    (3, 256, 64, 8), (5, 16, 128, 1), (7, 16, 64, 8), (3, 17, 32, 4),
+    (3, 2, 2048, 4), (2, 1, 4096, 8)])
+def test_attention_block_kernel_edges(dev, b, t, c, heads):
+    # T = 256 at C = 64 and T = 2 at C = 2048 put qkv in device-memory
+    # scratch (mode 1), T = 1 at C = 4096 h too (mode 2); B not a multiple
+    # of the samples per block (2 at T = 16); head widths 8
+    test_attention_block_kernel_matches_plain(dev, b, t, c, heads)
+
+
 def test_attention_block_kernel_rejects_what_it_does_not_cover(dev):
     args = _block_args(np.random.default_rng(2), 2, 512, 32, dev)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="T <="):
@@ -215,6 +230,24 @@ def test_attention_kernel_matches_plain(dev, b, t, c, heads):
         ref = attention_math(qkv, heads)
     tol = 2e-5 if t > 1024 else 1e-5  # K4's tiled online softmax above
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 64, 1000, 1024])
+@pytest.mark.parametrize("heads,ch", [(1, 64), (4, 16), (8, 8), (1, 128)])
+def test_attention_kernel_short_and_tiled_edges(dev, t, heads, ch):
+    # K6's short-sequence design up to T = 64 (4, 2 or 1 units per block),
+    # the tiled one above. Against the plain version in float64: at
+    # T = 1000-1024 and ch = 128 the fp32 plain version is itself about
+    # 1e-5 from it (chip_smoke.py phase 6 prints both at (128, 1024, 128))
+    qkv = (1.5 * _rand(np.random.default_rng(4), 3, t, 3 * heads * ch)).to(
+        dev)
+    with torch.no_grad():
+        before = K6.launches
+        out = qkv_attention(qkv, heads)
+        torch.cuda.synchronize()
+        assert K6.launches == before + 1
+        ref = attention_math(qkv.double(), heads)
+    torch.testing.assert_close(out.double(), ref, rtol=0, atol=1e-5)
 
 
 def test_attention_kernel_rejects_what_it_does_not_cover(dev):
