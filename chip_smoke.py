@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--gn]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -11,8 +11,9 @@ norm-corrected RK4 and SSM training at batch 128, each on the U-Net's
 (GroupNorm K5, the attention core K6, two products); the unfused
 AttentionBlock at a long sequence (kernel K4, and the reverse-mode pair
 K7a/K7b under autograd); and denoising-score-matching training of the SGM
-arm of the grf U-Net on 128×128 images at batch 128 (K5, K6, K7a, K7b). It
-holds every CUDA kernel of those paths against its plain PyTorch version:
+arm of the grf U-Net on 128×128 images at batch 128 (K5, K5b, K6, K7a,
+K7b; K5b is GroupNorm's backward, run by every training path). It holds
+every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -23,10 +24,16 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    all weights random and non-zero, TF32 off, rtol/atol 1e-5;
 4. builds the arm (make_model, build_msgm_arm) on both routes with the same
    weights, and finds the (C, S) of every GroupNorm of one forward;
-5. K5 group_norm_silu against gn_math at each of those shapes at B = 1024,
-   SiLU on and off, and at odd sizes (slabs of 15, 15 and 8,192 floats),
-   rtol/atol 1e-5; times it at the path's shapes beside
-   torch.nn.functional.group_norm;
+5. K5 group_norm_silu against gn_math and K5b (its backward,
+   group_norm_silu_bwd) against gn_math_vjp at each of those shapes at
+   B = 1024, at each of the DSM step's at B = 128, at odd sizes and at the
+   launch plans' edges (slabs of 32 to 65,540 floats, S % 4 != 0, the
+   stream plan), SiLU on and off: K5 rtol/atol 1e-5, K5b's dx within
+   1e-5·max |dx| of the fp32 plain vjp and dγ, dβ (sums of up to 2M terms)
+   within 1e-5·max of the float64 one; times both at the auto route's
+   shapes beside PyTorch's GroupNorm forward (F.group_norm) and backward
+   (aten.native_group_norm_backward, given the forward's statistics; K5b
+   also beside the rule it replaced: autograd of the rerun gn_math);
 6. K6 qkv_attention against attention_math at (1024, 64, 64) and
    (1024, 16, 128) with one head, (1024, 64, 64) with four and the DSM
    step's (128, 1024, 128) (there against attention_math in float64, since
@@ -59,7 +66,7 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    with the block's parameters requiring grad, each against the plain path
    (output and tangent 2e-5·max |plain|, gradients 1e-4·max |g|); exactly
    3 launches of K5, 1 of K4 (the no-grad forward), 2 of K7a (the jvp, the
-   gradient's forward) and 1 of K7b; and a trace of three no-grad
+   gradient's forward), 1 of K7b and 1 of K5b; and a trace of three no-grad
    forwards;
 12. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
    and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
@@ -69,18 +76,21 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    a double backward (create_graph: the kernel's forward, the plain
    version's differentiable backward) through each kernel's Function
    against the plain version at the paths' shapes (K1, K2 1e-6; K3, K5, K6
-   1e-5, relative to the largest entry), and a ResBlock's gradient
-   through its JVP on cuDNN and K5 against the CPU (1e-4);
+   1e-5, relative to the largest entry; K5's first-order gradients
+   through K5b, exactly two launches), and a ResBlock's gradient through
+   its JVP on cuDNN and K5 against the CPU (1e-4);
 14. training on the auto route: on one batch of 128 with injected draws,
    the loss and every parameter gradient of the kernel path against the
    plain path (loss rtol 1e-4, each gradient max |Δ| ≤ 1e-3·max |g|); three
    steps of the driver's Trainer (train_msgm_arm); 20 timed bare train
-   steps with exactly 64 K2, 5 K1, 11 K3 and 35 K5 launches each; then a
+   steps with exactly 64 K2, 5 K1, 11 K3, 35 K5 and 35 K5b launches each
+   (the loss reads the score as well as its JVP); then a
    train step replayed plain, kernel, kernel, plain;
 15. traces one train step with torch.profiler, on the kernel path and on
    the plain path;
 16. training on the unfused route: the same agreement check, 10 timed bare
-   train steps with exactly 64 K2, 5 K1, 46 K5 and 11 K6 launches each,
+   train steps with exactly 64 K2, 5 K1, 46 K5, 46 K5b and 11 K6 launches
+   each,
    5 steps of each route in turns (auto, unfused, unfused, auto), and one
    traced step;
 17. K7a (flash forward with lse) and K7b (flash backward) against their
@@ -94,16 +104,18 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    shape (128, 4096, 64), a few calls each;
 18. DSM training of the SGM arm of _grf(128) (build_sgm_arm, random
    weights, SmoothedGRF(128, ell 2), lr 1e-4, bare Adam; every AttentionBlock
-   on the unfused route: 5 at T = 4096, 6 at T = 1024): K5 timed at the
-   step's GroupNorm shapes at batch 128 beside
-   torch.nn.functional.group_norm and its bound; on one batch of 8 with
+   on the unfused route: 5 at T = 4096, 6 at T = 1024): K5 and K5b timed
+   at the step's GroupNorm shapes at batch 128 beside
+   PyTorch's GroupNorm forward and backward, K5b's old rule
+   and the bounds; on one batch of 8 with
    injected t and ε, the loss and every parameter gradient against the plain
    path (rtol 1e-4, 1e-3·max |g|) with both paths' peak memory; two
    Trainer(loss="dsm") steps with their ELBO prints; 5 timed bare steps at
-   batch 128 with exactly 46 K5, 6 K6, 5 K7a and 5 K7b launches each (no
-   K1-K4); one step of the plain and the kernel path in turns (plain,
-   kernel, kernel, plain) at batch 8;
-19. traces one DSM step at batch 128 with torch.profiler.
+   batch 128 with exactly 46 K5, 46 K5b, 6 K6, 5 K7a and 5 K7b launches
+   each (no K1-K4); one step of the plain and the kernel path in turns
+   (plain, kernel, kernel, plain) at batch 8;
+19. traces one DSM step at batch 128 with torch.profiler, with the device
+   time under GroupNormSiLUBackward.
 
 Ends with the kernel table as one JSON line (per call through the
 autograd.Function and as a direct launch, device time, bound, plain
@@ -114,7 +126,8 @@ three times over 494.7 TFLOP/s dense TF32, and the other flops over
 {"ok": true, "device": {...}} as the last line. Exits non-zero without a
 CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
-top kernels) as JSON to PATH.
+top kernels) as JSON to PATH. With --gn, only builds the kernels and times
+K5 and K5b at both GroupNorm mixes, with one traced DSM step.
 """
 
 from __future__ import annotations
@@ -155,8 +168,18 @@ TIMED_STEPS_UNFUSED = 10
 K1_PER_TRAIN, K2_PER_TRAIN = 5, 64
 K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
 BLOCK_MIX = {(64, 64): 5, (16, 128): 6}  # AttentionBlocks per forward
-# (B, C, S, groups): slabs of 15, 15 and 8,192 floats (the strided path)
+# (B, C, S, groups): slabs of 15, 15 and 8,192 floats (a cluster of two)
 K5_ODD = [(3, 5, 7, 5), (2, 10, 3, 2), (2, 64, 4096, 32)]
+# the launch plans' edges (groupnorm.launch_plan): slabs of n = S floats
+# just below and above each threshold of the lanes per slab (32, 64), the
+# vectors per lane (128, 1,024), the cluster size (8,192, 16,384) and the
+# stream plan (65,536, beyond a cluster's registers); S % 4 != 0 (1,023,
+# 1,025 and 33,333 floats, the last streamed); a cluster block ending inside
+# a channel (C/G = 2, S = 4,100); 8-lane slabs past the last whole block
+K5_EDGES = [(3, 32, s, 32) for s in (32, 36, 64, 68, 128, 132, 1024, 1028,
+                                     8192, 8196, 16384, 16388, 65536, 65540,
+                                     1023, 1025, 33333)] + [
+    (2, 64, 4100, 32), (3, 10, 16, 5)]
 K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
              (128, 1024, 128, 1)]
 K6_DSM = (1024, 128)  # (T, C) of K6 on the DSM step: its 32x32 level
@@ -170,17 +193,29 @@ K7_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1),
 # batch; AttentionBlocks per forward at (C, H·W): 5 at T = 4096, 6 at 1024
 SGM_NPIXEL, SGM_BATCH, SGM_AGREE_BATCH, SGM_TIMED_STEPS = 128, 128, 8, 5
 SGM_BLOCKS = {(64, 4096): 5, (128, 1024): 6}
-SGM_WANT = {"group_norm_silu": 46, "qkv_attention": 6,
+# (C, S, silu) -> GroupNorm32 calls per forward of that U-Net (32 groups)
+SGM_GN_MIX = {(32, 4096, True): 1, (32, 16384, True): 8, (64, 1024, True): 1,
+              (64, 4096, False): 5, (64, 4096, True): 6,
+              (64, 16384, True): 2, (96, 4096, True): 1,
+              (96, 16384, True): 1, (128, 1024, False): 6,
+              (128, 1024, True): 10, (128, 4096, True): 1,
+              (192, 1024, True): 1, (192, 4096, True): 1,
+              (256, 1024, True): 2}
+SGM_WANT = {"group_norm_silu": 46, "group_norm_silu_bwd": 46,
+            "qkv_attention": 6,
             "qkv_attention_stats": 5, "qkv_attention_bwd": 5}
+# kernel symbols in traces; K5b's entry launches gn_silu_bwd_kernel_* and
+# then gn_silu_bwd_params (its dγ, dβ sums over the batch)
 KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
                   "attn_block_kernel", "gn_silu_kernel",
-                  "qkv_attention_kernel", "flash_fwd_kernel",
-                  "flash_fwd_stats_kernel", "flash_bwd_kernel")
+                  "gn_silu_bwd_kernel", "qkv_attention_kernel",
+                  "flash_fwd_kernel", "flash_fwd_stats_kernel",
+                  "flash_bwd_kernel", "gn_silu_bwd_params")
 SYMBOL = dict(zip(("circulant_apply", "circulant_rk4_step",
                    "fused_attention_block", "group_norm_silu",
-                   "qkv_attention", "qkv_attention_flash",
-                   "qkv_attention_stats", "qkv_attention_bwd"),
-                  KERNEL_SYMBOLS))
+                   "group_norm_silu_bwd", "qkv_attention",
+                   "qkv_attention_flash", "qkv_attention_stats",
+                   "qkv_attention_bwd"), KERNEL_SYMBOLS))
 
 
 def log(*a):
@@ -194,7 +229,7 @@ def per_forward(route):
             "group_norm_silu": GROUP_NORMS + (0 if fused else ATTN_BLOCKS),
             "qkv_attention": 0 if fused else ATTN_BLOCKS,
             "qkv_attention_flash": 0, "qkv_attention_stats": 0,
-            "qkv_attention_bwd": 0}
+            "qkv_attention_bwd": 0, "group_norm_silu_bwd": 0}
 
 
 def serve_want(route):
@@ -204,8 +239,12 @@ def serve_want(route):
 
 
 def train_want(route):
+    # the SSM loss reads the score (the primal) as well as its JVP, so the
+    # step's backward runs each GroupNormSiLU's reverse pass once: K5b
+    fwd = per_forward(route)
     return {"circulant_apply": K1_PER_TRAIN,
-            "circulant_rk4_step": K2_PER_TRAIN, **per_forward(route)}
+            "circulant_rk4_step": K2_PER_TRAIN, **fwd,
+            "group_norm_silu_bwd": fwd["group_norm_silu"]}
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -263,6 +302,13 @@ def k5_cost(b, c, s, silu):
     return 4 * (2 * b * c * s + 2 * c), 0, (8 + 4 * silu) * b * c * s
 
 
+def k5b_cost(b, c, s, silu):
+    # reads x, dy, gamma, beta once, writes dx, dgamma, dbeta; per element
+    # 4 flops for the statistics, 4 for x̂ and h, 4 for the sums of g and
+    # g·x̂, 6 for d, its sums and dx, 8 more for the SiLU's derivative
+    return 4 * (3 * b * c * s + 4 * c), 0, (18 + 8 * silu) * b * c * s
+
+
 def k6_cost(b, t, c, heads):
     # reads qkv (3C) and writes out (C) per row; 2·T·C each for q·kᵀ and
     # p·v per row; 2 to scale q and k, ~5 per score for the softmax
@@ -300,10 +346,12 @@ def randomize_(module, generator):
                 p.copy_(0.1 * z)
 
 
-def trace(fn):
+def trace(fn, ops=("GroupNormSiLUBackward",)):
     """Run fn() once (warm) and once under torch.profiler: device time by
-    kernel name, the device's busy time (union of kernel intervals) and
-    idle share of the traced wall time."""
+    kernel name, the device's busy time (union of kernel intervals), idle
+    share of the traced wall time, the device time of PyTorch's own
+    elementwise and reduction kernels, and that of the kernels launched
+    under each CPU op named in `ops` (outermost spans only)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -332,12 +380,27 @@ def trace(fn):
             per_launch[short] = (sum(h[0] for h in hits)
                                  / sum(h[1] for h in hits))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+
+    def outermost(e, op):
+        parent = e.cpu_parent
+        while parent is not None:
+            if op in parent.name:
+                return False
+            parent = parent.cpu_parent
+        return op in e.name
+
+    aten_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if "at::native::" in name)
+    op_ms = {op: sum(e.device_time_total for e in p.events()
+                     if e.device_type == DeviceType.CPU and outermost(e, op))
+             / 1e3 for op in ops}
     return {
         "wall_ms": wall_ms, "busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / 1e3 / wall_ms,
         "kernel_ms_total": sum(ms for ms, _ in by_name.values()),
         "kernel_launches": len(kernels),
-        "per_launch_ms": per_launch,
+        "per_launch_ms": per_launch, "op_device_ms": op_ms,
+        "aten_native_ms": aten_ms,
         "top": [{"name": n, "ms": ms, "calls": c} for n, (ms, c) in top],
     }
 
@@ -346,6 +409,10 @@ def log_trace(what, prof):
     log(f"profiled {what}: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), "
         f"{prof['kernel_launches']} kernels")
+    for op, ms in prof["op_device_ms"].items():
+        log(f"  {ms:9.3f} ms  device time under {op}")
+    log(f"  {prof['aten_native_ms']:9.3f} ms  in PyTorch's own elementwise "
+        "and reduction kernels (at::native)")
     for row in prof["top"]:
         log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
 
@@ -447,6 +514,7 @@ def k5_rows(g, dev, mix, b, iters=50):
     rows = []
     with torch.no_grad():
         for (c, s, silu), n in sorted(mix.items()):
+            torch.cuda.empty_cache()  # each shape from a released cache
             x, gamma, beta, groups = a = gn_args(g, dev, b, c, s,
                                                  group_count(c))
             bound, by = bound_ms(*k5_cost(b, c, s, silu))
@@ -462,32 +530,123 @@ def k5_rows(g, dev, mix, b, iters=50):
     return rows
 
 
-def check_k5(g, dev, mixes):
-    """Phase 5: K5 against gn_math at every GroupNorm shape of both routes
-    and at odd sizes; times at the auto route's shapes."""
+def k5b_rows(g, dev, mix, b, iters=20):
+    """K5's backward at each (C, S, silu) of a forward's GroupNorm mix at
+    batch b: GroupNormSiLU's backward alone on a retained graph (kernel
+    K5b), K5b as a direct launch, its plain version gn_math_vjp, the rule
+    it replaced (autograd of the plain forward rerun on detached inputs),
+    PyTorch's GroupNorm backward (aten.native_group_norm_backward, given
+    the forward's statistics, without the SiLU) and the bound."""
     from sdeflow_tpu_torch.models.common import group_count
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
-    def args(b, c, s, groups):
-        return gn_args(g, dev, b, c, s, groups)
+    aten = torch.ops.aten
+    rows = []
+    for (c, s, silu), n in sorted(mix.items()):
+        torch.cuda.empty_cache()  # each shape from a released cache
+        x, gamma, beta, groups = gn_args(g, dev, b, c, s, group_count(c))
+        dy = torch.randn(x.shape, generator=g, device=dev)
+        ts = [t.requires_grad_() for t in (x, gamma, beta)]
+        y = gnk.group_norm_silu(*ts, groups, silu)
+        # PyTorch's GroupNorm backward as one call, given the forward's
+        # statistics (no SiLU)
+        _, mean, rstd = aten.native_group_norm(x.detach(), gamma.detach(),
+                                               beta.detach(), b, c, s,
+                                               groups, 1e-5)
 
-    shapes = sorted({(c, s) for mix in mixes for c, s, _ in mix})
-    cases = [(N_SAMPLES, c, s, group_count(c)) for c, s in shapes] + K5_ODD
-    worst = 0.0
+        def old():
+            d = [t.detach().requires_grad_() for t in ts]
+            return torch.autograd.grad(gnk.gn_math(*d, groups, silu), d, dy)
+
+        bound, by = bound_ms(*k5b_cost(b, c, s, silu))
+        row = {"shape": [b, c, s], "silu": silu, "calls_per_forward": n,
+               "ms": cuda_ms(lambda: torch.autograd.grad(
+                   y, ts, dy, retain_graph=True), iters),
+               "old_ms": cuda_ms(old, iters),
+               "bound_ms": bound, "bound_by": by}
+        with torch.no_grad():
+            row["library_ms"] = cuda_ms(
+                lambda: aten.native_group_norm_backward(
+                    dy, x, mean, rstd, gamma, b, c, s, groups,
+                    [True, True, True]), iters)
+            row["direct_ms"] = cuda_ms(lambda: gnk._launch_vjp(
+                x, gamma, beta, groups, silu, dy), iters)
+            row["plain_ms"] = cuda_ms(lambda: gnk.gn_math_vjp(
+                x, gamma, beta, groups, silu, dy), iters)
+        rows.append(row)
+        del x, gamma, beta, dy, ts, y, mean, rstd
+    return rows
+
+
+def log_k5_rows(what, rows):
+    for r in rows:
+        old = f"old rule {r['old_ms']:.4f}, " if "old_ms" in r else ""
+        log(f"{what} at {r['shape']} silu={r['silu']} "
+            f"x{r['calls_per_forward']}: per call {r['ms']:.4f} ms, direct "
+            f"{r['direct_ms']:.4f}, plain {r['plain_ms']:.4f}, {old}"
+            f"PyTorch's {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            "ms")
+
+
+def check_k5(g, dev, mixes):
+    """Phase 5: K5 against gn_math and K5b against gn_math_vjp at every
+    GroupNorm shape of both grf16 routes (B = 1024) and of the DSM step
+    (B = 128), and at odd sizes and the launch plans' edges; both timed at
+    the auto route's shapes."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
+
+    grf = sorted({(c, s) for mix in mixes for c, s, _ in mix})
+    dsm = sorted({(c, s) for c, s, _ in SGM_GN_MIX})
+    cases = ([(N_SAMPLES, c, s, group_count(c)) for c, s in grf]
+             + [(SGM_BATCH, c, s, group_count(c)) for c, s in dsm]
+             + K5_ODD + K5_EDGES)
+    worst = dict.fromkeys(("out", "dx", "dgamma", "dbeta", "dx_abs"), 0.0)
     with torch.no_grad():
         for b, c, s, groups in cases:
-            a = args(b, c, s, groups)
+            a = gn_args(g, dev, b, c, s, groups)
+            dy = torch.randn(b, c, s, generator=g, device=dev)
             for silu in (False, True):
                 out = gnk.group_norm_silu(*a, silu)
+                grads = gnk._launch_vjp(*a, silu, dy)
                 torch.cuda.synchronize()
                 ref = gnk.gn_math(*a, silu)
                 torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-                worst = max(worst, (out - ref).abs().max().item())
-        log(f"K5 at {len(cases)} shapes (B = {N_SAMPLES}: {shapes}; odd "
-            f"{K5_ODD}), SiLU on and off: max |kernel - plain| = "
-            f"{worst:.3g} (tolerance 1e-5)")
-    return {"max_abs_err": worst,
-            "per_shape": k5_rows(g, dev, mixes[0], N_SAMPLES)}
+                worst["out"] = max(worst["out"],
+                                   (out - ref).abs().max().item())
+                del out, ref
+                # dx against the fp32 plain vjp; dγ, dβ (sums of B·S terms)
+                # against the float64 one
+                ref_dx = gnk.gn_math_vjp(*a, silu, dy)[0]
+                ref64 = gnk.gn_math_vjp(*(t.double() for t in a[:3]),
+                                        groups, silu, dy.double())[1:]
+                for name, got, want in zip(("dx", "dgamma", "dbeta"), grads,
+                                           (ref_dx, *ref64)):
+                    scale = want.abs().max().item()
+                    torch.testing.assert_close(
+                        got.to(want.dtype), want, rtol=1e-5,
+                        atol=1e-5 * scale)
+                    err = (got.to(want.dtype) - want).abs().max().item()
+                    worst[name] = max(worst[name], err / scale)
+                    if name == "dx":
+                        worst["dx_abs"] = max(worst["dx_abs"], err)
+                del grads, ref_dx, ref64
+            del a, dy
+    log(f"K5 and K5b at {len(cases)} shapes (B = {N_SAMPLES}: {grf}; B = "
+        f"{SGM_BATCH}: {dsm}; odd {K5_ODD}; edges {K5_EDGES}), SiLU on and "
+        f"off: K5 max |kernel - plain| = {worst['out']:.3g} (tolerance "
+        f"1e-5); K5b max |Δ| / max |plain|: dx {worst['dx']:.3g}, dγ "
+        f"{worst['dgamma']:.3g} and dβ {worst['dbeta']:.3g} against the "
+        "float64 plain vjp (tolerance 1e-5)")
+    rows = k5_rows(g, dev, mixes[0], N_SAMPLES)
+    log_k5_rows("K5", rows)
+    rows_b = k5b_rows(g, dev, mixes[0], N_SAMPLES)
+    log_k5_rows("K5b", rows_b)
+    return {"max_abs_err": worst["out"], "per_shape": rows,
+            "bwd_max_abs_err": worst["dx_abs"],
+            "bwd_max_rel_err": {k: worst[k] for k in ("dx", "dgamma",
+                                                      "dbeta")},
+            "bwd_per_shape": rows_b}
 
 
 def sdpa_args(qkv, heads):
@@ -642,7 +801,8 @@ def check_autograd(g, dev):
         attn_block_math, fused_attention_block)
     from sdeflow_tpu_torch.ops.kernels.circulant import (
         circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
-    from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math, group_norm_silu
+    from sdeflow_tpu_torch.ops.kernels.groupnorm import (
+        K5B, gn_math, group_norm_silu)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
@@ -670,7 +830,15 @@ def check_autograd(g, dev):
                        0.1 * rnd(c)], 1e-5))
     errs = {}
     for name, kern, plain, args, tol in cases:
+        before = K5B.launches
         got = through_autograd(kern, args, 1) + double_backward(kern, args, 2)
+        # K5's gradient (grad mode off) through K5b, and the double
+        # backward's second pass, which reaches the Function's output
+        # through the cotangent c·2·out (its own second-order terms run
+        # through the plain version's differentiable vjp)
+        if K5B.launches - before != 2 * name.startswith("K5"):
+            raise AssertionError(f"{name}: K5b launched "
+                                 f"{K5B.launches - before} times")
         want = (through_autograd(plain, args, 1)
                 + double_backward(plain, args, 2))
         worst = 0.0
@@ -1014,9 +1182,10 @@ def check_long_attention(g, dev):
     launched = launch_counts()
     want = {k: 0 for k in launched}
     # K5 in each of the three; K4 in the no-grad forward; K7a in the jvp
-    # and in the gradient's forward; K7b in the gradient's backward
+    # and in the gradient's forward; K7b and K5b in the gradient's backward
     want.update(group_norm_silu=3, qkv_attention_flash=1,
-                qkv_attention_stats=2, qkv_attention_bwd=1)
+                qkv_attention_stats=2, qkv_attention_bwd=1,
+                group_norm_silu_bwd=1)
     if launched != want:
         raise AssertionError(f"long attention launched {launched} != {want}")
     with plain_path():
@@ -1136,21 +1305,15 @@ def check_flash(g, dev):
     return rows
 
 
-def check_sgm_training(g, dev):
-    """Phases 18 and 19: the SGM arm of _grf(128) (the grf U-Net at full
-    width on 128×128 SmoothedGRF images, every AttentionBlock on the
-    unfused route) trained by DSM: the kernel path against the plain path
-    at batch 8, two Trainer steps, timed bare steps at batch 128 with their
-    launch counts, the kernel and plain paths in turns at batch 8, and a
-    traced step at batch 128."""
-    from sdeflow_tpu_torch import Trainer, build_sgm_arm
+def sgm_arm(g, dev):
+    """The SGM arm of _grf(128) with random weights: its train config, the
+    U-Net, the reverse SDE and the SmoothedGRF sampler."""
+    from sdeflow_tpu_torch import build_sgm_arm
     from sdeflow_tpu_torch.configs import _grf
     from sdeflow_tpu_torch.experiments.driver import make_data_sampler
-    from sdeflow_tpu_torch.models.unet2d import AttentionBlock
-    from sdeflow_tpu_torch.ops.kernels import common
 
     cfg = _grf(SGM_NPIXEL)
-    tc, dim = cfg.train, SGM_NPIXEL**2
+    tc = cfg.train
     if (cfg.sweep.batch_sizes[0], tc.lr, tc.attention_impl) != (
             SGM_BATCH, 1e-4, "auto"):
         raise AssertionError("grf trains at batch 128, lr 1e-4, auto route")
@@ -1158,13 +1321,28 @@ def check_sgm_training(g, dev):
     randomize_(model, g)
     with torch.no_grad():  # a gentler score head, as for the MSGM arm
         model.core.conv_out.weight.mul_(0.1)
+    return tc, model, gen, make_data_sampler(cfg, SGM_NPIXEL**2, dev)
+
+
+def check_sgm_training(g, dev):
+    """Phases 18 and 19: the SGM arm of _grf(128) (the grf U-Net at full
+    width on 128×128 SmoothedGRF images, every AttentionBlock on the
+    unfused route) trained by DSM: the kernel path against the plain path
+    at batch 8, two Trainer steps, timed bare steps at batch 128 with their
+    launch counts, the kernel and plain paths in turns at batch 8, and a
+    traced step at batch 128."""
+    from sdeflow_tpu_torch import Trainer
+    from sdeflow_tpu_torch.models.unet2d import AttentionBlock
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    tc, model, gen, sampler = sgm_arm(g, dev)
+    dim = SGM_NPIXEL**2
     want = {k: SGM_WANT.get(k, 0) for k in common.KERNELS}
     seen = collections.Counter()
     hooks = [m.register_forward_pre_hook(
         lambda mod, inp: seen.update([(inp[0].shape[1],
                                        math.prod(inp[0].shape[2:]))]))
         for m in model.modules() if isinstance(m, AttentionBlock)]
-    sampler = make_data_sampler(cfg, dim, dev)
     with torch.no_grad():
         model(sampler.sample(g, 2), torch.rand(2, device=dev))
     for h in hooks:
@@ -1174,15 +1352,15 @@ def check_sgm_training(g, dev):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"SGM arm of grf{SGM_NPIXEL}: AttentionBlocks (C, T) {dict(seen)}, "
         f"all on the unfused route; {n_params} parameters")
-    # K5 at the step's own GroupNorm mix, beside F.group_norm and the bound
+    # K5 and K5b at the step's own GroupNorm mix, beside PyTorch's GroupNorm
+    # forward and backward and the bound
     mix = gn_mix(model, dev, sampler.sample(g, 2))
-    if sum(mix.values()) != SGM_WANT["group_norm_silu"]:
+    if dict(mix) != SGM_GN_MIX:
         raise AssertionError(f"DSM GroupNorms per forward: {dict(mix)}")
     k5_dsm = k5_rows(g, dev, mix, SGM_BATCH, iters=5)
-    for r in k5_dsm:
-        log(f"K5 at {r['shape']} silu={r['silu']} x{r['calls_per_forward']}:"
-            f" direct {r['direct_ms']:.4f} ms, F.group_norm "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    log_k5_rows("K5", k5_dsm)
+    k5b_dsm = k5b_rows(g, dev, mix, SGM_BATCH, iters=5)
+    log_k5_rows("K5b", k5b_dsm)
 
     # (a) the kernel path against the plain path on one batch of 8
     b = SGM_AGREE_BATCH
@@ -1190,7 +1368,7 @@ def check_sgm_training(g, dev):
     draws = dict(t=gen.sample_t(g, b),
                  noise=torch.randn(b, dim, generator=g, device=dev))
     rec = {"agreement": train_agreement(model, gen.dsm, g, x, draws, want),
-           "k5_dsm": k5_dsm}
+           "k5_dsm": k5_dsm, "k5b_dsm": k5b_dsm}
 
     # (b) the Trainer: two DSM steps with ELBO prints (SSM under no_grad)
     t0 = time.perf_counter()
@@ -1236,10 +1414,42 @@ def check_sgm_training(g, dev):
     return rec
 
 
+def gn_timing(g, dev, record):
+    """--gn: K5 and its backward timed at grf16's GroupNorm mix (B = 1024)
+    and at the DSM step's (B = 128), and one traced DSM step at batch 128
+    with the device time under GroupNormSiLUBackward."""
+    from sdeflow_tpu_torch import Trainer, build_msgm_arm, get_preset
+
+    model, _ = build_msgm_arm(get_preset("grf16"), g, device=dev)
+    mix = gn_mix(model, dev)
+    for name, mx, b, iters in [("grf16", mix, N_SAMPLES, 20),
+                               ("dsm", SGM_GN_MIX, SGM_BATCH, 5)]:
+        record[f"k5_{name}"] = k5_rows(g, dev, mx, b, iters)
+        log_k5_rows(f"K5 ({name})", record[f"k5_{name}"])
+        record[f"k5b_{name}"] = k5b_rows(g, dev, mx, b, iters)
+        log_k5_rows(f"K5b ({name})", record[f"k5b_{name}"])
+    tc, model, gen, sampler = sgm_arm(g, dev)
+    trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
+                      loss="dsm")
+    record["dsm_profile"] = trace(lambda: trainer.train_step(
+        trainer.state, g, sampler.sample(g, SGM_BATCH)))
+    log_trace(f"one DSM step at batch {SGM_BATCH}", record["dsm_profile"])
+
+
+def write_record(path, record):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(record, f, indent=2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
+    ap.add_argument("--gn", action="store_true",
+                    help="only build the kernels and time K5 and K5b at "
+                    "both GroupNorm mixes, with a traced DSM step")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1261,8 +1471,13 @@ def main(argv=None):
         text=True).stdout.strip().splitlines()[0]
     log(card)
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "phase_start_s": {}}
+    start = time.perf_counter()
 
+    def phase(label):  # seconds from the build's start to each phase
+        record["phase_start_s"][label] = time.perf_counter() - start
+
+    phase("1")
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     common.build_all()
@@ -1270,7 +1485,12 @@ def main(argv=None):
     log(f"kernels built in {record['build_s']:.1f} s: {sorted(common.KERNELS)}")
 
     g = torch.Generator(device=dev).manual_seed(0)
+    if opts.gn:
+        gn_timing(g, dev, record)
+        write_record(opts.record, record)
+        return 0
 
+    phase("2")
     # -- 2. K1 against its plain version ------------------------------------
     k1_err = 0.0
     with torch.no_grad():
@@ -1290,6 +1510,7 @@ def main(argv=None):
                 k1_direct_ms = cuda_ms(lambda: _launch_k1(sb, y, w), 200)
             log(f"K1 ({b}, {d}): max |kernel - plain| = {err:.3g}")
 
+    phase("3")
     # -- 3. K3 against its plain version ------------------------------------
     k3 = {}
     with torch.no_grad():
@@ -1315,6 +1536,7 @@ def main(argv=None):
                     "bound_ms": bound[0], "bound_by": bound[1],
                 }
 
+    phase("4")
     # -- 4. the arm on both routes, and the GroupNorm shapes of a forward ----
     cfg = get_preset("grf16")
     if STEPS not in cfg.sweep.num_stepss_backward:
@@ -1342,14 +1564,17 @@ def main(argv=None):
         log(f"{route} route: {n} GroupNorms per forward, (C, S, silu): "
             f"{dict(sorted(mix.items()))}")
 
+    phase("5")
     # -- 5. K5 against its plain version ------------------------------------
     k5 = check_k5(g, dev, mixes)
     record["k5"] = k5
 
+    phase("6")
     # -- 6. K6 and K4 against their plain version ----------------------------
     k6 = check_k6(g, dev)
     record["k6"] = {f"{t}x{c}": v for (t, c), v in k6.items()}
 
+    phase("7")
     # -- 7. serve three requests on the main path ------------------------------
     want = serve_want("auto")
     requests = []
@@ -1377,6 +1602,7 @@ def main(argv=None):
             f" launches {launches}")
     record["requests"] = requests
 
+    phase("8")
     # -- 8. replay the last request: plain, (kernel, direct, direct, kernel)
     # twice, plain; the plain runs swap the kernel wrappers for their plain
     # versions where the path calls them, the direct runs for launches
@@ -1387,6 +1613,7 @@ def main(argv=None):
         ("plain", *("kernel", "direct", "direct", "kernel") * 2, "plain"),
         want)
 
+    phase("9")
     # -- 9. where one request's time goes: a torch.profiler trace -------------
     sample2 = make_sampler_fn(gen, N_SAMPLES, DIM, PROFILED_STEPS,
                               method="rk4", norm_correction=True, device=dev)
@@ -1394,25 +1621,31 @@ def main(argv=None):
     record["profile"] = prof
     log_trace(f"{PROFILED_STEPS} RK4 steps", prof)
 
+    phase("10")
     # -- 10. the unfused route's serving ---------------------------------------
     unfused = {"serve": serve_unfused(cfg, gen_u, g, dev, x0, noise, x,
                                       sample)}
     record["unfused"] = unfused
 
+    phase("11")
     # -- 11. K4 on the unfused block at T = 4096 ------------------------------
     long = check_long_attention(g, dev)
     record["long_attention"] = long
 
+    phase("12")
     # -- 12. K2 against its plain version -------------------------------------
     k2 = check_k2(gen, g, dev)
 
+    phase("13")
     # -- 13. autograd through the kernels -------------------------------------
     record["autograd"] = check_autograd(g, dev)
 
+    phase("14")
     # -- 14. training at full width ------------------------------------------
     train, step = check_training(cfg, model, gen, g, dev)
     record["train"] = train
 
+    phase("15")
     # -- 15. where one train step's time goes ---------------------------------
     prof_train = trace(step)
     record["train_profile"] = prof_train
@@ -1422,17 +1655,21 @@ def main(argv=None):
     record["train_profile_plain"] = prof_plain
     log_trace("one plain train step", prof_plain)
 
+    phase("16")
     # -- 16. the unfused route's training ---------------------------------------
     unfused["train"] = train_unfused(cfg_u, model_u, gen_u, g, dev, step)
 
+    phase("17")
     # -- 17. K7a and K7b against their plain versions ------------------------
     k7 = check_flash(g, dev)
     record["k7"] = k7
 
+    phase("18, 19")
     # -- 18, 19. DSM training of the SGM arm at 128×128 ----------------------
     sgm = check_sgm_training(g, dev)
     record["sgm_train"] = sgm
 
+    phase("table")
     # -- the kernel table ----------------------------------------------------
     bound_k1 = bound_ms(*k1_cost(N_SAMPLES, DIM))
     bound_k2 = bound_ms(*k2_cost(TRAIN_BATCH, DIM))
@@ -1503,6 +1740,27 @@ def main(argv=None):
                  "group_norm_silu"],
              train_device_ms=prof_train["per_launch_ms"].get(
                  SYMBOL["group_norm_silu"])),
+        dict(mixed(sgm["k5b_dsm"], old_ms=weighted(sgm["k5b_dsm"], "old_ms"),
+                   grf16_mix=mixed(k5["bwd_per_shape"],
+                                   old_ms=weighted(k5["bwd_per_shape"],
+                                                   "old_ms"))),
+             name="group_norm_silu_bwd", id="K5b", route="cuda",
+             source="sdeflow_tpu_torch/csrc/groupnorm.cu",
+             replaces="the backward of group_norm_silu (no Pallas kernel; "
+             "the custom_jvp rule's transpose, "
+             "sdeflow_tpu/ops/pallas/groupnorm.py:147-151)",
+             launches=sgm["launches_per_step"]["group_norm_silu_bwd"],
+             launches_per=f"DSM train step (grf U-Net, {SGM_NPIXEL}x"
+             f"{SGM_NPIXEL}, batch {SGM_BATCH})",
+             ssm_launches_per_step=train["launches_per_step"][
+                 "group_norm_silu_bwd"],
+             ssm_launches_per_step_unfused=train_u["group_norm_silu_bwd"],
+             max_abs_err=k5["bwd_max_abs_err"],
+             max_rel_err=k5["bwd_max_rel_err"],
+             device_ms=sum(sgm["profile"]["per_launch_ms"].get(k, 0) for k in
+                           ("gn_silu_bwd_kernel", "gn_silu_bwd_params")),
+             device_ms_under_backward=sgm["profile"]["op_device_ms"].get(
+                 "GroupNormSiLUBackward")),
         dict(mixed(k6_rows), name="qkv_attention", id="K6", route="cuda",
              dsm_shape=dict(k6[K6_DSM], launches_per_step=sgm[
                  "launches_per_step"]["qkv_attention"]),
@@ -1545,11 +1803,10 @@ def main(argv=None):
             f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
             f"{k['launches_per']}")
     record["kernels"] = kernels
-    if opts.record:
-        os.makedirs(os.path.dirname(os.path.abspath(opts.record)),
-                    exist_ok=True)
-        with open(opts.record, "w") as f:
-            json.dump(record, f, indent=2)
+    phase("end")
+    log("phases start at (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in record["phase_start_s"].items()))
+    write_record(opts.record, record)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

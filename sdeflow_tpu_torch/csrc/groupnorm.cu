@@ -1,40 +1,72 @@
-// K5: GroupNorm (+SiLU), float32, channels-first.
+// K5 and K5b: GroupNorm (+SiLU) and its vector-Jacobian product, float32,
+// channels-first.
 //
-//   h[b, c, s] = (x[b, c, s] - mean[b, g]) * rstd[b, g] * gamma[c] + beta[c]
-//   out        = silu ? h / (1 + exp(-h)) : h,        g = c / (C/G)
+//   K5   h[b, c, s] = (x[b, c, s] - mean[b, g]) * rstd[b, g] * gamma[c] + beta[c]
+//        out        = silu ? h / (1 + exp(-h)) : h,        g = c / (C/G)
+//   K5b  given dy:  g  = silu ? dy * sig(h) * (1 + h * (1 - sig(h))) : dy
+//        dbeta[c]  = sum_{b,s} g,   dgamma[c] = sum_{b,s} g * xhat
+//        dx        = rstd * (d - mean_slab(d) - xhat * mean_slab(d * xhat)),
+//                    d = g * gamma[c]
 //
 // mean and the variance of each (sample, group) slab in fp32, the variance
 // in two passes (the one-pass E[x^2] - E[x]^2 form loses about three digits),
-// rstd = rsqrt(var + 1e-5).
+// rstd = rsqrt(var + 1e-5). K5b recomputes mean and rstd from x.
 //
 // Replaces: the Pallas kernel _gn_kernel / _gn_pallas in
 // sdeflow_tpu/ops/pallas/groupnorm.py:78-136 (entry group_norm_silu
-// :139-144). The TPU kernel takes channels-last (B, S, C) tiles and moves
-// statistics between channels and groups with one-hot matmuls, because
-// Mosaic will not split the lane dimension. Here the layout is
-// channels-first (B, C, S): one (sample, group) is one contiguous slab of
-// (C/G)*S floats, and no matmul or transpose is needed.
+// :139-144), and, for K5b, the backward of group_norm_silu, which has no
+// Pallas kernel: XLA transposes the custom_jvp rule (:147-151). The TPU
+// kernel takes channels-last (B, S, C) tiles and moves statistics between
+// channels and groups with one-hot matmuls, because Mosaic will not split
+// the lane dimension. Here the layout is channels-first (B, C, S): one
+// (sample, group) is one contiguous slab of n = (C/G)*S floats.
 //
-// Bound on the H100: bytes. Per element it reads x and writes out (8 bytes)
-// for ~10 flops, below the card's ~20 flops/byte fp32 balance point. At the
-// grf16 U-Net's shapes a slab holds 64 to 768 floats.
+// Bound on the H100: bytes. K5 reads x and writes out (8 bytes per element)
+// for ~12 flops, K5b reads x and dy and writes dx (12 bytes) for ~26, both
+// far below the card's ~20 flops/byte fp32 balance point. So each element is
+// read once and written once, from registers, and loads are 16-byte float4s
+// wherever S % 4 == 0 (a float4 then never straddles two channels).
 //
-// Design: one warp per slab, 8 slabs per block of 256 threads, so the small
-// slabs keep every lane busy where one block per slab would idle most
-// threads. A slab of up to 32*kRegs floats is held in registers (lane i
-// takes elements i, i+32, ...: coalesced loads), so x is read once; the two
-// statistics are warp-shuffle sums. A larger slab takes three coalesced
-// passes over device memory (sum, squared deviations, apply), so any
-// (B, C, S) runs.
+// Launch plans, chosen on the host from n and S (mirrored in Python by
+// ops/kernels/groupnorm.py launch_plan, which the CPU tests check):
+//
+// - small (n <= 1024: every slab of grf16): a slab per group of L lanes of
+//   one warp, L = 8, 16 or 32 (so 4, 2 or 1 slabs per warp at n <= 32, 64),
+//   each lane holding NV vectors in registers (NV a template parameter sized
+//   to the slab); the sums are shuffles within the L lanes.
+// - cluster (1024 < n <= 65536 with float4s: every slab of the 128x128 DSM
+//   step, 2,048 to 49,152 floats): a thread-block cluster of 2, 4 or 8
+//   blocks of 256 threads per slab, each block holding its contiguous share
+//   in registers (NV <= 8 float4s a thread). A sum is shuffles in each warp,
+//   shared memory across the block and distributed shared memory across the
+//   cluster (each block reads the others' partials after cluster.sync()), in
+//   one fixed order, so every block gets the same bits. One warp per slab,
+//   as before, left 3-4 warps on an SM walking 2K-49K floats one after
+//   another, and read x twice; a cluster splits the slab over up to 8 SMs.
+// - stream (larger slabs, or S % 4 != 0 beyond 32,768 floats): the same
+//   cluster of 8, each block looping over its share, which it reads three
+//   times (K5) or four (K5b). No present path takes it.
+//
+// K5b's dgamma and dbeta: each part of a slab (a lane group, or one block
+// of a cluster) writes its per-channel sums of g and g*xhat into a
+// (2, C, B*cluster) scratch, zero for channels it does not hold; a second
+// kernel of the same C entry sums each row in a fixed order. No atomics, so
+// the gradient is the same from run to run.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRegs = 32;  // floats of a slab each lane holds: slabs <= 1024
+constexpr int kSmallMax = 1024;     // floats: the small plan's largest slab
+constexpr int kBlockFloats = 4096;  // floats a block of a cluster aims at
+constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr float kEps = 1e-5f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -42,69 +74,635 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float normalize(float v, float mean, float rstd,
-                                           float gamma, float beta,
-                                           bool silu) {
-  const float h = (v - mean) * rstd * gamma + beta;
-  return silu ? h / (1.f + expf(-h)) : h;
+template <int V>
+__device__ __forceinline__ void load(float (&d)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else {
+    d[0] = __ldg(p);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gn_silu_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, float* __restrict__ out,
-               long long slabs, int G, int cg, int S, int silu) {
-  const int lane = threadIdx.x & 31;
-  const long long slab = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (slab >= slabs) return;  // the whole warp leaves together
-  const int n = cg * S;
-  const int c0 = (int)(slab % G) * cg;
-  const float* xs = x + slab * n;
-  float* os = out + slab * n;
-  const bool act = silu != 0;
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else {
+    p[0] = d[0];
+  }
+}
 
-  if (n <= 32 * kRegs) {
-    float v[kRegs];
-    float s = 0.f;
+// The channel (within the slab) of element e0, e0 + step, e0 + 2 step, ...
+// without a division per element.
+struct ChannelWalk {
+  int c, r, dc, dr, S;
+  __device__ ChannelWalk(int e0, int step, int S_)
+      : c(e0 / S_), r(e0 % S_), dc(step / S_), dr(step % S_), S(S_) {}
+  __device__ __forceinline__ void next() {
+    c += dc;
+    r += dr;
+    if (r >= S) { r -= S; ++c; }
+  }
+};
+
+__device__ __forceinline__ float silu_of(float h) {
+  return h / (1.f + expf(-h));
+}
+
+// dL/dh from dL/dout: the SiLU's derivative sig(h) * (1 + h * (1 - sig(h)))
+__device__ __forceinline__ float silu_grad(float dy, float h) {
+  const float sg = 1.f / (1.f + expf(-h));
+  return dy * sg * (1.f + h * (1.f - sg));
+}
+
+// The threads that share one slab, and their sums: L lanes of one warp.
+template <int L>
+struct LaneGroup {
+  int lane;  // within the group
+  template <int K>
+  __device__ __forceinline__ void all(float (&v)[K], int) const {
 #pragma unroll
-    for (int r = 0; r < kRegs; ++r) {
-      const int i = lane + 32 * r;
-      v[r] = i < n ? xs[i] : 0.f;
-      s += v[r];
+    for (int k = 0; k < K; ++k)
+      for (int o = L / 2; o; o >>= 1)
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+  }
+  // this part's sum (the part is the whole slab), on every lane
+  template <int K>
+  __device__ __forceinline__ void part(float (&v)[K]) const { all(v, 0); }
+  __device__ __forceinline__ bool leader() const { return lane == 0; }
+  __device__ __forceinline__ void done() const {}
+};
+
+// ... or the blocks of one cluster, each block one part of the slab.
+struct ClusterGroup {
+  cg::cluster_group cluster;
+  float* red;    // shared, kWarps * 2 floats
+  float* slots;  // shared, one float per cluster-wide sum
+  int lane, warp;
+
+  // the block's sum of each v[k], on every thread
+  template <int K>
+  __device__ __forceinline__ void part(float (&v)[K]) const {
+    __syncthreads();  // the previous sum has been read
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = warp_sum(v[k]);
+      if (lane == 0) red[k * kWarps + warp] = v[k];
     }
-    const float mean = warp_sum(s) / (float)n;
-    float q = 0.f;
+    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < kRegs; ++r) {
-      const float d = v[r] - mean;
-      if (lane + 32 * r < n) q = fmaf(d, d, q);
+    for (int k = 0; k < K; ++k) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[k * kWarps + w];
+      v[k] = s;
     }
-    const float rstd = rsqrtf(warp_sum(q) / (float)n + kEps);
+  }
+  // the cluster's sum of each v[k], on every thread of every block: each
+  // block's sum in its slots[slot + k], then lane r of each warp reads
+  // block r's, and a shuffle tree adds them, the same in every warp
+  template <int K>
+  __device__ __forceinline__ void all(float (&v)[K], int slot) {
+    part(v);
+    if (threadIdx.x == 0) {
 #pragma unroll
-    for (int r = 0; r < kRegs; ++r) {
-      const int i = lane + 32 * r;
-      if (i < n) {
-        const int c = c0 + i / S;
-        os[i] = normalize(v[r], mean, rstd, __ldg(gamma + c), __ldg(beta + c),
-                          act);
+      for (int k = 0; k < K; ++k) slots[slot + k] = v[k];
+    }
+    cluster.sync();
+    const int blocks = (int)cluster.num_blocks();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float mine = lane < blocks
+          ? *cluster.map_shared_rank(slots + slot + k, lane) : 0.f;
+      v[k] = warp_sum(mine);
+    }
+  }
+  __device__ __forceinline__ bool leader() const { return threadIdx.x == 0; }
+  // no block may leave while another can still read its slots
+  __device__ __forceinline__ void done() { cluster.sync(); }
+};
+
+// Where one thread works: vectors beg + tid + stride * j of its slab,
+// j < NV (or while < beg + cnt, streaming); store: whether it writes (lanes
+// past the last slab recompute slab 0, so that every lane of a warp takes
+// part in the same shuffles, and write nothing).
+struct Part {
+  int beg, cnt, tid, stride;
+  bool store;
+};
+
+template <int V, int NV, class Grp>
+__device__ __forceinline__ void fwd_resident(
+    Grp& grp, const Part& p, const float* __restrict__ xs,
+    const float* __restrict__ gs, const float* __restrict__ bs,
+    float* __restrict__ os, int n, int S, bool act) {
+  float v[NV][V];
+  float s[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    if (k < p.cnt) {
+      load<V>(v[j], xs + (size_t)(p.beg + k) * V);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[0] += v[j][i];
+  }
+  grp.all(s, 0);
+  const float mean = s[0] / (float)n;
+  float q[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (p.tid + p.stride * j < p.cnt) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = v[j][i] - mean;
+        q[0] = fmaf(d, d, q[0]);
       }
     }
-    return;
+  }
+  grp.all(q, 1);
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+  ChannelWalk ch((p.beg + p.tid) * V, p.stride * V, S);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    if (k < p.cnt) {
+      const float a = rstd * __ldg(gs + ch.c);
+      const float b = __ldg(bs + ch.c) - mean * a;
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float h = fmaf(v[j][i], a, b);
+        o[i] = act ? silu_of(h) : h;
+      }
+      if (p.store) store<V>(os + (size_t)(p.beg + k) * V, o);
+    }
+    ch.next();
+  }
+  grp.done();
+}
+
+template <int V>
+__device__ __forceinline__ void fwd_stream(
+    ClusterGroup& grp, const Part& p, const float* __restrict__ xs,
+    const float* __restrict__ gs, const float* __restrict__ bs,
+    float* __restrict__ os, int n, int S, bool act) {
+  float s[1] = {0.f};
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    float t[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[0] += t[i];
+  }
+  grp.all(s, 0);
+  const float mean = s[0] / (float)n;
+  float q[1] = {0.f};
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    float t[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = t[i] - mean;
+      q[0] = fmaf(d, d, q[0]);
+    }
+  }
+  grp.all(q, 1);
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    const int c = (p.beg + k) * V / S;
+    const float a = rstd * __ldg(gs + c);
+    const float b = __ldg(bs + c) - mean * a;
+    float t[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float h = fmaf(t[i], a, b);
+      t[i] = act ? silu_of(h) : h;
+    }
+    store<V>(os + (size_t)(p.beg + k) * V, t);
+  }
+  grp.done();
+}
+
+// K5b's outputs for one part of a slab: its dx, and its per-channel sums
+// of g (dbeta) and g * xhat (dgamma) at column `col` of the (2, C, R)
+// scratch, channels c0 .. c0 + cg - 1 of the slab.
+struct BwdOut {
+  float* dxs;
+  float* scratch;
+  long long col, rows;  // this part's column, and R
+  int C, c0, cg;
+  __device__ __forceinline__ void param(int c, float dgamma, float dbeta)
+      const {
+    scratch[(size_t)(c0 + c) * rows + col] = dgamma;
+    scratch[((size_t)C + c0 + c) * rows + col] = dbeta;
+  }
+};
+
+// zero for the slab's channels outside [lo, hi], which this part lacks
+__device__ __forceinline__ void zero_params(const BwdOut& out, const Part& p,
+                                            int lo, int hi) {
+  for (int c = p.tid; c < out.cg; c += p.stride)
+    if (c < lo || c > hi) out.param(c, 0.f, 0.f);
+}
+
+template <int V, int NV, class Grp>
+__device__ __forceinline__ void bwd_resident(
+    Grp& grp, const Part& p, const float* __restrict__ xs,
+    const float* __restrict__ dys, const float* __restrict__ gs,
+    const float* __restrict__ bs, const BwdOut& out, int n, int S,
+    bool act) {
+  float xv[NV][V], gv[NV][V];  // x, then xhat; dy, then g
+  float s[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    if (k < p.cnt) {
+      load<V>(xv[j], xs + (size_t)(p.beg + k) * V);
+      load<V>(gv[j], dys + (size_t)(p.beg + k) * V);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) xv[j][i] = gv[j][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[0] += xv[j][i];
+  }
+  grp.all(s, 0);
+  const float mean = s[0] / (float)n;
+  float q[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (p.tid + p.stride * j < p.cnt) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = xv[j][i] - mean;
+        q[0] = fmaf(d, d, q[0]);
+      }
+    }
+  }
+  grp.all(q, 1);
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+
+  // xhat and g in place; the slab sums of d = g * gamma and d * xhat
+  int cj[NV];
+  float gam[NV];
+  float sd[2] = {0.f, 0.f};
+  ChannelWalk ch((p.beg + p.tid) * V, p.stride * V, S);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    cj[j] = ch.c;
+    gam[j] = 0.f;
+    if (p.tid + p.stride * j < p.cnt) {
+      gam[j] = __ldg(gs + ch.c);
+      const float bet = __ldg(bs + ch.c);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float xh = (xv[j][i] - mean) * rstd;
+        xv[j][i] = xh;
+        if (act) gv[j][i] = silu_grad(gv[j][i], fmaf(xh, gam[j], bet));
+        const float d = gv[j][i] * gam[j];
+        sd[0] += d;
+        sd[1] = fmaf(d, xh, sd[1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) xv[j][i] = 0.f;  // no contribution
+    }
+    ch.next();
   }
 
+  // per-channel sums of g and g * xhat over the channels this part holds
+  const int lo = p.cnt > 0 ? p.beg * V / S : 0;
+  const int hi = p.cnt > 0 ? ((p.beg + p.cnt) * V - 1) / S : -1;
+  for (int c = lo; c <= hi; ++c) {
+    float acc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (cj[j] == c) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          acc[0] += gv[j][i];
+          acc[1] = fmaf(gv[j][i], xv[j][i], acc[1]);
+        }
+      }
+    }
+    grp.part(acc);
+    if (grp.leader() && p.store) out.param(c, acc[1], acc[0]);
+  }
+  if (p.store) zero_params(out, p, lo, hi);
+
+  grp.all(sd, 2);
+  const float md = sd[0] / (float)n, mdx = sd[1] / (float)n;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    if (k < p.cnt && p.store) {
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        o[i] = rstd * (gv[j][i] * gam[j] - md - xv[j][i] * mdx);
+      store<V>(out.dxs + (size_t)(p.beg + k) * V, o);
+    }
+  }
+  grp.done();
+}
+
+template <int V>
+__device__ __forceinline__ void bwd_stream(
+    ClusterGroup& grp, const Part& p, const float* __restrict__ xs,
+    const float* __restrict__ dys, const float* __restrict__ gs,
+    const float* __restrict__ bs, const BwdOut& out, int n, int S,
+    bool act) {
+  float s[1] = {0.f};
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    float t[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[0] += t[i];
+  }
+  grp.all(s, 0);
+  const float mean = s[0] / (float)n;
+  float q[1] = {0.f};
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    float t[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float d = t[i] - mean;
+      q[0] = fmaf(d, d, q[0]);
+    }
+  }
+  grp.all(q, 1);
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+
+  // channel by channel (S % V == 0: a channel is whole vectors)
+  const int sv = S / V;
+  const int lo = p.cnt > 0 ? p.beg / sv : 0;
+  const int hi = p.cnt > 0 ? (p.beg + p.cnt - 1) / sv : -1;
+  float sd[2] = {0.f, 0.f};
+  for (int c = lo; c <= hi; ++c) {
+    const float gam = __ldg(gs + c), bet = __ldg(bs + c);
+    const int k0 = max(p.beg, c * sv) - p.beg;
+    const int k1 = min(p.beg + p.cnt, (c + 1) * sv) - p.beg;
+    float acc[2] = {0.f, 0.f};
+    for (int k = k0 + p.tid; k < k1; k += p.stride) {
+      float t[V], dy[V];
+      load<V>(t, xs + (size_t)(p.beg + k) * V);
+      load<V>(dy, dys + (size_t)(p.beg + k) * V);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float xh = (t[i] - mean) * rstd;
+        const float g = act ? silu_grad(dy[i], fmaf(xh, gam, bet)) : dy[i];
+        acc[0] += g;
+        acc[1] = fmaf(g, xh, acc[1]);
+        sd[0] += g * gam;
+        sd[1] = fmaf(g * gam, xh, sd[1]);
+      }
+    }
+    grp.part(acc);
+    if (grp.leader()) out.param(c, acc[1], acc[0]);
+  }
+  zero_params(out, p, lo, hi);
+
+  grp.all(sd, 2);
+  const float md = sd[0] / (float)n, mdx = sd[1] / (float)n;
+  for (int k = p.tid; k < p.cnt; k += p.stride) {
+    const int c = (p.beg + k) / sv;
+    const float gam = __ldg(gs + c), bet = __ldg(bs + c);
+    float t[V], dy[V];
+    load<V>(t, xs + (size_t)(p.beg + k) * V);
+    load<V>(dy, dys + (size_t)(p.beg + k) * V);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float xh = (t[i] - mean) * rstd;
+      const float g = act ? silu_grad(dy[i], fmaf(xh, gam, bet)) : dy[i];
+      t[i] = rstd * (g * gam - md - xh * mdx);
+    }
+    store<V>(out.dxs + (size_t)(p.beg + k) * V, t);
+  }
+  grp.done();
+}
+
+// ---- kernels ---------------------------------------------------------------
+
+struct Args {
+  const float* x;
+  const float* gamma;
+  const float* beta;
+  const float* dy;    // K5b
+  float* out;         // K5: out; K5b: dx
+  float* scratch;     // K5b: (2, C, B * cluster)
+  long long slabs;
+  int G, cg, S, act;
+};
+
+template <int L, int V, int NV, bool BWD>
+__device__ __forceinline__ void small_body(const Args& a) {
+  const long long slab0 = (long long)blockIdx.x * (kThreads / L)
+                          + threadIdx.x / L;
+  const bool ok = slab0 < a.slabs;
+  const long long slab = ok ? slab0 : 0;
+  const int n = a.cg * a.S;
+  const int c0 = (int)(slab % a.G) * a.cg;
+  LaneGroup<L> grp{(int)(threadIdx.x % L)};
+  const Part p{0, n / V, grp.lane, L, ok};
+  if constexpr (BWD) {
+    const BwdOut out{a.out + slab * n, a.scratch, slab / a.G,
+                     a.slabs / a.G, a.G * a.cg, c0, a.cg};
+    bwd_resident<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
+                        a.gamma + c0, a.beta + c0, out, n, a.S, a.act);
+  } else {
+    fwd_resident<V, NV>(grp, p, a.x + slab * n, a.gamma + c0, a.beta + c0,
+                        a.out + slab * n, n, a.S, a.act);
+  }
+}
+
+// NV == 0: the stream plan
+template <int V, int NV, bool BWD>
+__device__ __forceinline__ void cluster_body(const Args& a) {
+  __shared__ float red[2 * kWarps];
+  __shared__ float slots[4];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long slab = blockIdx.x / cs;
+  const int n = a.cg * a.S;
+  const int c0 = (int)(slab % a.G) * a.cg;
+  const int nvec = n / V, chunk = (nvec + cs - 1) / cs;
+  const int beg = min(rank * chunk, nvec);
+  const Part p{beg, min(chunk, nvec - beg), (int)threadIdx.x, kThreads,
+               true};
+  ClusterGroup grp{cluster, red, slots, (int)(threadIdx.x & 31),
+                   (int)(threadIdx.x >> 5)};
+  const float* xs = a.x + slab * n;
+  if constexpr (BWD) {
+    const BwdOut out{a.out + slab * n, a.scratch,
+                     slab / a.G * cs + rank, a.slabs / a.G * cs, a.G * a.cg,
+                     c0, a.cg};
+    if constexpr (NV == 0)
+      bwd_stream<V>(grp, p, xs, a.dy + slab * n, a.gamma + c0, a.beta + c0,
+                    out, n, a.S, a.act);
+    else
+      bwd_resident<V, NV>(grp, p, xs, a.dy + slab * n, a.gamma + c0,
+                          a.beta + c0, out, n, a.S, a.act);
+  } else {
+    if constexpr (NV == 0)
+      fwd_stream<V>(grp, p, xs, a.gamma + c0, a.beta + c0, a.out + slab * n,
+                    n, a.S, a.act);
+    else
+      fwd_resident<V, NV>(grp, p, xs, a.gamma + c0, a.beta + c0,
+                          a.out + slab * n, n, a.S, a.act);
+  }
+}
+
+// K5 (traces name it gn_silu_kernel_*) and K5b (gn_silu_bwd_kernel_*)
+template <int L, int V, int NV>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_kernel_small(const Args a) { small_body<L, V, NV, false>(a); }
+
+template <int L, int V, int NV>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd_kernel_small(const Args a) { small_body<L, V, NV, true>(a); }
+
+template <int V, int NV>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_kernel_cluster(const Args a) { cluster_body<V, NV, false>(a); }
+
+template <int V, int NV>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd_kernel_cluster(const Args a) { cluster_body<V, NV, true>(a); }
+
+template <int L, int V, int NV, bool BWD>
+auto small_kernel() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_small<L, V, NV>;
+  else return gn_silu_kernel_small<L, V, NV>;
+}
+
+template <int V, int NV, bool BWD>
+auto cluster_kernel() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_cluster<V, NV>;
+  else return gn_silu_kernel_cluster<V, NV>;
+}
+
+// dgamma[c] and dbeta[c]: each row of the (2, C, R) scratch summed in one
+// fixed order (block y = 0: dgamma, 1: dbeta)
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd_params(const float* __restrict__ scratch,
+                   float* __restrict__ dgamma, float* __restrict__ dbeta,
+                   int C, long long rows) {
+  __shared__ float red[kWarps];
+  const float* row = scratch + ((size_t)blockIdx.y * C + blockIdx.x) * rows;
   float s = 0.f;
-  for (int i = lane; i < n; i += 32) s += xs[i];
-  const float mean = warp_sum(s) / (float)n;
-  float q = 0.f;
-  for (int i = lane; i < n; i += 32) {
-    const float d = xs[i] - mean;
-    q = fmaf(d, d, q);
+  for (long long i = threadIdx.x; i < rows; i += kThreads) s += row[i];
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t += red[w];
+    (blockIdx.y ? dbeta : dgamma)[blockIdx.x] = t;
   }
-  const float rstd = rsqrtf(warp_sum(q) / (float)n + kEps);
-  for (int i = lane; i < n; i += 32) {
-    const int c = c0 + i / S;
-    os[i] = normalize(xs[i], mean, rstd, __ldg(gamma + c), __ldg(beta + c),
-                      act);
+}
+
+// ---- the host's plan ---------------------------------------------------------
+
+enum Kind { kSmall = 0, kCluster = 1, kStream = 2 };
+
+struct Plan {
+  int kind, lanes, cluster, nv, vec;
+};
+
+int pow2_at_least(long long v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// ops/kernels/groupnorm.py launch_plan is this function in Python
+Plan choose(long long n, int S, bool aligned) {
+  const int vec = (S % 4 == 0 && aligned) ? 4 : 1;
+  const long long nvec = n / vec;
+  if (n <= kSmallMax) {
+    if (vec == 1) {  // 32 lanes, 1, 4 or 32 floats each
+      const int nv = pow2_at_least(cdiv(n, 32));
+      return {kSmall, 32, 1, nv <= 1 ? 1 : nv <= 4 ? 4 : 32, 1};
+    }
+    const int lanes = nvec <= 8 ? 8 : nvec <= 16 ? 16 : 32;
+    return {kSmall, lanes, 1, pow2_at_least(cdiv(nvec, lanes)), 4};
   }
+  int cs = pow2_at_least(cdiv(n, kBlockFloats));
+  cs = cs < 2 ? 2 : cs > kMaxCluster ? kMaxCluster : cs;
+  const int nv = pow2_at_least(cdiv(nvec, (long long)cs * kThreads));
+  if (vec == 4 && nv <= 8) return {kCluster, kThreads, cs, nv, 4};
+  if (vec == 1 && nv <= 16) return {kCluster, kThreads, cs, 16, 1};
+  return {kStream, kThreads, kMaxCluster, 0, vec};
+}
+
+template <bool BWD>
+cudaError_t launch_small(const Plan& p, const Args& a, cudaStream_t st) {
+  const dim3 grid((unsigned int)cdiv(a.slabs, kThreads / p.lanes));
+  void (*k)(const Args);
+  if (p.vec == 1) {
+    k = p.nv == 1 ? small_kernel<32, 1, 1, BWD>()
+        : p.nv == 4 ? small_kernel<32, 1, 4, BWD>()
+        : small_kernel<32, 1, 32, BWD>();
+  } else if (p.lanes == 8) {
+    k = small_kernel<8, 4, 1, BWD>();
+  } else if (p.lanes == 16) {
+    k = small_kernel<16, 4, 1, BWD>();
+  } else {
+    k = p.nv == 1 ? small_kernel<32, 4, 1, BWD>()
+        : p.nv == 2 ? small_kernel<32, 4, 2, BWD>()
+        : p.nv == 4 ? small_kernel<32, 4, 4, BWD>()
+        : small_kernel<32, 4, 8, BWD>();
+  }
+  k<<<grid, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BWD>
+cudaError_t launch_large(const Plan& p, const Args& a, cudaStream_t st) {
+  const long long blocks = a.slabs * p.cluster;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  void (*k)(const Args);
+  if (p.kind == kStream) {
+    k = p.vec == 4 ? cluster_kernel<4, 0, BWD>() : cluster_kernel<1, 0, BWD>();
+  } else if (p.vec == 1) {
+    k = cluster_kernel<1, 16, BWD>();
+  } else {
+    k = p.nv == 1 ? cluster_kernel<4, 1, BWD>()
+        : p.nv == 2 ? cluster_kernel<4, 2, BWD>()
+        : p.nv == 4 ? cluster_kernel<4, 4, BWD>()
+        : cluster_kernel<4, 8, BWD>();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <bool BWD>
+cudaError_t launch(const Plan& p, const Args& a, cudaStream_t st) {
+  return p.kind == kSmall ? launch_small<BWD>(p, a, st)
+                          : launch_large<BWD>(p, a, st);
 }
 
 }  // namespace
@@ -115,8 +713,54 @@ extern "C" int group_norm_silu_f32(const float* x, const float* gamma,
                                    void* stream) {
   const long long slabs = B * G;
   if (slabs == 0 || S == 0) return 0;
-  const long long blocks = (slabs + kWarps - 1) / kWarps;
-  gn_silu_kernel<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, gamma, beta, out, slabs, G, C / G, S, silu);
+  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Args a{x, gamma, beta, nullptr, out, nullptr, slabs, G, C / G, S,
+               silu};
+  const Plan plan = choose((long long)(C / G) * S, S,
+                           aligned16(x) && aligned16(out));
+  return (int)launch<false>(plan, a, (cudaStream_t)stream);
+}
+
+// The plan for slabs of n floats (kind: 0 small, 1 cluster, 2 stream;
+// lanes, cluster, nv, vec), for the card tests to hold the Python mirror to.
+extern "C" int group_norm_silu_plan(long long n, int S, int aligned,
+                                    int* plan) {
+  const Plan p = choose(n, S, aligned != 0);
+  plan[0] = p.kind;
+  plan[1] = p.lanes;
+  plan[2] = p.cluster;
+  plan[3] = p.nv;
+  plan[4] = p.vec;
+  return 0;
+}
+
+// K5b: dx (B, C, S), dgamma (C), dbeta (C) from x, gamma, beta and dy;
+// scratch holds scratch_floats floats, at least 2 * C * B * the plan's
+// cluster size (1 for slabs of up to 1,024 floats, else at most 8).
+extern "C" int group_norm_silu_bwd_f32(
+    const float* x, const float* gamma, const float* beta, const float* dy,
+    float* dx, float* dgamma, float* dbeta, float* scratch,
+    long long scratch_floats, long long B, int C, int G, int S, int silu,
+    void* stream) {
+  const long long slabs = B * G;
+  if (C == 0) return 0;
+  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slabs == 0 || S == 0) {  // no element: the sums are zero
+    cudaError_t err = cudaMemsetAsync(dgamma, 0, C * sizeof(float), st);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dbeta, 0, C * sizeof(float), st);
+    return (int)err;
+  }
+  const Args a{x, gamma, beta, dy, dx, scratch, slabs, G, C / G, S, silu};
+  const Plan plan = choose((long long)(C / G) * S, S,
+                           aligned16(x) && aligned16(dx) && aligned16(dy));
+  const long long rows = B * plan.cluster;
+  if (2 * (long long)C * rows > scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch<true>(plan, a, st);
+  if (err != cudaSuccess) return (int)err;
+  gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma, dbeta,
+                                                      C, rows);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,13 @@ every kernel wrapper in this package: the device alone decides.
   tensors and runs the plain PyTorch version on CPU tensors (the CPU tests
   and nothing else take that branch).
 - Its ``backward`` is the plain version's vector-Jacobian product. With
-  grad mode off (every training path) autograd takes it on detached copies
-  of the saved inputs. With grad mode on (``create_graph=True``, or inside
-  ``torch.func.grad``) it is itself differentiable, so a second reverse
-  pass is exact, as JAX's ``custom_jvp`` rules are to any order:
+  grad mode off (every training path) it is the vjp's own kernel where the
+  wrapper gives one (K5b for GroupNorm: ``gn_math_vjp`` in closed form on
+  CPU tensors, the kernel on CUDA tensors), else autograd of the plain
+  version rerun on detached copies of the saved inputs. With grad mode on
+  (``create_graph=True``, or inside ``torch.func.grad``) it is itself
+  differentiable, so a second reverse pass is exact, as JAX's
+  ``custom_jvp`` rules are to any order:
   ``torch.func.vjp`` of the plain version, or, for the attention core's
   checkpointed tiled plain version above T = 1024 (which ``torch.func``
   refuses), autograd with ``create_graph`` on the saved tensors; inside a
@@ -27,7 +30,8 @@ every kernel wrapper in this package: the device alone decides.
   recomputes the plain intermediates it needs (the GroupNorm statistics,
   the softmax weights), which the kernel does not keep.
 - Raw pointers are taken only inside ``forward``, which receives plain
-  tensors even under ``torch.func`` transforms.
+  tensors even under ``torch.func`` transforms, and inside a backward with
+  grad mode off, which runs outside them.
 
 There is no fallback from a failed build or launch to the plain version.
 
@@ -217,7 +221,7 @@ def _differentiable_vjp(plain, ctx, grad, checkpointed):
 
 
 def kernel_function(name, plain, launch, tangent, n_tensors,
-                    checkpointed=lambda *args: False):
+                    checkpointed=lambda *args: False, vjp=None):
     """A ``torch.autograd.Function`` (setup_context style, so that
     ``torch.func`` transforms it) for one kernel.
 
@@ -227,7 +231,11 @@ def kernel_function(name, plain, launch, tangent, n_tensors,
     being None where its input has none; the first ``n_tensors`` arguments
     are tensors, the rest static values (no gradient). ``forward`` picks by
     device (``use_kernel``); ``backward`` is the plain version's
-    vector-Jacobian product and ``jvp`` is ``tangent``. Call it as
+    vector-Jacobian product and ``jvp`` is ``tangent``. ``vjp``, if given,
+    is a pair ``(plain_vjp, launch_vjp)``, each ``(*tensors, *static,
+    grad) -> gradients of the tensors``: the backward with grad mode off
+    picks between them by device as ``forward`` does (with grad mode on it
+    stays the differentiable vjp of ``plain``). Call it as
     ``Fn.apply(*tensors, *static)``."""
 
     def forward(*args):
@@ -244,6 +252,10 @@ def kernel_function(name, plain, launch, tangent, n_tensors,
     def backward(ctx, grad):
         if torch.is_grad_enabled():  # create_graph, or inside torch.func
             grads = _differentiable_vjp(plain, ctx, grad, checkpointed)
+        elif vjp is not None:
+            ts = ctx.saved_tensors
+            rule = vjp[1] if use_kernel(*ts, grad) else vjp[0]
+            grads = rule(*ts, *ctx.static, grad)
         else:
             with torch.enable_grad():
                 ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]

@@ -10,7 +10,8 @@ the plain versions; only FMA-free reordering could differ); K3 rtol/atol
 1e-5 (its four products in 3xTF32 on the tensor cores, within ~2^-21 of each
 fp32 product, tests/test_torch_attn_tc.py; TF32 is off for the plain
 version's matmuls); K5 rtol/atol 1e-5 (per-warp sums in another order than
-PyTorch's reductions); K6 atol 1e-5, K4 (T > 1024) 2e-5 (the online softmax
+PyTorch's reductions); K5b: dx within 1e-5·max |plain| of gn_math_vjp, dγ
+and dβ (sums over B·S terms) within 1e-5·max of gn_math_vjp in float64; K6 atol 1e-5, K4 (T > 1024) 2e-5 (the online softmax
 sums thousands of terms in another order than the plain version's softmax;
 K6's and K4's products are 3xTF32 on the tensor cores, within ~2^-21 of each
 fp32 product, tests/test_torch_flash_tc.py). Through autograd, the jvp and
@@ -43,7 +44,9 @@ from sdeflow_tpu_torch.ops.kernels.attnblock import (
 from sdeflow_tpu_torch.ops.kernels.circulant import (
     K1, K2, circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
 from sdeflow_tpu_torch.ops.kernels.groupnorm import (
-    K5, gn_math, group_norm_silu)
+    K5, K5B, gn_math, gn_math_vjp, group_norm_silu, kernel_plan,
+    launch_plan)
+from sdeflow_tpu_torch.ops.kernels.groupnorm import _launch_vjp as launch_k5b
 
 pytestmark = pytest.mark.cuda
 
@@ -137,9 +140,11 @@ def test_autograd_through_kernels_matches_plain(dev, name):
             args = [(1.0 + _rand(rng, 128, 3).abs()).to(dev), y, 0.3 * w]
             kern, plain, kernel = circulant_rk4_step, rk4_math_fwd, K2
         tol = 1e-6
-    before = kernel.launches
+    before, before_b = kernel.launches, K5B.launches
     got = _through_autograd(kern, args, np.random.default_rng(6))
     assert kernel.launches == before + 2  # the jvp's forward, the grad's
+    # K5's gradient (grad mode off) through its own kernel K5b
+    assert K5B.launches == before_b + (name == "K5")
     want = _through_autograd(plain, args, np.random.default_rng(6))
     for a, b in zip(got, want):  # output, tangent, then each gradient
         torch.testing.assert_close(a, b, rtol=tol,
@@ -190,13 +195,38 @@ def test_attention_block_kernel_rejects_what_it_does_not_cover(dev):
         fused_attention_block(*args, 32, 1)
 
 
+# the launch plans' edges (groupnorm.launch_plan): slabs of n = S floats
+# (C = G = 32) just below and above each threshold of the lanes per slab
+# (32, 64), the vectors per lane (128, 1,024), the cluster size (8,192,
+# 16,384) and the stream plan (65,536); S % 4 != 0 (1,023 and 1,025 floats,
+# and 33,333: streamed); a cluster block ending inside a channel (C/G = 2,
+# S = 4,100); 8-lane slabs past the last whole block (B·G = 15); and the
+# DSM step's largest slab (49,152 floats)
+GN_EDGES = [(3, 32, s, 32) for s in (32, 36, 64, 68, 128, 132, 1024, 1028,
+                                     8192, 8196, 16384, 16388, 65536,
+                                     65540, 1023, 1025, 33333)] + [
+    (2, 64, 4100, 32), (3, 10, 16, 5), (4, 96, 16384, 32)]
+# grf16's GroupNorms at batch 1024 and the DSM step's at batch 128 (32
+# groups each)
+GN_PATH = [(1024, 32, 256, 32), (1024, 96, 256, 32), (1024, 64, 64, 32),
+           (1024, 192, 64, 32), (1024, 256, 16, 32), (1024, 64, 16, 32),
+           (128, 32, 16384, 32), (128, 96, 16384, 32), (128, 64, 1024, 32),
+           (128, 192, 1024, 32), (128, 192, 4096, 32)]
+
+
+def _gn_inputs(b, c, s, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    return ((3.0 * _rand(rng, b, c, s) + 1.0).to(dev),
+            (1.0 + 0.5 * _rand(rng, c)).to(dev), (0.5 * _rand(rng, c)).to(dev))
+
+
 @pytest.mark.parametrize("b,c,s,groups", [
     (1024, 32, 256, 32), (1024, 96, 256, 32), (1024, 64, 64, 32),
     (1024, 192, 64, 32), (1024, 256, 16, 32), (3, 5, 7, 5), (2, 10, 3, 2),
-    (2, 64, 4096, 32)])
+    (2, 64, 4096, 32), *GN_PATH[5:], *GN_EDGES])
 @pytest.mark.parametrize("silu", [False, True])
 def test_groupnorm_kernel_matches_plain(dev, b, c, s, groups, silu):
-    # (2, 64, 4096) has slabs of 8192 floats: the strided path
+    # (2, 64, 4096) has slabs of 8192 floats: a cluster of 2 blocks
     rng = np.random.default_rng(3)
     x = (3.0 * _rand(rng, b, c, s) + 1.0).to(dev)
     gamma = (1.0 + 0.5 * _rand(rng, c)).to(dev)
@@ -211,6 +241,49 @@ def test_groupnorm_kernel_matches_plain(dev, b, c, s, groups, silu):
     if not silu:  # PyTorch's own GroupNorm computes the same function
         torch.testing.assert_close(out, torch.nn.functional.group_norm(
             x, groups, gamma, beta, eps=1e-5), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,c,s,groups", [(3, 5, 7, 5), (2, 10, 3, 2),
+                                          *GN_PATH, *GN_EDGES])
+@pytest.mark.parametrize("silu", [False, True])
+def test_groupnorm_backward_kernel_matches_plain(dev, b, c, s, groups, silu):
+    x, gamma, beta = _gn_inputs(b, c, s, dev)
+    dy = _rand(np.random.default_rng(4), b, c, s).to(dev)
+    before = K5.launches, K5B.launches
+    with torch.no_grad():
+        dx, dgamma, dbeta = launch_k5b(x, gamma, beta, groups, silu, dy)
+        torch.cuda.synchronize()
+        assert (K5.launches, K5B.launches) == (before[0], before[1] + 1)
+        # the same bits again: no atomics
+        again = launch_k5b(x, gamma, beta, groups, silu, dy)
+        ref_dx = gn_math_vjp(x, gamma, beta, groups, silu, dy)[0]
+        ref64 = gn_math_vjp(*(t.double() for t in (x, gamma, beta)), groups,
+                            silu, dy.double())
+    assert all(torch.equal(a, r) for a, r in zip((dx, dgamma, dbeta), again))
+    torch.testing.assert_close(dx, ref_dx, rtol=1e-5,
+                               atol=1e-5 * ref_dx.abs().max().item())
+    for got, want in zip((dgamma, dbeta), ref64[1:]):
+        torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_groupnorm_plan_mirror_matches_the_kernels(dev):
+    sizes = [(n, s) for s in (1, 3, 4, 7, 16, 64, 1023, 1024, 1025, 4100,
+                              16384, 33333, 65536, 65540)
+             for n in (s, 2 * s, 3 * s, 6 * s, 8 * s)]
+    for n, s in sizes:
+        for aligned in (True, False):
+            assert kernel_plan(n, s, aligned) == launch_plan(n, s, aligned)
+
+
+def test_groupnorm_kernels_take_empty_slabs(dev):
+    x = torch.zeros(2, 8, 0, device=dev)
+    w = torch.ones(8, device=dev)
+    with torch.no_grad():
+        assert group_norm_silu(x, w, w, 4, True).shape == x.shape
+        dx, dgamma, dbeta = launch_k5b(x, w, w, 4, True, x)
+    torch.cuda.synchronize()
+    assert dx.shape == x.shape and not dgamma.any() and not dbeta.any()
 
 
 @pytest.mark.parametrize("b,t,c,heads", [
