@@ -17,8 +17,13 @@ every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
-2. K1 circulant_apply against circ_math at (1024, 256), (1000, 256) and
-   (1024, 1024), rtol/atol 1e-6;
+2. K1 circulant_apply against circ_math, bit for bit, at (1024, 256),
+   (1000, 256), (1024, 1024) and the plans' edges (1001, 96) (warp plan,
+   3 floats per lane) and (999, 1056) (general plan), the Python plan
+   mirror equal to the compiled chooser at each; K1 timed at (1024, 256)
+   per call, as a direct launch, its device time from a trace beside the
+   smallest PyTorch kernel of the same trace (the launch floor), the bound
+   and the plain version;
 3. K3 fused_attention_block against attn_block_math at (1024, 64, 64) and
    (1024, 16, 128) with one head and at (1024, 64, 64) with four heads,
    all weights random and non-zero, TF32 off, rtol/atol 1e-5;
@@ -68,29 +73,42 @@ every CUDA kernel of those paths against its plain PyTorch version:
    3 launches of K5, 1 of K4 (the no-grad forward), 2 of K7a (the jvp, the
    gradient's forward), 1 of K7b and 1 of K5b; and a trace of three no-grad
    forwards;
-12. K2 circulant_rk4_step against rk4_math_fwd at (128, 256), (1000, 256)
-   and (1024, 1024), sb3 in [1, 2], rtol/atol 1e-6, and
-   ForwardFlow.rk4_step (kernel K2) against the generic rk4_step on the
-   plain versions;
+12. K2 circulant_rk4_step against rk4_math_fwd, bit for bit, at (128, 256),
+   (1000, 256), (1024, 1024), (127, 96) and (129, 97), sb3 in [1, 2], the
+   plan mirror equal to the compiled chooser, timed at (128, 256) as K1 in
+   phase 2; ForwardFlow.rk4_step (kernel K2) against the generic rk4_step
+   on the plain versions; K2's solve (circulant_rk4_solve_select, one
+   launch for the SSM loss's forward solve) at (64, 128, 256) on grf16's
+   SDE with the steps per row from grf16's t draws, all 0 and all 64: bit
+   for bit against a loop of ForwardFlow.rk4_step (one K2 launch per step)
+   with the masked select and against integrate_select, within 1e-6 of
+   rk4_solve_select_math; its device time per case beside the bound (the z
+   rows the case reads) and the launch floor; against the loop: per call,
+   device time and kernels from traces, and wall time per solve with the
+   draws (one randn against 64, the fills and the selects);
 13. autograd through the kernels: torch.func.jvp, torch.autograd.grad and
    a double backward (create_graph: the kernel's forward, the plain
    version's differentiable backward) through each kernel's Function
-   against the plain version at the paths' shapes (K1, K2 1e-6; K3, K5, K6
-   1e-5, relative to the largest entry; K5's first-order gradients
+   against the plain version at the paths' shapes (K1, K2 and K2's solve
+   over 8 steps 1e-6; K3, K5, K6 1e-5, relative to the largest entry; K5's
+   first-order gradients
    through K5b, exactly two launches), and a ResBlock's gradient through
    its JVP on cuDNN and K5 against the CPU (1e-4);
 14. training on the auto route: on one batch of 128 with injected draws,
    the loss and every parameter gradient of the kernel path against the
    plain path (loss rtol 1e-4, each gradient max |Δ| ≤ 1e-3·max |g|); three
    steps of the driver's Trainer (train_msgm_arm); 20 timed bare train
-   steps with exactly 64 K2, 5 K1, 11 K3, 35 K5 and 35 K5b launches each
-   (the loss reads the score as well as its JVP); then a
-   train step replayed plain, kernel, kernel, plain;
+   steps with exactly 1 K2 solve, no K2 step, 5 K1, 11 K3, 35 K5 and 35 K5b
+   launches each (the loss reads the score as well as its JVP); then a
+   train step replayed plain, kernel, kernel, plain; and the forward
+   trajectory (sample_scheme_allt, the ssm_intT loss's solve) at batch 128
+   with exactly 64 K2 step launches, its last state with injected normals
+   equal to K2's solve taking every step;
 15. traces one train step with torch.profiler, on the kernel path and on
    the plain path;
 16. training on the unfused route: the same agreement check, 10 timed bare
-   train steps with exactly 64 K2, 5 K1, 46 K5, 46 K5b and 11 K6 launches
-   each,
+   train steps with exactly 1 K2 solve, 5 K1, 46 K5, 46 K5b and 11 K6
+   launches each,
    5 steps of each route in turns (auto, unfused, unfused, auto), and one
    traced step;
 17. K7a (flash forward with lse) and K7b (flash backward) against their
@@ -117,9 +135,11 @@ every CUDA kernel of those paths against its plain PyTorch version:
 19. traces one DSM step at batch 128 with torch.profiler, with the device
    time under GroupNormSiLUBackward.
 
-Ends with the kernel table as one JSON line (per call through the
-autograd.Function and as a direct launch, device time, bound, plain
-version, and the library call where one computes the same function; the
+Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
+K5b, K6, K4, K7a, K7b: per call through the autograd.Function and as a
+direct launch, device time, bound, plain version, the launch floor for
+K1, K2 and the solve, and the library call where one computes the same
+function; the
 bound is the largest of the bytes over 3.35 TB/s, the matrix-product flops
 three times over 494.7 TFLOP/s dense TF32, and the other flops over
 67 TFLOP/s fp32), then
@@ -156,16 +176,20 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 494.7e12  # dense TF32 on the tensor cores
 TF32_PASSES = 3  # 3xTF32: fp32 accuracy from three TF32 products
-K1_SHAPES = [(1024, 256), (1000, 256), (1024, 1024)]
-K2_SHAPES = [(128, 256), (1000, 256), (1024, 1024)]
+# K1 and K2: the paths' shapes, a warp-plan edge (d = 96: 3 floats per
+# lane, no float4), the general plans (d = 1,056 past 1,024; d = 97) and
+# B not a multiple of the rows per block
+K1_SHAPES = [(1024, 256), (1000, 256), (1024, 1024), (1001, 96),
+             (999, 1056)]
+K2_SHAPES = [(128, 256), (1000, 256), (1024, 1024), (127, 96), (129, 97)]
 TRAIN_BATCH, TRAIN_STEPS = 128, 64  # grf16: batch 128, 64 forward steps
 WARM_STEPS, TIMED_STEPS, REPLAY_STEPS = 3, 20, 5
 TIMED_STEPS_UNFUSED = 10
-# launches per bare train step: K2 once per forward step; K1 four times
-# in the one-step fallback and once in the loss field; the U-Net's kernels
-# once per call of the one U-Net forward under the JVP (the jvp and
-# backward rules run the plain versions)
-K1_PER_TRAIN, K2_PER_TRAIN = 5, 64
+# launches per bare train step: K2's solve once (the whole 64-step forward
+# solve), K2's step never; K1 four times in the one-step fallback and once
+# in the loss field; the U-Net's kernels once per call of the one U-Net
+# forward under the JVP (the jvp and backward rules run the plain versions)
+K1_PER_TRAIN, K2_PER_TRAIN, K2_SOLVE_PER_TRAIN = 5, 0, 1
 K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4)]
 BLOCK_MIX = {(64, 64): 5, (16, 128): 6}  # AttentionBlocks per forward
 # (B, C, S, groups): slabs of 15, 15 and 8,192 floats (a cluster of two)
@@ -204,18 +228,20 @@ SGM_GN_MIX = {(32, 4096, True): 1, (32, 16384, True): 8, (64, 1024, True): 1,
 SGM_WANT = {"group_norm_silu": 46, "group_norm_silu_bwd": 46,
             "qkv_attention": 6,
             "qkv_attention_stats": 5, "qkv_attention_bwd": 5}
-# kernel symbols in traces; K5b's entry launches gn_silu_bwd_kernel_* and
-# then gn_silu_bwd_params (its dγ, dβ sums over the batch)
-KERNEL_SYMBOLS = ("circulant_apply_kernel", "rk4_step_kernel",
-                  "attn_block_kernel", "gn_silu_kernel",
-                  "gn_silu_bwd_kernel", "qkv_attention_kernel",
-                  "flash_fwd_kernel", "flash_fwd_stats_kernel",
-                  "flash_bwd_kernel", "gn_silu_bwd_params")
-SYMBOL = dict(zip(("circulant_apply", "circulant_rk4_step",
-                   "fused_attention_block", "group_norm_silu",
-                   "group_norm_silu_bwd", "qkv_attention",
-                   "qkv_attention_flash", "qkv_attention_stats",
-                   "qkv_attention_bwd"), KERNEL_SYMBOLS))
+# kernel symbols in traces (every plan of a kernel); K2's step and its
+# solve launch the same kernels (rk4_warp_kernel, rk4_block_kernel); K5b's
+# entry launches gn_silu_bwd_kernel_* and then gn_silu_bwd_params (its dγ,
+# dβ sums over the batch)
+SYMBOL = {"circulant_apply": "circulant_apply", "circulant_rk4_step": "rk4_",
+          "circulant_rk4_solve": "rk4_",
+          "fused_attention_block": "attn_block_kernel",
+          "group_norm_silu": "gn_silu_kernel",
+          "group_norm_silu_bwd": "gn_silu_bwd_kernel",
+          "qkv_attention": "qkv_attention_kernel",
+          "qkv_attention_flash": "flash_fwd_kernel",
+          "qkv_attention_stats": "flash_fwd_stats_kernel",
+          "qkv_attention_bwd": "flash_bwd_kernel"}
+KERNEL_SYMBOLS = (*dict.fromkeys(SYMBOL.values()), "gn_silu_bwd_params")
 
 
 def log(*a):
@@ -235,6 +261,7 @@ def per_forward(route):
 def serve_want(route):
     forwards = FORWARDS_PER_STEP * STEPS
     return {"circulant_apply": K1_PER_STEP * STEPS, "circulant_rk4_step": 0,
+            "circulant_rk4_solve": 0,
             **{k: n * forwards for k, n in per_forward(route).items()}}
 
 
@@ -243,7 +270,8 @@ def train_want(route):
     # step's backward runs each GroupNormSiLU's reverse pass once: K5b
     fwd = per_forward(route)
     return {"circulant_apply": K1_PER_TRAIN,
-            "circulant_rk4_step": K2_PER_TRAIN, **fwd,
+            "circulant_rk4_step": K2_PER_TRAIN,
+            "circulant_rk4_solve": K2_SOLVE_PER_TRAIN, **fwd,
             "group_norm_silu_bwd": fwd["group_norm_silu"]}
 
 
@@ -285,6 +313,15 @@ def k2_cost(b, d):
     # reads sb3, x, w once and writes out; per element 4 stencil stages of
     # 6 flops, 5 for the stage states, 5 for the sum and 2 to combine
     return 4 * (3 * b + 3 * b * d), 0, 36 * b * d
+
+
+def solve_cost(sel, d, n):
+    # what these select counts need: x0 read and kept written once, the z
+    # rows of the steps each row takes (sum of sel), the √β table and sel;
+    # per element of those steps K2's 36 flops and 1 for the √δ scale
+    steps = int(sel.sum().item())
+    b = sel.numel()
+    return 4 * (steps * d + 2 * b * d + 3 * n) + 8 * b, 0, 37 * steps * d
 
 
 def k3_cost(b, t, c, heads):
@@ -417,6 +454,51 @@ def log_trace(what, prof):
         log(f"  {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name'][:90]}")
 
 
+def kernel_times(fn, reps, tiny=None):
+    """Device times (ms) by kernel name over `reps` calls of fn() under
+    torch.profiler, each call followed by tiny() if given; one window for
+    all calls (a window of a few short kernels can come back empty)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+            if tiny is not None:
+                tiny()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(list)
+    for e in p.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name].append(e.device_time_total / 1e3)
+    return by_name
+
+
+def device_times(fn, symbol, reps=50):
+    """Device time per launch of the kernels whose name holds `symbol`
+    over `reps` calls of fn(), each call followed by one tiny PyTorch
+    kernel (an add to one float): the smallest PyTorch kernel's mean device
+    time in that trace is the card's launch floor for one tiny launch.
+    Returns (ms per launch, floor ms, launches per call)."""
+    one = torch.zeros(1, device="cuda")
+    by_name = kernel_times(fn, reps, lambda: one.add_(1.0))
+    mine = [t for name, ts in by_name.items() if symbol in name for t in ts]
+    floor = min(sum(ts) / len(ts) for name, ts in by_name.items()
+                if "at::native::" in name)
+    if not mine:
+        raise AssertionError(f"no {symbol} kernel in the trace")
+    return sum(mine) / len(mine), floor, len(mine) / reps
+
+
+def device_per_call(fn, reps):
+    """Device time (ms) and kernels per call of fn(), from one trace of
+    `reps` calls."""
+    by_name = kernel_times(fn, reps)
+    return (sum(map(sum, by_name.values())) / reps,
+            sum(map(len, by_name.values())) / reps)
+
+
 @contextlib.contextmanager
 def swapped(pairs):
     """Set each (module, name) to its value; restore on exit."""
@@ -436,12 +518,15 @@ def plain_path():
     from sdeflow_tpu_torch.models import common as mcommon, unet2d
     from sdeflow_tpu_torch.ops.kernels.attention import attention_math
     from sdeflow_tpu_torch.ops.kernels.attnblock import attn_block_math
-    from sdeflow_tpu_torch.ops.kernels.circulant import circ_math, rk4_math_fwd
+    from sdeflow_tpu_torch.ops.kernels.circulant import (
+        circ_math, rk4_math_fwd, rk4_solve_select_math)
     from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math
     from sdeflow_tpu_torch.sde import msgm
 
     return swapped([(msgm, "circulant_apply", circ_math),
                     (msgm, "circulant_rk4_step", rk4_math_fwd),
+                    (msgm, "circulant_rk4_solve_select",
+                     rk4_solve_select_math),
                     (unet2d, "fused_attention_block", attn_block_math),
                     (mcommon, "group_norm_silu", gn_math),
                     (unet2d, "attention_core", attention_math)])
@@ -709,35 +794,127 @@ def check_k6(g, dev):
     return rows
 
 
+def check_k1(g, dev):
+    """Phase 2: K1 against its plain version at every plan's edge, bit for
+    bit, with the Python plan mirror held to the compiled chooser; its
+    times at the serve shape."""
+    from sdeflow_tpu_torch.ops.kernels.circulant import (
+        K1, _launch_k1, circ_math, circulant_apply, circulant_plan,
+        kernel_plan)
+
+    row = {}
+    with torch.no_grad():
+        for b, d in K1_SHAPES:
+            plan = circulant_plan(b, d)
+            if kernel_plan(K1, b, d) != plan:
+                raise AssertionError(f"K1 ({b}, {d}): plan mirror {plan} != "
+                                     f"{kernel_plan(K1, b, d)}")
+            y = torch.randn(b, d, generator=g, device=dev)
+            w = torch.randn(b, d, generator=g, device=dev)
+            sb = 1.0 + torch.rand(b, 1, generator=g, device=dev)
+            out = circulant_apply(sb, y, w)
+            torch.cuda.synchronize()
+            ref = circ_math(sb, y, w)
+            err = (out - ref).abs().max().item()
+            log(f"K1 ({b}, {d}) {plan.kind} plan ({plan.per_lane} floats per "
+                f"lane, vec {plan.vec}): max |kernel - plain| = {err:.3g}")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K1 ({b}, {d}) differs from circ_math")
+            if (b, d) == (N_SAMPLES, DIM):
+                dev_ms, floor, _ = device_times(lambda: _launch_k1(sb, y, w),
+                                                SYMBOL[K1.name])
+                bound = bound_ms(*k1_cost(b, d))
+                row = {"max_abs_err": err, "shape": [b, d],
+                       "plan": plan._asdict(),
+                       "ms": cuda_ms(lambda: circulant_apply(sb, y, w), 200),
+                       "direct_ms": cuda_ms(lambda: _launch_k1(sb, y, w),
+                                            200),
+                       "plain_ms": cuda_ms(lambda: circ_math(sb, y, w), 200),
+                       "device_ms_alone": dev_ms, "floor_ms": floor,
+                       "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"K1 at {row['shape']}: device {row['device_ms_alone']:.5f} ms "
+        f"(launch floor {row['floor_ms']:.5f} ms), bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}), per call "
+        f"{row['ms']:.4f} ms, direct {row['direct_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms")
+    return row
+
+
+def forward_select(gen, g, b, n):
+    """Steps per sample of the SSM loss's forward solve, from the arm's t
+    draws as sample_scheme makes them."""
+    t = gen.sample_t(g, b)
+    sel = torch.clamp(torch.floor(n * t / gen.base_sde.T).long(), 0, n)
+    return torch.where(t >= gen.base_sde.T, n, sel)
+
+
+def step_loop(flow, x0, g, n, sel, z=None):
+    """integrate_select's per-step loop as it ran before the whole-solve
+    override: per step a draw of normals (unless z gives them), the √δ
+    scale, ForwardFlow.rk4_step (three fills of sb3 and kernel K2) and the
+    masked select."""
+    delta = float(flow.T) / n
+    sqrt_delta = delta ** 0.5
+    sel = sel.reshape(-1, 1)
+    x = kept = x0
+    for i in range(n):
+        zi = z[i] if z is not None else torch.randn(
+            x0.shape, generator=g, device=x0.device)
+        x = flow.rk4_step(i * delta, x, delta, sqrt_delta * zi)
+        kept = torch.where(sel == i + 1, x, kept)
+    return kept
+
+
 def check_k2(gen, g, dev):
-    """Phase 12: K2 against its plain version, and the forward flow's fused
-    step against the generic stages on the plain versions."""
+    """Phase 12: K2 against its plain version at every plan's edge, bit for
+    bit, with the plan mirror held to the compiled chooser, its times at
+    the training shape, the forward flow's fused step against the generic
+    stages on the plain versions, and K2's solve (check_solve)."""
     from sdeflow_tpu_torch.ops.integrators import rk4_step
     from sdeflow_tpu_torch.ops.kernels.circulant import (
-        _launch_k2, circulant_rk4_step, rk4_math_fwd)
+        K2, _launch_k2, circulant_rk4_step, kernel_plan, rk4_math_fwd,
+        rk4_plan)
     from sdeflow_tpu_torch.sde import ForwardFlow
 
     row = {}
     delta = 1.0 / TRAIN_STEPS
     with torch.no_grad():
         for b, d in K2_SHAPES:
+            plan = rk4_plan(b, d)
+            if kernel_plan(K2, b, d) != plan:
+                raise AssertionError(f"K2 ({b}, {d}): plan mirror {plan} != "
+                                     f"{kernel_plan(K2, b, d)}")
             x = torch.randn(b, d, generator=g, device=dev)
             w = delta**0.5 * torch.randn(b, d, generator=g, device=dev)
             sb3 = 1.0 + torch.rand(b, 3, generator=g, device=dev)
             out = circulant_rk4_step(sb3, x, w)
             torch.cuda.synchronize()
             ref = rk4_math_fwd(sb3, x, w)
-            torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
             err = (out - ref).abs().max().item()
-            log(f"K2 ({b}, {d}): max |kernel - plain| = {err:.3g}")
+            log(f"K2 ({b}, {d}) {plan.kind} plan ({plan.per_lane} floats per "
+                f"lane, vec {plan.vec}): max |kernel - plain| = {err:.3g}")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K2 ({b}, {d}) differs from "
+                                     "rk4_math_fwd")
             if (b, d) == (TRAIN_BATCH, DIM):
+                dev_ms, floor, _ = device_times(
+                    lambda: _launch_k2(sb3, x, w), SYMBOL[K2.name])
+                bound = bound_ms(*k2_cost(b, d))
                 row = {"max_abs_err": err, "shape": [b, d],
+                       "plan": plan._asdict(),
                        "ms": cuda_ms(lambda: circulant_rk4_step(sb3, x, w),
                                      200),
                        "plain_ms": cuda_ms(lambda: rk4_math_fwd(sb3, x, w),
                                            200),
                        "direct_ms": cuda_ms(lambda: _launch_k2(sb3, x, w),
-                                            200)}
+                                            200),
+                       "device_ms_alone": dev_ms, "floor_ms": floor,
+                       "bound_ms": bound[0], "bound_by": bound[1]}
+        log(f"K2 at {row['shape']}: device {row['device_ms_alone']:.5f} ms "
+            f"(launch floor {row['floor_ms']:.5f} ms), bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), per call "
+            f"{row['ms']:.4f} ms, direct {row['direct_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms")
         flow = ForwardFlow(base_sde=gen.base_sde, T=gen.base_sde.T)
         x = gen.latent_sample(g, TRAIN_BATCH)
         dw = delta**0.5 * torch.randn(x.shape, generator=g, device=dev)
@@ -748,7 +925,141 @@ def check_k2(gen, g, dev):
             torch.testing.assert_close(fused, generic, rtol=1e-6, atol=1e-6)
             log(f"ForwardFlow.rk4_step at t={t:.4f} (K2) vs generic stages "
                 f"(plain): max |Δ| = {(fused - generic).abs().max().item():.3g}")
-    return row
+    return row, check_solve(gen, g, dev)
+
+
+def check_solve(gen, g, dev):
+    """K2's solve at the SSM loss's (64, 128, 256) on the grf16 SDE, with
+    the steps per row from grf16's t draws and the edge cases (all 0, all
+    64): bit for bit against step_loop on the same normals (a K2 launch
+    per step), within 1e-6 of rk4_solve_select_math; its device time per
+    select case (the per-row step counts beside it: rows near 64 set a
+    latency-bound launch); then against the loop: device time from traces
+    and wall time per solve with the loop's draws, fills and selects."""
+    from sdeflow_tpu_torch.ops.integrators import integrate_select
+    from sdeflow_tpu_torch.ops.kernels.circulant import (
+        K2, K2_SOLVE, _launch_solve, circulant_rk4_solve_select, kernel_plan,
+        rk4_plan, rk4_solve_select_math)
+    from sdeflow_tpu_torch.sde import ForwardFlow
+    from sdeflow_tpu_torch.sde.msgm import sqrt_beta_table
+
+    sde = gen.base_sde
+    n, b = sde.num_steps_forward, TRAIN_BATCH
+    if n != TRAIN_STEPS:
+        raise AssertionError(f"grf16's forward solve takes {n} steps")
+    if kernel_plan(K2, b, DIM) != rk4_plan(b, DIM):
+        raise AssertionError("K2's plan mirror differs at the solve's shape")
+    flow = ForwardFlow(base_sde=sde, T=sde.T)
+    delta = float(sde.T) / n
+    sd = delta ** 0.5
+    sb = sqrt_beta_table(sde.beta_min, sde.beta_max, delta, n, dev,
+                         torch.float32)
+    x0 = gen.latent_sample(g, b)
+    z = torch.randn(n, b, DIM, generator=g, device=dev)
+    cases = {"grf16 t draws": forward_select(gen, g, b, n),
+             "all 0": torch.zeros(b, dtype=torch.int64, device=dev),
+             f"all {n}": torch.full((b,), n, dtype=torch.int64, device=dev)}
+    rec = {"shape": [n, b, DIM], "cases": {}}
+    with torch.no_grad():
+        for name, sel in cases.items():
+            before = K2_SOLVE.launches
+            got = circulant_rk4_solve_select(x0, z, sb, sel, sd)
+            torch.cuda.synchronize()
+            if K2_SOLVE.launches != before + 1:
+                raise AssertionError("the solve did not launch once")
+            loop = step_loop(flow, x0, None, n, sel, z)
+            via = integrate_select(flow, x0, None, n, sel, noise=z)
+            plain = rk4_solve_select_math(x0, z, sb, sel, sd)
+            err_loop = (got - loop).abs().max().item()
+            err_plain = (got - plain).abs().max().item()
+            if not (torch.equal(got, loop) and torch.equal(via, got)):
+                raise AssertionError(f"solve ({name}) differs from the K2 "
+                                     f"loop: {err_loop:.3g}")
+            torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+            dev_ms, floor, _ = device_times(
+                lambda: _launch_solve(x0, z, sb, sel, sd), SYMBOL[K2_SOLVE.name])
+            bound = bound_ms(*solve_cost(sel, DIM, n))
+            rec["cases"][name] = {
+                "max_abs_err_loop": err_loop, "max_abs_err": err_plain,
+                "steps_max": int(sel.max().item()),
+                "steps_mean": sel.double().mean().item(),
+                "device_ms": dev_ms, "floor_ms": floor,
+                "bound_ms": bound[0], "bound_by": bound[1]}
+            log(f"K2 solve {tuple(rec['shape'])}, {name} (steps per row: max "
+                f"{int(sel.max())}, mean {sel.double().mean().item():.2f}): "
+                f"max |solve - K2 loop| = {err_loop:.3g}, max |solve - plain| "
+                f"= {err_plain:.3g}; device {dev_ms:.5f} ms (launch floor "
+                f"{floor:.5f} ms), bound {bound[0]:.5f} ms ({bound[1]})")
+        sel = cases["grf16 t draws"]
+        rec.update(rec["cases"]["grf16 t draws"])
+        rec["ms"] = cuda_ms(lambda: circulant_rk4_solve_select(
+            x0, z, sb, sel, sd), 100)
+        rec["direct_ms"] = cuda_ms(lambda: _launch_solve(x0, z, sb, sel, sd),
+                                   100)
+        rec["plain_ms"] = cuda_ms(lambda: rk4_solve_select_math(
+            x0, z, sb, sel, sd), 5, 1)
+        rec["loop_ms"] = cuda_ms(lambda: step_loop(flow, x0, None, n, sel, z),
+                                 5, 1)
+        # with the draws: the override's one randn, the loop's 64
+        rec["solve_wall_ms"] = cuda_ms(lambda: integrate_select(
+            flow, x0, g, n, sel), 20, 2)
+        rec["loop_wall_ms"] = cuda_ms(lambda: step_loop(flow, x0, g, n, sel),
+                                      5, 1)
+        # device time and kernels per solve, with the draws
+        rec["solve_device_ms"], rec["solve_kernels"] = device_per_call(
+            lambda: integrate_select(flow, x0, g, n, sel), 20)
+        rec["loop_device_ms"], rec["loop_kernels"] = device_per_call(
+            lambda: step_loop(flow, x0, g, n, sel), 5)
+    log(f"K2 solve vs the per-step K2 loop on the same normals: per call "
+        f"{rec['ms']:.4f} ms (direct {rec['direct_ms']:.4f}), loop "
+        f"{rec['loop_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms; with the "
+        f"draws {rec['solve_wall_ms']:.4f} against {rec['loop_wall_ms']:.3f} "
+        f"ms per solve, device time {rec['solve_device_ms']:.4f} ms in "
+        f"{rec['solve_kernels']:g} kernels against "
+        f"{rec['loop_device_ms']:.4f} ms in {rec['loop_kernels']:g}")
+    return rec
+
+
+def check_trajectory(gen, g, dev):
+    """Phase 14's forward trajectory (sample_scheme_allt, the ssm_intT
+    loss's solve, K2's step path) at batch 128: exactly one K2 step launch
+    per forward step and no solve; with injected normals its last state
+    equals K2's solve taking every step, bit for bit."""
+    from sdeflow_tpu_torch.ops.kernels import common
+    from sdeflow_tpu_torch.ops.kernels.circulant import (
+        circulant_rk4_solve_select)
+    from sdeflow_tpu_torch.sde.msgm import sqrt_beta_table
+
+    sde = gen.base_sde
+    n, b = sde.num_steps_forward, TRAIN_BATCH
+    x0 = gen.latent_sample(g, b)
+    want = {k.name: 0 for k in common.KERNELS.values()}
+    want["circulant_rk4_step"] = n
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj = sde.sample_scheme_allt(g, x0, include_t0=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != want:
+        raise AssertionError(f"forward trajectory launched {counts}")
+    if tuple(traj.shape) != (n, b, DIM) or not torch.isfinite(traj).all():
+        raise AssertionError(f"bad trajectory {tuple(traj.shape)}")
+    z = torch.randn(n, b, DIM, generator=g, device=dev)
+    delta = float(sde.T) / n
+    with torch.no_grad():
+        last = sde.sample_scheme_allt(None, x0, include_t0=False, noise=z)[-1]
+        solve = circulant_rk4_solve_select(
+            x0, z, sqrt_beta_table(sde.beta_min, sde.beta_max, delta, n, dev,
+                                   torch.float32),
+            torch.full((b,), n, dtype=torch.int64, device=dev), delta ** 0.5)
+    if not torch.equal(last, solve):
+        raise AssertionError("the trajectory's last state differs from the "
+                             "solve's")
+    log(f"forward trajectory ({n}, {b}, {DIM}): {dt * 1e3:.2f} ms, launches "
+        f"{counts}, last state equal to K2's solve")
+    return {"ms": dt * 1e3, "launches": counts}
 
 
 def through_autograd(fn, args, seed):
@@ -800,7 +1111,8 @@ def check_autograd(g, dev):
     from sdeflow_tpu_torch.ops.kernels.attnblock import (
         attn_block_math, fused_attention_block)
     from sdeflow_tpu_torch.ops.kernels.circulant import (
-        circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
+        circ_math, circulant_apply, circulant_rk4_solve_select,
+        circulant_rk4_step, rk4_math_fwd, rk4_solve_select_math)
     from sdeflow_tpu_torch.ops.kernels.groupnorm import (
         K5B, gn_math, group_norm_silu)
 
@@ -813,6 +1125,12 @@ def check_autograd(g, dev):
          [1.0 + rnd(b, 1).abs(), rnd(b, d), rnd(b, d)], 1e-6),
         ("K2", circulant_rk4_step, rk4_math_fwd,
          [1.0 + rnd(b, 3).abs(), rnd(b, d), 0.125 * rnd(b, d)], 1e-6)]
+    # K2's solve over 8 steps, rows taking 0 to 8 of them
+    sel = torch.randint(0, 9, (b,), generator=g, device=dev)
+    cases.append(("K2 solve",
+                  lambda *a: circulant_rk4_solve_select(*a, sel, 0.125),
+                  lambda *a: rk4_solve_select_math(*a, sel, 0.125),
+                  [rnd(b, d), rnd(8, b, d), 1.0 + rnd(8, 3).abs()], 1e-6))
     for t, c in BLOCK_MIX:
         cases.append((f"K3 ({b}, {t}, {c})",
                       lambda *a: fused_attention_block(*a, 32, 1),
@@ -1459,8 +1777,7 @@ def main(argv=None):
     from sdeflow_tpu_torch.ops.kernels import common
     from sdeflow_tpu_torch.ops.kernels.attnblock import (
         K3, _launch, attn_block_math, fused_attention_block)
-    from sdeflow_tpu_torch.ops.kernels.circulant import (
-        K1, K2, _launch_k1, circ_math, circulant_apply)
+    from sdeflow_tpu_torch.ops.kernels.circulant import K1, K2, K2_SOLVE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1492,23 +1809,8 @@ def main(argv=None):
 
     phase("2")
     # -- 2. K1 against its plain version ------------------------------------
-    k1_err = 0.0
-    with torch.no_grad():
-        for b, d in K1_SHAPES:
-            y = torch.randn(b, d, generator=g, device=dev)
-            w = torch.randn(b, d, generator=g, device=dev)
-            sb = 1.0 + torch.rand(b, 1, generator=g, device=dev)
-            out = circulant_apply(sb, y, w)
-            torch.cuda.synchronize()
-            ref = circ_math(sb, y, w)
-            torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
-            err = (out - ref).abs().max().item()
-            if (b, d) == (N_SAMPLES, DIM):
-                k1_err = err
-                k1_ms = cuda_ms(lambda: circulant_apply(sb, y, w), 200)
-                k1_plain_ms = cuda_ms(lambda: circ_math(sb, y, w), 200)
-                k1_direct_ms = cuda_ms(lambda: _launch_k1(sb, y, w), 200)
-            log(f"K1 ({b}, {d}): max |kernel - plain| = {err:.3g}")
+    k1 = check_k1(g, dev)
+    record["k1"] = k1
 
     phase("3")
     # -- 3. K3 against its plain version ------------------------------------
@@ -1633,8 +1935,9 @@ def main(argv=None):
     record["long_attention"] = long
 
     phase("12")
-    # -- 12. K2 against its plain version -------------------------------------
-    k2 = check_k2(gen, g, dev)
+    # -- 12. K2 and its solve against their plain versions -------------------
+    k2, solve = check_k2(gen, g, dev)
+    record["k2"], record["k2_solve"] = k2, solve
 
     phase("13")
     # -- 13. autograd through the kernels -------------------------------------
@@ -1644,6 +1947,7 @@ def main(argv=None):
     # -- 14. training at full width ------------------------------------------
     train, step = check_training(cfg, model, gen, g, dev)
     record["train"] = train
+    record["trajectory"] = check_trajectory(gen, g, dev)
 
     phase("15")
     # -- 15. where one train step's time goes ---------------------------------
@@ -1671,8 +1975,6 @@ def main(argv=None):
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
-    bound_k1 = bound_ms(*k1_cost(N_SAMPLES, DIM))
-    bound_k2 = bound_ms(*k2_cost(TRAIN_BATCH, DIM))
     k3_rows = list(k3.values())
     k6_rows = [k6[s] for s in BLOCK_MIX]
     for r in k6_rows:
@@ -1693,28 +1995,30 @@ def main(argv=None):
         return dict(out, **extra)
 
     kernels = [
-        {"name": K1.name, "id": "K1", "route": "cuda",
-         "source": "sdeflow_tpu_torch/csrc/circulant.cu",
-         "replaces": "sdeflow_tpu/ops/pallas/circulant.py:47",
-         "launches": serve_k[K1.name], "launches_per": "serve request",
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "direct_ms": k1_direct_ms,
-         "bound_ms": bound_k1[0], "bound_by": bound_k1[1],
-         "library_ms": None, "shape": [N_SAMPLES, DIM],
-         "device_ms": prof["per_launch_ms"].get(SYMBOL[K1.name]),
-         "train_launches_per_step": train["launches_per_step"][K1.name],
-         "train_device_ms": prof_train["per_launch_ms"].get(
-             SYMBOL[K1.name])},
-        {"name": K2.name, "id": "K2", "route": "cuda",
-         "source": "sdeflow_tpu_torch/csrc/rk4.cu",
-         "replaces": "sdeflow_tpu/ops/pallas/circulant.py:118",
-         "launches": train["launches_per_step"][K2.name],
-         "launches_per": "train step", "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "direct_ms": k2["direct_ms"],
-         "bound_ms": bound_k2[0], "bound_by": bound_k2[1],
-         "library_ms": None, "shape": k2["shape"],
-         "device_ms": prof_train["per_launch_ms"].get(SYMBOL[K2.name])},
+        dict(k1, name=K1.name, id="K1", route="cuda",
+             source="sdeflow_tpu_torch/csrc/circulant.cu",
+             replaces="sdeflow_tpu/ops/pallas/circulant.py:47",
+             launches=serve_k[K1.name], launches_per="serve request",
+             library_ms=None,
+             device_ms=prof["per_launch_ms"].get(SYMBOL[K1.name]),
+             train_launches_per_step=train["launches_per_step"][K1.name],
+             train_device_ms=prof_train["per_launch_ms"].get(
+                 SYMBOL[K1.name])),
+        dict(k2, name=K2.name, id="K2", route="cuda",
+             source="sdeflow_tpu_torch/csrc/rk4.cu",
+             replaces="sdeflow_tpu/ops/pallas/circulant.py:118",
+             launches=record["trajectory"]["launches"][K2.name],
+             launches_per="forward trajectory (sample_scheme_allt, batch "
+             f"{TRAIN_BATCH}; 0 per SSM step)", library_ms=None,
+             device_ms=k2["device_ms_alone"]),
+        dict(solve, name=K2_SOLVE.name, id="K2 solve", route="cuda",
+             source="sdeflow_tpu_torch/csrc/rk4.cu",
+             replaces="sdeflow_tpu/ops/pallas/circulant.py:118 in the "
+             "lax.scan of sdeflow_tpu/ops/integrators.py:232-243",
+             launches=train["launches_per_step"][K2_SOLVE.name],
+             launches_per="SSM train step", library_ms=None,
+             train_device_ms=prof_train["per_launch_ms"].get(
+                 SYMBOL[K2_SOLVE.name])),
         dict(mixed(k3_rows), name=K3.name, id="K3", route="cuda",
              source="sdeflow_tpu_torch/csrc/attnblock.cu",
              replaces="sdeflow_tpu/ops/pallas/attnblock.py:188",
@@ -1795,6 +2099,11 @@ def main(argv=None):
               ("K7b", "qkv_attention_bwd", "attention_bwd.cu", 436)]],
     ]
     for k in kernels:
+        missing = {"name", "route", "source", "replaces", "launches",
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms"} - set(k)
+        if missing:
+            raise AssertionError(f"{k['id']} lacks {sorted(missing)}")
         lib = ("no single PyTorch call computes it" if k["library_ms"] is None
                else f"library call {k['library_ms']:.4f} ms")
         log(f"{k['id']} {k['name']}: {k['ms']:.4f} ms per call (direct "

@@ -6,7 +6,9 @@ is a Python loop (a CUDA graph of the loop is later work). One Wiener
 increment per step is shared by all Runge-Kutta stages. A flow may override
 a whole step (``ForwardFlow.rk4_step`` runs the circulant MSGM forward step
 as kernel K2). ``integrate_select`` keeps, per sample, the state after its
-own number of steps. The Langevin corrector comes with ROADMAP Queue 1
+own number of steps; a flow may override that whole solve
+(``ForwardFlow.rk4_solve_select``: the circulant MSGM forward solve as one
+launch of K2's solve). The Langevin corrector comes with ROADMAP Queue 1
 item 3.
 
 The flow protocol: ``T``; ``mu(t, y, lmbd)`` (Itô drift, EM);
@@ -105,11 +107,22 @@ def integrate_select(flow, x0, generator, num_steps, select_idx, *,
     after select_idx[b] steps (select_idx (B,) integers in [0, num_steps];
     0 returns x0). A masked ``kept`` buffer replaces the trajectory, as in
     the JAX package; all num_steps steps run. noise: optional
-    (num_steps, B, d) standard normal draws, as for integrate_sde."""
-    step_fn = _resolve_step_fn(flow, method)
+    (num_steps, B, d) standard normal draws, as for integrate_sde.
+
+    The flow's whole-solve override ``<method>_solve_select`` takes the
+    solve where it has one and lmbd == 0 without norm correction; it draws
+    the normals of all steps at once when none are given (on the CPU the
+    same numbers as one draw per step)."""
     delta = float(flow.T) / num_steps
     sqrt_delta = delta ** 0.5
     _check_noise(noise, num_steps, x0)
+    solve = getattr(flow, f"{method}_solve_select", None)
+    if solve is not None and lmbd == 0 and not norm_correction:
+        if noise is None:
+            noise = torch.randn((num_steps, *x0.shape), generator=generator,
+                                device=x0.device, dtype=x0.dtype)
+        return solve(x0, noise, delta, select_idx)
+    step_fn = _resolve_step_fn(flow, method)
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)
     x = kept = x0

@@ -38,3 +38,11 @@ class ForwardFlow:
             if out is not None:
                 return out
         return generic_rk4(self, t, x, delta, dW, lmbd)
+
+    @property
+    def rk4_solve_select(self):
+        """The whole-solve override of integrate_select: the base SDE's
+        fused forward RK4 solve with the per-sample select (circulant MSGM:
+        one launch of K2's solve), called as (x0, z, delta, select_idx);
+        None where the base SDE has none."""
+        return getattr(self.base_sde, "fused_forward_rk4_solve_select", None)

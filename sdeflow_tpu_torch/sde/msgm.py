@@ -1,7 +1,8 @@
 """Multiplicative SGM SDE dY = √β(t) G(Y) ∘ dB, circulant G.
 
 Port of sdeflow_tpu/sde/msgm.py: the circulant G (its action is kernel
-K1, one whole forward RK4 step kernel K2, ops/kernels/circulant.py), the
+K1, one whole forward RK4 step kernel K2, the whole forward solve of the
+training loss one launch of K2's solve, ops/kernels/circulant.py), the
 forward perturbation of the training loss (sde/base.py), the ecdf radial
 latent prior with the optional log map of the radii, the conditional latent
 and the KDE log density of the ELBO. The dense G and the KDE radius sampler
@@ -13,6 +14,7 @@ L_G = −½I for the circulant G, so f = −½β(t)y.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -23,10 +25,22 @@ from sdeflow_tpu_torch.ops.hutchinson import randu_on_sphere
 from sdeflow_tpu_torch.ops.kde import (
     gaussian_kde_logpdf, kde_normalization_log_constant)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
-    circulant_apply, circulant_rk4_step)
-from sdeflow_tpu_torch.sde.base import SDEBehavior, _sqrt, _tcol
+    circulant_apply, circulant_rk4_solve_select, circulant_rk4_step)
+from sdeflow_tpu_torch.sde.base import SDEBehavior, _sqrt, _tcol, beta_linear
 
 _LOG_EPS = 1e-6  # sdeflow_tpu/sde/msgm.py:45
+
+
+@functools.lru_cache(maxsize=16)
+def sqrt_beta_table(beta_min, beta_max, delta, n, device, dtype):
+    """√β(t + s·δ) for t = i·δ, i < n, s ∈ {0, ½, 1}: the (n, 3) table of
+    K2's solve, with the values the per-step path fills
+    (``fused_forward_rk4_step``: float64 on the host, that expression's
+    order, rounded once to ``dtype``). Built once per schedule and grid and
+    kept on the device, so a solve costs no host-to-device copy."""
+    rows = [[math.sqrt(beta_linear(i * delta + s * delta, beta_min, beta_max))
+             for s in (0.0, 0.5, 1.0)] for i in range(n)]
+    return torch.tensor(rows, dtype=dtype).to(device)
 
 
 @dataclass(frozen=True)
@@ -113,6 +127,15 @@ class MSGMSde(SDEBehavior):
             for j, s in enumerate((0.0, 0.5, 1.0)):
                 sb3[:, j].fill_(math.sqrt(self.beta(t + s * delta)))
         return circulant_rk4_step(sb3, x, dW)
+
+    def fused_forward_rk4_solve_select(self, x0, z, delta, select_idx):
+        """The whole forward RK4 solve with the per-sample select
+        (integrate_select with ``fused_forward_rk4_step`` as its step) as
+        one launch of K2's solve: z (n, B, d) the normals, step i at
+        t = i·δ with increment √δ·z[i]."""
+        sb = sqrt_beta_table(self.beta_min, self.beta_max, delta, z.shape[0],
+                             x0.device, x0.dtype)
+        return circulant_rk4_solve_select(x0, z, sb, select_idx, delta ** 0.5)
 
     # -- forward perturbation ----------------------------------------------
     def sample(self, generator, t, y0, *, noise=None, noise_one=None):

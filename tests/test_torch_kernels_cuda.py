@@ -5,8 +5,11 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 and K2 rtol/atol 1e-6 (the kernels round each product like
-the plain versions; only FMA-free reordering could differ); K3 rtol/atol
+Tolerances: K1, K2 and K2's solve bit for bit against the plain versions
+on every launch plan (the kernels round each product like the plain
+versions, in their order, without FMA contraction), the solve also bit for
+bit against a loop of K2 steps with the masked select; through autograd
+1e-6; K3 rtol/atol
 1e-5 (its four products in 3xTF32 on the tensor cores, within ~2^-21 of each
 fp32 product, tests/test_torch_attn_tc.py; TF32 is off for the plain
 version's matmuls); K5 rtol/atol 1e-5 (per-warp sums in another order than
@@ -42,7 +45,11 @@ from sdeflow_tpu_torch.ops.kernels.attention import (
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
     K3, attn_block_math, fused_attention_block)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
-    K1, K2, circ_math, circulant_apply, circulant_rk4_step, rk4_math_fwd)
+    K1, K2, K2_SOLVE, circ_math, circulant_apply, circulant_plan,
+    circulant_rk4_solve_select, circulant_rk4_step, rk4_math_fwd, rk4_plan,
+    rk4_solve_select_math)
+from sdeflow_tpu_torch.ops.kernels.circulant import (
+    kernel_plan as circulant_kernel_plan)
 from sdeflow_tpu_torch.ops.kernels.groupnorm import (
     K5, K5B, gn_math, gn_math_vjp, group_norm_silu, kernel_plan,
     launch_plan)
@@ -64,38 +71,147 @@ def _rand(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("shape", [(1024, 256), (1000, 256), (1024, 1024),
-                                   (3, 5), (2, 1)])
-def test_circulant_kernel_matches_plain(dev, shape):
+# the launch plans' edges of K1 and K2 (circulant_plan, rk4_plan): the warp
+# plan from 1 to 32 floats per lane (96 and 992 without float4 loads),
+# d past 1,024 or not a multiple of 32 (the general plans, K2's with 16
+# rows per block at d = 16 and its buffers in device memory at d = 100,000),
+# B not a multiple of the rows per block; each aligned and 4 bytes past a
+# 16-byte boundary (the warp plans then load one float at a time)
+CIRC_SHAPES = [(1024, 256), (1000, 256), (1024, 1024), (3, 5), (2, 1),
+               (9, 32), (7, 96), (5, 128), (3, 992), (3, 1056), (5, 33),
+               (1000, 16), (1023, 256)]
+
+
+def _misaligned(t):
+    """t's values in a tensor that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", CIRC_SHAPES)
+def test_circulant_kernel_matches_plain(dev, shape, aligned):
     rng = np.random.default_rng(0)
     y, w = _rand(rng, *shape).to(dev), _rand(rng, *shape).to(dev)
     sb = (1.0 + _rand(rng, shape[0], 1).abs()).to(dev)
+    if not aligned:
+        y, w = _misaligned(y), _misaligned(w)
     with torch.no_grad():
         before = K1.launches
         out = circulant_apply(sb, y, w)
         torch.cuda.synchronize()
         assert K1.launches == before + 1
-        torch.testing.assert_close(out, circ_math(sb, y, w), rtol=1e-6,
-                                   atol=1e-6)
+        assert torch.equal(out, circ_math(sb, y, w))
         # a number for sqrt_beta broadcasts like the plain version
-        torch.testing.assert_close(circulant_apply(2.5, y, w),
-                                   circ_math(2.5, y, w), rtol=1e-6, atol=1e-6)
+        assert torch.equal(circulant_apply(2.5, y, w), circ_math(2.5, y, w))
 
 
-@pytest.mark.parametrize("shape", [(128, 256), (1000, 256), (1024, 1024),
-                                   (3, 5), (2, 1), (2, 100_000)])
-def test_rk4_kernel_matches_plain(dev, shape):
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", CIRC_SHAPES + [(128, 256), (2, 100_000)])
+def test_rk4_kernel_matches_plain(dev, shape, aligned):
     rng = np.random.default_rng(0)
     x, w = _rand(rng, *shape).to(dev), 0.3 * _rand(rng, *shape).to(dev)
     sb3 = torch.from_numpy(1.0 + rng.random((shape[0], 3)).astype(
         np.float32)).to(dev)
+    if not aligned:
+        x, w = _misaligned(x), _misaligned(w)
     with torch.no_grad():
         before = K2.launches
         out = circulant_rk4_step(sb3, x, w)
         torch.cuda.synchronize()
         assert K2.launches == before + 1
-        torch.testing.assert_close(out, rk4_math_fwd(sb3, x, w), rtol=1e-6,
-                                   atol=1e-6)
+        assert torch.equal(out, rk4_math_fwd(sb3, x, w))
+
+
+def test_circulant_plan_mirrors_match_the_kernels(dev):
+    for b in (1, 5, 8, 9, 128, 1000, 1024):
+        for d in (1, 16, 31, 32, 33, 96, 100, 128, 256, 992, 1000, 1024,
+                  1056, 2048, 100_000):
+            for aligned in (True, False):
+                assert (circulant_kernel_plan(K1, b, d, aligned)
+                        == circulant_plan(b, d, aligned))
+                assert (circulant_kernel_plan(K2, b, d, aligned)
+                        == rk4_plan(b, d, aligned))
+
+
+def _select(kind, b, n, rng):
+    if kind == "zeros":
+        return torch.zeros(b, dtype=torch.int64)
+    if kind == "full":
+        return torch.full((b,), n, dtype=torch.int64)
+    # every count from 0 to n, and two outside [0, n] (x0 kept, as the
+    # masked select keeps it)
+    sel = torch.from_numpy(rng.integers(0, n + 1, b))
+    sel[:3] = torch.tensor([0, n, -1 if b > 3 else 0])
+    if b > 4:
+        sel[3] = n + 1
+    return sel
+
+
+@pytest.mark.parametrize("kind", ["mixed", "zeros", "full"])
+@pytest.mark.parametrize("n,b,d", [(64, 128, 256), (8, 7, 96), (8, 5, 1056),
+                                   (8, 6, 100), (4, 3, 2048)])
+def test_solve_equals_the_per_step_kernel_loop(dev, n, b, d, kind):
+    rng = np.random.default_rng(3)
+    x0 = _rand(rng, b, d).to(dev)
+    z = _rand(rng, n, b, d).to(dev)
+    sb = torch.from_numpy(1.0 + rng.random((n, 3)).astype(np.float32)).to(dev)
+    sel = _select(kind, b, n, rng).to(dev)
+    sd = (1.0 / n) ** 0.5
+    with torch.no_grad():
+        before = K2_SOLVE.launches, K2.launches
+        got = circulant_rk4_solve_select(x0, z, sb, sel, sd)
+        torch.cuda.synchronize()
+        assert (K2_SOLVE.launches, K2.launches) == (before[0] + 1, before[1])
+        x = kept = x0
+        for i in range(n):
+            x = circulant_rk4_step(sb[i].expand(b, 3), x, sd * z[i])
+            kept = torch.where(sel.reshape(-1, 1) == i + 1, x, kept)
+        assert torch.equal(got, kept)
+        torch.testing.assert_close(
+            got, rk4_solve_select_math(x0, z, sb, sel, sd), rtol=1e-6,
+            atol=1e-6)
+
+
+def test_sample_scheme_launches_one_solve(dev):
+    from sdeflow_tpu_torch.sde.msgm import MSGMSde
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    sde = MSGMSde.create(torch.randn(512, 256, generator=g, device=dev),
+                         beta_max=80.0, t_epsilon=4e-3, num_steps_forward=64,
+                         dense_tensor=False, norm_map="log")
+    x = torch.randn(128, 256, generator=g, device=dev)
+    t = torch.rand(128, generator=g, device=dev)
+    t[0] = 0.001  # below one grid step: the one-step fallback (K1)
+    before = K2_SOLVE.launches, K2.launches, K1.launches
+    out = sde.sample(g, t, x)
+    torch.cuda.synchronize()
+    assert (K2_SOLVE.launches - before[0], K2.launches - before[1],
+            K1.launches - before[2]) == (1, 0, 4)
+    assert torch.isfinite(out).all() and out.shape == x.shape
+
+
+def test_autograd_through_the_solve_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    n, b, d = 8, 128, 256
+    args = [_rand(rng, b, d).to(dev), _rand(rng, n, b, d).to(dev),
+            torch.from_numpy(1.0 + rng.random((n, 3)).astype(
+                np.float32)).to(dev)]
+    sel = _select("mixed", b, n, rng).to(dev)
+    sd = (1.0 / n) ** 0.5
+    before = K2_SOLVE.launches
+    got = _through_autograd(
+        lambda *a: circulant_rk4_solve_select(*a, sel, sd), args,
+        np.random.default_rng(6))
+    assert K2_SOLVE.launches == before + 2  # the jvp's forward, the grad's
+    want = _through_autograd(
+        lambda *a: rk4_solve_select_math(*a, sel, sd), args,
+        np.random.default_rng(6))
+    for a, b_ in zip(got, want):  # output, tangent, then each gradient
+        torch.testing.assert_close(a, b_, rtol=1e-6,
+                                   atol=1e-6 * b_.abs().max().item())
 
 
 def _through_autograd(fn, args, rng):
