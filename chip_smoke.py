@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH] [--gn]
+    python3 chip_smoke.py [--record PATH] [--only gn|driver]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -12,8 +12,10 @@ norm-corrected RK4 and SSM training at batch 128, each on the U-Net's
 AttentionBlock at a long sequence (kernel K4, and the reverse-mode pair
 K7a/K7b under autograd); and denoising-score-matching training of the SGM
 arm of the grf U-Net on 128×128 images at batch 128 (K5, K5b, K6, K7a,
-K7b; K5b is GroupNorm's backward, run by every training path). It holds
-every CUDA kernel of those paths against its plain PyTorch version:
+K7b; K5b is GroupNorm's backward, run by every training path); and the
+experiment driver's CLI on grf16 (both arms trained by SSM, sampled and
+scored: K1, K2's solve, K3, K5, K5b). It holds every CUDA kernel of those
+paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -114,7 +116,11 @@ every CUDA kernel of those paths against its plain PyTorch version:
 17. K7a (flash forward with lse) and K7b (flash backward) against their
    plain versions, TF32 off, at (4, 4096, 64) with one and two heads,
    (2, 2048, 128) and the ragged (2, 1000, 64): the output within
-   2e-5·max |plain|, lse within 1e-5, dqkv within 1e-4·max |plain|; their
+   2e-5·max |plain|, lse within 1.5e-5 of the plain version run in
+   float64 (its distance from the fp32 plain version is reported beside
+   it), dqkv within 1e-4·max |plain|; K7a's lse on 20 more draws at
+   (2, 2048, 128) held to float64 the same way, with the fp32 plain
+   version's own distance from it; their
    times at (4, 4096, 64) per call through FlashAttention (its forward; its
    backward alone) and as a direct launch, beside the plain versions, the
    bound and scaled_dot_product_attention's forward and backward; and the
@@ -133,10 +139,35 @@ every CUDA kernel of those paths against its plain PyTorch version:
    each (no K1-K4); one step of the plain and the kernel path in turns
    (plain, kernel, kernel, plain) at batch 8;
 19. traces one DSM step at batch 128 with torch.profiler, with the device
-   time under GroupNormSiLUBackward.
+   time under GroupNormSiLUBackward;
+20. the experiment driver: first, on one batch of 128 with injected t, ε
+   and probe, the SGM arm's SSM loss and every parameter gradient on the
+   kernel path against the plain path (loss rtol 1e-4, each gradient
+   1e-3·max |g|; exactly 11 K3, 35 K5 and 35 K5b launches, no K1, no K2),
+   and one traced SGM SSM step at batch 128 (torch.profiler); then
+   ``sdeflow_tpu_torch.run.main`` with ``--preset grf16 --iterations
+   8 --num-samples 1024 --steps-backward 32 --eval-mmd --no-plots`` in a
+   temporary cwd and results directory, every kernel count set to 0 just
+   before and read just after (K1, K2's solve, K3, K5 and K5b must
+   launch). Both arms train 8 steps at batch 128 with finite losses and
+   moving parameters, each bare step (the ELBO prints aside) with exactly
+   the launches of phase 14 (MSGM) or the SGM step above, timed with its
+   peak memory; each arm's generation run gives a finite (33, 1024, 256)
+   trajectory with exactly 256 K1 (MSGM; 0 for SGM), 1,408 K3 and 4,480 K5
+   launches, MSGM keeping every latent norm to rtol 1e-5 and SGM not, and
+   the SGM run replayed on the plain path from the same generator state
+   agrees at each state within 1e-3 of the plain state's rms, on the rows
+   that filter_blowups keeps; the six result arrays are finite, the
+   train-to-test MMD and SWD are equal between the arms, each arm's MMD²
+   on the card agrees with a float64 CPU recomputation within rtol 1e-3,
+   one MMD and one SWD at (1023, 256) are timed, the metric arrays, the
+   per-run samples and trajectories and the final checkpoints exist under
+   the JAX package's names, and ``--just-load-mmd`` reloads the arrays
+   equal.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
-K5b, K6, K4, K7a, K7b: per call through the autograd.Function and as a
+K5b, K6, K4, K7a, K7b, each with its launches in the driver's run: per
+call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
 function; the
@@ -146,8 +177,9 @@ three times over 494.7 TFLOP/s dense TF32, and the other flops over
 {"ok": true, "device": {...}} as the last line. Exits non-zero without a
 CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
-top kernels) as JSON to PATH. With --gn, only builds the kernels and times
-K5 and K5b at both GroupNorm mixes, with one traced DSM step.
+top kernels) as JSON to PATH. With --only, builds the kernels and runs one
+part: gn times K5 and K5b at both GroupNorm mixes, with one traced DSM
+step; driver runs phase 20.
 """
 
 from __future__ import annotations
@@ -213,6 +245,15 @@ LONG_BLOCK = (4, 64, 64, 64)  # (B, C, H, W): T = 4096
 # ragged T for the kernels' edge masking
 K7_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1),
              (2, 1000, 64, 1)]
+# K7a's lse against the plain version in float64: at C = 128 (|lse| ~ 14)
+# its 3xTF32 scores put it up to 9.85e-6 from float64 over 20 draws, about
+# twice the fp32 plain version's own distance (up to 5.42e-6), so it can
+# fall more than 1e-5 (its earlier limit) from the fp32 plain (ROADMAP
+# Queue 3). 1.5e-5 leaves half again above the worst reading; the distance
+# from the fp32 plain is still reported and recorded
+K7_LSE_TOL = 1.5e-5
+# the lse sweep: draws at the C = 128 shape, from a generator of their own
+K7_LSE_SHAPE, K7_LSE_DRAWS, K7_LSE_SEED = (2, 2048, 128, 1), 20, 123
 # the SGM DSM slice: the grf U-Net on 128×128 SmoothedGRF images at grf's
 # batch; AttentionBlocks per forward at (C, H·W): 5 at T = 4096, 6 at 1024
 SGM_NPIXEL, SGM_BATCH, SGM_AGREE_BATCH, SGM_TIMED_STEPS = 128, 128, 8, 5
@@ -1306,7 +1347,7 @@ def check_training(cfg, model, gen, g, dev):
     driver's Trainer, timed bare train steps with their launch counts, and
     the plain, kernel, kernel, plain replay of a train step."""
     from sdeflow_tpu_torch import train_msgm_arm
-    from sdeflow_tpu_torch.experiments.driver import make_data_sampler
+    from sdeflow_tpu_torch.experiments.driver import make_sampler
     from sdeflow_tpu_torch.ops.kernels import common
 
     b = cfg.sweep.batch_sizes[0]
@@ -1314,7 +1355,7 @@ def check_training(cfg, model, gen, g, dev):
         raise AssertionError("grf16 trains at batch 128 with 64 steps")
     want = train_want("auto")
     assert set(want) == set(common.KERNELS)
-    sampler = make_data_sampler(cfg, DIM, dev)
+    sampler = make_sampler(cfg, DIM, dev)
     x, draws = train_draws(gen, sampler, g, dev)
     rec = {"agreement": train_agreement(model, gen.ssm, g, x, draws, want)}
 
@@ -1448,10 +1489,10 @@ def train_unfused(cfg, model_u, gen_u, g, dev, step_auto):
     path, timed bare train steps, steps of both routes in turns and a
     traced step."""
     from sdeflow_tpu_torch.experiments.driver import (
-        make_data_sampler, make_trainer)
+        make_sampler, make_trainer)
 
     want = train_want("unfused")
-    sampler = make_data_sampler(cfg, DIM, dev)
+    sampler = make_sampler(cfg, DIM, dev)
     x, draws = train_draws(gen_u, sampler, g, dev)
     rec = {"agreement": train_agreement(model_u, gen_u.ssm, g, x, draws,
                                         want)}
@@ -1527,6 +1568,40 @@ def check_long_attention(g, dev):
     return {"launches": launched, "rel_err": errs, "profile": prof}
 
 
+def lse_errs(ak, qkv, heads, lse, lse_p):
+    """K7a's lse against the fp32 plain version (lse) and against the plain
+    version run in float64 (lse64), and the fp32 plain's own distance from
+    the latter (plain_lse64): max |Δ| each."""
+    lse_d = ak.attention_flash_stats_math(qkv.double(), heads)[1]
+    return {"lse": (lse - lse_p).abs().max().item(),
+            "lse64": (lse.double() - lse_d).abs().max().item(),
+            "plain_lse64": (lse_p.double() - lse_d).abs().max().item()}
+
+
+def lse_sweep(ak, dev):
+    """K7a's lse on K7_LSE_DRAWS draws at K7_LSE_SHAPE, each held to the
+    plain version in float64 within K7_LSE_TOL; the worst of each reading
+    of ``lse_errs`` over the draws."""
+    b, t, c, heads = K7_LSE_SHAPE
+    gs = torch.Generator(device=dev).manual_seed(K7_LSE_SEED)
+    worst = {"lse": 0.0, "lse64": 0.0, "plain_lse64": 0.0}
+    for _ in range(K7_LSE_DRAWS):
+        qkv = 1.5 * torch.randn(b, t, 3 * c, generator=gs, device=dev)
+        with torch.no_grad():
+            lse = ak._launch_stats(qkv, heads)[1]
+            lse_p = ak.attention_flash_stats_math(qkv, heads)[1]
+            e = lse_errs(ak, qkv, heads, lse, lse_p)
+        worst = {k: max(v, e[k]) for k, v in worst.items()}
+    log(f"K7a lse over {K7_LSE_DRAWS} draws at {K7_LSE_SHAPE}: max |Δ| "
+        f"against the plain in float64 {worst['lse64']:.3g} (tolerance "
+        f"{K7_LSE_TOL:g}), against the fp32 plain {worst['lse']:.3g}, the "
+        f"fp32 plain's own {worst['plain_lse64']:.3g}")
+    if not worst["lse64"] <= K7_LSE_TOL:
+        raise AssertionError(f"K7a's lse disagrees with float64: {worst}")
+    return dict(worst, shape=list(K7_LSE_SHAPE), draws=K7_LSE_DRAWS,
+                seed=K7_LSE_SEED)
+
+
 def check_flash(g, dev):
     """Phase 17: K7a and K7b against their plain versions at K7_SHAPES, and
     their times at the first beside the bound and SDPA's forward and
@@ -1534,7 +1609,8 @@ def check_flash(g, dev):
     from sdeflow_tpu_torch.ops.kernels import attention as ak
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    errs = {"out": 0.0, "lse": 0.0, "dqkv": 0.0}
+    errs = {"out": 0.0, "lse": 0.0, "lse64": 0.0, "plain_lse64": 0.0,
+            "dqkv": 0.0}
     rows = {}
     for b, t, c, heads in K7_SHAPES:
         qkv = 1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)
@@ -1549,13 +1625,16 @@ def check_flash(g, dev):
             dqkv_p = ak.attention_flash_bwd_math(qkv, dout, lse_p, delta,
                                                  heads)
         e = {"out": ((out - out_p).abs().max() / out_p.abs().max()).item(),
-             "lse": (lse - lse_p).abs().max().item(),
+             **lse_errs(ak, qkv, heads, lse, lse_p),
              "dqkv": ((dqkv - dqkv_p).abs().max()
                       / dqkv_p.abs().max()).item()}
         log(f"K7a/K7b ({b}, {t}, {c}) heads={heads}: max |Δ| / max |plain| "
-            f"out {e['out']:.3g} (tolerance 2e-5), lse max |Δ| "
-            f"{e['lse']:.3g} (1e-5), dqkv {e['dqkv']:.3g} (1e-4)")
-        if not (e["out"] <= 2e-5 and e["lse"] <= 1e-5 and e["dqkv"] <= 1e-4):
+            f"out {e['out']:.3g} (tolerance 2e-5), lse max |Δ| against the "
+            f"plain in float64 {e['lse64']:.3g} ({K7_LSE_TOL:g}; against "
+            f"the fp32 plain {e['lse']:.3g}, the fp32 plain's own "
+            f"{e['plain_lse64']:.3g}), dqkv {e['dqkv']:.3g} (1e-4)")
+        if not (e["out"] <= 2e-5 and e["lse64"] <= K7_LSE_TOL
+                and e["dqkv"] <= 1e-4):
             raise AssertionError(f"K7a/K7b disagree with plain: {e}")
         errs = {k: max(v, e[k]) for k, v in errs.items()}
         if (b, t, c, heads) != K7_SHAPES[0]:
@@ -1589,7 +1668,10 @@ def check_flash(g, dev):
             y, x, dout, retain_graph=True))
         rows["K7b"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             o, (q, k, v), do, retain_graph=True))
-    rows["K7a"].update(max_abs_err=errs["out"], lse_max_abs_err=errs["lse"])
+    rows["K7a"].update(max_abs_err=errs["out"], lse_max_abs_err=errs["lse"],
+                       lse_max_abs_err_float64=errs["lse64"],
+                       plain_lse_max_abs_err_float64=errs["plain_lse64"],
+                       lse_draws=lse_sweep(ak, dev))
     rows["K7b"]["max_abs_err"] = errs["dqkv"]
     # at the DSM path's own shape: direct launches beside SDPA, few calls
     b, t, c = SGM_BATCH, 4096, 64
@@ -1628,7 +1710,7 @@ def sgm_arm(g, dev):
     U-Net, the reverse SDE and the SmoothedGRF sampler."""
     from sdeflow_tpu_torch import build_sgm_arm
     from sdeflow_tpu_torch.configs import _grf
-    from sdeflow_tpu_torch.experiments.driver import make_data_sampler
+    from sdeflow_tpu_torch.experiments.driver import make_sampler
 
     cfg = _grf(SGM_NPIXEL)
     tc = cfg.train
@@ -1639,7 +1721,7 @@ def sgm_arm(g, dev):
     randomize_(model, g)
     with torch.no_grad():  # a gentler score head, as for the MSGM arm
         model.core.conv_out.weight.mul_(0.1)
-    return tc, model, gen, make_data_sampler(cfg, SGM_NPIXEL**2, dev)
+    return tc, model, gen, make_sampler(cfg, SGM_NPIXEL**2, dev)
 
 
 def check_sgm_training(g, dev):
@@ -1733,9 +1815,9 @@ def check_sgm_training(g, dev):
 
 
 def gn_timing(g, dev, record):
-    """--gn: K5 and its backward timed at grf16's GroupNorm mix (B = 1024)
-    and at the DSM step's (B = 128), and one traced DSM step at batch 128
-    with the device time under GroupNormSiLUBackward."""
+    """--only gn: K5 and its backward timed at grf16's GroupNorm mix
+    (B = 1024) and at the DSM step's (B = 128), and one traced DSM step at
+    batch 128 with the device time under GroupNormSiLUBackward."""
     from sdeflow_tpu_torch import Trainer, build_msgm_arm, get_preset
 
     model, _ = build_msgm_arm(get_preset("grf16"), g, device=dev)
@@ -1754,6 +1836,338 @@ def gn_timing(g, dev, record):
     log_trace(f"one DSM step at batch {SGM_BATCH}", record["dsm_profile"])
 
 
+# phase 20: the experiment driver through its CLI on grf16 at full width,
+# both arms trained by SSM at grf16's batch, sampled and scored
+DRIVER_ITERATIONS = 8
+DRIVER_ARGS = ["--preset", "grf16", "--iterations", str(DRIVER_ITERATIONS),
+               "--num-samples", str(N_SAMPLES), "--steps-backward",
+               str(STEPS), "--eval-mmd", "--no-plots"]
+DRIVER_SCORED = N_SAMPLES - 1  # the metric block scores n - 1 rows
+# the kernels of the driver's path: each must launch in its run
+DRIVER_KERNELS = ("circulant_apply", "circulant_rk4_solve",
+                  "fused_attention_block", "group_norm_silu",
+                  "group_norm_silu_bwd")
+
+
+def sgm_ssm_want():
+    """Launches per bare SSM step of the SGM arm: the closed-form forward
+    kernel (no K1, no K2), then the MSGM step's U-Net launches."""
+    want = train_want("auto")
+    return dict(want, circulant_apply=0, circulant_rk4_step=0,
+                circulant_rk4_solve=0)
+
+
+def gen_want(is_msgm):
+    """Launches per generation run of an arm: the serve path's, without
+    K1 on the SGM arm (its diffusion is a scalar)."""
+    want = serve_want("auto")
+    return want if is_msgm else dict(want, circulant_apply=0)
+
+
+def timed_call(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its kernel launches, wall time
+    (synchronized) and peak memory, and the states of its generator
+    arguments before the call; returns the record, the result under
+    "out"."""
+    before = launch_counts()
+    states = [a.get_state() for a in args if isinstance(a, torch.Generator)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = launch_counts()
+    return dict(args=args, kwargs=kwargs, out=out, ms=ms,
+                peak=torch.cuda.max_memory_allocated(),
+                generator_states=states,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def spied(module, name, calls):
+    """Wrap module.<name> so that each call appends its timed_call record
+    to `calls`."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(timed_call(orig, *args, **kwargs))
+        return calls[-1]["out"]
+
+    return swapped([(module, name, wrapper)])
+
+
+def counted_steps(steps):
+    """Wrap every train step the Trainers build: each bare step appends
+    its timed_call record with its arm (the base SDE's name), its loss,
+    the state and, on an arm's first step, its parameters before it (the
+    ELBO prints run outside the step)."""
+    from sdeflow_tpu_torch.training import train as train_mod
+
+    make = train_mod.make_train_step
+
+    def make_counted(*a, **k):
+        step = make(*a, **k)
+
+        def counted(state, *args, **kwargs):
+            arm = state.gen_sde.base_sde.name
+            before = (None if any(r["arm"] == arm for r in steps) else
+                      [p.detach().clone() for p in state.params.values()])
+            rec = timed_call(step, state, *args, **kwargs)
+            rec.update(arm=arm, loss=rec["out"][1], state=state,
+                       params_before=before)
+            steps.append(rec)
+            return rec["out"]
+
+        return counted
+
+    return swapped([(train_mod, "make_train_step", make_counted)])
+
+
+def mmd64(x, y):
+    """MMD² of the centered Gaussian kernel in float64 on the CPU."""
+    x, y = x.double().cpu(), y.double().cpu()
+    d = x.shape[1]
+
+    def km(a, b):
+        sq = torch.clamp((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+                         - 2.0 * a @ b.T, min=0.0)
+        return torch.expm1(-sq / d**2).mean().item()
+
+    return km(x, x) + km(y, y) - 2.0 * km(x, y)
+
+
+def replay_errs(xs, xp, filter_blowups):
+    """A generation run's trajectory xs (S, N, d) against its plain replay
+    xp, on the rows whose last plain state filter_blowups keeps: at each
+    state the max |xs − xp| over those rows over the rms of xp there; the
+    worst state's ratio, error and rms, with the error and the largest
+    |x| over every row and state."""
+    last = xp[-1]
+    kept = torch.isfinite(last).all(1) & (last.abs() <= 1e3).all(1)
+    n_kept = int(kept.sum())
+    if n_kept != last.shape[0] - filter_blowups(last)[1] or not n_kept:
+        raise AssertionError(f"replay: {n_kept} rows kept")
+    err = (xs[:, kept] - xp[:, kept]).abs().amax(dim=(1, 2))
+    rms = xp[:, kept].square().mean(dim=(1, 2)).sqrt()
+    rel = err / rms
+    s = int(rel.argmax())
+    return dict(rel=rel[s].item(), state=s, max_abs_err=err[s].item(),
+                rms=rms[s].item(), rows_kept=n_kept,
+                rel_per_state=rel.tolist(),
+                max_abs_err_all=(xs - xp).abs().max().item(),
+                max_abs_x=xp.abs().max().item())
+
+
+def check_driver(g, dev, card):
+    """Phase 20: the experiment driver's CLI (``sdeflow_tpu_torch.run``)
+    on grf16 at full width, both arms trained by SSM, sampled and scored,
+    in a temporary cwd and results directory, with its checks."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import build_sgm_arm, get_preset
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.eval import compute_mmd, sliced_wasserstein
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.experiments.naming import (
+        run_name_root, simulation_name)
+    from sdeflow_tpu_torch.ops.hutchinson import sample_v
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    cfg = get_preset("grf16")
+    tc, sw = cfg.train, cfg.sweep
+    if (sw.batch_sizes[0], sw.fair_comparison, sw.msgms) != (
+            TRAIN_BATCH, False, (0, 1)):
+        raise AssertionError("grf16: both arms at batch 128, no fair budget")
+    rec = {"card": card, "args": DRIVER_ARGS}
+
+    # (a) the SGM arm's SSM loss and gradients, kernel path against plain
+    model, gen = build_sgm_arm(cfg, None, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():  # a gentler score head, as for the MSGM arm
+        model.core.conv_out.weight.mul_(0.1)
+    x = drv.make_sampler(cfg, DIM, device=dev).sample(g, TRAIN_BATCH)
+    draws = dict(t=gen.sample_t(g, TRAIN_BATCH),
+                 noise=torch.randn(TRAIN_BATCH, DIM, generator=g, device=dev),
+                 v=sample_v(g, (TRAIN_BATCH, DIM), gen.vtype, device=dev))
+    rec["sgm_ssm_agreement"] = train_agreement(model, gen.ssm, g, x, draws,
+                                               sgm_ssm_want())
+    # where one SGM SSM step's time goes (the driver's own Trainer build)
+    sampler = drv.make_sampler(cfg, DIM, device=dev)
+    trainer = drv.make_trainer(cfg, gen, sampler, TRAIN_BATCH, log_fn=log)
+    rec["sgm_ssm_profile"] = trace(lambda: trainer.train_step(
+        trainer.state, g, sampler.sample(g, TRAIN_BATCH)))
+    log_trace(f"one SGM SSM train step at batch {TRAIN_BATCH}",
+              rec["sgm_ssm_profile"])
+    del model, gen, trainer
+
+    # (b) the driver's run, its kernels' launches counted from 0
+    steps, gens, scores = [], [], []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        results_dir = os.path.join(tmp, "results")
+        args = [*DRIVER_ARGS, "--results-dir", results_dir]
+        os.chdir(tmp)
+        try:
+            with counted_steps(steps), spied(drv, "generate", gens), \
+                    spied(drv, "score_samples", scores):
+                common.reset_launches()
+                t0 = time.perf_counter()
+                results = run_mod.main(args)
+                torch.cuda.synchronize()
+                rec["driver_s"] = time.perf_counter() - t0
+                rec["launches"] = launch_counts()
+            reloaded = run_mod.main([*args, "--just-load-mmd"])
+            files = sorted(os.path.relpath(os.path.join(d, f), results_dir)
+                           for d, _, fs in os.walk(results_dir) for f in fs)
+        finally:
+            os.chdir(cwd)
+    log(f"driver: {rec['driver_s']:.1f} s, launches {rec['launches']}")
+    missing = [k for k in DRIVER_KERNELS if not rec["launches"][k]]
+    if missing:
+        raise AssertionError(f"the driver's run never launched {missing}")
+
+    # (c) training: both arms, their bare steps and launches
+    arms = {"SGM": "SGM", "MSGM": "MSGM_sparseTenslogNorm"}
+    rec["train"] = {}
+    for arm, sde_name in arms.items():
+        mine = [r for r in steps if r["arm"] == sde_name]
+        want = train_want("auto") if arm == "MSGM" else sgm_ssm_want()
+        if len(mine) != DRIVER_ITERATIONS:
+            raise AssertionError(f"{arm}: {len(mine)} train steps")
+        bad = [r["launches"] for r in mine if r["launches"] != want]
+        if bad:
+            raise AssertionError(f"{arm} step launches {bad[0]} != {want}")
+        losses = torch.stack([r["loss"] for r in mine])
+        state = mine[-1]["state"]
+        moved = max((p.detach() - q).abs().max().item() for p, q in zip(
+            state.params.values(), mine[0]["params_before"]))
+        if not (torch.isfinite(losses).all() and moved > 0):
+            raise AssertionError(f"{arm}: losses {losses}, moved {moved}")
+        ms = [r["ms"] for r in mine]
+        rec["train"][arm] = dict(
+            ms_per_step=ms, ms_per_step_after_first=sum(ms[1:]) / len(ms[1:]),
+            max_memory_allocated=max(r["peak"] for r in mine),
+            launches_per_step=mine[-1]["launches"],
+            losses=losses.tolist(), param_moved=moved)
+        log(f"{card}: {arm} bare SSM steps at batch {TRAIN_BATCH}: "
+            f"{rec['train'][arm]['ms_per_step_after_first']:.1f} ms/step "
+            f"(steps 2-{DRIVER_ITERATIONS}; the first {ms[0]:.1f} ms), peak "
+            f"{rec['train'][arm]['max_memory_allocated'] / 2**20:.1f} MiB, "
+            f"launches {mine[-1]['launches']}")
+
+    # (d) generation: one run per arm, its launches, norms and replay
+    if len(gens) != 2:
+        raise AssertionError(f"{len(gens)} generation runs, expected 2")
+    rec["generate"] = {}
+    for (arm, is_msgm), r in zip((("SGM", False), ("MSGM", True)), gens):
+        xs = r["out"]
+        if tuple(xs.shape) != (STEPS + 1, N_SAMPLES, DIM) or \
+                not torch.isfinite(xs).all():
+            raise AssertionError(f"{arm}: trajectory {tuple(xs.shape)}")
+        if r["launches"] != gen_want(is_msgm):
+            raise AssertionError(f"{arm} generation launches "
+                                 f"{r['launches']} != {gen_want(is_msgm)}")
+        norms = xs.norm(dim=2)
+        kept = bool(torch.allclose(norms, norms[0].expand_as(norms),
+                                   rtol=1e-5, atol=0))
+        if kept is not is_msgm:
+            raise AssertionError(f"{arm}: norms kept = {kept}")
+        rec["generate"][arm] = dict(ms=r["ms"], launches=r["launches"],
+                                    peak=r["peak"], norms_kept=kept)
+        log(f"{card}: {arm} generation of {N_SAMPLES} samples x {STEPS} "
+            f"RK4 steps (trajectory kept): {r['ms']:.1f} ms, launches "
+            f"{r['launches']}, norms kept {kept}")
+    # the SGM arm's run replayed on the plain path: same x0 and noise
+    r = gens[0]
+    replay_g = torch.Generator(device=dev)
+    replay_g.set_state(r["generator_states"][0])
+    args = list(r["args"])
+    args[1] = replay_g
+    common.reset_launches()
+    with plain_path():
+        xp = drv.generate(*args, **r["kwargs"])
+    if any(launch_counts().values()):
+        raise AssertionError(f"plain replay launched {launch_counts()}")
+    replay = replay_errs(r["out"], xp, filter_blowups)
+    rec["generate"]["SGM"]["plain_replay"] = replay
+    log(f"SGM generation replayed plain on the {replay['rows_kept']} rows "
+        f"that filter_blowups keeps: max over states of max |kernel - "
+        f"plain| / rms(plain) = {replay['rel']:.3g} (tolerance 1e-3), at "
+        f"state {replay['state']}: max |Δ| {replay['max_abs_err']:.3g}, rms "
+        f"{replay['rms']:.3g}; over every row and state max |Δ| "
+        f"{replay['max_abs_err_all']:.3g}, max |x| {replay['max_abs_x']:.3g}")
+    if not replay["rel"] <= 1e-3:
+        raise AssertionError("SGM generation: kernel and plain disagree")
+
+    # (e) the metrics
+    for k in drv.METRICS:
+        if results[k].shape != (1, 1, 1, 1, 1) or \
+                not np.isfinite(results[k]).all():
+            raise AssertionError(f"results[{k!r}] = {results[k]}")
+        if not np.array_equal(reloaded[k], results[k]):
+            raise AssertionError(f"--just-load-mmd reloaded {k} differently")
+    sgm_out, msgm_out = (c["out"] for c in scores)
+    for k in ("mmd_ref", "swd_ref"):
+        if sgm_out[k] != msgm_out[k]:
+            raise AssertionError(f"{k} differs between the arms: "
+                                 f"{sgm_out[k]} != {msgm_out[k]}")
+    rec["results"] = {k: results[k].ravel().tolist() for k in drv.METRICS}
+    rec["metrics"] = {}
+    for arm, c in zip(("SGM", "MSGM"), scores):
+        xs, xtest = c["args"][0], c["args"][1]
+        xg = torch.as_tensor(filter_blowups(xs[-1])[0][:DRIVER_SCORED],
+                             device=dev)
+        xt = xtest[:DRIVER_SCORED]
+        ref = mmd64(xg, xt)
+        rel = abs(c["out"]["mmd"] - ref) / ref
+        m = dict(mmd=c["out"]["mmd"], mmd_float64=ref, rel=rel,
+                 sqrt_mmd=c["out"]["mmd"] ** 0.5, swd=c["out"]["swd"],
+                 nan_count=c["out"]["nan_count"])
+        if arm == "MSGM":  # the metrics' own times, at the scored shape
+            m["mmd_ms"] = cuda_ms(lambda: compute_mmd(xg, xt), iters=10,
+                                  warmup=2)
+            gs = torch.Generator(device=dev).manual_seed(0)
+            m["swd_ms"] = cuda_ms(lambda: sliced_wasserstein(gs, xg, xt),
+                                  iters=10, warmup=2)
+            log(f"{card}: one MMD at {tuple(xg.shape)}: {m['mmd_ms']:.3f} "
+                f"ms, one SWD: {m['swd_ms']:.3f} ms")
+        rec["metrics"][arm] = m
+        log(f"{arm}: sqrt-MMD {m['sqrt_mmd']:.5f}, MMD^2 {m['mmd']:.6g} "
+            f"against float64 {ref:.6g} (rel {rel:.3g}, tolerance 1e-3), "
+            f"SWD {m['swd']:.5f}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"{arm}: MMD^2 on the card disagrees with "
+                                 "float64")
+    rec["mmd_ref"] = sgm_out["mmd_ref"]
+
+    # (f) the files, under the JAX package's names
+    want_files = [f"global{m}file_{a}_1runs.npy" for m in ("MMD", "SWD")
+                  for a in ("SGM", "MSGM", "ref")]
+    for arm, sde_name in arms.items():
+        is_msgm = arm == "MSGM"
+        root = run_name_root(
+            "grf16", sde_name, DRIVER_ITERATIONS,
+            min(tc.num_samples_init_max, DRIVER_ITERATIONS * TRAIN_BATCH),
+            TRAIN_BATCH, tc.num_steps_forward, tc.beta_min, tc.beta_max,
+            tc.beta_min_sgm, tc.beta_max_sgm, is_msgm, nn_archi=tc.nn_archi,
+            premodule="NormalizeLogRadius" if is_msgm else None, lr=tc.lr,
+            vtype=tc.vtype, fair_comparison=sw.fair_comparison)
+        name = os.path.relpath(simulation_name(
+            results_dir, root, tc.t_eps, STEPS, sw.include_t0_reverse),
+            results_dir)
+        want_files += [name + ".npy", name + "_traj.npy",
+                       root + "_checkpoint_final"]
+    absent = sorted(set(want_files) - set(files))
+    rec["files"] = files
+    if absent:
+        raise AssertionError(f"files absent: {absent}; present: {files}")
+    log(f"driver files: {len(files)}, all {len(want_files)} expected present")
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -1765,9 +2179,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
-    ap.add_argument("--gn", action="store_true",
-                    help="only build the kernels and time K5 and K5b at "
-                    "both GroupNorm mixes, with a traced DSM step")
+    ap.add_argument("--only", choices=("gn", "driver"),
+                    help="build the kernels and run only this part: gn "
+                    "times K5 and K5b at both GroupNorm mixes with a traced "
+                    "DSM step; driver runs phase 20, the experiment driver "
+                    "on grf16")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1802,8 +2218,12 @@ def main(argv=None):
     log(f"kernels built in {record['build_s']:.1f} s: {sorted(common.KERNELS)}")
 
     g = torch.Generator(device=dev).manual_seed(0)
-    if opts.gn:
+    if opts.only == "gn":
         gn_timing(g, dev, record)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "driver":
+        record["driver"] = check_driver(g, dev, card)
         write_record(opts.record, record)
         return 0
 
@@ -1973,6 +2393,11 @@ def main(argv=None):
     sgm = check_sgm_training(g, dev)
     record["sgm_train"] = sgm
 
+    phase("20")
+    # -- 20. the experiment driver on grf16, both arms -------------------------
+    record["driver"] = check_driver(g, dev, card)
+    drive = record["driver"]["launches"]
+
     phase("table")
     # -- the kernel table ----------------------------------------------------
     k3_rows = list(k3.values())
@@ -2098,6 +2523,8 @@ def main(argv=None):
               ("K7a", "qkv_attention_stats", "flash_fwd.cu", 344),
               ("K7b", "qkv_attention_bwd", "attention_bwd.cu", 436)]],
     ]
+    for k in kernels:  # this slice's path: the driver's run (phase 20)
+        k["driver_launches"] = drive[k["name"]]
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2110,7 +2537,8 @@ def main(argv=None):
             f"launch {k['direct_ms']:.4f} ms, device {k['device_ms']} ms), "
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
             f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
-            f"{k['launches_per']}")
+            f"{k['launches_per']}; {k['driver_launches']} in the driver's "
+            "run")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

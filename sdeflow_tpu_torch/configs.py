@@ -1,18 +1,23 @@
 """Typed experiment configuration and the grf preset chain.
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
-ExperimentConfig and the ``_piv_large`` → ``_grf`` chain, :318-359), with
-the fields that chain sets and the serve and training paths of the MSGM
-and SGM arms read; each keeps the JAX default. ``_grf(npixel)`` takes any
-square image, as the JAX one does (``_grf(128)`` is the SGM DSM slice's
-configuration); only grf16 and grf32 are registered presets. The other
-presets and the plot options come with ROADMAP Queue 1 item 13.
+PlotConfig, ExperimentConfig with its ``debug`` shrink, and the
+``_piv_large`` → ``_grf`` chain, :95-205, 318-359, 558-565), with the
+fields that chain sets and the driver, the serve and the training paths of
+the MSGM and SGM arms read; each keeps the JAX default. ``_grf(npixel)``
+takes any square image, as the JAX one does (``_grf(128)`` is the SGM DSM
+slice's configuration); grf16 and grf32 are the registered presets, each
+also with the ``_dbg`` suffix. The other presets come with ROADMAP Queue 1
+item 13; the plot options are carried as data, and only ``save_results``
+is read (the plots come with item 13).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -36,8 +41,8 @@ class TrainConfig:
     weight_decay: float = 0.0
     lr_warmup_steps: int = 0
     print_every: int = 10_000
-    save_every: int = 100_000  # on-disk checkpoints (Queue 1 item 12)
-    use_checkpoint: bool = False  # on-disk checkpoints (Queue 1 item 12)
+    save_every: int = 100_000  # tagged on-disk checkpoints
+    use_checkpoint: bool = False  # rolling on-disk checkpoint, resumed
     ema_rate: Optional[float] = None
     ema_warmup: bool = True
     num_steps_forward: int = 16
@@ -50,20 +55,55 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class SweepConfig:
+    msgms: Tuple[int, ...] = (0, 1)  # 0 = SGM arm, 1 = MSGM arm
+    ntrain_maxs: Tuple[float, ...] = (np.inf,)
     iterationss: Tuple[int, ...] = (2**20,)
     num_stepss_backward: Tuple[int, ...] = (128,)
     batch_sizes: Tuple[int, ...] = (256,)
+    nruns_mmd: int = 1
     fair_comparison: bool = True
     ssm_intT_ref: bool = False
+    eval_mmd: bool = False
+    eval_nll: bool = False  # exact NLL: ROADMAP Queue 1 item 10
+    nll_steps: int = 64
+    num_samples: int = 10_000
+    include_t0_reverse: bool = True
+    Res: Tuple[int, ...] = (300, 3900)  # POD Reynolds numbers
     backward_method: str = "rk4"
+    sampler: str = "sde"  # "ode", "dpm": ROADMAP Queue 1 item 10
+    corrector_steps: int = 0  # Langevin corrector: Queue 1 item 3
+    snr: float = 0.16
+    dpm_grid: str = "logsnr"
 
 
 @dataclass(frozen=True)
 class DataConfig:
     datatype: str = "swissroll"
     dims: Tuple[int, ...] = (2,)
+    normalized: bool = True
     large_image: bool = False
     smoothing: int = 0
+
+
+@dataclass(frozen=True)
+class PlotConfig:
+    """Plot options, carried as data; the driver reads ``save_results``
+    (the plots come with ROADMAP Queue 1 item 13)."""
+
+    scatter_plots: bool = True
+    noising_plots: bool = True
+    denoising_plots: bool = True
+    save_results: bool = True
+    plot_xlim: float = 3.0
+    val_hist: float = 3.0
+    crop_data_plot: bool = False
+    plot_crop: float = 3.0
+    log_scale_pdf: bool = True
+    plot_ref_pdf: bool = False
+    dimplot_max: int = 4
+    offset_dimplot: int = 0
+    dpi: int = 200
+    height_seaborn: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -72,7 +112,26 @@ class ExperimentConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     sweep: SweepConfig = field(default_factory=SweepConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    plots: PlotConfig = field(default_factory=PlotConfig)
+    results_dir: str = "results"
     seed: int = 0
+
+    def debug(self) -> "ExperimentConfig":
+        """The smoke-run shrink of a preset (the ``_dbg`` suffix)."""
+        return replace(
+            self,
+            name=self.name + "_dbg",
+            sweep=replace(
+                self.sweep,
+                iterationss=(16, 8),
+                num_stepss_backward=(4, 8),
+                num_samples=10,
+                nruns_mmd=1,
+                ntrain_maxs=(2**2, 2**4),
+                batch_sizes=(2,),
+            ),
+            train=replace(self.train, num_steps_forward=10, print_every=8),
+        )
 
 
 def _piv_large(npixel=32):
@@ -98,6 +157,9 @@ def _piv_large(npixel=32):
         data=DataConfig(
             datatype="piv", dims=(npixel**2,), large_image=True, smoothing=2
         ),
+        plots=PlotConfig(
+            plot_xlim=6.0, val_hist=24.0, offset_dimplot=npixel**2 // 2
+        ),
     )
 
 
@@ -117,8 +179,12 @@ PRESETS = {
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    if name not in PRESETS:
+    """Resolve a preset; a "_dbg" suffix applies the debug shrink."""
+    dbg = name.endswith("_dbg")
+    base = name[: -len("_dbg")] if dbg else name
+    if base not in PRESETS:
         raise NotImplementedError(
-            f"preset {name!r}: ported presets are {sorted(PRESETS)}; the "
+            f"preset {base!r}: ported presets are {sorted(PRESETS)}; the "
             "rest come with ROADMAP Queue 1 item 13")
-    return PRESETS[name]()
+    cfg = PRESETS[base]()
+    return cfg.debug() if dbg else cfg

@@ -1,9 +1,9 @@
 """Synthetic data: the smoothed Gaussian random field of the grf presets.
 
-Port of ``SmoothedGRF`` and ``grf_spectral_filter``
-(sdeflow_tpu/data/synthetic.py:96-153) with ``torch.fft`` and explicit
-``torch.Generator``s. The other synthetic samplers come with ROADMAP
-Queue 1 item 6.
+Port of ``SmoothedGRF`` (with its test set and std) and
+``grf_spectral_filter`` (sdeflow_tpu/data/synthetic.py:96-153) with
+``torch.fft`` and explicit ``torch.Generator``s. The other synthetic
+samplers come with ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ import numpy as np
 import torch
 
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
+from sdeflow_tpu_torch.ops.rng import fold_in
+
+_TEST_STREAM = 0x7E57  # sampletest's fold, as in the JAX package
 
 
 def grf_spectral_filter(npixel: int, ell: float = 2.0):
@@ -56,3 +59,13 @@ class SmoothedGRF:
                         device=self.filt.device)
         x = self.fields(w)
         return x.transpose(1, 2).reshape(n, self.dim).to(torch.float32)
+
+    def sampletest(self, generator, n):
+        """A test set: ``sample`` from a stream folded off `generator`'s
+        state, independent of ``sample``'s own draws from it; `generator`
+        is not advanced."""
+        return self.sample(fold_in(generator, _TEST_STREAM), n)
+
+    def get_std(self):
+        """Per-pixel std of the fields: ones (unit variance)."""
+        return torch.ones((self.dim,), device=self.filt.device)

@@ -1,1 +1,2 @@
-"""Experiment presets and the model factory."""
+"""The experiment driver, its model and data factories and the run
+names."""

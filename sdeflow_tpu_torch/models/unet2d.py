@@ -4,7 +4,9 @@ Port of sdeflow_tpu/models/unet2d.py for the serve path: 2D, no class
 labels, no learned potential, no checkpointing, fp32. Activations are
 channels-first (N, C, H, W). Submodules and parameters carry the flax names
 (``down_res0.in_conv``, ``mid_attn.qkv.kernel``, ...) so that
-models/convert.py maps a flax tree by name. Every GroupNorm is kernel K5
+models/convert.py maps a flax tree by name, and start from flax's default
+init (``flax_init_``: lecun_normal kernels, zero biases; the zero-init
+layers zero). Every GroupNorm is kernel K5
 (ops/kernels/groupnorm.py). An AttentionBlock on the ``"auto"`` route with
 at most 8 heads, whose shape kernel K3 takes (``block_plan``: T ≤ 256 and
 a working set that fits one block's shared memory), is K3
@@ -29,8 +31,27 @@ from sdeflow_tpu_torch.ops.kernels.attnblock import (
     MAX_HEADS, block_plan, fused_attention_block)
 
 
+def _lecun_normal_(weight, fan_in):
+    """flax's default kernel init, lecun_normal: a normal truncated at ±2σ,
+    scaled to variance 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def flax_init_(module):
+    """A Conv2d or Linear initialized as flax's nn.Conv and nn.Dense are:
+    lecun_normal over the weight's fan-in (input channels × kernel size)
+    and zero bias; returns the module."""
+    with torch.no_grad():
+        _lecun_normal_(module.weight, module.weight[0].numel())
+        if module.bias is not None:
+            nn.init.zeros_(module.bias)
+    return module
+
+
 def _conv3(cin, cout, stride=1, bias=True):
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias)
+    return flax_init_(nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
+                                bias=bias))
 
 
 def _zero_(module):
@@ -81,14 +102,15 @@ class ResBlock(nn.Module):
         out_ch = out_channels or channels
         self.in_norm = GroupNorm32(channels, silu=True)
         self.in_conv = _conv3(channels, out_ch)
-        self.emb_dense = nn.Linear(emb_channels, out_ch)
+        self.emb_dense = flax_init_(nn.Linear(emb_channels, out_ch))
         self.out_norm = GroupNorm32(out_ch, silu=True)
         self.out_conv = _zero_(_conv3(out_ch, out_ch,
                                       bias=not no_bias_last_layer))
         if out_ch != channels:
             self.skip_conv = (
                 _conv3(channels, out_ch) if use_conv else
-                nn.Conv2d(channels, out_ch, 1, bias=not no_bias_last_layer))
+                flax_init_(nn.Conv2d(channels, out_ch, 1,
+                                     bias=not no_bias_last_layer)))
 
     def forward(self, x, emb):
         h = self.in_conv(self.in_norm(x))
@@ -107,9 +129,8 @@ class DenseParams(nn.Module):
         kernel = torch.empty(in_features, features)
         if zero:
             nn.init.zeros_(kernel)
-        else:  # flax's lecun_normal: normal truncated at ±2σ, variance 1/in
-            std = (1.0 / in_features) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(kernel, std=std, a=-2 * std, b=2 * std)
+        else:
+            _lecun_normal_(kernel, in_features)
         self.kernel = nn.Parameter(kernel)
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -181,8 +202,8 @@ class UNetModel(nn.Module):
         self.model_channels = model_channels
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
         temb = model_channels * 4
-        self.time_embed_0 = nn.Linear(model_channels, temb)
-        self.time_embed_1 = nn.Linear(temb, temb)
+        self.time_embed_0 = flax_init_(nn.Linear(model_channels, temb))
+        self.time_embed_1 = flax_init_(nn.Linear(temb, temb))
         # forward plan after conv_in: ("res", name) | ("mod", name) |
         # ("push", None) saves a skip | ("cat", None) concatenates one back
         plan = []

@@ -17,7 +17,7 @@ from torch import nn
 
 from sdeflow_tpu_torch.models.common import (
     normalize_log_radius, timestep_embedding)
-from sdeflow_tpu_torch.models.unet2d import UNetModel
+from sdeflow_tpu_torch.models.unet2d import UNetModel, flax_init_
 
 SCALE_IMAGE = 5.0
 
@@ -70,8 +70,8 @@ class VorticityUNet(nn.Module):
         self.flatten_order = flatten_order
         if premodule == "NormalizeLogRadius":
             temb = base_channels * 4
-            self.scale_embed_0 = nn.Linear(base_channels, temb)
-            self.scale_embed_1 = nn.Linear(temb, temb)
+            self.scale_embed_0 = flax_init_(nn.Linear(base_channels, temb))
+            self.scale_embed_1 = flax_init_(nn.Linear(temb, temb))
         self.core = UNetModel(
             in_channels=1, model_channels=base_channels, out_channels=1,
             in_space=in_space, num_res_blocks=num_res_blocks,

@@ -78,7 +78,8 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     noise: optional (num_steps, B, d) standard normal draws, one per step
     (dW = √δ·noise[i]); without it they are drawn from `generator`.
     keep_all returns the trajectory (S, B, d), S = num_steps (+1 with
-    include_t0). Times are Python numbers: t = i·δ.
+    include_t0), written state by state into one preallocated tensor (it
+    is held once). Times are Python numbers: t = i·δ.
     """
     step_fn = _resolve_step_fn(flow, method)
     delta = float(flow.T) / num_steps
@@ -87,7 +88,11 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)
     x = x0
-    traj = [x0] if keep_all and include_t0 else []
+    first = 1 if include_t0 else 0
+    if keep_all:
+        traj = x0.new_empty((num_steps + first, *x0.shape))
+        if include_t0:
+            traj[0] = x0
     for i in range(num_steps):
         z = noise[i] if noise is not None else torch.randn(
             x.shape, generator=generator, device=x.device, dtype=x.dtype)
@@ -96,8 +101,8 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
         if norm_correction:
             x = _norm_project(x, norm0)
         if keep_all:
-            traj.append(x)
-    return torch.stack(traj) if keep_all else x
+            traj[first + i] = x
+    return traj if keep_all else x
 
 
 def integrate_select(flow, x0, generator, num_steps, select_idx, *,

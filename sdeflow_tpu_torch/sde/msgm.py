@@ -59,6 +59,9 @@ class MSGMSde(SDEBehavior):
     circulant: bool = True
     norm_sampler: str = "ecdf"
     norm_map: Optional[str] = None
+    # the generation solve re-projects each step to the latent's norm (the
+    # SDE conserves it)
+    norm_correction: bool = True
     name: str = "MSGM_sparseTens"
 
     @classmethod

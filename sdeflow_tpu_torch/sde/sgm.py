@@ -38,6 +38,7 @@ class SGMSde(SDEBehavior):
     t_epsilon: float
     device: torch.device
     num_steps_forward: int = 100
+    norm_correction: bool = False  # the VP SDE conserves no norm
     name: str = "SGM"
 
     @classmethod

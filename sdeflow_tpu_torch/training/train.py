@@ -9,9 +9,10 @@ score net's parameters, the optimizer and the state in place and returns
 the state. Eager PyTorch has no dispatch to amortize, so the Trainer takes
 one step at a time (the JAX package's ``steps_per_dispatch`` has no
 counterpart); ``make_train_chunk`` is the loop of n such steps with the
-data drawn on the device. The sharded trainer
-(``mesh``) and on-disk checkpoints come with ROADMAP Queue 1 items 14
-and 12.
+data drawn on the device. The Trainer keeps the JAX Trainer's on-disk
+checkpoints (a rolling one at the print cadence, a tagged one at each
+``save_every`` multiple, resumed from when present; training/checkpoint.py).
+The sharded trainer (``mesh``) comes with ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from typing import Any, Callable, Optional
 import torch
 
 from sdeflow_tpu_torch.eval.elbo import evaluate
+from sdeflow_tpu_torch.ops.rng import fold_in
+from sdeflow_tpu_torch.training.checkpoint import (
+    checkpoint_exists, load_checkpoint, save_checkpoint)
 
 
 @dataclass
@@ -87,6 +91,14 @@ class _AdamChain(torch.optim.AdamW):
         self.count += 1
         return super().step(closure)
 
+    def state_dict(self):
+        return dict(super().state_dict(), count=self.count)
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+
 
 def build_optimizer(params, lr, grad_clip=None, weight_decay=0.0,
                     lr_warmup_steps=0):
@@ -149,19 +161,18 @@ def make_train_chunk(optimizer, sample_fn, batch_size, loss="ssm",
 
 class Trainer:
     """Host-side loop with the JAX Trainer's cadence: loss and ELBO prints
-    with ms/step at step 1, every print_every steps and at the end. The
+    with ms/step at step 1, every print_every steps and at the end; with a
+    checkpoint_path, a rolling checkpoint there at each print and a tagged
+    one at ``<checkpoint_path>_<step>`` at each save_every multiple. The
     optimizer is ``build_optimizer``'s over the score net's parameters."""
 
     def __init__(self, gen_sde, sampler, *, lr=1e-3, batch_size=256,
-                 loss="ssm", print_every=10_000,
+                 loss="ssm", print_every=10_000, save_every=100_000,
                  checkpoint_path: Optional[str] = None,
                  log_fn: Callable[[str], None] = print, mesh=None,
                  print_ram: bool = False, ema_rate: Optional[float] = None,
                  ema_warmup: bool = True, grad_clip: Optional[float] = None,
                  weight_decay: float = 0.0, lr_warmup_steps: int = 0):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "on-disk checkpoints: ROADMAP Queue 1 item 12")
         if mesh is not None:
             raise NotImplementedError(
                 "sharded training (mesh): ROADMAP Queue 1 item 14")
@@ -177,6 +188,8 @@ class Trainer:
         self.sampler = sampler
         self.batch_size = batch_size
         self.print_every = print_every
+        self.save_every = save_every
+        self.checkpoint_path = checkpoint_path
         self.log_fn = log_fn
         self.train_step = make_train_step(self.optimizer, loss, ema_rate,
                                           ema_warmup)
@@ -192,20 +205,34 @@ class Trainer:
         net.load_state_dict(self.state.ema_params, strict=False)
         return replace(self.state.gen_sde, score_net=net)
 
-    def run(self, generator, iterations, x_test=None):
-        """Train for `iterations` steps; returns (state, last loss)."""
+    def run(self, generator, iterations, x_test=None, resume=True):
+        """Train until `iterations` steps are done, first resuming from the
+        checkpoint at checkpoint_path when there is one (and `resume`);
+        returns (state, last loss). The training draws come from
+        `generator`; each ELBO print draws from a stream folded off it, so
+        the print cadence does not change the training."""
+        start_iter = 0
+        path = self.checkpoint_path
+        if resume and path and checkpoint_exists(path):
+            self.state, generator, start_iter = load_checkpoint(
+                path, self.state, generator, self.optimizer)
+            self.log_fn(f"Resuming from iteration {start_iter + 1}")
+            start_iter += 1
         start_time = time.time()
         loss = None
         steps_since_print = 0
-        for i in range(1, iterations + 1):
+        for i in range(start_iter + 1, iterations + 1):
             x = self.sampler.sample(generator, self.batch_size)
             self.state, loss = self.train_step(self.state, generator, x)
             steps_since_print += 1
-            if i == 1 or i % self.print_every == 0 or i == iterations:
+            do_print = i == 1 or i % self.print_every == 0 or i == iterations
+            do_tag = i % self.save_every == 0
+            if do_print:
+                g_eval = fold_in(generator, i)
                 x_eval = (x_test if x_test is not None else
-                          self.sampler.sample(generator, self.batch_size))
+                          self.sampler.sample(g_eval, self.batch_size))
                 with torch.no_grad():
-                    elbo, elbo_std = evaluate(self.state.gen_sde, generator,
+                    elbo, elbo_std = evaluate(self.state.gen_sde, g_eval,
                                               x_eval)
                 elapsed = time.time() - start_time
                 self.log_fn(
@@ -215,6 +242,13 @@ class Trainer:
                         float(loss), float(elbo), float(elbo_std)))
                 self.history.append(dict(step=i, loss=float(loss),
                                          elbo=float(elbo)))
+            if path and (do_print or do_tag):
+                save_checkpoint(path, self.state, generator, i - 1,
+                                self.optimizer)
+                if do_tag:
+                    save_checkpoint(f"{path}_{i}", self.state, generator,
+                                    i - 1, self.optimizer)
+            if do_print:
                 start_time = time.time()
                 steps_since_print = 0
         return self.state, float(loss) if loss is not None else None

@@ -198,3 +198,49 @@ def test_primitives_match_jax():
             timestep_embedding(torch.from_numpy(t), dim).numpy(),
             np.asarray(jax_temb(jnp.asarray(t), dim)), rtol=0, atol=1e-5)
     assert [group_count(c) for c in (8, 32, 96, 48, 40)] == [8, 32, 32, 24, 20]
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flat(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+@pytest.mark.parametrize("arch", [SMALL, GRF16], ids=["small", "grf16"])
+def test_score_net_starts_from_flax_default_init(arch):
+    """The port's fresh score net is initialized as the JAX package's flax
+    layers are: every kernel lecun_normal (a normal truncated at ±2σ with
+    variance 1/fan_in, fan_in = input channels × kernel size) except the
+    zero-initialized output layers (flax's zero_init: a ResBlock's
+    out_conv, an AttentionBlock's proj_out, the final conv_out), every
+    bias zero, every GroupNorm scale one. The layout and names come from
+    JAX's own parameter tree."""
+    from sdeflow_tpu_torch.models.convert import state_dict_to_flax
+
+    kw = dict(arch, premodule="NormalizeLogRadius", in_space=16,
+              flatten_order="F")
+    shapes = jax.eval_shape(JaxVorticityUNet(**kw).init,
+                            jax.random.PRNGKey(0), jnp.zeros((2, 256)),
+                            jnp.zeros((2,)))["params"]
+    torch.manual_seed(0)
+    net = VorticityUNet(**kw)
+    ours = {k: np.asarray(v) for k, v in _flat(
+        state_dict_to_flax(dict(net.named_parameters()), net))}
+    ref = {k: tuple(v.shape) for k, v in _flat(shapes)}
+    assert {k: v.shape for k, v in ours.items()} == ref
+    zero_layers = (".out_conv.", ".proj_out.", "core.conv_out.")
+    kernels = []
+    for name, v in ours.items():
+        if name.endswith(".bias") or any(z in name for z in zero_layers):
+            assert not v.any(), name
+        elif name.endswith(".scale"):
+            assert (v == 1.0).all(), name
+        else:
+            assert name.endswith(".kernel"), name
+            std = 1.0 / np.sqrt(np.prod(v.shape[:-1]))  # HWIO / (in, out)
+            assert np.abs(v).max() <= 2.0 * std / 0.8796256610342398 + 1e-6
+            kernels.append((v / std).ravel())
+    z = np.concatenate(kernels)  # unit variance if every layer is lecun
+    assert z.size > 1000 and abs(z.std() - 1.0) < 0.02, z.std()

@@ -1,6 +1,9 @@
 """The slice end to end: grf16-style MSGM sampling (circulant G at d=256,
-log-map ecdf prior, VorticityUNet score net, norm-corrected RK4) through
-the port's make_sampler_fn against the JAX package's integrate_sde.
+log-map ecdf prior, VorticityUNet score net, norm-corrected RK4) and the
+SGM arm's (the VP SDE, no premodule, no norm correction) through the
+port's make_sampler_fn against the JAX package's integrate_sde, the last
+state and the whole trajectory (keep_all, with and without x0); and the
+kept trajectory against the states of the solve stacked one by one.
 
 The net is the small U-Net (base 8, mults (1, 2), one res block, attention
 at 8×8) with every weight random and non-zero, carried over by
@@ -20,12 +23,15 @@ from sdeflow_tpu.ops.integrators import em_step as jax_em, heun_step as jax_heun
 from sdeflow_tpu.ops.integrators import integrate_sde as jax_integrate
 from sdeflow_tpu.sde.msgm import MSGMSde as JaxMSGM
 from sdeflow_tpu.sde.reverse import PluginReverseSDE as JaxReverse
+from sdeflow_tpu.sde.sgm import SGMSde as JaxSGM
 from sdeflow_tpu_torch.configs import get_preset
 from sdeflow_tpu_torch.models.convert import load_flax_params
 from sdeflow_tpu_torch.models.vorticity import VorticityUNet
-from sdeflow_tpu_torch.ops.integrators import em_step, heun_step
+from sdeflow_tpu_torch.ops.integrators import (
+    _norm_project, em_step, heun_step, integrate_sde, rk4_step)
 from sdeflow_tpu_torch.sde.msgm import MSGMSde
 from sdeflow_tpu_torch.sde.reverse import PluginReverseSDE
+from sdeflow_tpu_torch.sde.sgm import SGMSde
 from sdeflow_tpu_torch.serving import make_sampler_fn
 
 torch.set_num_threads(1)
@@ -78,12 +84,100 @@ def pair():
     return jgen, tgen
 
 
-def test_sampler_matches_jax_integrate_sde(pair):
-    jgen, tgen = pair
+@pytest.fixture(scope="module")
+def sgm_pair():
+    """The SGM arm's generator (grf16's SGM schedule, the small U-Net
+    without a premodule) in both packages."""
+    tc = get_preset("grf16").train
+    kw = dict(beta_min=tc.beta_min_sgm, beta_max=tc.beta_max_sgm, T=tc.T0,
+              t_epsilon=tc.t_eps, num_steps_forward=tc.num_steps_forward)
+    rng = np.random.default_rng(1)
+    arch = dict(ARCH, premodule=None)
+    jnet = JaxVorticityUNet(**arch)
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
+                            jnp.zeros((2, D)), jnp.zeros((2,)))
+    params = _randomize(shapes["params"], rng)
+    out_conv = params["core"]["conv_out"]
+    out_conv["kernel"] = out_conv["kernel"] * np.float32(0.1)
+    jgen = JaxReverse.create(JaxSGM.create(**kw), jnet.apply,
+                             {"params": params})
+    tnet = load_flax_params(VorticityUNet(**arch), params)
+    return jgen, PluginReverseSDE.create(SGMSde.create(**kw, device="cpu"),
+                                         tnet)
+
+
+def _solve_pair(jgen, tgen, keep_all=False, include_t0=False):
+    """JAX's integrate_sde and the port's sampler from JAX's latent draw
+    and normals, each with its base SDE's own norm_correction; returns
+    (x0, port, JAX) as numpy arrays."""
+    corr = bool(jgen.base_sde.norm_correction)
+    assert tgen.base_sde.norm_correction is corr
     k_lat, k_solve = jax.random.split(jax.random.PRNGKey(5))
     x0 = jgen.latent_sample(k_lat, B, D)
     ref = np.asarray(jax.jit(lambda x: jax_integrate(
-        jgen, x, k_solve, STEPS, method="rk4", norm_correction=True))(x0))
+        jgen, x, k_solve, STEPS, method="rk4", norm_correction=corr,
+        keep_all=keep_all, include_t0=include_t0))(x0))
+    noise = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(k_solve, i), (B, D))) for i in range(STEPS)])
+    fn = make_sampler_fn(tgen, B, D, STEPS, method="rk4",
+                         norm_correction=corr, keep_all=keep_all,
+                         include_t0=include_t0, device="cpu")
+    out = fn(None, x0=torch.from_numpy(np.array(x0)),
+             noise=torch.from_numpy(noise)).numpy()
+    return np.asarray(x0), out, ref
+
+
+def test_sgm_sampler_matches_jax_integrate_sde(sgm_pair):
+    x0, out, ref = _solve_pair(*sgm_pair)
+    assert np.isfinite(out).all() and out.shape == (B, D)
+    assert not np.allclose(np.linalg.norm(out, axis=1),
+                           np.linalg.norm(x0, axis=1), rtol=1e-2)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.fixture(scope="module")
+def msgm_solve(pair):
+    """The MSGM pair's whole trajectory (x0 kept) in both packages, from
+    one JAX compile."""
+    return _solve_pair(*pair, keep_all=True, include_t0=True)
+
+
+def test_sampler_trajectory_matches_jax(msgm_solve):
+    x0, out, ref = msgm_solve
+    assert out.shape == (STEPS + 1, B, D)
+    np.testing.assert_array_equal(out[0], x0)
+    np.testing.assert_allclose(np.linalg.norm(out, axis=2),
+                               np.broadcast_to(np.linalg.norm(x0, axis=1),
+                                               out.shape[:2]), rtol=1e-5)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("include_t0", [False, True])
+def test_kept_trajectory_equals_the_stacked_states(pair, include_t0):
+    """integrate_sde's preallocated trajectory holds the very states that
+    the solve's steps give, stacked one by one."""
+    _, tgen = pair
+    g = torch.Generator().manual_seed(2)
+    x0 = tgen.latent_sample(g, B, D)
+    noise = torch.randn(STEPS, B, D, generator=g)
+    with torch.no_grad():
+        traj = integrate_sde(tgen, x0, None, STEPS, norm_correction=True,
+                             keep_all=True, include_t0=include_t0,
+                             noise=noise)
+        x, states, delta = x0, [x0] if include_t0 else [], 1.0 / STEPS
+        norm0 = x0.norm(dim=-1, keepdim=True)
+        for i in range(STEPS):
+            x = _norm_project(rk4_step(tgen, i * delta, x, delta,
+                                       delta ** 0.5 * noise[i]), norm0)
+            states.append(x)
+    assert torch.equal(traj, torch.stack(states))
+
+
+def test_sampler_matches_jax_integrate_sde(pair, msgm_solve):
+    jgen, tgen = pair
+    k_lat, k_solve = jax.random.split(jax.random.PRNGKey(5))
+    x0 = jgen.latent_sample(k_lat, B, D)
+    ref = msgm_solve[2][-1]  # JAX's integrate_sde, its last state
     noise = np.stack([np.asarray(jax.random.normal(
         jax.random.fold_in(k_solve, i), (B, D))) for i in range(STEPS)])
     fn = make_sampler_fn(tgen, B, D, STEPS, method="rk4",

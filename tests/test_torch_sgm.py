@@ -1,5 +1,6 @@
 """The SGM arm: the VP SDE, the DSM loss (direct, eps, debias) and DSM
-training, against the JAX package with its draws replayed.
+training, and the SSM loss and ELBO that the driver trains and reports the
+arm by, against the JAX package with its draws replayed.
 
 JAX's dsm(key, x) splits key into key_t (t: uniform, or the debiasing law's
 uniform) and key_y (the kernel's ε); the port takes t and ε injected. The
@@ -25,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from sdeflow_tpu.models.vorticity import VorticityUNet as JaxVorticityUNet
+from sdeflow_tpu.ops.hutchinson import sample_v as jax_sample_v
 from sdeflow_tpu.ops.pallas import attention as jax_attn
 from sdeflow_tpu.ops.pallas import common as jax_common
 from sdeflow_tpu.sde.reverse import PluginReverseSDE as JaxReverse
@@ -169,6 +171,47 @@ def test_dsm_per_sample_matches_jax(sdes, param, debias):
     out = tgen.dsm(None, _t(x), t=t, noise=_t(eps))
     assert out.shape == (B,)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("param", ["direct", "eps"])
+def test_ssm_and_elbo_match_jax(sdes, param):
+    """The SSM loss per sample and the ELBO (one JVP of the score net
+    through the closed-form kernel), with JAX's draws replayed: t, the
+    kernel's ε and the probe v of ssm's key, the conditional latent's ε of
+    the ELBO's."""
+    jsde, tsde = sdes
+    rng = np.random.default_rng(8)
+    wmat = (rng.standard_normal((D, D)) / 16).astype(np.float32)
+    x = rng.standard_normal((B, D)).astype(np.float32)
+
+    def jnet(p, y, t):
+        return jnp.tanh(y @ p) * (1.0 + t[:, None])
+
+    def tnet(y, t):
+        return torch.tanh(y @ torch.from_numpy(wmat)) * (1.0 + t[:, None])
+
+    jgen = JaxReverse.create(jsde, jnet, jnp.asarray(wmat),
+                             parameterization=param)
+    tgen = PluginReverseSDE.create(tsde, tnet, parameterization=param)
+    key = jax.random.PRNGKey(21)
+    key_ssm, key_lat = jax.random.split(key)
+    ref_ssm, ref_elbo = (np.asarray(a) for a in jax.jit(lambda xx: (
+        jgen.ssm(key_ssm, xx), jgen.elbo_random_t_slice(key, xx)))(
+            jnp.asarray(x)))
+    key_txy, key_v = jax.random.split(key_ssm)
+    key_t, key_y = jax.random.split(key_txy)
+    draws = dict(t=_t(jgen.sample_t(key_t, B)),
+                 noise=_t(jax.random.normal(key_y, (B, D))),
+                 v=_t(jax_sample_v(key_v, (B, D), jgen.vtype)))
+    out = tgen.ssm(None, _t(x), **draws)
+    with torch.no_grad():
+        elbo = tgen.elbo_random_t_slice(
+            None, _t(x), z=_t(jax.random.normal(key_lat, (B, D))), **draws)
+    for got, ref in ((out.detach().numpy(), ref_ssm), (elbo.numpy(),
+                                                         ref_elbo)):
+        assert got.shape == ref.shape == (B,)
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
 
 
 def _randomize(tree, rng):

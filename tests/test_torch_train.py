@@ -304,8 +304,8 @@ def test_trainer_runs_three_steps_on_the_cpu():
     for (n, p), (_, q) in zip(ema_net.named_parameters(),
                               net.named_parameters()):
         torch.testing.assert_close(p, state.ema_params[n])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(gen, data, checkpoint_path="ckpt")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Trainer(gen, data, print_ram=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(gen, data, mesh=object())
 
@@ -326,7 +326,7 @@ def test_driver_trains_the_msgm_arm_on_the_cpu():
                                         log_fn=logs.append)
     assert np.isfinite(loss) and trainer.state.step == 2
     assert gen.base_sde.r_T.shape == (6,)  # min(100k, iterations·batch)
-    assert any("use_checkpoint" in m for m in logs)
+    assert not any("use_checkpoint" in m for m in logs)  # no longer skipped
     if not torch.cuda.is_available():  # entry points refuse the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             train_msgm_arm(cfg, g)
