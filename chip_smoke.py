@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH] [--only gn|driver]
+    python3 chip_smoke.py [--record PATH] [--only gn|driver|bf16|k7]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -14,8 +14,10 @@ K7a/K7b under autograd); and denoising-score-matching training of the SGM
 arm of the grf U-Net on 128×128 images at batch 128 (K5, K5b, K6, K7a,
 K7b; K5b is GroupNorm's backward, run by every training path); and the
 experiment driver's CLI on grf16 (both arms trained by SSM, sampled and
-scored: K1, K2's solve, K3, K5, K5b). It holds every CUDA kernel of those
-paths against its plain PyTorch version:
+scored: K1, K2's solve, K3, K5, K5b); and the grf16_production preset
+through the same CLI (bf16 compute in the score net: the bf16 variants of
+K3, K5 and K5b; EM sampling with a Langevin corrector step: K1). It holds
+every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -117,10 +119,10 @@ paths against its plain PyTorch version:
    plain versions, TF32 off, at (4, 4096, 64) with one and two heads,
    (2, 2048, 128) and the ragged (2, 1000, 64): the output within
    2e-5·max |plain|, lse within 1.5e-5 of the plain version run in
-   float64 (its distance from the fp32 plain version is reported beside
-   it), dqkv within 1e-4·max |plain|; K7a's lse on 20 more draws at
-   (2, 2048, 128) held to float64 the same way, with the fp32 plain
-   version's own distance from it; their
+   float64 and within 1e-5 of the fp32 plain version, dqkv within
+   1e-4·max |plain|; K7a's lse on 20 more draws at (2, 2048, 128) held
+   to both the same way, with the fp32 plain version's own distance from
+   float64; their
    times at (4, 4096, 64) per call through FlashAttention (its forward; its
    backward alone) and as a direct launch, beside the plain versions, the
    bound and scaled_dot_product_attention's forward and backward; and the
@@ -163,10 +165,40 @@ paths against its plain PyTorch version:
    one MMD and one SWD at (1023, 256) are timed, the metric arrays, the
    per-run samples and trajectories and the final checkpoints exist under
    the JAX package's names, and ``--just-load-mmd`` reloads the arrays
-   equal.
+   equal;
+21. the bf16 variants against their plain twins (gn_math and gn_math_vjp,
+   attn_block_math in bf16): K5 and K5b at every (C, S) of a grf16
+   forward's GroupNorm mix at B = 1024 and B = 128, SiLU on and off (K5
+   within 1.6e-2·max |plain|, two bf16 ulps; K5b's dx within
+   2e-2·max |dx| of the vjp of the bf16 forward evaluated in fp32, dγ and
+   dβ within 1e-3·max of float64), K3 at (1024, 64, 64) and
+   (1024, 16, 128) with random non-zero weights (2e-2·max |plain|); their
+   times at grf16's GroupNorm mixes (B = 1024, B = 128) and K3's two
+   shapes beside the plain versions, PyTorch's GroupNorm forward and
+   backward in bf16 and the bounds (bf16 products at 989 TFLOP/s);
+22. the production preset: the SGM arm's bf16 SSM loss and every
+   gradient, kernel path against plain on one batch of 128 (rtol 1e-2,
+   3e-2·max |g|, exact launches), a traced bf16 SSM step and a traced
+   2-step request (EM plus one corrector step); then
+   ``sdeflow_tpu_torch.run.main`` with ``--preset grf16_production
+   --iterations 8 --num-samples 1024 --eval-mmd --no-plots`` (batch 128,
+   EM-32 plus one Langevin corrector step), every kernel count set to 0
+   just before and read just after: each arm's 8 bf16 steps with phase
+   20's launches, finite losses, moving parameters, and parameters, Adam
+   moments and EMA in fp32; each arm's request a finite (33, 1024, 256)
+   trajectory with exactly 22·32 K3 and 70·32 K5 launches (K1 counted),
+   MSGM's norms kept to rtol 1e-5, the corrector's step size ε > 0 on at
+   least one step of each arm (counted); the MSGM request replayed on the
+   plain path within 2e-2 of each state's rms on the rows filter_blowups
+   keeps, or, against the same request computed in fp32, the kernel run
+   no farther than 1.5× the plain bf16 run in rms |Δ| and in max |Δ|
+   (plus 2e-2), relative to each state's rms (bf16's own noise on the
+   same draws); finite metrics, √MMD and SWD printed for both arms.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
-K5b, K6, K4, K7a, K7b, each with its launches in the driver's run: per
+K5b, K6, K4, K7a, K7b, and the bf16 variants of K3, K5, K5b with their
+launches in the production run, each with its launches in the driver's
+run: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
@@ -179,7 +211,10 @@ CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
 top kernels) as JSON to PATH. With --only, builds the kernels and runs one
 part: gn times K5 and K5b at both GroupNorm mixes, with one traced DSM
-step; driver runs phase 20.
+step; driver runs phase 20; bf16 phases 21 and 22; k7 times K7a and K7b
+at (128, 4096, 64), K7a's lse sweep (recorded, not held) and five bare DSM
+steps at batch 128 (copied beside another tree of the package, it times
+that tree: ``k7_timing``).
 """
 
 from __future__ import annotations
@@ -207,6 +242,7 @@ GROUP_NORMS, ATTN_BLOCKS = 35, 11  # per grf16 U-Net forward
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 494.7e12  # dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12    # dense bf16 on the tensor cores
 TF32_PASSES = 3  # 3xTF32: fp32 accuracy from three TF32 products
 # K1 and K2: the paths' shapes, a warp-plan edge (d = 96: 3 floats per
 # lane, no float4), the general plans (d = 1,056 past 1,024; d = 97) and
@@ -245,13 +281,12 @@ LONG_BLOCK = (4, 64, 64, 64)  # (B, C, H, W): T = 4096
 # ragged T for the kernels' edge masking
 K7_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1),
              (2, 1000, 64, 1)]
-# K7a's lse against the plain version in float64: at C = 128 (|lse| ~ 14)
-# its 3xTF32 scores put it up to 9.85e-6 from float64 over 20 draws, about
-# twice the fp32 plain version's own distance (up to 5.42e-6), so it can
-# fall more than 1e-5 (its earlier limit) from the fp32 plain (ROADMAP
-# Queue 3). 1.5e-5 leaves half again above the worst reading; the distance
-# from the fp32 plain is still reported and recorded
-K7_LSE_TOL = 1.5e-5
+# K7a's lse against the plain version in float64 (1.5e-5: at C = 128,
+# |lse| ~ 14, the fp32 plain version itself lies up to 5.42e-6 from it) and
+# against the fp32 plain version (1e-5, PR 5's limit; the two-accumulator
+# score chain missed it on some draws until K7a took its scores through a
+# fresh accumulator per k-step)
+K7_LSE_TOL, K7_LSE_FP32_TOL = 1.5e-5, 1e-5
 # the lse sweep: draws at the C = 128 shape, from a generator of their own
 K7_LSE_SHAPE, K7_LSE_DRAWS, K7_LSE_SEED = (2, 2048, 128, 1), 20, 123
 # the SGM DSM slice: the grf U-Net on 128×128 SmoothedGRF images at grf's
@@ -282,7 +317,14 @@ SYMBOL = {"circulant_apply": "circulant_apply", "circulant_rk4_step": "rk4_",
           "qkv_attention_flash": "flash_fwd_kernel",
           "qkv_attention_stats": "flash_fwd_stats_kernel",
           "qkv_attention_bwd": "flash_bwd_kernel"}
-KERNEL_SYMBOLS = (*dict.fromkeys(SYMBOL.values()), "gn_silu_bwd_params")
+# the bf16 variants' symbols: K3's kernel has its own name; K5's and K5b's
+# carry __nv_bfloat16 among their template arguments (a trace of a bf16
+# path holds no fp32 GroupNorm kernel)
+SYMBOL_BF16 = {"fused_attention_block": "attn_block_bf16_kernel",
+               "group_norm_silu": "gn_silu_kernel",
+               "group_norm_silu_bwd": "gn_silu_bwd_kernel"}
+KERNEL_SYMBOLS = (*dict.fromkeys(SYMBOL.values()), "gn_silu_bwd_params",
+                  SYMBOL_BF16["fused_attention_block"])
 
 
 def log(*a):
@@ -374,17 +416,37 @@ def k3_cost(b, t, c, heads):
     return nbytes, b * products, b * (8 * t * c + 5 * heads * t * t)
 
 
-def k5_cost(b, c, s, silu):
-    # reads x, gamma, beta once and writes out; per element 1 flop for the
-    # mean, 3 for the variance, 4 for the affine, 4 more for the SiLU
-    return 4 * (2 * b * c * s + 2 * c), 0, (8 + 4 * silu) * b * c * s
+def k5_cost(b, c, s, silu, size=4):
+    # reads x, gamma, beta once and writes out (x and out of `size` bytes
+    # an element, gamma and beta fp32); per element 1 flop for the mean, 3
+    # for the variance, 4 for the affine, 4 more for the SiLU
+    return (2 * size * b * c * s + 8 * c, 0,
+            (8 + 4 * silu) * b * c * s)
 
 
-def k5b_cost(b, c, s, silu):
+def k5b_cost(b, c, s, silu, size=4):
     # reads x, dy, gamma, beta once, writes dx, dgamma, dbeta; per element
     # 4 flops for the statistics, 4 for x̂ and h, 4 for the sums of g and
     # g·x̂, 6 for d, its sums and dx, 8 more for the SiLU's derivative
-    return 4 * (3 * b * c * s + 4 * c), 0, (18 + 8 * silu) * b * c * s
+    return (3 * size * b * c * s + 16 * c, 0,
+            (18 + 8 * silu) * b * c * s)
+
+
+def k3_bf16_cost(b, t, c, heads):
+    # K3's work in bf16: x in and out and the two weight matrices in bf16
+    # (as the wrapper's cast copies hand them over), the four vectors fp32
+    _, products, other = k3_cost(b, t, c, heads)
+    return 2 * (2 * b * t * c + 4 * c * c) + 4 * 6 * c, products, other
+
+
+def bound_bf16_ms(nbytes, product_flops, other_flops):
+    """bound_ms for a bf16 kernel: its products on the bf16 tensor cores
+    (one pass), the rest in fp32 on the CUDA cores."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(product_flops / BF16_FLOPS_PER_S,
+                               other_flops / FP32_FLOPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def k6_cost(b, t, c, heads):
@@ -624,39 +686,44 @@ def weighted(rows, key):
     return sum(r[key] * r["calls_per_forward"] for r in rows) / n
 
 
-def gn_args(g, dev, b, c, s, groups):
-    return (2.0 * torch.randn(b, c, s, generator=g, device=dev) + 0.5,
+def gn_args(g, dev, b, c, s, groups, dtype=torch.float32):
+    return ((2.0 * torch.randn(b, c, s, generator=g, device=dev)
+             + 0.5).to(dtype),
             1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
             0.1 * torch.randn(c, generator=g, device=dev), groups)
 
 
-def k5_rows(g, dev, mix, b, iters=50):
+def k5_rows(g, dev, mix, b, iters=50, dtype=torch.float32):
     """K5's times at each (C, S, silu) of a forward's GroupNorm mix at
-    batch b, beside its plain version, torch.nn.functional.group_norm and
-    the bound."""
+    batch b with x in `dtype`, beside its plain version,
+    torch.nn.functional.group_norm (on bf16 x with bf16 gamma and beta)
+    and the bound."""
     from sdeflow_tpu_torch.models.common import group_count
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
+    size = torch.empty((), dtype=dtype).element_size()
+    bound_fn = bound_ms if dtype == torch.float32 else bound_bf16_ms
     rows = []
     with torch.no_grad():
         for (c, s, silu), n in sorted(mix.items()):
             torch.cuda.empty_cache()  # each shape from a released cache
             x, gamma, beta, groups = a = gn_args(g, dev, b, c, s,
-                                                 group_count(c))
-            bound, by = bound_ms(*k5_cost(b, c, s, silu))
+                                                 group_count(c), dtype)
+            lg, lb = gamma.to(dtype), beta.to(dtype)
+            bound, by = bound_fn(*k5_cost(b, c, s, silu, size))
             rows.append({
                 "shape": [b, c, s], "silu": silu, "calls_per_forward": n,
                 "ms": cuda_ms(lambda: gnk.group_norm_silu(*a, silu), iters),
                 "direct_ms": cuda_ms(lambda: gnk._launch(*a, silu), iters),
                 "plain_ms": cuda_ms(lambda: gnk.gn_math(*a, silu), iters),
                 "library_ms": cuda_ms(lambda: torch.nn.functional.group_norm(
-                    x, groups, gamma, beta, eps=1e-5), iters),
+                    x, groups, lg, lb, eps=1e-5), iters),
                 "bound_ms": bound, "bound_by": by})
             del x, gamma, beta, a
     return rows
 
 
-def k5b_rows(g, dev, mix, b, iters=20):
+def k5b_rows(g, dev, mix, b, iters=20, dtype=torch.float32):
     """K5's backward at each (C, S, silu) of a forward's GroupNorm mix at
     batch b: GroupNormSiLU's backward alone on a retained graph (kernel
     K5b), K5b as a direct launch, its plain version gn_math_vjp, the rule
@@ -667,24 +734,28 @@ def k5b_rows(g, dev, mix, b, iters=20):
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
     aten = torch.ops.aten
+    size = torch.empty((), dtype=dtype).element_size()
+    bound_fn = bound_ms if dtype == torch.float32 else bound_bf16_ms
     rows = []
     for (c, s, silu), n in sorted(mix.items()):
         torch.cuda.empty_cache()  # each shape from a released cache
-        x, gamma, beta, groups = gn_args(g, dev, b, c, s, group_count(c))
-        dy = torch.randn(x.shape, generator=g, device=dev)
+        x, gamma, beta, groups = gn_args(g, dev, b, c, s, group_count(c),
+                                         dtype)
+        dy = torch.randn(x.shape, generator=g, device=dev).to(dtype)
         ts = [t.requires_grad_() for t in (x, gamma, beta)]
         y = gnk.group_norm_silu(*ts, groups, silu)
         # PyTorch's GroupNorm backward as one call, given the forward's
-        # statistics (no SiLU)
-        _, mean, rstd = aten.native_group_norm(x.detach(), gamma.detach(),
-                                               beta.detach(), b, c, s,
-                                               groups, 1e-5)
+        # statistics (no SiLU; gamma and beta in x's dtype)
+        lg = gamma.detach().to(dtype)
+        _, mean, rstd = aten.native_group_norm(x.detach(), lg,
+                                               beta.detach().to(dtype), b, c,
+                                               s, groups, 1e-5)
 
         def old():
             d = [t.detach().requires_grad_() for t in ts]
             return torch.autograd.grad(gnk.gn_math(*d, groups, silu), d, dy)
 
-        bound, by = bound_ms(*k5b_cost(b, c, s, silu))
+        bound, by = bound_fn(*k5b_cost(b, c, s, silu, size))
         row = {"shape": [b, c, s], "silu": silu, "calls_per_forward": n,
                "ms": cuda_ms(lambda: torch.autograd.grad(
                    y, ts, dy, retain_graph=True), iters),
@@ -693,14 +764,14 @@ def k5b_rows(g, dev, mix, b, iters=20):
         with torch.no_grad():
             row["library_ms"] = cuda_ms(
                 lambda: aten.native_group_norm_backward(
-                    dy, x, mean, rstd, gamma, b, c, s, groups,
+                    dy, x, mean, rstd, lg, b, c, s, groups,
                     [True, True, True]), iters)
             row["direct_ms"] = cuda_ms(lambda: gnk._launch_vjp(
                 x, gamma, beta, groups, silu, dy), iters)
             row["plain_ms"] = cuda_ms(lambda: gnk.gn_math_vjp(
                 x, gamma, beta, groups, silu, dy), iters)
         rows.append(row)
-        del x, gamma, beta, dy, ts, y, mean, rstd
+        del x, gamma, beta, dy, ts, y, mean, rstd, lg
     return rows
 
 
@@ -1250,11 +1321,22 @@ def train_draws(gen, sampler, g, dev):
         v=sample_v(g, (b, DIM), gen.vtype, device=dev))
 
 
-def train_agreement(model, per_sample, g, x, draws, want):
+def train_agreement(model, per_sample, g, x, draws, want, loss_tol=1e-4,
+                    grad_tol=1e-3, exact=None):
     """On one batch with injected draws: the kernel path's loss
     (per_sample(g, x, **draws).mean(), the SSM or DSM loss) and every
-    parameter gradient against the plain path's, the kernel path's exact
-    launch counts, and each path's peak memory."""
+    parameter gradient against the plain path's (loss within loss_tol
+    relative, each gradient within grad_tol·max |g| of its own tensor, or
+    of all tensors where the gradient is zero in exact arithmetic: below
+    1e-6 of the largest), the kernel path's exact launch counts, and each
+    path's peak memory. With `exact` (a path in bf16: the gradients of the
+    same loss computed in fp32), each gradient is held to grad_tol times
+    the largest gradient of the loss instead, and both paths' distances
+    from the fp32 gradients are recorded: in bf16 a tensor's gradient lies
+    up to tens of percent of its own largest entry from the fp32 one on
+    either path (they round at other places: the kernels' tangents are
+    fp32 closed forms, the plain path's forward-mode AD of bf16
+    operations), so two bf16 paths cannot be compared tensor by tensor."""
     from sdeflow_tpu_torch.ops.kernels import common
 
     def loss_and_grads():
@@ -1283,25 +1365,41 @@ def train_agreement(model, per_sample, g, x, draws, want):
     gmax = max(v.abs().max().item() for v in grads_p.values())
     worst, worst_name, dead = 0.0, None, 0
     for n, gp in grads_p.items():
-        scale = gp.abs().max().item()
+        scale = gp.abs().max().item() if exact is None else gmax
         if scale < 1e-6 * gmax:  # no gradient in exact arithmetic
             scale, dead = gmax, dead + 1
         ratio = (grads_k[n] - gp).abs().max().item() / scale
         if ratio > worst:
             worst, worst_name = ratio, n
+    what = "max |g| of its tensor" if exact is None else "max |g| of all"
     log(f"train loss kernel {loss_k.item():.6f}, plain {loss_p.item():.6f} "
-        f"(rel {rel_loss:.3g}, tolerance 1e-4); worst gradient max |Δ| / "
-        f"max |g| = {worst:.3g} at {worst_name} (tolerance 1e-3; {dead} of "
-        f"{len(grads_p)} tensors have no gradient in exact arithmetic); "
-        f"peak memory kernel {peak[0] / 2**20:.1f} MiB, plain "
-        f"{peak[1] / 2**20:.1f} MiB")
-    if not (torch.isfinite(loss_k) and rel_loss <= 1e-4 and worst <= 1e-3):
+        f"(rel {rel_loss:.3g}, tolerance {loss_tol:g}); worst gradient max "
+        f"|Δ| / {what} = {worst:.3g} at {worst_name} (tolerance "
+        f"{grad_tol:g}; {dead} of {len(grads_p)} tensors have no gradient "
+        f"in exact arithmetic); peak memory kernel {peak[0] / 2**20:.1f} "
+        f"MiB, plain {peak[1] / 2**20:.1f} MiB")
+    rec = {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+           "loss_rel": rel_loss, "grad_worst_rel": worst,
+           "grad_worst": worst_name, "grad_tensors": len(grads_p),
+           "grad_tensors_zero": dead, "peak_memory_kernel": peak[0],
+           "peak_memory_plain": peak[1]}
+    if exact is not None:
+        ref = torch.cat([v.flatten() for v in exact.values()])
+        for k, gr in (("kernel", grads_k), ("plain", grads_p)):
+            d = torch.cat([v.flatten() for v in gr.values()]) - ref
+            rec[f"{k}_fp32_rel_l2"] = (d.norm() / ref.norm()).item()
+            rec[f"{k}_fp32_worst"] = max(
+                (gr[n] - exact[n]).abs().max().item()
+                / max(exact[n].abs().max().item(), 1e-30) for n in exact
+                if exact[n].abs().max().item() >= 1e-6 * ref.abs().max())
+        log(f"  against the fp32 gradient: kernel path |Δ|/|g| "
+            f"{rec['kernel_fp32_rel_l2']:.3g} (worst tensor "
+            f"{rec['kernel_fp32_worst']:.3g} of its max), plain path "
+            f"{rec['plain_fp32_rel_l2']:.3g} ({rec['plain_fp32_worst']:.3g})")
+    if not (torch.isfinite(loss_k) and rel_loss <= loss_tol
+            and worst <= grad_tol):
         raise AssertionError("kernel and plain training paths disagree")
-    return {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
-            "loss_rel": rel_loss, "grad_worst_rel": worst,
-            "grad_worst": worst_name, "grad_tensors": len(grads_p),
-            "grad_tensors_zero": dead, "peak_memory_kernel": peak[0],
-            "peak_memory_plain": peak[1]}
+    return rec
 
 
 def timed_train_steps(step, model, n, want, batch=TRAIN_BATCH):
@@ -1578,10 +1676,11 @@ def lse_errs(ak, qkv, heads, lse, lse_p):
             "plain_lse64": (lse_p.double() - lse_d).abs().max().item()}
 
 
-def lse_sweep(ak, dev):
-    """K7a's lse on K7_LSE_DRAWS draws at K7_LSE_SHAPE, each held to the
-    plain version in float64 within K7_LSE_TOL; the worst of each reading
-    of ``lse_errs`` over the draws."""
+def lse_sweep(ak, dev, strict=True):
+    """K7a's lse on K7_LSE_DRAWS draws at K7_LSE_SHAPE, each held (when
+    strict) to the plain version in float64 within K7_LSE_TOL and to the
+    fp32 plain within K7_LSE_FP32_TOL; the worst of each reading of
+    ``lse_errs`` over the draws."""
     b, t, c, heads = K7_LSE_SHAPE
     gs = torch.Generator(device=dev).manual_seed(K7_LSE_SEED)
     worst = {"lse": 0.0, "lse64": 0.0, "plain_lse64": 0.0}
@@ -1594,10 +1693,12 @@ def lse_sweep(ak, dev):
         worst = {k: max(v, e[k]) for k, v in worst.items()}
     log(f"K7a lse over {K7_LSE_DRAWS} draws at {K7_LSE_SHAPE}: max |Δ| "
         f"against the plain in float64 {worst['lse64']:.3g} (tolerance "
-        f"{K7_LSE_TOL:g}), against the fp32 plain {worst['lse']:.3g}, the "
-        f"fp32 plain's own {worst['plain_lse64']:.3g}")
-    if not worst["lse64"] <= K7_LSE_TOL:
-        raise AssertionError(f"K7a's lse disagrees with float64: {worst}")
+        f"{K7_LSE_TOL:g}), against the fp32 plain {worst['lse']:.3g} "
+        f"({K7_LSE_FP32_TOL:g}), the fp32 plain's own "
+        f"{worst['plain_lse64']:.3g}")
+    if strict and not (worst["lse64"] <= K7_LSE_TOL
+                       and worst["lse"] <= K7_LSE_FP32_TOL):
+        raise AssertionError(f"K7a's lse disagrees with plain: {worst}")
     return dict(worst, shape=list(K7_LSE_SHAPE), draws=K7_LSE_DRAWS,
                 seed=K7_LSE_SEED)
 
@@ -1631,10 +1732,11 @@ def check_flash(g, dev):
         log(f"K7a/K7b ({b}, {t}, {c}) heads={heads}: max |Δ| / max |plain| "
             f"out {e['out']:.3g} (tolerance 2e-5), lse max |Δ| against the "
             f"plain in float64 {e['lse64']:.3g} ({K7_LSE_TOL:g}; against "
-            f"the fp32 plain {e['lse']:.3g}, the fp32 plain's own "
-            f"{e['plain_lse64']:.3g}), dqkv {e['dqkv']:.3g} (1e-4)")
+            f"the fp32 plain {e['lse']:.3g} ({K7_LSE_FP32_TOL:g}), the fp32 "
+            f"plain's own {e['plain_lse64']:.3g}), dqkv {e['dqkv']:.3g} "
+            "(1e-4)")
         if not (e["out"] <= 2e-5 and e["lse64"] <= K7_LSE_TOL
-                and e["dqkv"] <= 1e-4):
+                and e["lse"] <= K7_LSE_FP32_TOL and e["dqkv"] <= 1e-4):
             raise AssertionError(f"K7a/K7b disagree with plain: {e}")
         errs = {k: max(v, e[k]) for k, v in errs.items()}
         if (b, t, c, heads) != K7_SHAPES[0]:
@@ -1905,8 +2007,8 @@ def counted_steps(steps):
 
     make = train_mod.make_train_step
 
-    def make_counted(*a, **k):
-        step = make(*a, **k)
+    def make_counted(optimizer, *a, **k):
+        step = make(optimizer, *a, **k)
 
         def counted(state, *args, **kwargs):
             arm = state.gen_sde.base_sde.name
@@ -1914,7 +2016,7 @@ def counted_steps(steps):
                       [p.detach().clone() for p in state.params.values()])
             rec = timed_call(step, state, *args, **kwargs)
             rec.update(arm=arm, loss=rec["out"][1], state=state,
-                       params_before=before)
+                       params_before=before, optimizer=optimizer)
             steps.append(rec)
             return rec["out"]
 
@@ -1947,13 +2049,16 @@ def replay_errs(xs, xp, filter_blowups):
     n_kept = int(kept.sum())
     if n_kept != last.shape[0] - filter_blowups(last)[1] or not n_kept:
         raise AssertionError(f"replay: {n_kept} rows kept")
-    err = (xs[:, kept] - xp[:, kept]).abs().amax(dim=(1, 2))
+    diff = xs[:, kept] - xp[:, kept]
+    err = diff.abs().amax(dim=(1, 2))
     rms = xp[:, kept].square().mean(dim=(1, 2)).sqrt()
     rel = err / rms
+    rms_rel = diff.square().mean(dim=(1, 2)).sqrt() / rms
     s = int(rel.argmax())
     return dict(rel=rel[s].item(), state=s, max_abs_err=err[s].item(),
                 rms=rms[s].item(), rows_kept=n_kept,
                 rel_per_state=rel.tolist(),
+                rms_rel=rms_rel.max().item(),
                 max_abs_err_all=(xs - xp).abs().max().item(),
                 max_abs_x=xp.abs().max().item())
 
@@ -2168,6 +2273,418 @@ def check_driver(g, dev, card):
     return rec
 
 
+# phase 21: the bf16 variants of K5, K5b and K3 against their plain twins
+K3_BF16_SHAPES = [(1024, 64, 64), (1024, 16, 128)]  # (B, T, C), one head
+# K5: two bf16 ulps of the largest output; K5b: dx against the fp32
+# evaluation of the vjp of the bf16 forward (the kernel rounds dx once, the
+# plain fp32 vjp not at all), dγ and dβ (fp32 sums over the batch) against
+# float64; K3: the JAX package holds its own bf16 kernel to atol 4e-2
+# (tests/test_pallas_kernels.py:335-392)
+K5_BF16_TOL, K5B_BF16_TOL, K5B_PARAM_TOL = 1.6e-2, 2e-2, 1e-3
+K3_BF16_TOL = 2e-2
+
+
+def rel_err(a, ref):
+    """max |a − ref| / max |ref|, in the precision of ref."""
+    return ((a.to(ref.dtype) - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_bf16_kernels(g, dev, mix):
+    """Phase 21: K5, K5b and K3 in bf16 against their plain twins: K5 and
+    K5b at every (C, S) of a grf16 forward's GroupNorm mix at B = 1024 and
+    B = 128, SiLU on and off; K3 at K3_BF16_SHAPES with random non-zero
+    weights; their times at grf16's mixes beside the plain versions,
+    PyTorch's GroupNorm forward and backward in bf16 and the bounds."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import attnblock as ab
+    from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
+
+    bf = torch.bfloat16
+    errs = {"k5": 0.0, "k5b_dx": 0.0, "k5b_params": 0.0, "k3": 0.0}
+    checks = 0
+    with torch.no_grad():
+        for b in (N_SAMPLES, TRAIN_BATCH):
+            for c, s in sorted({(c, s) for c, s, _ in mix}):
+                for silu in (False, True):
+                    x, gamma, beta, groups = gn_args(g, dev, b, c, s,
+                                                     group_count(c), bf)
+                    dy = torch.randn(x.shape, generator=g,
+                                     device=dev).to(bf)
+                    out = gnk._launch(x, gamma, beta, groups, silu)
+                    dx, dgam, dbet = gnk._launch_vjp(x, gamma, beta, groups,
+                                                     silu, dy)
+                    torch.cuda.synchronize()
+                    e5 = rel_err(out, gnk.gn_math(x, gamma, beta, groups,
+                                                  silu).float())
+                    dx_ref = gnk.gn_math_vjp(x.float(), gamma, beta, groups,
+                                             silu, dy.float())[0]
+                    _, dg64, db64 = gnk.gn_math_vjp(
+                        x.double(), gamma.double(), beta.double(), groups,
+                        silu, dy.double())
+                    e_dx = rel_err(dx, dx_ref)
+                    e_p = max(rel_err(dgam, dg64), rel_err(dbet, db64))
+                    if not (e5 <= K5_BF16_TOL and e_dx <= K5B_BF16_TOL
+                            and e_p <= K5B_PARAM_TOL):
+                        raise AssertionError(
+                            f"bf16 K5/K5b at {(b, c, s)} silu={silu}: K5 "
+                            f"{e5:.3g}, dx {e_dx:.3g}, dγ/dβ {e_p:.3g}")
+                    errs["k5"] = max(errs["k5"], e5)
+                    errs["k5b_dx"] = max(errs["k5b_dx"], e_dx)
+                    errs["k5b_params"] = max(errs["k5b_params"], e_p)
+                    checks += 1
+                    del x, dy, out, dx, dx_ref, dg64, db64
+    log(f"bf16 K5/K5b at {checks} (B, C, S, silu): max |kernel - plain| / "
+        f"max |plain| K5 {errs['k5']:.3g} (tolerance {K5_BF16_TOL:g}), K5b "
+        f"dx {errs['k5b_dx']:.3g} ({K5B_BF16_TOL:g}), dγ/dβ against float64 "
+        f"{errs['k5b_params']:.3g} ({K5B_PARAM_TOL:g})")
+    k3 = []
+    with torch.no_grad():
+        for b, t, c in K3_BF16_SHAPES:
+            args = block_args(g, dev, b, t, c)
+            args[0] = args[0].to(bf)
+            groups = group_count(c)
+            out = ab._launch(*args, groups, 1)
+            torch.cuda.synchronize()
+            e = rel_err(out, ab.attn_block_math(*args, groups, 1).float())
+            log(f"bf16 K3 ({b}, {t}, {c}): max |kernel - plain| / max "
+                f"|plain| = {e:.3g} (tolerance {K3_BF16_TOL:g})")
+            if not e <= K3_BF16_TOL:
+                raise AssertionError(f"bf16 K3 disagrees with plain: {e}")
+            errs["k3"] = max(errs["k3"], e)
+            bound, by = bound_bf16_ms(*k3_bf16_cost(b, t, c, 1))
+            k3.append({
+                "shape": [b, t, c], "heads": 1, "max_abs_err": e,
+                "calls_per_forward": BLOCK_MIX[(t, c)],
+                "ms": cuda_ms(lambda: ab.fused_attention_block(
+                    *args, groups, 1)),
+                "direct_ms": cuda_ms(lambda: ab._launch(*args, groups, 1)),
+                "plain_ms": cuda_ms(lambda: ab.attn_block_math(
+                    *args, groups, 1)),
+                "bound_ms": bound, "bound_by": by})
+            del args, out
+    rows = {"k3": k3}
+    for name, b, iters in (("grf16", N_SAMPLES, 20), ("ssm", TRAIN_BATCH, 20)):
+        rows[f"k5_{name}"] = k5_rows(g, dev, mix, b, iters, bf)
+        log_k5_rows(f"bf16 K5 ({name} mix)", rows[f"k5_{name}"])
+        rows[f"k5b_{name}"] = k5b_rows(g, dev, mix, b, iters, bf)
+        log_k5_rows(f"bf16 K5b ({name} mix)", rows[f"k5b_{name}"])
+    for r in k3:
+        log(f"bf16 K3 at {r['shape']}: {r['ms']:.4f} ms per call (direct "
+            f"{r['direct_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return dict(rows, max_errs=errs, gn_checks=checks)
+
+
+# phase 22: the grf16_production preset through the CLI: both arms trained
+# by SSM in bf16 compute, sampled by EM-32 plus one Langevin corrector
+# step, scored
+PROD_ARGS = ["--preset", "grf16_production", "--iterations",
+             str(DRIVER_ITERATIONS), "--num-samples", str(N_SAMPLES),
+             "--eval-mmd", "--no-plots"]
+PROD_STEPS, PROD_CORRECTOR = 32, 1
+# net evaluations per predictor-corrector step: the EM predictor's drift
+# and the corrector's
+PROD_EVALS_PER_STEP = 1 + PROD_CORRECTOR
+# the bf16 SSM loss with kernels against plain: bf16's 2^-8 rounded at
+# other places by the kernels than by the plain versions
+PROD_LOSS_TOL, PROD_GRAD_TOL = 1e-2, 3e-2
+# the replayed request: each state within 2e-2 of its rms (max |Δ| over
+# the state), or the kernel run no farther from the same request computed
+# in fp32 than 1.5× the plain bf16 run is, both in rms |Δ| and (plus 2e-2)
+# in max |Δ|, relative to each state's rms: the kernels round at other
+# places than the plain versions (K3 adds the qkv and output biases to
+# fp32 sums before rounding, the plain version rounds the product, then
+# the sum), and 64 net evaluations of the reverse SDE amplify a rounding
+# apart as they amplify bf16's own (the plain bf16 run lay 0.0245-0.0995
+# of the rms from the fp32 run in max |Δ| on the same draws)
+PROD_REPLAY_TOL = 2e-2
+
+
+def prod_gen_want():
+    """K3 and K5 launches per production request (the U-Net's per forward
+    times the net evaluations); K1 is counted, not held (4 per PC step
+    predicted: the predictor's drift and noise, the corrector's drift and
+    noise)."""
+    evals = PROD_EVALS_PER_STEP * PROD_STEPS
+    return {"fused_attention_block": ATTN_BLOCKS * evals,
+            "group_norm_silu": GROUP_NORMS * evals}
+
+
+def check_production(g, dev, card):
+    """Phase 22: the bf16 SSM loss of the SGM arm with kernels against
+    plain; traces of one bf16 SSM step and one 2-step PC request; then
+    ``sdeflow_tpu_torch.run.main`` on grf16_production with its checks."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import build_msgm_arm, build_sgm_arm, get_preset
+    from sdeflow_tpu_torch import make_sampler_fn
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops import integrators
+    from sdeflow_tpu_torch.ops.hutchinson import sample_v
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    cfg = get_preset("grf16_production")
+    tc, sw = cfg.train, cfg.sweep
+    if (tc.compute_dtype, tc.ema_rate, tc.parameterization, sw.sampler,
+            sw.backward_method, sw.corrector_steps,
+            sw.num_stepss_backward, sw.batch_sizes[0]) != (
+            "bfloat16", 0.999, "eps", "sde", "em", PROD_CORRECTOR,
+            (PROD_STEPS,), TRAIN_BATCH):
+        raise AssertionError(f"grf16_production: {tc}, {sw}")
+    rec = {"card": card, "args": PROD_ARGS}
+
+    # (a) the SGM arm's bf16 SSM loss and gradients, kernel against plain
+    model, gen = build_sgm_arm(cfg, None, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():  # a gentler score head, as for the MSGM arm
+        model.core.conv_out.weight.mul_(0.1)
+    sampler = drv.make_sampler(cfg, DIM, device=dev)
+    x = sampler.sample(g, TRAIN_BATCH)
+    draws = dict(t=gen.sample_t(g, TRAIN_BATCH),
+                 noise=torch.randn(TRAIN_BATCH, DIM, generator=g, device=dev),
+                 v=sample_v(g, (TRAIN_BATCH, DIM), gen.vtype, device=dev))
+    # the same loss's gradients in fp32, to measure both bf16 paths by
+    fp32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        tc, compute_dtype="float32"))
+    model32 = drv.make_model(fp32, DIM, None, device=dev)
+    model32.load_state_dict(model.state_dict())
+    gen32 = dataclasses.replace(gen, score_net=model32)
+    with plain_path():
+        gen32.ssm(g, x, **draws).mean().backward()
+    exact = {n: p.grad.detach().clone()
+             for n, p in model32.named_parameters()}
+    del model32, gen32
+    rec["ssm_agreement"] = train_agreement(
+        model, gen.ssm, g, x, draws, sgm_ssm_want(), PROD_LOSS_TOL,
+        PROD_GRAD_TOL, exact)
+    trainer = drv.make_trainer(cfg, gen, sampler, TRAIN_BATCH, log_fn=log)
+    rec["ssm_profile"] = trace(lambda: trainer.train_step(
+        trainer.state, g, sampler.sample(g, TRAIN_BATCH)))
+    log_trace(f"one bf16 SGM SSM train step at batch {TRAIN_BATCH}",
+              rec["ssm_profile"])
+    del model, gen, trainer
+    # where a production request's time goes: 2 PC steps of the MSGM arm
+    model, gen = build_msgm_arm(cfg, g, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():
+        model.core.conv_out.weight.mul_(0.1)
+    pc2 = make_sampler_fn(gen, N_SAMPLES, DIM, PROFILED_STEPS,
+                          method=sw.backward_method, norm_correction=True,
+                          corrector_steps=sw.corrector_steps, snr=sw.snr,
+                          device=dev)
+    rec["request_profile"] = dict(trace(lambda: pc2(g)),
+                                  steps=PROFILED_STEPS)
+    log_trace(f"{PROFILED_STEPS} PC steps (EM + {PROD_CORRECTOR} corrector)"
+              f" of {N_SAMPLES} samples", rec["request_profile"])
+    del model, gen, pc2
+
+    # (b) the CLI's run, its kernels' launches counted from 0; every
+    # corrector call's step size recorded
+    steps, gens, scores, corr = [], [], [], []
+    orig_corrector = integrators.langevin_corrector
+
+    def corrector(*a, **k):
+        out = orig_corrector(*a, **k)
+        corr.append(out[1])
+        return out
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = [*PROD_ARGS, "--results-dir", os.path.join(tmp, "results")]
+        os.chdir(tmp)
+        try:
+            with counted_steps(steps), spied(drv, "generate", gens), \
+                    spied(drv, "score_samples", scores), \
+                    swapped([(integrators, "langevin_corrector",
+                              corrector)]):
+                common.reset_launches()
+                t0 = time.perf_counter()
+                results = run_mod.main(args)
+                torch.cuda.synchronize()
+                rec["driver_s"] = time.perf_counter() - t0
+                rec["launches"] = launch_counts()
+        finally:
+            os.chdir(cwd)
+    log(f"production run: {rec['driver_s']:.1f} s, launches "
+        f"{rec['launches']}")
+    missing = [k for k in DRIVER_KERNELS if not rec["launches"][k]]
+    if missing:
+        raise AssertionError(f"the production run never launched {missing}")
+
+    # (c) training: both arms in bf16, fp32 parameters, moments and EMA
+    arms = {"SGM": "SGM", "MSGM": "MSGM_sparseTenslogNorm"}
+    rec["train"] = {}
+    for arm, sde_name in arms.items():
+        mine = [r for r in steps if r["arm"] == sde_name]
+        want = train_want("auto") if arm == "MSGM" else sgm_ssm_want()
+        if len(mine) != DRIVER_ITERATIONS:
+            raise AssertionError(f"{arm}: {len(mine)} train steps")
+        bad = [r["launches"] for r in mine if r["launches"] != want]
+        if bad:
+            raise AssertionError(f"{arm} step launches {bad[0]} != {want}")
+        losses = torch.stack([r["loss"] for r in mine])
+        state, opt = mine[-1]["state"], mine[-1]["optimizer"]
+        moved = max((p.detach() - q).abs().max().item() for p, q in zip(
+            state.params.values(), mine[0]["params_before"]))
+        dtypes = {str(t.dtype) for t in (
+            *state.params.values(), *state.ema_params.values(),
+            *(v for st in opt.state.values() for v in st.values()
+              if isinstance(v, torch.Tensor) and v.ndim))}
+        net = state.gen_sde.score_net
+        if not (torch.isfinite(losses).all() and moved > 0
+                and dtypes == {"torch.float32"}
+                and net.core.conv_in.compute_dtype == torch.bfloat16):
+            raise AssertionError(f"{arm}: losses {losses}, moved {moved}, "
+                                 f"dtypes {dtypes}")
+        ms = [r["ms"] for r in mine]
+        rec["train"][arm] = dict(
+            ms_per_step=ms, ms_per_step_after_first=sum(ms[1:]) / len(ms[1:]),
+            max_memory_allocated=max(r["peak"] for r in mine),
+            launches_per_step=mine[-1]["launches"], losses=losses.tolist(),
+            param_moved=moved, state_dtypes=sorted(dtypes))
+        log(f"{card}: {arm} bf16 SSM steps at batch {TRAIN_BATCH}: "
+            f"{rec['train'][arm]['ms_per_step_after_first']:.1f} ms/step "
+            f"(steps 2-{DRIVER_ITERATIONS}; the first {ms[0]:.1f} ms), peak "
+            f"{rec['train'][arm]['max_memory_allocated'] / 2**20:.1f} MiB; "
+            f"parameters, Adam moments and EMA {sorted(dtypes)}")
+
+    # (d) generation: EM-32 plus one corrector step per arm
+    if len(gens) != 2 or len(corr) != 2 * PROD_STEPS:
+        raise AssertionError(f"{len(gens)} generation runs, {len(corr)} "
+                             "corrector calls")
+    rec["generate"] = {}
+    want = prod_gen_want()
+    for i, ((arm, is_msgm), r) in enumerate(zip(
+            (("SGM", False), ("MSGM", True)), gens)):
+        xs = r["out"]
+        if tuple(xs.shape) != (PROD_STEPS + 1, N_SAMPLES, DIM) or \
+                not torch.isfinite(xs).all():
+            raise AssertionError(f"{arm}: trajectory {tuple(xs.shape)}")
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arm} request launches {got} != {want}")
+        norms = xs.norm(dim=2)
+        kept = bool(torch.allclose(norms, norms[0].expand_as(norms),
+                                   rtol=1e-5, atol=0))
+        if kept is not is_msgm:
+            raise AssertionError(f"{arm}: norms kept = {kept}")
+        eps = torch.cat(corr[i * PROD_STEPS:(i + 1) * PROD_STEPS]).tolist()
+        stepped = sum(e > 0 for e in eps)
+        if not (stepped and all(math.isfinite(e) for e in eps)):
+            raise AssertionError(f"{arm}: corrector step sizes {eps}")
+        rec["generate"][arm] = dict(
+            ms=r["ms"], launches=r["launches"], peak=r["peak"],
+            norms_kept=kept, corrector_eps=eps, corrector_steps_taken=stepped,
+            k1_per_step=r["launches"]["circulant_apply"] / PROD_STEPS)
+        log(f"{card}: {arm} production request of {N_SAMPLES} samples x "
+            f"{PROD_STEPS} EM steps + {PROD_CORRECTOR} corrector step "
+            f"(trajectory kept): {r['ms']:.1f} ms, launches {r['launches']},"
+            f" norms kept {kept}; corrector stepped (ε > 0) on {stepped} of "
+            f"{PROD_STEPS} steps, ε {min(eps):.3g} to {max(eps):.3g}")
+    # the MSGM request replayed on the plain path (same x0 and draws), and
+    # on the plain path computing in fp32: bf16's own distance
+    r = gens[1]
+
+    def replay(fp32=False):
+        replay_g = torch.Generator(device=dev)
+        replay_g.set_state(r["generator_states"][0])
+        args = list(r["args"])
+        args[1] = replay_g
+        saved = {m: m.compute_dtype for m in args[0].score_net.modules()
+                 if hasattr(m, "compute_dtype")}
+        common.reset_launches()
+        try:
+            for m in saved:
+                m.compute_dtype = torch.float32 if fp32 else saved[m]
+            with plain_path():
+                out = drv.generate(*args, **r["kwargs"])
+        finally:
+            for m, dt in saved.items():
+                m.compute_dtype = dt
+        if any(launch_counts().values()):
+            raise AssertionError(f"plain replay launched {launch_counts()}")
+        return out
+
+    xp = replay()
+    x32 = replay(fp32=True)
+    rep = replay_errs(r["out"], xp, filter_blowups)
+    own = replay_errs(xp, x32, filter_blowups)  # bf16's own distance
+    kf = replay_errs(r["out"], x32, filter_blowups)
+    rec["generate"]["MSGM"].update(plain_replay=rep, bf16_against_fp32=own,
+                                   kernel_against_fp32=kf)
+    ok = rep["rel"] <= PROD_REPLAY_TOL or (
+        kf["rms_rel"] <= 1.5 * own["rms_rel"]
+        and kf["rel"] <= 1.5 * own["rel"] + PROD_REPLAY_TOL)
+    log(f"MSGM production request replayed plain on the {rep['rows_kept']} "
+        f"rows that filter_blowups keeps: max over states of max |kernel - "
+        f"plain| / rms(plain) = {rep['rel']:.3g} at state {rep['state']} "
+        f"(max |Δ| {rep['max_abs_err']:.3g}, rms {rep['rms']:.3g}; "
+        f"tolerance {PROD_REPLAY_TOL:g}); against the same request in fp32, "
+        f"max |Δ| / rms the kernel run {kf['rel']:.3g}, the plain bf16 run "
+        f"{own['rel']:.3g}; rms |Δ| / rms {kf['rms_rel']:.3g} and "
+        f"{own['rms_rel']:.3g} (kernel-plain {rep['rms_rel']:.3g}); per "
+        f"state kernel-plain {[round(v, 4) for v in rep['rel_per_state']]}")
+    if not ok:
+        raise AssertionError("production request: kernel and plain disagree")
+
+    # (e) the metrics
+    for k in drv.METRICS:
+        if results[k].shape != (1, 1, 1, 1, 1) or \
+                not np.isfinite(results[k]).all():
+            raise AssertionError(f"results[{k!r}] = {results[k]}")
+    rec["metrics"] = {}
+    for arm, c in zip(("SGM", "MSGM"), scores):
+        o = c["out"]
+        rec["metrics"][arm] = dict(sqrt_mmd=o["mmd"] ** 0.5, swd=o["swd"],
+                                   sqrt_mmd_floor=o["mmd_ref"] ** 0.5,
+                                   nan_count=o["nan_count"])
+        log(f"{card}: production {arm}: sqrt-MMD {o['mmd'] ** 0.5:.5f}, SWD "
+            f"{o['swd']:.5f} (floor {o['mmd_ref'] ** 0.5:.5f}, "
+            f"{o['nan_count']} rows dropped)")
+    return rec
+
+
+def k7_timing(g, dev, record):
+    """--only k7: K7a and K7b as direct launches at the DSM path's shape
+    (128, 4096, 64), K7a's lse sweep (recorded, not held), and bare DSM
+    train steps of the SGM arm of _grf(128) at batch 128; to compare two
+    trees of the package in one call."""
+    from sdeflow_tpu_torch import Trainer
+    from sdeflow_tpu_torch.ops.kernels import attention as ak
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    b, t, c = SGM_BATCH, 4096, 64
+    qkv = 1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)
+    dout = torch.randn(b, t, c, generator=g, device=dev)
+    with torch.no_grad():
+        out, lse = ak._launch_stats(qkv, 1)
+        delta = (ak._heads(dout, 1) * ak._heads(out, 1)).sum(-1)
+        record["k7a_ms"] = [cuda_ms(lambda: ak._launch_stats(qkv, 1), 5, 1)
+                            for _ in range(3)]
+        record["k7b_ms"] = [cuda_ms(lambda: ak._launch_bwd(
+            qkv, dout, lse, delta, 1), 3, 1) for _ in range(3)]
+    log(f"K7a at {[b, t, c]}: {record['k7a_ms']} ms; K7b: "
+        f"{record['k7b_ms']} ms")
+    del qkv, dout, out, lse, delta
+    record["lse_draws"] = lse_sweep(ak, dev, strict=False)
+    tc, model, gen, sampler = sgm_arm(g, dev)
+    trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
+                      loss="dsm")
+    want = {k: SGM_WANT.get(k, 0) for k in common.KERNELS}
+
+    def step():
+        return trainer.train_step(trainer.state, g,
+                                  sampler.sample(g, SGM_BATCH))[1]
+
+    step()  # warm: cuDNN's choices, the allocator
+    record["dsm"] = timed_train_steps(step, model, SGM_TIMED_STEPS, want,
+                                      SGM_BATCH)
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2179,11 +2696,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
-    ap.add_argument("--only", choices=("gn", "driver"),
+    ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
-                    "on grf16")
+                    "on grf16; bf16 runs phases 21 and 22, the bf16 kernels "
+                    "and the grf16_production preset; k7 times K7a, K7b and "
+                    "the DSM step (k7_timing)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2224,6 +2743,17 @@ def main(argv=None):
         return 0
     if opts.only == "driver":
         record["driver"] = check_driver(g, dev, card)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "k7":
+        k7_timing(g, dev, record)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "bf16":
+        mix = gn_mix(make_model(get_preset("grf16"), DIM,
+                                "NormalizeLogRadius", device=dev), dev)
+        record["bf16"] = check_bf16_kernels(g, dev, mix)
+        record["production"] = check_production(g, dev, card)
         write_record(opts.record, record)
         return 0
 
@@ -2398,6 +2928,17 @@ def main(argv=None):
     record["driver"] = check_driver(g, dev, card)
     drive = record["driver"]["launches"]
 
+    phase("21")
+    # -- 21. the bf16 variants of K5, K5b and K3 against their plain twins ---
+    bf = check_bf16_kernels(g, dev, mixes[0])
+    record["bf16"] = bf
+
+    phase("22")
+    # -- 22. the grf16_production preset through the CLI ----------------------
+    prod = check_production(g, dev, card)
+    record["production"] = prod
+    prod_k = prod["launches"]
+
     phase("table")
     # -- the kernel table ----------------------------------------------------
     k3_rows = list(k3.values())
@@ -2523,8 +3064,52 @@ def main(argv=None):
               ("K7a", "qkv_attention_stats", "flash_fwd.cu", 344),
               ("K7b", "qkv_attention_bwd", "attention_bwd.cu", 436)]],
     ]
-    for k in kernels:  # this slice's path: the driver's run (phase 20)
+    # the bf16 variants: launches in the production run (phase 22), which
+    # launches no fp32 variant of K3, K5 or K5b
+    bf16_of = {"fused_attention_block": "K3", "group_norm_silu": "K5",
+               "group_norm_silu_bwd": "K5b"}
+    req = prod["generate"]["MSGM"]["launches"]
+    ssm = prod["train"]["SGM"]["launches_per_step"]
+    kernels += [
+        dict(mixed(bf["k3"]), name="fused_attention_block_bf16",
+             id="K3 bf16", counter="fused_attention_block",
+             max_abs_err=bf["max_errs"]["k3"], library_ms=None,
+             source="sdeflow_tpu_torch/csrc/attnblock.cu",
+             device_ms=prod["request_profile"]["per_launch_ms"].get(
+                 SYMBOL_BF16["fused_attention_block"]),
+             train_device_ms=prod["ssm_profile"]["per_launch_ms"].get(
+                 SYMBOL_BF16["fused_attention_block"])),
+        dict(mixed(bf["k5_grf16"]), name="group_norm_silu_bf16",
+             id="K5 bf16", counter="group_norm_silu",
+             ssm_mix=mixed(bf["k5_ssm"]), max_abs_err=bf["max_errs"]["k5"],
+             source="sdeflow_tpu_torch/csrc/groupnorm.cu",
+             device_ms=prod["request_profile"]["per_launch_ms"].get(
+                 SYMBOL_BF16["group_norm_silu"]),
+             train_device_ms=prod["ssm_profile"]["per_launch_ms"].get(
+                 SYMBOL_BF16["group_norm_silu"])),
+        dict(mixed(bf["k5b_ssm"], old_ms=weighted(bf["k5b_ssm"], "old_ms"),
+                   grf16_mix=mixed(bf["k5b_grf16"])),
+             name="group_norm_silu_bwd_bf16", id="K5b bf16",
+             counter="group_norm_silu_bwd",
+             max_abs_err=bf["max_errs"]["k5b_dx"],
+             max_rel_err_params=bf["max_errs"]["k5b_params"],
+             source="sdeflow_tpu_torch/csrc/groupnorm.cu",
+             train_device_ms=sum(prod["ssm_profile"]["per_launch_ms"].get(
+                 k, 0) for k in ("gn_silu_bwd_kernel", "gn_silu_bwd_params"))),
+    ]
+    for k in kernels[-3:]:
+        c = k["counter"]
+        k.update(route="cuda", launches=prod_k[c], driver_launches=0,
+                 launches_per="production run (phase 22: both arms' 8 bf16 "
+                 "SSM steps, ELBO prints and one request each)",
+                 request_launches=req[c], ssm_launches_per_step=ssm[c],
+                 replaces=next(r["replaces"] for r in kernels
+                               if r["id"] == bf16_of[c]))
+        k.setdefault("device_ms", None)
+    for k in kernels[:-3]:  # this slice's path: the production run
         k["driver_launches"] = drive[k["name"]]
+        k["production_launches"] = (0 if k["name"] in bf16_of
+                                    else prod_k[k["name"]])
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,14 +2,18 @@
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
 PlotConfig, ExperimentConfig with its ``debug`` shrink, and the
-``_piv_large`` → ``_grf`` chain, :95-205, 318-359, 558-565), with the
-fields that chain sets and the driver, the serve and the training paths of
-the MSGM and SGM arms read; each keeps the JAX default. ``_grf(npixel)``
-takes any square image, as the JAX one does (``_grf(128)`` is the SGM DSM
-slice's configuration); grf16 and grf32 are the registered presets, each
-also with the ``_dbg`` suffix. The other presets come with ROADMAP Queue 1
-item 13; the plot options are carried as data, and only ``save_results``
-is read (the plots come with item 13).
+``_piv_large`` → ``_grf`` → ``_grf_production`` chain, :95-205,
+318-359, 375-416, 558-565), with the fields that chain sets and the
+driver, the serve and the training paths of the MSGM and SGM arms read;
+each keeps the JAX default. ``_grf(npixel)`` takes any square image, as the
+JAX one does (``_grf(128)`` is the SGM DSM slice's configuration); grf16,
+grf32 and grf16_production are the registered presets, each also with the
+``_dbg`` suffix. The JAX package's ``steps_per_dispatch`` (its ``lax.scan``
+dispatch of several train steps) has no counterpart: the Trainer takes one
+step at a time (a CUDA graph of the step is ROADMAP Queue 1 item 17).
+grf16_production_dit waits for the DiT score net (item 11); the other
+presets come with item 13; the plot options are carried as data, and only
+``save_results`` is read (the plots come with item 13).
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ class SweepConfig:
     Res: Tuple[int, ...] = (300, 3900)  # POD Reynolds numbers
     backward_method: str = "rk4"
     sampler: str = "sde"  # "ode", "dpm": ROADMAP Queue 1 item 10
-    corrector_steps: int = 0  # Langevin corrector: Queue 1 item 3
+    corrector_steps: int = 0  # Langevin steps after each predictor step
     snr: float = 0.16
     dpm_grid: str = "logsnr"
 
@@ -172,9 +176,34 @@ def _grf(npixel=16):
     )
 
 
+def _grf_production(npixel=16):
+    """The production image preset (sdeflow_tpu/configs.py:375-416): bf16
+    compute in the score net (fp32 parameters, Adam state and loss),
+    parameter EMA 0.999 with warmup, the eps output on the SGM arm (the
+    driver keeps MSGM direct), and predictor–corrector sampling: EM at 32
+    steps plus one Langevin corrector step."""
+    cfg = _grf(npixel)
+    return replace(
+        cfg,
+        name=f"grf{npixel}_production",
+        train=replace(cfg.train, compute_dtype="bfloat16", ema_rate=0.999,
+                      parameterization="eps"),
+        sweep=replace(cfg.sweep, sampler="sde", backward_method="em",
+                      corrector_steps=1, num_stepss_backward=(32,)),
+    )
+
+
+def _grf_production_dit(npixel=16):
+    raise NotImplementedError(
+        f"grf{npixel}_production_dit: the DiT2D score net, ROADMAP Queue 1 "
+        "item 11")
+
+
 PRESETS = {
     "grf16": lambda: _grf(16),
     "grf32": lambda: _grf(32),
+    "grf16_production": lambda: _grf_production(16),
+    "grf16_production_dit": lambda: _grf_production_dit(16),
 }
 
 

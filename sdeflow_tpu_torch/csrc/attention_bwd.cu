@@ -33,7 +33,9 @@
 // and past ch). Per query tile a warp forms on mma.sync m16n8k8 in 3xTF32
 // (mma_tf32.cuh):
 //   S^T = K Q^T (times s), P^T = exp(S^T - lse), dP^T = V dO^T,
-//   dS^T = P^T o (dP^T - delta), all in registers; then
+//   dS^T = P^T o (dP^T - delta), all in registers (S^T's k-steps each in a
+//   fresh accumulator, tc::mma3_add, as K7a forms the scores behind lse,
+//   so that both sides of S^T - lse carry the same rounding); then
 //   dV += P^T dO and dK += dS^T Q, accumulated in registers across the
 //   tiles, with P^T and dS^T turned into A operands by quad shuffles.
 // dS^T then goes to a 64 x (rows + 8) tile over the stage's Q and dO rows,
@@ -183,7 +185,7 @@ flash_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
         const int qo = (n * 8 + g) * L::ld + c;
-        tc::mma3(s[n], ka, tc::split_b(qs[qo], qs[qo + 4]));
+        tc::mma3_add(s[n], ka, tc::split_b(qs[qo], qs[qo + 4]));
         tc::mma3(dp[n], va, tc::split_b(dos[qo], dos[qo + 4]));
       }
     }

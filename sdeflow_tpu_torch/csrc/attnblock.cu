@@ -54,7 +54,28 @@
 // fit either (a very wide C at T <= 4) h goes there too (mode 2); the
 // attention and the projections then read their operands from there (L2)
 // through the same code.
+//
+// bfloat16 (attn_block_bf16, the score net's bf16 compute; the `native`
+// path of ops/pallas/attnblock.py:88-185): x and the output bf16, the
+// GroupNorm's scale and bias and both biases fp32, the two weight matrices
+// cast to bf16 and transposed by the wrapper (one copy each per call, so
+// that a B fragment's two k's are adjacent). The four products run on
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulation, one product
+// per tile (no split). The roundings follow the kernel body: h = bf16(bf16(
+// x*bf16(rstd*gamma)) + bf16(beta - mean*rstd*gamma)) with fp32 statistics;
+// qkv accumulated in fp32 plus the bias, then cast to bf16; q and k scaled
+// by the bf16 scale in bf16; the scores in fp32, the softmax in fp32 (a
+// first pass over the key tiles for the row max and sum, a second that
+// recomputes the scores where there is more than one tile) and p =
+// bf16(exp(s - max) / sum) for P V; the output cast to bf16 before Wproj;
+// the residual added in bf16, out = bf16(x + bf16(O Wproj + bproj)).
+// Shared memory holds everything in bf16 (halving the fp32 plan: 56 KB at
+// (T, C) = (64, 64), 98 KB at (16, 128) with 4 samples) and only mode 0:
+// block_plan gives no bf16 plan where that does not fit, and the wrapper
+// raises. Bound: bf16 tensor cores (989 TFLOP/s) or the bytes of x in and
+// out, whichever is larger.
 
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "attn_tile.cuh"
@@ -416,6 +437,459 @@ attn_block_kernel(const float* __restrict__ x,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// ---- bfloat16 (attn_block_bf16) ---------------------------------------------
+
+namespace bf {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPadR = 8;  // ring rows (an output column's k's): kKc + 8
+constexpr int kRing = kStages * kNc * (kKc + kPadR);  // bf16 elements
+
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two adjacent bf16 (4-byte aligned) as one register
+__device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b on mma.sync m16n8k16, bf16 operands, fp32 accumulator. For
+// lane = 4g + q: A (16x16, row) a0 = (g, 2q..2q+1), a1 = (g+8, 2q..),
+// a2 = (g, 2q+8..), a3 = (g+8, 2q+8..); B (16x8, "col": B[k][n])
+// b0 = (k 2q..2q+1, n g), b1 = (k 2q+8.., n g); C as for m16n8k8.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows g, g + 8 and k 0..15 of a row-major tile at p
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p,
+                                       int ld, int g, int q4) {
+  const bf16* r0 = p + g * ld + 2 * q4;
+  const bf16* r1 = r0 + 8 * ld;
+  a[0] = ld2(r0);
+  a[1] = ld2(r1);
+  a[2] = ld2(r0 + 8);
+  a[3] = ld2(r1 + 8);
+}
+
+__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+struct Dims {
+  int T, C, G, heads, ch;
+  int w;   // head width rounded up to 16 (the k-steps of Q K^T)
+  int cp;  // C rounded up to 16
+  int nq;  // heads * 3 * w: the padded qkv width
+  int tp;  // T rounded up to 16: rows (and keys) per sample
+  int S;   // samples per block
+  __host__ __device__ int rows() const { return S * tp; }
+  __host__ __device__ int lda() const { return cp + 8; }  // x, h, O
+  __host__ __device__ int ldqk() const { return 2 * heads * w + 8; }
+  __host__ __device__ int ldvt() const { return tp + 8; }  // V^T rows
+  // fp32: (mean, rstd) per (sample, group), the channel sums, the
+  // GroupNorm's scale and bias, the output bias and the padded qkv bias,
+  // rounded up to 16 bytes
+  __host__ __device__ int floats() const {
+    return round_up(2 * S * G + S * C + 3 * C + nq, 4);
+  }
+};
+
+Dims make_dims(int T, int C, int G, int heads, int S) {
+  Dims d;
+  d.T = T, d.C = C, d.G = G, d.heads = heads, d.ch = C / heads;
+  d.w = round_up(d.ch, 16), d.cp = round_up(C, 16), d.nq = heads * 3 * d.w;
+  d.tp = round_up(T, 16), d.S = S;
+  return d;
+}
+
+// attnblock.py smem_bytes for bf16
+int smem_bytes(const Dims& d) {
+  const int m = d.rows();
+  return 4 * d.floats() + 2 * (kRing + m * d.lda() + m * d.ldqk() +
+                               d.S * d.heads * d.w * d.ldvt());
+}
+
+// init(row, n) + A W for rows [0, M) of A (bf16, row r at A + r*lda,
+// columns [0, round_up(K, 16)) with zeros from K on) and the columns n < N
+// of W, stored transposed: W(k, n) = Wt[col(n)*ldw + k] where col(n) >= 0
+// and k < K, else 0. Wt's rows stream through the ring in tiles of kNc
+// columns x kKc k's (16-byte copies where vec: K % 8 == 0 and Wt aligned,
+// else element by element); a warp takes 16 rows x 32 columns of a 64-row
+// pass, fp32 accumulators from init(row, n) (the bias); epi(row, n, v0, v1)
+// for the pairs (n, n + 1), n even, n < N, of every row.
+template <class Col, class Init, class Epi>
+__device__ __forceinline__ void project(const bf16* A, int lda, int M, int K,
+                                        const bf16* __restrict__ Wt, int ldw,
+                                        int N, Col col, bool vec, bf16* ring,
+                                        Init init, Epi epi) {
+  constexpr int ldr = kKc + kPadR, stage = kNc * ldr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int kp = round_up(K, 16);
+  const int nk = (K + kKc - 1) / kKc, steps = nk * ((N + kNc - 1) / kNc);
+
+  auto load = [&](int p) {
+    const int k0 = (p % nk) * kKc, n0 = (p / nk) * kNc;
+    bf16* st = ring + (p % kStages) * stage;
+    if (vec) {
+      constexpr int chunks = kKc / 8;
+      for (int i = tid; i < kNc * chunks; i += kThreads) {
+        const int r = i / chunks, kc = (i - r * chunks) * 8;
+        const int j = n0 + r < N ? col(n0 + r) : -1;
+        const bool ok = j >= 0 && k0 + kc < K;
+        cp16(st + r * ldr + kc, ok ? Wt + (long long)j * ldw + k0 + kc : Wt,
+             ok);
+      }
+    } else {
+      for (int i = tid; i < kNc * kKc; i += kThreads) {
+        const int r = i / kKc, kc = i - r * kKc;
+        const int j = n0 + r < N ? col(n0 + r) : -1;
+        const bool ok = j >= 0 && k0 + kc < K;
+        st[r * ldr + kc] =
+            ok ? Wt[(long long)j * ldw + k0 + kc] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  for (int m0 = 0; m0 < M; m0 += kPassRows) {
+    const int mtiles = min(kPassRows, M - m0) / 16, items = 2 * mtiles;
+    float acc[kItems][4][4];
+    load(0);
+    tc::cp_async_commit();
+    for (int p = 0; p < steps; ++p) {
+      if (p + 1 < steps) load(p + 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait_one();  // step p has landed
+      __syncthreads();
+      const bf16* st = ring + (p % kStages) * stage;
+      const int kc = p % nk, ksteps = min(kKc, kp - kc * kKc) / 16;
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int item = warp + it * kWarps;
+        if (item >= items) continue;
+        const int mt = item % mtiles, half = item / mtiles;
+        const int row = m0 + mt * 16 + g;
+        if (kc == 0) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col0 = (p / nk) * kNc + half * 32 + n * 8 + 2 * q4;
+            const float2 z = make_float2(0.f, 0.f);
+            const float2 lo = col0 < N ? init(row, col0) : z;
+            const float2 hi = col0 < N ? init(row + 8, col0) : z;
+            acc[it][n][0] = lo.x, acc[it][n][1] = lo.y;
+            acc[it][n][2] = hi.x, acc[it][n][3] = hi.y;
+          }
+        }
+        const bf16* ar = A + (m0 + mt * 16) * lda + kc * kKc;
+#pragma unroll
+        for (int kk = 0; kk < kKc / 16; ++kk) {
+          if (kk < ksteps) {
+            uint32_t a[4];
+            load_a(a, ar + kk * 16, lda, g, q4);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              const bf16* br =
+                  st + (half * 32 + n * 8 + g) * ldr + kk * 16 + 2 * q4;
+              mma(acc[it][n], a, ld2(br), ld2(br + 8));
+            }
+          }
+        }
+        if (kc == nk - 1) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col0 = (p / nk) * kNc + half * 32 + n * 8 + 2 * q4;
+            if (col0 < N) {
+              epi(row, col0, acc[it][n][0], acc[it][n][1]);
+              epi(row + 8, col0, acc[it][n][2], acc[it][n][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the stage is free for the copy two steps on
+    }
+  }
+}
+
+// Softmax attention of the 16 query rows r0.. of one (sample, head): q and
+// k (already scaled) in rows of stride ldq, v transposed (row c holds the
+// keys of channel c, stride ldv); rows and keys [0, rows) readable and
+// finite, columns [0, w). Keys go by in tiles of 8*NT (NT even): a first
+// pass takes each row's max m and sum l = sum exp(s - m) of its fp32
+// scores, a second forms p = bf16(exp(s - m) / l) (recomputing the scores
+// unless one tile holds every key) and accumulates P V in fp32 for the
+// output columns [oc0, oc1) in chunks of 8*NO. store(row, col, v0, v1) as
+// in attn_tile.cuh.
+template <int NT, int NO, class Store>
+__device__ __forceinline__ void attend16(const bf16* q, const bf16* k,
+                                         int ldq, const bf16* vt, int ldv,
+                                         int T, int rows, int w, int r0,
+                                         int oc0, int oc1, Store store) {
+  static_assert(NT % 2 == 0, "a P V k-step takes two score n-tiles");
+  constexpr int kTile = 8 * NT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
+  const int ntiles = (T + kTile - 1) / kTile;
+  const bf16* qr = q + (r0 + g) * ldq + 2 * q4;  // rows r0+g, r0+g+8
+  float s[NT][4];
+  auto scores = [&](int j) {
+    const int k0 = j * kTile;
+    const bf16* kr[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      kr[n] = k + min(k0 + n * 8 + g, rows - 1) * ldq + 2 * q4;
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    }
+    for (int c = 0; c < w; c += 16) {
+      const uint32_t a[4] = {ld2(qr + c), ld2(qr + 8 * ldq + c),
+                             ld2(qr + c + 8), ld2(qr + 8 * ldq + c + 8)};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma(s[n], a, ld2(kr[n] + c), ld2(kr[n] + c + 8));
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + n * 8 + 2 * q4 + (e & 1) >= T) s[n][e] = -INFINITY;
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < ntiles; ++j) {
+    scores(j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // row r0+g (c0, c1), r0+g+8 (c2, c3)
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        sum += expf(s[n][2 * h] - m_new) + expf(s[n][2 * h + 1] - m_new);
+      l[h] = l[h] * expf(m[h] - m_new) + tc::quad_sum(sum);
+      m[h] = m_new;
+    }
+  }
+  for (int oc = oc0; oc < oc1; oc += 8 * NO) {
+    float o[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    const bf16* vr[NO];  // this lane's value column of each n-tile
+#pragma unroll
+    for (int n = 0; n < NO; ++n) vr[n] = vt + min(oc + n * 8 + g, w - 1) * ldv;
+    for (int j = 0; j < ntiles; ++j) {
+      if (ntiles > 1 || oc != oc0) scores(j);
+      const int k0 = j * kTile;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {  // keys k0+16kk..k0+16kk+15
+        const float(&s0)[4] = s[2 * kk];
+        const float(&s1)[4] = s[2 * kk + 1];
+        const uint32_t a[4] = {
+            pack(expf(s0[0] - m[0]) / l[0], expf(s0[1] - m[0]) / l[0]),
+            pack(expf(s0[2] - m[1]) / l[1], expf(s0[3] - m[1]) / l[1]),
+            pack(expf(s1[0] - m[0]) / l[0], expf(s1[1] - m[0]) / l[0]),
+            pack(expf(s1[2] - m[1]) / l[1], expf(s1[3] - m[1]) / l[1])};
+        // key pairs past the last row hold p = 0: clamp them to the last
+        // pair (rows is a multiple of 16)
+        const int key0 = min(k0 + kk * 16 + 2 * q4, rows - 2);
+        const int key1 = min(k0 + kk * 16 + 8 + 2 * q4, rows - 2);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          mma(o[n], a, ld2(vr[n] + key0), ld2(vr[n] + key1));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = oc + n * 8 + 2 * q4;
+      if (c < w) {
+        store(r0 + g, c, o[n][0], o[n][1]);
+        store(r0 + g + 8, c, o[n][2], o[n][3]);
+      }
+    }
+  }
+}
+
+// NT, NO: key and output n-tiles per attention tile: 2 where T <= 16
+// (w <= 16), else 8 (4)
+template <int NT, int NO>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_block_bf16_kernel(const bf16* __restrict__ x,
+                       const float* __restrict__ gn_scale,
+                       const float* __restrict__ gn_bias,
+                       const bf16* __restrict__ wqkv_t,
+                       const float* __restrict__ bqkv,
+                       const bf16* __restrict__ wproj_t,
+                       const float* __restrict__ bproj,
+                       bf16* __restrict__ out, int B, Dims d, float qk_scale,
+                       bool vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int T = d.T, C = d.C, tp = d.tp, M = d.rows(), lda = d.lda(),
+            ldqk = d.ldqk(), ldvt = d.ldvt(), ch = d.ch, w = d.w;
+  const int b0 = blockIdx.x * d.S, ns = min(d.S, B - b0);
+  float* stats = smem_f;              // (mean, rstd) per (sample, group)
+  float* csum = stats + 2 * d.S * d.G;  // per (sample, channel)
+  float* gsc = csum + d.S * C;
+  float* gbi = gsc + C;
+  float* bp = gbi + C;
+  float* bq = bp + C;                 // padded qkv bias
+  bf16* ring = reinterpret_cast<bf16*>(smem_f + d.floats());
+  bf16* hs = ring + kRing;            // x, then h, then O
+  bf16* qk = hs + M * lda;            // q, k of each head
+  bf16* vt = qk + M * ldqk;           // v^T per (sample, head, channel)
+  auto qkv_col = [=](int c) {  // padded column -> row of Wqkv^T, or -1
+    const int hh = c / (3 * w), r = c - hh * 3 * w, part = r / w,
+              cc = r - part * w;
+    return cc < ch ? hh * 3 * ch + part * ch + cc : -1;
+  };
+  for (int i = tid; i < C; i += kThreads) {
+    gsc[i] = __ldg(gn_scale + i);
+    gbi[i] = __ldg(gn_bias + i);
+    bp[i] = __ldg(bproj + i);
+  }
+  for (int i = tid; i < d.nq; i += kThreads) {
+    const int j = qkv_col(i);
+    bq[i] = j >= 0 ? __ldg(bqkv + j) : 0.f;
+  }
+
+  // x (zeros past T, past C and past the last sample)
+  if (vec) {
+    const int chunks = d.cp / 8;
+    for (int i = tid; i < M * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      const int s = r / tp, t = r - s * tp;
+      const bool ok = s < ns && t < T && c < C;
+      cp16(hs + r * lda + c, ok ? x + ((long long)(b0 + s) * T + t) * C + c
+                                : x, ok);
+    }
+  } else {
+    for (int i = tid; i < M * d.cp; i += kThreads) {
+      const int r = i / d.cp, c = i - r * d.cp;
+      const int s = r / tp, t = r - s * tp;
+      const bool ok = s < ns && t < T && c < C;
+      hs[r * lda + c] = ok ? x[((long long)(b0 + s) * T + t) * C + c]
+                           : __float2bfloat16(0.f);
+    }
+  }
+  tc::cp_async_commit();
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // GroupNorm statistics per (sample, group) in fp32, two-pass, from
+  // per-channel sums over the T rows
+  const int cg = C / d.G;
+  const float n_inv = 1.f / (float)(T * cg);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int i = tid; i < ns * C; i += kThreads) {
+      const int s = i / C, c = i - s * C;
+      const bf16* xc = hs + s * tp * lda + c;
+      const float m = pass ? stats[2 * (s * d.G + c / cg)] : 0.f;
+      float a = 0.f;
+      for (int t = 0; t < T; ++t) {
+        const float dv = __bfloat162float(xc[t * lda]) - m;
+        a = pass ? fmaf(dv, dv, a) : a + dv;
+      }
+      csum[i] = a;
+    }
+    __syncthreads();
+    for (int pair = tid; pair < ns * d.G; pair += kThreads) {
+      const int s = pair / d.G, grp = pair - s * d.G;
+      float a = 0.f;
+      for (int c = grp * cg; c < (grp + 1) * cg; ++c) a += csum[s * C + c];
+      if (pass)
+        stats[2 * pair + 1] = rsqrtf(a * n_inv + kEps);
+      else
+        stats[2 * pair] = a * n_inv;
+    }
+    __syncthreads();
+  }
+  // h = bf16(bf16(x * bf16(rstd*gamma)) + bf16(beta - mean*rstd*gamma))
+  for (int i = tid; i < ns * tp * C; i += kThreads) {
+    const int r = i / C, c = i - r * C, s = r / tp;
+    if (r - s * tp >= T) continue;
+    const int pair = s * d.G + c / cg;
+    const float a = stats[2 * pair + 1] * gsc[c];
+    const float sc = rnd(a), sh = rnd(gbi[c] - stats[2 * pair] * a);
+    bf16* hp = hs + r * lda + c;
+    *hp = __float2bfloat16_rn(rnd(__bfloat162float(*hp) * sc) + sh);
+  }
+  __syncthreads();
+
+  // qkv = bf16(h Wqkv + bqkv); q and k times the bf16 scale, rounded; v
+  // transposed
+  project(hs, lda, M, C, wqkv_t, C, d.nq, qkv_col, vec, ring,
+          [&](int, int c) { return make_float2(bq[c], bq[c + 1]); },
+          [&](int row, int c, float v0, float v1) {
+            const int hh = c / (3 * w), r = c - hh * 3 * w, part = r / w;
+            const float a0 = rnd(v0), a1 = rnd(v1);
+            if (part < 2) {
+              *reinterpret_cast<uint32_t*>(qk + row * ldqk + hh * 2 * w + r) =
+                  pack(a0 * qk_scale, a1 * qk_scale);
+            } else {
+              const int s = row / tp, t = row - s * tp;
+              bf16* dst = vt + ((s * d.heads + hh) * w + r - 2 * w) * ldvt + t;
+              dst[0] = __float2bfloat16_rn(a0);
+              dst[ldvt] = __float2bfloat16_rn(a1);
+            }
+          });
+
+  // attention per (sample, head, 16 query rows, 8*NO output columns); O
+  // (bf16) overwrites h
+  const int mtiles = tp / 16, parts = (w + 8 * NO - 1) / (8 * NO);
+  const int per_sample = d.heads * mtiles * parts;
+  for (int item = warp; item < ns * per_sample; item += kWarps) {
+    const int s = item / per_sample, rem = item - s * per_sample;
+    const int hh = rem / (mtiles * parts), rem2 = rem - hh * mtiles * parts;
+    const int mt = rem2 / parts, part = rem2 - mt * parts;
+    const bf16* qb = qk + s * tp * ldqk + hh * 2 * w;
+    bf16* ob = hs + s * tp * lda + hh * ch;
+    attend16<NT, NO>(qb, qb + w, ldqk, vt + (s * d.heads + hh) * w * ldvt,
+                     ldvt, T, tp, w, mt * 16, part * 8 * NO,
+                     (part + 1) * 8 * NO,
+                     [&](int r, int c, float v0, float v1) {
+                       if (r >= T || c >= ch) return;
+                       ob[r * lda + c] = __float2bfloat16_rn(v0);
+                       if (c + 1 < ch)
+                         ob[r * lda + c + 1] = __float2bfloat16_rn(v1);
+                     });
+  }
+  __syncthreads();
+
+  // out = bf16(x + bf16(O Wproj + bproj)) for the real rows and columns
+  project(hs, lda, M, C, wproj_t, C, d.cp,
+          [=](int c) { return c < C ? c : -1; }, vec, ring,
+          [&](int, int c) {
+            return make_float2(c < C ? bp[c] : 0.f,
+                               c + 1 < C ? bp[c + 1] : 0.f);
+          },
+          [&](int row, int c, float v0, float v1) {
+            const int s = row / tp, t = row - s * tp;
+            if (s >= ns || t >= T) return;
+            const long long o = ((long long)(b0 + s) * T + t) * C + c;
+            if (c < C)
+              out[o] = __float2bfloat16_rn(__bfloat162float(x[o]) + rnd(v0));
+            if (c + 1 < C)
+              out[o + 1] =
+                  __float2bfloat16_rn(__bfloat162float(x[o + 1]) + rnd(v1));
+          });
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // S samples per block and the mode as attnblock.py block_plan chose them;
@@ -444,5 +918,36 @@ extern "C" int attn_block_f32(const float* x, const float* gn_scale,
   kernel<<<(B + S - 1) / S, kThreads, smem, (cudaStream_t)stream>>>(
       x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, out, scratch, B, d,
       scale * scale, vec);
+  return (int)cudaGetLastError();
+}
+
+// K3 in bf16: x and out (B, T, C) bf16; wqkv_t (3C, C) and wproj_t (C, C)
+// the weights transposed (row n: output column n) in bf16; gn_scale,
+// gn_bias, bqkv, bproj fp32. S samples per block as attnblock.py
+// block_plan chose them for bf16 (all in shared memory); smem as its
+// smem_bytes computes it, refused if this file computes another. scale:
+// the qk scale ch^-1/4 already rounded to bf16.
+extern "C" int attn_block_bf16(const __nv_bfloat16* x, const float* gn_scale,
+                               const float* gn_bias,
+                               const __nv_bfloat16* wqkv_t, const float* bqkv,
+                               const __nv_bfloat16* wproj_t,
+                               const float* bproj, __nv_bfloat16* out, int B,
+                               int T, int C, int G, int heads, int S,
+                               int smem, float scale, void* stream) {
+  if (B == 0) return 0;
+  const bf::Dims d = bf::make_dims(T, C, G, heads, S);
+  if (smem != bf::smem_bytes(d)) return (int)cudaErrorInvalidValue;
+  const bool vec = C % 8 == 0 && aligned16(x) && aligned16(wqkv_t) &&
+                   aligned16(wproj_t);
+  auto kernel = d.tp == 16 ? (d.w <= 16 ? bf::attn_block_bf16_kernel<2, 2>
+                                         : bf::attn_block_bf16_kernel<2, 4>)
+                            : (d.w <= 16 ? bf::attn_block_bf16_kernel<8, 2>
+                                         : bf::attn_block_bf16_kernel<8, 4>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + S - 1) / S, kThreads, smem, (cudaStream_t)stream>>>(
+      x, gn_scale, gn_bias, wqkv_t, bqkv, wproj_t, bproj, out, B, d, scale,
+      vec);
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,10 @@ constexpr int kPadV = 8;   // V rows: W + 8 floats
 // 102 KB, two blocks per SM, where K4's layout (205 KB) holds one. Each
 // k-step's score products go through a fresh accumulator (tc::mma3_add)
 // for K6's 1e-5 at head width 128, where one chain of 16 k-steps drifts
-// past it. K4 and K7a keep the layout and chains above.
+// past it. K7a (kStats) takes its scores the same way: its lse at W = 128
+// lay up to 9.85e-6 from float64 with the two-accumulator chain
+// (mma3_split), twice the fp32 plain version's own distance. K4 keeps the
+// layout and chains above.
 template <int W, bool kK6 = false>
 struct Layout {
   static constexpr int keys = kK6 ? kKeysK6 : kKeys;
@@ -151,7 +154,7 @@ __device__ __forceinline__ void flash_fwd_body(
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const float* kr = ks + (n * 8 + g) * L::ldk + c;
-        if constexpr (kK6)
+        if constexpr (kK6 || kStats)
           tc::mma3_add(s[n], a, tc::split_b(kr[0], kr[4]));
         else
           tc::mma3_split(s[n], s_small[n], a, tc::split_b(kr[0], kr[4]));

@@ -1,5 +1,5 @@
-// K5 and K5b: GroupNorm (+SiLU) and its vector-Jacobian product, float32,
-// channels-first.
+// K5 and K5b: GroupNorm (+SiLU) and its vector-Jacobian product,
+// channels-first, on float32 or bfloat16 x (gamma and beta float32).
 //
 //   K5   h[b, c, s] = (x[b, c, s] - mean[b, g]) * rstd[b, g] * gamma[c] + beta[c]
 //        out        = silu ? h / (1 + exp(-h)) : h,        g = c / (C/G)
@@ -12,6 +12,17 @@
 // in two passes (the one-pass E[x^2] - E[x]^2 form loses about three digits),
 // rstd = rsqrt(var + 1e-5). K5b recomputes mean and rstd from x.
 //
+// bfloat16 (the score net's bf16 compute, group_norm_silu_bf16 and
+// group_norm_silu_bwd_bf16; ops/pallas/groupnorm.py:64-75, the sub-fp32
+// branch): the same plans over the same slabs, each 16-byte load carrying 8
+// elements instead of 4, the statistics in fp32 from the widened values;
+// then the apply rounds where the plain version (ops/kernels/groupnorm.py
+// gn_math) rounds: scale = bf16(rstd*gamma), shift = bf16(beta -
+// mean*rstd*gamma), h = bf16(bf16(x*scale) + shift), and under SiLU
+// out = bf16(h * bf16(sigmoid(h))). K5b widens x and dy and runs the fp32
+// vjp (the plain version's closed form evaluated in fp32), rounding dx to
+// bf16 once at its store; dgamma and dbeta stay fp32.
+//
 // Replaces: the Pallas kernel _gn_kernel / _gn_pallas in
 // sdeflow_tpu/ops/pallas/groupnorm.py:78-136 (entry group_norm_silu
 // :139-144), and, for K5b, the backward of group_norm_silu, which has no
@@ -21,26 +32,30 @@
 // the lane dimension. Here the layout is channels-first (B, C, S): one
 // (sample, group) is one contiguous slab of n = (C/G)*S floats.
 //
-// Bound on the H100: bytes. K5 reads x and writes out (8 bytes per element)
-// for ~12 flops, K5b reads x and dy and writes dx (12 bytes) for ~26, both
-// far below the card's ~20 flops/byte fp32 balance point. So each element is
-// read once and written once, from registers, and loads are 16-byte float4s
-// wherever S % 4 == 0 (a float4 then never straddles two channels).
+// Bound on the H100: bytes. K5 reads x and writes out (8 bytes per element
+// in fp32, 4 in bf16) for ~12 flops, K5b reads x and dy and writes dx (12
+// bytes, 6 in bf16) for ~26, both far below the card's ~20 flops/byte fp32
+// balance point. So each element is read once and written once, from
+// registers, and loads are 16 bytes (a float4, or 8 bf16) wherever S is a
+// multiple of the vector (which then never straddles two channels).
 //
 // Launch plans, chosen on the host from n and S (mirrored in Python by
 // ops/kernels/groupnorm.py launch_plan, which the CPU tests check):
 //
 // - small (n <= 1024: every slab of grf16): a slab per group of L lanes of
-//   one warp, L = 8, 16 or 32 (so 4, 2 or 1 slabs per warp at n <= 32, 64),
-//   each lane holding NV vectors in registers (NV a template parameter sized
-//   to the slab); the sums are shuffles within the L lanes.
+//   one warp, L = 8, 16 or 32 (so 4, 2 or 1 slabs per warp at n <= 32, 64
+//   in fp32, 64, 128 in bf16), each lane holding NV vectors in registers
+//   (NV a template parameter sized to the slab); the sums are shuffles
+//   within the L lanes.
 // - cluster (1024 < n <= 65536 with float4s: every slab of the 128x128 DSM
 //   step, 2,048 to 49,152 floats): a thread-block cluster of 2, 4 or 8
 //   blocks of 256 threads per slab, each block holding its contiguous share
 //   in registers (NV <= 8 float4s a thread). A sum is shuffles in each warp,
 //   shared memory across the block and distributed shared memory across the
 //   cluster (each block reads the others' partials after cluster.sync()), in
-//   one fixed order, so every block gets the same bits. One warp per slab,
+//   one fixed order, so every block gets the same bits. A thread holds at
+//   most 32 floats (NV * V <= 32: in bf16 a cluster covers slabs up to
+//   65,536 elements too). One warp per slab,
 //   as before, left 3-4 warps on an SM walking 2K-49K floats one after
 //   another, and read x twice; a cluster splits the slab over up to 8 SMs.
 // - stream (larger slabs, or S % 4 != 0 beyond 32,768 floats): the same
@@ -54,9 +69,12 @@
 // the gradient is the same from run to run.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -74,22 +92,64 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int V>
-__device__ __forceinline__ void load(float (&d)[V], const float* p) {
-  if constexpr (V == 4) {
+using bf16 = __nv_bfloat16;
+
+// elements of the storage type T in one 16-byte vector
+template <class T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+template <class T>
+constexpr bool kHalf = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// V elements of T at p, widened to fp32: a 16-byte vector (V = kVec<T>)
+// or one element (V = 1)
+template <int V, class T>
+__device__ __forceinline__ void load(float (&d)[V], const T* p) {
+  if constexpr (V == 1) {
+    if constexpr (kHalf<T>)
+      d[0] = __bfloat162float(p[0]);
+    else
+      d[0] = __ldg(p);
+  } else if constexpr (kHalf<T>) {
+    static_assert(V == 8, "8 bf16 per 16-byte vector");
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      d[2 * i] = f.x;
+      d[2 * i + 1] = f.y;
+    }
+  } else {
+    static_assert(V == 4, "4 floats per 16-byte vector");
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
-  } else {
-    d[0] = __ldg(p);
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store(float* p, const float (&d)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+// ... and V fp32 values stored as T (rounded to nearest in bf16)
+template <int V, class T>
+__device__ __forceinline__ void store(T* p, const float (&d)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (kHalf<T>)
+      p[0] = __float2bfloat16_rn(d[0]);
+    else
+      p[0] = d[0];
+  } else if constexpr (kHalf<T>) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   } else {
-    p[0] = d[0];
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
   }
 }
 
@@ -109,6 +169,33 @@ struct ChannelWalk {
 __device__ __forceinline__ float silu_of(float h) {
   return h / (1.f + expf(-h));
 }
+
+// The affine (and SiLU) of one element: in fp32 one fused multiply-add
+// x*a + b; in bf16 with the plain version's roundings, scale = bf16(a),
+// shift = bf16(b), h = bf16(bf16(x*scale) + shift), then
+// h * bf16(sigmoid(h)) (rounded at the store).
+template <class T>
+struct Affine {
+  float a, b;
+  __device__ __forceinline__ Affine(float a_, float b_) {
+    if constexpr (kHalf<T>) {
+      a = round_bf16(a_);
+      b = round_bf16(b_);
+    } else {
+      a = a_;
+      b = b_;
+    }
+  }
+  __device__ __forceinline__ float operator()(float x, bool act) const {
+    if constexpr (kHalf<T>) {
+      const float h = round_bf16(round_bf16(x * a) + b);
+      return act ? h * round_bf16(1.f / (1.f + expf(-h))) : h;
+    } else {
+      const float h = fmaf(x, a, b);
+      return act ? silu_of(h) : h;
+    }
+  }
+};
 
 // dL/dh from dL/dout: the SiLU's derivative sig(h) * (1 + h * (1 - sig(h)))
 __device__ __forceinline__ float silu_grad(float dy, float h) {
@@ -192,11 +279,11 @@ struct Part {
   bool store;
 };
 
-template <int V, int NV, class Grp>
+template <int V, int NV, class T, class Grp>
 __device__ __forceinline__ void fwd_resident(
-    Grp& grp, const Part& p, const float* __restrict__ xs,
+    Grp& grp, const Part& p, const T* __restrict__ xs,
     const float* __restrict__ gs, const float* __restrict__ bs,
-    float* __restrict__ os, int n, int S, bool act) {
+    T* __restrict__ os, int n, int S, bool act) {
   float v[NV][V];
   float s[1] = {0.f};
 #pragma unroll
@@ -232,13 +319,10 @@ __device__ __forceinline__ void fwd_resident(
     const int k = p.tid + p.stride * j;
     if (k < p.cnt) {
       const float a = rstd * __ldg(gs + ch.c);
-      const float b = __ldg(bs + ch.c) - mean * a;
+      const Affine<T> f(a, __ldg(bs + ch.c) - mean * a);
       float o[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float h = fmaf(v[j][i], a, b);
-        o[i] = act ? silu_of(h) : h;
-      }
+      for (int i = 0; i < V; ++i) o[i] = f(v[j][i], act);
       if (p.store) store<V>(os + (size_t)(p.beg + k) * V, o);
     }
     ch.next();
@@ -246,11 +330,11 @@ __device__ __forceinline__ void fwd_resident(
   grp.done();
 }
 
-template <int V>
+template <int V, class T>
 __device__ __forceinline__ void fwd_stream(
-    ClusterGroup& grp, const Part& p, const float* __restrict__ xs,
+    ClusterGroup& grp, const Part& p, const T* __restrict__ xs,
     const float* __restrict__ gs, const float* __restrict__ bs,
-    float* __restrict__ os, int n, int S, bool act) {
+    T* __restrict__ os, int n, int S, bool act) {
   float s[1] = {0.f};
   for (int k = p.tid; k < p.cnt; k += p.stride) {
     float t[V];
@@ -275,14 +359,11 @@ __device__ __forceinline__ void fwd_stream(
   for (int k = p.tid; k < p.cnt; k += p.stride) {
     const int c = (p.beg + k) * V / S;
     const float a = rstd * __ldg(gs + c);
-    const float b = __ldg(bs + c) - mean * a;
+    const Affine<T> f(a, __ldg(bs + c) - mean * a);
     float t[V];
     load<V>(t, xs + (size_t)(p.beg + k) * V);
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float h = fmaf(t[i], a, b);
-      t[i] = act ? silu_of(h) : h;
-    }
+    for (int i = 0; i < V; ++i) t[i] = f(t[i], act);
     store<V>(os + (size_t)(p.beg + k) * V, t);
   }
   grp.done();
@@ -291,8 +372,9 @@ __device__ __forceinline__ void fwd_stream(
 // K5b's outputs for one part of a slab: its dx, and its per-channel sums
 // of g (dbeta) and g * xhat (dgamma) at column `col` of the (2, C, R)
 // scratch, channels c0 .. c0 + cg - 1 of the slab.
+template <class T>
 struct BwdOut {
-  float* dxs;
+  T* dxs;
   float* scratch;
   long long col, rows;  // this part's column, and R
   int C, c0, cg;
@@ -304,17 +386,18 @@ struct BwdOut {
 };
 
 // zero for the slab's channels outside [lo, hi], which this part lacks
-__device__ __forceinline__ void zero_params(const BwdOut& out, const Part& p,
-                                            int lo, int hi) {
+template <class T>
+__device__ __forceinline__ void zero_params(const BwdOut<T>& out,
+                                            const Part& p, int lo, int hi) {
   for (int c = p.tid; c < out.cg; c += p.stride)
     if (c < lo || c > hi) out.param(c, 0.f, 0.f);
 }
 
-template <int V, int NV, class Grp>
+template <int V, int NV, class T, class Grp>
 __device__ __forceinline__ void bwd_resident(
-    Grp& grp, const Part& p, const float* __restrict__ xs,
-    const float* __restrict__ dys, const float* __restrict__ gs,
-    const float* __restrict__ bs, const BwdOut& out, int n, int S,
+    Grp& grp, const Part& p, const T* __restrict__ xs,
+    const T* __restrict__ dys, const float* __restrict__ gs,
+    const float* __restrict__ bs, const BwdOut<T>& out, int n, int S,
     bool act) {
   float xv[NV][V], gv[NV][V];  // x, then xhat; dy, then g
   float s[1] = {0.f};
@@ -411,11 +494,11 @@ __device__ __forceinline__ void bwd_resident(
   grp.done();
 }
 
-template <int V>
+template <int V, class T>
 __device__ __forceinline__ void bwd_stream(
-    ClusterGroup& grp, const Part& p, const float* __restrict__ xs,
-    const float* __restrict__ dys, const float* __restrict__ gs,
-    const float* __restrict__ bs, const BwdOut& out, int n, int S,
+    ClusterGroup& grp, const Part& p, const T* __restrict__ xs,
+    const T* __restrict__ dys, const float* __restrict__ gs,
+    const float* __restrict__ bs, const BwdOut<T>& out, int n, int S,
     bool act) {
   float s[1] = {0.f};
   for (int k = p.tid; k < p.cnt; k += p.stride) {
@@ -489,19 +572,20 @@ __device__ __forceinline__ void bwd_stream(
 
 // ---- kernels ---------------------------------------------------------------
 
+template <class T>
 struct Args {
-  const float* x;
+  const T* x;
   const float* gamma;
   const float* beta;
-  const float* dy;    // K5b
-  float* out;         // K5: out; K5b: dx
+  const T* dy;        // K5b
+  T* out;             // K5: out; K5b: dx
   float* scratch;     // K5b: (2, C, B * cluster)
   long long slabs;
   int G, cg, S, act;
 };
 
-template <int L, int V, int NV, bool BWD>
-__device__ __forceinline__ void small_body(const Args& a) {
+template <int L, int V, int NV, bool BWD, class T>
+__device__ __forceinline__ void small_body(const Args<T>& a) {
   const long long slab0 = (long long)blockIdx.x * (kThreads / L)
                           + threadIdx.x / L;
   const bool ok = slab0 < a.slabs;
@@ -511,8 +595,8 @@ __device__ __forceinline__ void small_body(const Args& a) {
   LaneGroup<L> grp{(int)(threadIdx.x % L)};
   const Part p{0, n / V, grp.lane, L, ok};
   if constexpr (BWD) {
-    const BwdOut out{a.out + slab * n, a.scratch, slab / a.G,
-                     a.slabs / a.G, a.G * a.cg, c0, a.cg};
+    const BwdOut<T> out{a.out + slab * n, a.scratch, slab / a.G,
+                        a.slabs / a.G, a.G * a.cg, c0, a.cg};
     bwd_resident<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
                         a.gamma + c0, a.beta + c0, out, n, a.S, a.act);
   } else {
@@ -522,8 +606,8 @@ __device__ __forceinline__ void small_body(const Args& a) {
 }
 
 // NV == 0: the stream plan
-template <int V, int NV, bool BWD>
-__device__ __forceinline__ void cluster_body(const Args& a) {
+template <int V, int NV, bool BWD, class T>
+__device__ __forceinline__ void cluster_body(const Args<T>& a) {
   __shared__ float red[2 * kWarps];
   __shared__ float slots[4];
   cg::cluster_group cluster = cg::this_cluster();
@@ -538,9 +622,9 @@ __device__ __forceinline__ void cluster_body(const Args& a) {
                true};
   ClusterGroup grp{cluster, red, slots, (int)(threadIdx.x & 31),
                    (int)(threadIdx.x >> 5)};
-  const float* xs = a.x + slab * n;
+  const T* xs = a.x + slab * n;
   if constexpr (BWD) {
-    const BwdOut out{a.out + slab * n, a.scratch,
+    const BwdOut<T> out{a.out + slab * n, a.scratch,
                      slab / a.G * cs + rank, a.slabs / a.G * cs, a.G * a.cg,
                      c0, a.cg};
     if constexpr (NV == 0)
@@ -559,33 +643,63 @@ __device__ __forceinline__ void cluster_body(const Args& a) {
   }
 }
 
-// K5 (traces name it gn_silu_kernel_*) and K5b (gn_silu_bwd_kernel_*)
-template <int L, int V, int NV>
+// K5 (traces name it gn_silu_kernel_*) and K5b (gn_silu_bwd_kernel_*);
+// the bf16 variants carry __nv_bfloat16 among their template arguments
+template <int L, int V, int NV, class T>
 __global__ void __launch_bounds__(kThreads)
-gn_silu_kernel_small(const Args a) { small_body<L, V, NV, false>(a); }
+gn_silu_kernel_small(const Args<T> a) { small_body<L, V, NV, false>(a); }
 
-template <int L, int V, int NV>
+template <int L, int V, int NV, class T>
 __global__ void __launch_bounds__(kThreads)
-gn_silu_bwd_kernel_small(const Args a) { small_body<L, V, NV, true>(a); }
+gn_silu_bwd_kernel_small(const Args<T> a) { small_body<L, V, NV, true>(a); }
 
-template <int V, int NV>
+template <int V, int NV, class T>
 __global__ void __launch_bounds__(kThreads)
-gn_silu_kernel_cluster(const Args a) { cluster_body<V, NV, false>(a); }
+gn_silu_kernel_cluster(const Args<T> a) { cluster_body<V, NV, false>(a); }
 
-template <int V, int NV>
+template <int V, int NV, class T>
 __global__ void __launch_bounds__(kThreads)
-gn_silu_bwd_kernel_cluster(const Args a) { cluster_body<V, NV, true>(a); }
-
-template <int L, int V, int NV, bool BWD>
-auto small_kernel() {
-  if constexpr (BWD) return gn_silu_bwd_kernel_small<L, V, NV>;
-  else return gn_silu_kernel_small<L, V, NV>;
+gn_silu_bwd_kernel_cluster(const Args<T> a) {
+  cluster_body<V, NV, true>(a);
 }
 
-template <int V, int NV, bool BWD>
-auto cluster_kernel() {
-  if constexpr (BWD) return gn_silu_bwd_kernel_cluster<V, NV>;
-  else return gn_silu_kernel_cluster<V, NV>;
+template <class T>
+using KernelFn = void (*)(const Args<T>);
+
+template <int L, int V, int NV, bool BWD, class T>
+KernelFn<T> small_kernel() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_small<L, V, NV, T>;
+  else return gn_silu_kernel_small<L, V, NV, T>;
+}
+
+template <int V, int NV, bool BWD, class T>
+KernelFn<T> cluster_kernel() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_cluster<V, NV, T>;
+  else return gn_silu_kernel_cluster<V, NV, T>;
+}
+
+// The resident kernel of NV vectors of V elements (NV * V <= 32 floats a
+// thread), or null for an NV the plan never gives
+template <int L, int V, bool BWD, class T>
+KernelFn<T> small_nv(int nv) {
+  if (nv == 1) return small_kernel<L, V, 1, BWD, T>();
+  if constexpr (L == 32) {
+    if (nv == 2) return small_kernel<L, V, 2, BWD, T>();
+    if (nv == 4) return small_kernel<L, V, 4, BWD, T>();
+    if constexpr (8 * V <= 32)
+      if (nv == 8) return small_kernel<L, V, 8, BWD, T>();
+  }
+  return nullptr;
+}
+
+template <int V, bool BWD, class T>
+KernelFn<T> cluster_nv(int nv) {
+  if (nv == 1) return cluster_kernel<V, 1, BWD, T>();
+  if (nv == 2) return cluster_kernel<V, 2, BWD, T>();
+  if (nv == 4) return cluster_kernel<V, 4, BWD, T>();
+  if constexpr (8 * V <= 32)
+    if (nv == 8) return cluster_kernel<V, 8, BWD, T>();
+  return nullptr;
 }
 
 // dgamma[c] and dbeta[c]: each row of the (2, C, R) scratch summed in one
@@ -624,9 +738,10 @@ int pow2_at_least(long long v) {
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-// ops/kernels/groupnorm.py launch_plan is this function in Python
-Plan choose(long long n, int S, bool aligned) {
-  const int vec = (S % 4 == 0 && aligned) ? 4 : 1;
+// ops/kernels/groupnorm.py launch_plan is this function in Python; width:
+// the elements of one 16-byte vector (4 in fp32, 8 in bf16)
+Plan choose(long long n, int S, bool aligned, int width) {
+  const int vec = (S % width == 0 && aligned) ? width : 1;
   const long long nvec = n / vec;
   if (n <= kSmallMax) {
     if (vec == 1) {  // 32 lanes, 1, 4 or 32 floats each
@@ -634,53 +749,52 @@ Plan choose(long long n, int S, bool aligned) {
       return {kSmall, 32, 1, nv <= 1 ? 1 : nv <= 4 ? 4 : 32, 1};
     }
     const int lanes = nvec <= 8 ? 8 : nvec <= 16 ? 16 : 32;
-    return {kSmall, lanes, 1, pow2_at_least(cdiv(nvec, lanes)), 4};
+    return {kSmall, lanes, 1, pow2_at_least(cdiv(nvec, lanes)), vec};
   }
   int cs = pow2_at_least(cdiv(n, kBlockFloats));
   cs = cs < 2 ? 2 : cs > kMaxCluster ? kMaxCluster : cs;
   const int nv = pow2_at_least(cdiv(nvec, (long long)cs * kThreads));
-  if (vec == 4 && nv <= 8) return {kCluster, kThreads, cs, nv, 4};
+  if (vec > 1 && nv * vec <= 32) return {kCluster, kThreads, cs, nv, vec};
   if (vec == 1 && nv <= 16) return {kCluster, kThreads, cs, 16, 1};
   return {kStream, kThreads, kMaxCluster, 0, vec};
 }
 
-template <bool BWD>
-cudaError_t launch_small(const Plan& p, const Args& a, cudaStream_t st) {
+template <bool BWD, class T>
+cudaError_t launch_small(const Plan& p, const Args<T>& a, cudaStream_t st) {
+  constexpr int W = kVec<T>;
   const dim3 grid((unsigned int)cdiv(a.slabs, kThreads / p.lanes));
-  void (*k)(const Args);
+  KernelFn<T> k;
   if (p.vec == 1) {
-    k = p.nv == 1 ? small_kernel<32, 1, 1, BWD>()
-        : p.nv == 4 ? small_kernel<32, 1, 4, BWD>()
-        : small_kernel<32, 1, 32, BWD>();
+    k = p.nv == 1 ? small_kernel<32, 1, 1, BWD, T>()
+        : p.nv == 4 ? small_kernel<32, 1, 4, BWD, T>()
+        : small_kernel<32, 1, 32, BWD, T>();
   } else if (p.lanes == 8) {
-    k = small_kernel<8, 4, 1, BWD>();
+    k = small_nv<8, W, BWD, T>(p.nv);
   } else if (p.lanes == 16) {
-    k = small_kernel<16, 4, 1, BWD>();
+    k = small_nv<16, W, BWD, T>(p.nv);
   } else {
-    k = p.nv == 1 ? small_kernel<32, 4, 1, BWD>()
-        : p.nv == 2 ? small_kernel<32, 4, 2, BWD>()
-        : p.nv == 4 ? small_kernel<32, 4, 4, BWD>()
-        : small_kernel<32, 4, 8, BWD>();
+    k = small_nv<32, W, BWD, T>(p.nv);
   }
+  if (k == nullptr) return cudaErrorInvalidConfiguration;
   k<<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BWD>
-cudaError_t launch_large(const Plan& p, const Args& a, cudaStream_t st) {
+template <bool BWD, class T>
+cudaError_t launch_large(const Plan& p, const Args<T>& a, cudaStream_t st) {
+  constexpr int W = kVec<T>;
   const long long blocks = a.slabs * p.cluster;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  void (*k)(const Args);
+  KernelFn<T> k;
   if (p.kind == kStream) {
-    k = p.vec == 4 ? cluster_kernel<4, 0, BWD>() : cluster_kernel<1, 0, BWD>();
+    k = p.vec == 1 ? cluster_kernel<1, 0, BWD, T>()
+                   : cluster_kernel<W, 0, BWD, T>();
   } else if (p.vec == 1) {
-    k = cluster_kernel<1, 16, BWD>();
+    k = cluster_kernel<1, 16, BWD, T>();
   } else {
-    k = p.nv == 1 ? cluster_kernel<4, 1, BWD>()
-        : p.nv == 2 ? cluster_kernel<4, 2, BWD>()
-        : p.nv == 4 ? cluster_kernel<4, 4, BWD>()
-        : cluster_kernel<4, 8, BWD>();
+    k = cluster_nv<W, BWD, T>(p.nv);
   }
+  if (k == nullptr) return cudaErrorInvalidConfiguration;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)blocks);
   cfg.blockDim = dim3(kThreads);
@@ -699,10 +813,52 @@ cudaError_t launch_large(const Plan& p, const Args& a, cudaStream_t st) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <bool BWD>
-cudaError_t launch(const Plan& p, const Args& a, cudaStream_t st) {
+template <bool BWD, class T>
+cudaError_t launch(const Plan& p, const Args<T>& a, cudaStream_t st) {
   return p.kind == kSmall ? launch_small<BWD>(p, a, st)
                           : launch_large<BWD>(p, a, st);
+}
+
+template <class T>
+int forward(const T* x, const float* gamma, const float* beta, T* out,
+            long long B, int C, int G, int S, int silu, void* stream) {
+  const long long slabs = B * G;
+  if (slabs == 0 || S == 0) return 0;
+  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Args<T> a{x, gamma, beta, nullptr, out, nullptr, slabs, G, C / G, S,
+                  silu};
+  const Plan plan = choose((long long)(C / G) * S, S,
+                           aligned16(x) && aligned16(out), kVec<T>);
+  return (int)launch<false>(plan, a, (cudaStream_t)stream);
+}
+
+template <class T>
+int backward(const T* x, const float* gamma, const float* beta, const T* dy,
+             T* dx, float* dgamma, float* dbeta, float* scratch,
+             long long scratch_floats, long long B, int C, int G, int S,
+             int silu, void* stream) {
+  const long long slabs = B * G;
+  if (C == 0) return 0;
+  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slabs == 0 || S == 0) {  // no element: the sums are zero
+    cudaError_t err = cudaMemsetAsync(dgamma, 0, C * sizeof(float), st);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dbeta, 0, C * sizeof(float), st);
+    return (int)err;
+  }
+  const Args<T> a{x, gamma, beta, dy, dx, scratch, slabs, G, C / G, S, silu};
+  const Plan plan = choose((long long)(C / G) * S, S,
+                           aligned16(x) && aligned16(dx) && aligned16(dy),
+                           kVec<T>);
+  const long long rows = B * plan.cluster;
+  if (2 * (long long)C * rows > scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch<true>(plan, a, st);
+  if (err != cudaSuccess) return (int)err;
+  gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma, dbeta,
+                                                      C, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -711,21 +867,23 @@ extern "C" int group_norm_silu_f32(const float* x, const float* gamma,
                                    const float* beta, float* out, long long B,
                                    int C, int G, int S, int silu,
                                    void* stream) {
-  const long long slabs = B * G;
-  if (slabs == 0 || S == 0) return 0;
-  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const Args a{x, gamma, beta, nullptr, out, nullptr, slabs, G, C / G, S,
-               silu};
-  const Plan plan = choose((long long)(C / G) * S, S,
-                           aligned16(x) && aligned16(out));
-  return (int)launch<false>(plan, a, (cudaStream_t)stream);
+  return forward(x, gamma, beta, out, B, C, G, S, silu, stream);
 }
 
-// The plan for slabs of n floats (kind: 0 small, 1 cluster, 2 stream;
-// lanes, cluster, nv, vec), for the card tests to hold the Python mirror to.
+// K5 in bf16: x and out bf16, gamma and beta fp32
+extern "C" int group_norm_silu_bf16(const bf16* x, const float* gamma,
+                                    const float* beta, bf16* out, long long B,
+                                    int C, int G, int S, int silu,
+                                    void* stream) {
+  return forward(x, gamma, beta, out, B, C, G, S, silu, stream);
+}
+
+// The plan for slabs of n elements (kind: 0 small, 1 cluster, 2 stream;
+// lanes, cluster, nv, vec) with `width` elements per 16-byte vector (4:
+// fp32, 8: bf16), for the card tests to hold the Python mirror to.
 extern "C" int group_norm_silu_plan(long long n, int S, int aligned,
-                                    int* plan) {
-  const Plan p = choose(n, S, aligned != 0);
+                                    int width, int* plan) {
+  const Plan p = choose(n, S, aligned != 0, width);
   plan[0] = p.kind;
   plan[1] = p.lanes;
   plan[2] = p.cluster;
@@ -742,25 +900,16 @@ extern "C" int group_norm_silu_bwd_f32(
     float* dx, float* dgamma, float* dbeta, float* scratch,
     long long scratch_floats, long long B, int C, int G, int S, int silu,
     void* stream) {
-  const long long slabs = B * G;
-  if (C == 0) return 0;
-  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (slabs == 0 || S == 0) {  // no element: the sums are zero
-    cudaError_t err = cudaMemsetAsync(dgamma, 0, C * sizeof(float), st);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(dbeta, 0, C * sizeof(float), st);
-    return (int)err;
-  }
-  const Args a{x, gamma, beta, dy, dx, scratch, slabs, G, C / G, S, silu};
-  const Plan plan = choose((long long)(C / G) * S, S,
-                           aligned16(x) && aligned16(dx) && aligned16(dy));
-  const long long rows = B * plan.cluster;
-  if (2 * (long long)C * rows > scratch_floats)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err = launch<true>(plan, a, st);
-  if (err != cudaSuccess) return (int)err;
-  gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma, dbeta,
-                                                      C, rows);
-  return (int)cudaGetLastError();
+  return backward(x, gamma, beta, dy, dx, dgamma, dbeta, scratch,
+                  scratch_floats, B, C, G, S, silu, stream);
+}
+
+// K5b in bf16: x, dy and dx bf16; gamma, beta, dgamma, dbeta fp32
+extern "C" int group_norm_silu_bwd_bf16(
+    const bf16* x, const float* gamma, const float* beta, const bf16* dy,
+    bf16* dx, float* dgamma, float* dbeta, float* scratch,
+    long long scratch_floats, long long B, int C, int G, int S, int silu,
+    void* stream) {
+  return backward(x, gamma, beta, dy, dx, dgamma, dbeta, scratch,
+                  scratch_floats, B, C, G, S, silu, stream);
 }

@@ -114,8 +114,9 @@ __device__ __forceinline__ void mma3_split(float (&big)[4],
 // into d = 0 and d is added to acc in fp32 on the CUDA cores (rounded to
 // nearest), so no mma chain runs longer than three products of one k-step.
 // For the attention of K6 and K3 (attn_tile.cuh; flash_fwd.cuh's scores
-// for K6), whose absolute tolerance of 1e-5 a chain of 16 score k-steps
-// (head width 128) exceeds at T = 1024.
+// for K6 and K7a, and K7b's recomputed scores), whose absolute tolerance
+// of 1e-5 a chain of 16 score k-steps (head width 128) exceeds at
+// T = 1024, as it did K7a's lse at T = 2048.
 __device__ __forceinline__ void mma3_add(float (&acc)[4], const A& a,
                                          const B& b) {
   float d[4];

@@ -52,18 +52,21 @@ METRICS = ("mmd_sgm", "mmd_msgm", "mmd_ref", "swd_sgm", "swd_msgm",
            "swd_ref")
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+                  "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
 def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
-    """The score net of `cfg` on `device` (random weights); its
+    """The score net of `cfg` on `device` (random weights, fp32), computing
+    in ``cfg.train.compute_dtype`` (float32 or bfloat16); its
     AttentionBlocks take ``cfg.train.attention_impl`` ("auto" or
     "unfused"; "ring" raises)."""
     tc = cfg.train
     if tc.nn_archi != "Unet":
         raise NotImplementedError(
             f"nn_archi={tc.nn_archi!r}: ROADMAP Queue 1 items 5 and 11")
-    if tc.compute_dtype not in ("float32", "fp32"):
-        raise NotImplementedError(
-            f"compute_dtype={tc.compute_dtype!r}: float32 only (ROADMAP "
-            "Queue 1 item 8)")
+    if tc.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"Unknown compute_dtype: {tc.compute_dtype}")
     npixel = int(round(dim**0.5))
     if dim != npixel**2:
         raise ValueError(f"Incorrect dim to define square image: {dim}")
@@ -76,6 +79,7 @@ def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
         attention_resolutions=tc.attention_resolutions,
         flatten_order="F",
         attention_impl=tc.attention_impl,
+        dtype=COMPUTE_DTYPES[tc.compute_dtype],
     ).to(resolve_device(device))
 
 
@@ -101,15 +105,16 @@ def resolve_std_norm(sampler, normalized, real_dim, device="cuda"):
 
 def generate(gen, generator, num_samples, dim, num_steps, method,
              include_t0, norm_correction, sampler="sde", corrector_steps=0,
-             device="cuda"):
+             snr=0.16, device="cuda"):
     """The whole generation of one sampling run: the serving module's
-    sampler program with the trajectory kept, (S, num_samples, dim),
-    S = num_steps (+1 with include_t0)."""
+    sampler program (predictor `method`, then corrector_steps Langevin
+    steps with snr after each step) with the trajectory kept,
+    (S, num_samples, dim), S = num_steps (+1 with include_t0)."""
     fn = make_sampler_fn(
         gen, num_samples, dim, num_steps, method=method,
         norm_correction=norm_correction, keep_all=True,
         include_t0=include_t0, sampler=sampler,
-        corrector_steps=corrector_steps, device=device)
+        corrector_steps=corrector_steps, snr=snr, device=device)
     return fn(generator)
 
 
@@ -301,9 +306,6 @@ def _check_ported(cfg: ExperimentConfig, make_plots):
     if sw.sampler != "sde":
         raise NotImplementedError(
             f"sampler={sw.sampler!r}: ROADMAP Queue 1 item 10 (samplers)")
-    if sw.corrector_steps > 0:
-        raise NotImplementedError(
-            "Langevin corrector: ROADMAP Queue 1 item 3 (integrators)")
     if cfg.data.datatype != "grf":
         raise NotImplementedError(
             f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 items 6, 13")
@@ -459,7 +461,7 @@ class ExperimentDriver:
                         sw.backward_method, sw.include_t0_reverse,
                         bool(gen.base_sde.norm_correction),
                         sampler=sw.sampler,
-                        corrector_steps=sw.corrector_steps,
+                        corrector_steps=sw.corrector_steps, snr=sw.snr,
                         device=self.device)
                     _sync(self.device)
                     self.log(f"generated {tuple(xs.shape)} in "

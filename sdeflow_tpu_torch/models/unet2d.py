@@ -1,8 +1,16 @@
 """ADM-style 2D U-Net with attention and timestep embedding.
 
 Port of sdeflow_tpu/models/unet2d.py for the serve path: 2D, no class
-labels, no learned potential, no checkpointing, fp32. Activations are
-channels-first (N, C, H, W). Submodules and parameters carry the flax names
+labels, no learned potential, no checkpointing. Activations are
+channels-first (N, C, H, W). ``dtype`` is the compute dtype in flax's sense
+(float32 or bfloat16, sdeflow_tpu/models/unet2d.py:301-305): the
+parameters stay fp32 and every convolution and dense layer casts them, and
+its input, to ``dtype`` at each call (``Conv2d``, ``Linear``; explicit
+casts, not ``torch.autocast``, whose own lists would keep GroupNorm and
+softmax in fp32 and round elsewhere than the JAX package); GroupNorm keeps
+fp32 statistics, and the output head runs in fp32 (the JAX package's
+default ``fp32_head``, which no preset turns off), so the score leaves
+the net as fp32. Submodules and parameters carry the flax names
 (``down_res0.in_conv``, ``mid_attn.qkv.kernel``, ...) so that
 models/convert.py maps a flax tree by name, and start from flax's default
 init (``flax_init_``: lecun_normal kernels, zero biases; the zero-init
@@ -49,9 +57,38 @@ def flax_init_(module):
     return module
 
 
-def _conv3(cin, cout, stride=1, bias=True):
-    return flax_init_(nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
-                                bias=bias))
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in ``compute_dtype``, as flax's ``nn.Conv``
+    with ``dtype=`` does: its input and its fp32 parameters are cast at
+    each call."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in ``compute_dtype`` (flax's ``nn.Dense`` with
+    ``dtype=``)."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _conv3(cin, cout, stride=1, bias=True, dtype=torch.float32):
+    return flax_init_(Conv2d(cin, cout, 3, stride=stride, padding=1,
+                             bias=bias, compute_dtype=dtype))
 
 
 def _zero_(module):
@@ -64,11 +101,12 @@ class Upsample(nn.Module):
     """Nearest-neighbour ×2, then a 3×3 conv; crops the last row and column
     when the target size is odd."""
 
-    def __init__(self, channels, use_conv, odd_size=False):
+    def __init__(self, channels, use_conv, odd_size=False,
+                 dtype=torch.float32):
         super().__init__()
         self.odd_size = odd_size
         if use_conv:
-            self.conv = _conv3(channels, channels)
+            self.conv = _conv3(channels, channels, dtype=dtype)
 
     def forward(self, x):
         x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
@@ -82,10 +120,10 @@ class Upsample(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3×3 conv with padding 1, or 2×2 average pooling."""
 
-    def __init__(self, channels, use_conv):
+    def __init__(self, channels, use_conv, dtype=torch.float32):
         super().__init__()
         if use_conv:
-            self.op = _conv3(channels, channels, stride=2)
+            self.op = _conv3(channels, channels, stride=2, dtype=dtype)
 
     def forward(self, x):
         if hasattr(self, "op"):
@@ -97,23 +135,29 @@ class ResBlock(nn.Module):
     """Residual block conditioned on a timestep embedding."""
 
     def __init__(self, channels, emb_channels, out_channels=None,
-                 use_conv=False, no_bias_last_layer=False):
+                 use_conv=False, no_bias_last_layer=False,
+                 dtype=torch.float32):
         super().__init__()
         out_ch = out_channels or channels
         self.in_norm = GroupNorm32(channels, silu=True)
-        self.in_conv = _conv3(channels, out_ch)
-        self.emb_dense = flax_init_(nn.Linear(emb_channels, out_ch))
+        self.in_conv = _conv3(channels, out_ch, dtype=dtype)
+        self.emb_dense = flax_init_(Linear(emb_channels, out_ch,
+                                           compute_dtype=dtype))
         self.out_norm = GroupNorm32(out_ch, silu=True)
         self.out_conv = _zero_(_conv3(out_ch, out_ch,
-                                      bias=not no_bias_last_layer))
+                                      bias=not no_bias_last_layer,
+                                      dtype=dtype))
         if out_ch != channels:
             self.skip_conv = (
-                _conv3(channels, out_ch) if use_conv else
-                flax_init_(nn.Conv2d(channels, out_ch, 1,
-                                     bias=not no_bias_last_layer)))
+                _conv3(channels, out_ch, dtype=dtype) if use_conv else
+                flax_init_(Conv2d(channels, out_ch, 1,
+                                  bias=not no_bias_last_layer,
+                                  compute_dtype=dtype)))
 
     def forward(self, x, emb):
         h = self.in_conv(self.in_norm(x))
+        # emb may be fp32 (the scale embedding promotes it); the dense
+        # layer casts it to the compute dtype (unet2d.py:116)
         h = h + self.emb_dense(F.silu(emb))[:, :, None, None]
         h = self.out_conv(self.out_norm(h))
         skip = self.skip_conv(x) if hasattr(self, "skip_conv") else x
@@ -176,15 +220,17 @@ class AttentionBlock(nn.Module):
                 self.norm.groups, self.num_heads)
             return out.transpose(1, 2).reshape(n, c, h, w)
         hn = self.norm(x).reshape(n, c, t).transpose(1, 2)  # (N, T, C)
-        qkv = hn @ self.qkv.kernel + self.qkv.bias
-        out = (attention_core(qkv, self.num_heads) @ self.proj_out.kernel
-               + self.proj_out.bias)
+        dt = hn.dtype  # the Dense layers' compute dtype: x's
+        qkv = hn @ self.qkv.kernel.to(dt) + self.qkv.bias.to(dt)
+        out = (attention_core(qkv, self.num_heads)
+               @ self.proj_out.kernel.to(dt) + self.proj_out.bias.to(dt))
         return x + out.transpose(1, 2).reshape(n, c, h, w)
 
 
 class UNetModel(nn.Module):
     """The U-Net with attention and timestep embedding; x (N, C_in, H, W),
-    timesteps (N,) -> (N, C_out, H, W) float32."""
+    timesteps (N,) -> (N, C_out, H, W) float32, computing in ``dtype``
+    (the output head in fp32)."""
 
     def __init__(self, in_channels: int, model_channels: int,
                  out_channels: int, in_space: int, num_res_blocks: int,
@@ -193,8 +239,10 @@ class UNetModel(nn.Module):
                  conv_resample: bool = True, num_heads: int = 1,
                  num_heads_upsample: int = -1, num_classes=None,
                  use_checkpoint: bool = False, learn_potential: bool = False,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", dtype=torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
         if num_classes is not None or use_checkpoint or learn_potential:
             raise NotImplementedError(
                 "class labels, checkpointing and the learned potential come "
@@ -202,8 +250,10 @@ class UNetModel(nn.Module):
         self.model_channels = model_channels
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
         temb = model_channels * 4
-        self.time_embed_0 = flax_init_(nn.Linear(model_channels, temb))
-        self.time_embed_1 = flax_init_(nn.Linear(temb, temb))
+        self.time_embed_0 = flax_init_(Linear(model_channels, temb,
+                                              compute_dtype=dtype))
+        self.time_embed_1 = flax_init_(Linear(temb, temb,
+                                              compute_dtype=dtype))
         # forward plan after conv_in: ("res", name) | ("mod", name) |
         # ("push", None) saves a skip | ("cat", None) concatenates one back
         plan = []
@@ -213,14 +263,15 @@ class UNetModel(nn.Module):
             plan.append((op, name))
 
         ch = model_channels * channel_mult[0]
-        self.conv_in = _conv3(in_channels, ch)
+        self.conv_in = _conv3(in_channels, ch, dtype=dtype)
         skips = [ch]
         ds = 1
         block_id = 0
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
                 out = mult * model_channels
-                add("res", f"down_res{block_id}", ResBlock(ch, temb, out))
+                add("res", f"down_res{block_id}",
+                    ResBlock(ch, temb, out, dtype=dtype))
                 ch = out
                 if ds in attention_resolutions:
                     add("mod", f"down_attn{block_id}",
@@ -229,14 +280,15 @@ class UNetModel(nn.Module):
                 skips.append(ch)
                 block_id += 1
             if level != len(channel_mult) - 1:
-                add("mod", f"down_ds{level}", Downsample(ch, conv_resample))
+                add("mod", f"down_ds{level}",
+                    Downsample(ch, conv_resample, dtype=dtype))
                 plan.append(("push", None))
                 skips.append(ch)
                 ds *= 2
 
-        add("res", "mid_res0", ResBlock(ch, temb))
+        add("res", "mid_res0", ResBlock(ch, temb, dtype=dtype))
         add("mod", "mid_attn", AttentionBlock(ch, num_heads, attention_impl))
-        add("res", "mid_res1", ResBlock(ch, temb))
+        add("res", "mid_res1", ResBlock(ch, temb, dtype=dtype))
 
         shapes = [in_space]
         for _ in channel_mult:
@@ -247,7 +299,7 @@ class UNetModel(nn.Module):
                 out = model_channels * mult
                 plan.append(("cat", None))
                 add("res", f"up_res{block_id}",
-                    ResBlock(ch + skips.pop(), temb, out))
+                    ResBlock(ch + skips.pop(), temb, out, dtype=dtype))
                 ch = out
                 if ds in attention_resolutions:
                     add("mod", f"up_attn{block_id}",
@@ -255,7 +307,8 @@ class UNetModel(nn.Module):
                 if level and i == num_res_blocks:
                     add("mod", f"up_us{level}",
                         Upsample(ch, conv_resample,
-                                 odd_size=shapes[level] % 2 == 1))
+                                 odd_size=shapes[level] % 2 == 1,
+                                 dtype=dtype))
                     ds //= 2
                 block_id += 1
 

@@ -6,12 +6,17 @@ reshapes in C or F order, the /5 value rescale, and the optional
 NormalizeLogRadius premodule whose log‖x‖ is sinusoidally embedded and added
 to the time embedding. ``flat_to_img`` and ``img_to_flat`` keep the JAX
 package's channels-last (B, H, W, 1) images; the U-Net runs channels-first.
+``dtype`` is the U-Net's compute dtype (models/unet2d.py); the scale
+embedding's dense layers carry none, as in the JAX package
+(vorticity.py:109-112), so they run in fp32 and promote the time
+embedding they are added to.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -49,7 +54,8 @@ class VorticityUNet(nn.Module):
 
     premodule: None (raw x, time-only conditioning) or "NormalizeLogRadius"
     (x/‖x‖·√d, time + log‖x‖ conditioning). attention_impl: the
-    AttentionBlocks' route, "auto" or "unfused" (models/unet2d.py)."""
+    AttentionBlocks' route, "auto" or "unfused" (models/unet2d.py). dtype:
+    the U-Net's compute dtype (its output head stays fp32)."""
 
     def __init__(self, base_channels: int = 32,
                  channel_mults: Tuple[int, ...] = (1, 2, 4),
@@ -58,7 +64,8 @@ class VorticityUNet(nn.Module):
                  attention_resolutions: Tuple[int, ...] = (2, 4),
                  conv_resample: bool = True, num_heads: int = 1,
                  use_checkpoint: bool = False, learn_potential: bool = False,
-                 flatten_order: str = "C", attention_impl: str = "auto"):
+                 flatten_order: str = "C", attention_impl: str = "auto",
+                 dtype=torch.float32):
         super().__init__()
         if premodule not in (None, "NormalizeLogRadius"):
             raise ValueError(f"unknown premodule {premodule!r}")
@@ -78,7 +85,8 @@ class VorticityUNet(nn.Module):
             attention_resolutions=attention_resolutions,
             channel_mult=tuple(channel_mults), conv_resample=conv_resample,
             num_heads=num_heads, use_checkpoint=use_checkpoint,
-            learn_potential=learn_potential, attention_impl=attention_impl)
+            learn_potential=learn_potential, attention_impl=attention_impl,
+            dtype=dtype)
 
     def forward(self, x, t):
         """x: (B, d=H·W); t: (B,) or (B, 1) -> (B, d)."""

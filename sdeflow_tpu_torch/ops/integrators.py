@@ -8,17 +8,23 @@ a whole step (``ForwardFlow.rk4_step`` runs the circulant MSGM forward step
 as kernel K2). ``integrate_select`` keeps, per sample, the state after its
 own number of steps; a flow may override that whole solve
 (``ForwardFlow.rk4_solve_select``: the circulant MSGM forward solve as one
-launch of K2's solve). The Langevin corrector comes with ROADMAP Queue 1
-item 3.
+launch of K2's solve). ``integrate_sde`` with ``corrector_steps`` > 0 is
+predictor–corrector sampling: after each predictor step that many Langevin
+steps (``langevin_corrector``), whose normals come from streams disjoint
+from the predictor's (``ops/rng.py`` ``fold_in`` with the JAX package's
+integers).
 
 The flow protocol: ``T``; ``mu(t, y, lmbd)`` (Itô drift, EM);
 ``mu_strato(t, y, lmbd)`` (Stratonovich drift, Heun / RK4);
-``sigma_apply(t, y, w, lmbd)`` (diffusion action g(t, y)·w).
+``sigma_apply(t, y, w, lmbd)`` (diffusion action g(t, y)·w); for the
+corrector ``corrector_drift(t, y)`` and ``corrector_noise(t, y, z)``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sdeflow_tpu_torch.ops.rng import fold_in
 
 
 def em_step(flow, t, x, delta, dW, lmbd=0.0):
@@ -70,13 +76,58 @@ def _norm_project(x, norm0):
     return x * (norm0 / torch.clamp(n, min=1e-12))
 
 
+def langevin_corrector(flow, x, generator, t, num_corrector, *, snr=0.16,
+                       norm0=None, noise=None):
+    """`num_corrector` preconditioned Langevin steps at the frozen reverse
+    time t (sdeflow_tpu/ops/integrators.py:98-134):
+    x ← x + ε·d + √(2ε)·g·z with d = ``flow.corrector_drift(t, x)``,
+    g·z = ``flow.corrector_noise(t, x, z)`` and the step size
+    ε = 2·(snr·‖g·z‖/‖d‖)² from batch-mean norms; where ‖d‖ ≤ 1e-12·‖g·z‖
+    (a zero score carries no information) no step is taken. Step j's
+    normals are noise[j] if given (noise (num_corrector, B, d); generator
+    may then be None), else drawn from ``fold_in(generator, j)``. With
+    norm0 each state is re-projected to that norm. Returns (x, the step
+    sizes ε as a (num_corrector,) tensor)."""
+    if noise is not None and tuple(noise.shape) != (num_corrector,
+                                                    *x.shape):
+        raise ValueError(f"corrector noise {tuple(noise.shape)} != "
+                         f"{(num_corrector, *x.shape)}")
+    eps_all = []
+    for j in range(num_corrector):
+        z = noise[j] if noise is not None else torch.randn(
+            x.shape, generator=fold_in(generator, j), device=x.device,
+            dtype=x.dtype)
+        d = flow.corrector_drift(t, x)
+        gz = flow.corrector_noise(t, x, z)
+        n_z = torch.linalg.vector_norm(gz.reshape(gz.shape[0], -1),
+                                       dim=-1).mean()
+        n_d = torch.linalg.vector_norm(d.reshape(d.shape[0], -1),
+                                       dim=-1).mean()
+        eps = torch.where(n_d > 1e-12 * n_z,
+                          2.0 * (snr * n_z / torch.clamp(n_d, min=1e-20))**2,
+                          torch.zeros_like(n_d))
+        x = x + eps * d + torch.sqrt(2.0 * eps) * gz
+        if norm0 is not None:
+            x = _norm_project(x, norm0)
+        eps_all.append(eps)
+    return x, torch.stack(eps_all)
+
+
 def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
                   norm_correction=False, keep_all=False, include_t0=False,
-                  noise=None):
+                  noise=None, corrector_steps=0, snr=0.16,
+                  corrector_noise=None):
     """Integrate `flow` from x0 (B, d) over `num_steps` uniform steps.
 
     noise: optional (num_steps, B, d) standard normal draws, one per step
     (dW = √δ·noise[i]); without it they are drawn from `generator`.
+    corrector_steps > 0 runs that many Langevin steps
+    (``langevin_corrector``, with `snr`) after each predictor step, at the
+    reverse time after it and with the predictor's norm0 under
+    norm_correction; the normals of step i's corrector are
+    corrector_noise[i] if given ((num_steps, corrector_steps, B, d)), else
+    drawn from ``fold_in(generator, num_steps + 1 + i)`` folded again by
+    the corrector step (the JAX package's keys).
     keep_all returns the trajectory (S, B, d), S = num_steps (+1 with
     include_t0), written state by state into one preallocated tensor (it
     is held once). Times are Python numbers: t = i·δ.
@@ -85,6 +136,11 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     delta = float(flow.T) / num_steps
     sqrt_delta = delta ** 0.5
     _check_noise(noise, num_steps, x0)
+    if corrector_noise is not None and tuple(corrector_noise.shape) != (
+            num_steps, corrector_steps, *x0.shape):
+        raise ValueError(
+            f"corrector_noise {tuple(corrector_noise.shape)} != "
+            f"{(num_steps, corrector_steps, *x0.shape)}")
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)
     x = x0
@@ -100,6 +156,13 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
         x = step_fn(flow, i * delta, x, delta, dW, lmbd)
         if norm_correction:
             x = _norm_project(x, norm0)
+        if corrector_steps:
+            x, _ = langevin_corrector(
+                flow, x, (fold_in(generator, num_steps + 1 + i)
+                          if corrector_noise is None else None),
+                (i + 1) * delta, corrector_steps, snr=snr, norm0=norm0,
+                noise=(None if corrector_noise is None
+                       else corrector_noise[i]))
         if keep_all:
             traj[first + i] = x
     return traj if keep_all else x

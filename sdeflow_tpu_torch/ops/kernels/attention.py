@@ -49,7 +49,15 @@ sdeflow_tpu/ops/pallas/attention.py.
   tensor it wraps, so the rule looks through the wrapper.
 
 Float32 (float64 in the plain versions, for the autograd checks) and head
-widths up to 128; anything else raises on CUDA.
+widths up to 128; anything else raises on CUDA. ``attention_math`` (and so
+the unfused route's plain version up to T = 1024, and K3's plain version)
+also takes bfloat16 qkv with the JAX package's bf16 semantics (the scale
+rounded to bf16 so that q and k stay bf16, scores and softmax in fp32, the
+weights cast to v's dtype for P·V; sdeflow_tpu/ops/pallas/attnblock.py:
+40-72), and ``attention_jvp`` evaluates its fp32 closed form on the widened
+bf16 inputs. K6, K4, K7a and K7b have no bf16 variant yet (ROADMAP Queue
+2): on CUDA they raise for bf16, and so does the tiled plain math above
+T = 1024.
 """
 
 from __future__ import annotations
@@ -125,27 +133,42 @@ def _scale(qkv, num_heads):
     return 1.0 / math.sqrt(math.sqrt(qkv.shape[-1] // 3 // num_heads))
 
 
+_BF16_GAP = ("bf16 variants of K6, K4, K7a and K7b (the unfused attention "
+             "route): ROADMAP Queue 2")
+
+
 def _check_dtype(qkv):
     if qkv.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            "attention runs in float32 only (bf16: ROADMAP Queue 1 item 8)")
+            f"the tiled attention runs in float32 only ({_BF16_GAP})")
 
 
 def attention_math(qkv, num_heads):
     """Plain version; float32 (float64 runs the same math, for the autograd
-    checks)."""
-    _check_dtype(qkv)
+    checks), or bfloat16: q and k scaled by the scale rounded to bf16, the
+    scores and the softmax in fp32, the weights cast to bf16 for P·V."""
     b, t, c3 = qkv.shape
     q, k, v = _split(qkv, num_heads)
     scale = _scale(qkv, num_heads)
-    w = torch.softmax(torch.einsum("bthc,bshc->bhts", q * scale, k * scale),
-                      dim=-1)
+    if qkv.dtype == torch.bfloat16:
+        scale = float(torch.tensor(scale, dtype=torch.bfloat16))
+        w = torch.softmax(torch.einsum(
+            "bthc,bshc->bhts", (q * scale).float(), (k * scale).float()),
+            dim=-1).to(v.dtype)
+    else:
+        _check_dtype(qkv)
+        w = torch.softmax(torch.einsum("bthc,bshc->bhts", q * scale,
+                                       k * scale), dim=-1)
     return torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c3 // 3)
 
 
 def attention_jvp(qkv, num_heads, dqkv):
     """Tangent of ``attention_math`` in closed form, through the scores,
-    the softmax (dp = p·(ds − Σ p·ds)) and P·V."""
+    the softmax (dp = p·(ds − Σ p·ds)) and P·V; for bf16 qkv the same in
+    fp32 on the widened qkv and dqkv, rounded to bf16."""
+    if qkv.dtype == torch.bfloat16:
+        return attention_jvp(qkv.float(), num_heads,
+                             dqkv.float()).to(qkv.dtype)
     b, t, c3 = qkv.shape
     q, k, v = _split(qkv, num_heads)
     dq, dk, dv = _split(dqkv.expand(b, t, c3), num_heads)
@@ -352,7 +375,7 @@ def _checked(qkv, num_heads, what):
     """(contiguous qkv, B, T, ch) after the checks every launch makes."""
     if qkv.dtype != torch.float32:
         raise NotImplementedError(
-            f"{what} kernel is float32 only (bf16: ROADMAP Queue 1 item 8)")
+            f"{what} kernel is float32 only ({_BF16_GAP})")
     b, t, c3 = qkv.shape
     if c3 % 3 or (c3 // 3) % num_heads:
         raise ValueError(f"3C={c3} must be 3·heads·ch for heads={num_heads}")

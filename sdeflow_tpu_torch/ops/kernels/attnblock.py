@@ -13,7 +13,22 @@ forward mode through the closed form ``attn_block_jvp``). The kernel
 forms its four products on the tensor cores in 3xTF32 (close enough to
 fp32 that the fp32 tolerances stand) and covers float32, T ≤ 256, heads
 1–8 and the shapes ``block_plan`` takes; anything else raises on CUDA
-(bf16 and T > 256 are queued in ROADMAP).
+(T > 256 is queued in ROADMAP).
+
+bf16 x (the score net's bf16 compute; the GroupNorm's parameters, the
+weights and the biases stay fp32) follows the JAX package's bf16 semantics
+(sdeflow_tpu/ops/pallas/attnblock.py:40-72): the weights cast to h's dtype,
+the qk scale rounded to bf16, the scores and the softmax in fp32, the
+weights cast to v's dtype, the residual in x's dtype (``attn_block_math``
+with the bf16 branches of ``gn_math`` and ``attention_math``); the tangent
+``attn_block_jvp`` is the fp32 closed form on the widened x and dx, rounded
+to bf16. On CUDA it launches ``attn_block_bf16`` (the kernel body's
+rounding points, ops/pallas/attnblock.py:88-185, on bf16 tensor cores;
+csrc/attnblock.cu says where it rounds), with the weights cast to bf16 and
+transposed once per call; it holds the whole block in shared memory only
+(``block_plan(..., torch.bfloat16)``), and raises where that does not fit.
+Which route an ``"auto"`` AttentionBlock takes depends on the fp32 plan
+alone, so it is the same in both dtypes.
 """
 
 from __future__ import annotations
@@ -31,7 +46,8 @@ from sdeflow_tpu_torch.ops.kernels.groupnorm import gn_math, gn_parts
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K3 = common.register(common.Kernel(
     "fused_attention_block", "attnblock.cu",
-    {"attn_block_f32": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]},
+    {"attn_block_f32": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+     "attn_block_bf16": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]},
 ))
 
 MAX_T = 256
@@ -46,10 +62,13 @@ _TWO_BLOCKS = 233472 // 2 - 1024  # a block's bytes when two share an SM
 def attn_block_math(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
                     heads=1):
     """Plain version. x (B, T, C); wqkv (C, 3C) and wproj (C, C) as
-    (in, out); returns (B, T, C)."""
-    h = gn_math(x.transpose(1, 2), gn_scale, gn_bias, groups, False)
-    qkv = h.transpose(1, 2) @ wqkv + bqkv
-    return x + (attention_math(qkv, heads) @ wproj + bproj)
+    (in, out); returns (B, T, C) in x's dtype, the weights cast to it."""
+    h = gn_math(x.transpose(1, 2), gn_scale, gn_bias, groups,
+                False).transpose(1, 2)
+    dt = h.dtype
+    qkv = h @ wqkv.to(dt) + bqkv.to(dt)
+    out = attention_math(qkv, heads)
+    return x + (out @ wproj.to(dt) + bproj.to(dt))
 
 
 def attn_block_jvp(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
@@ -58,7 +77,13 @@ def attn_block_jvp(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
     """Tangent of ``attn_block_math`` (None: no tangent), composed of the
     GroupNorm's and the attention core's closed forms; the terms of absent
     tangents (the weights', under the SSM loss's JVP in the input) are
-    skipped."""
+    skipped. For bf16 x, the fp32 closed form on the widened x and dx,
+    rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        return attn_block_jvp(
+            x.float(), gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups,
+            heads, None if dx is None else dx.float(), dgn_scale, dgn_bias,
+            dwqkv, dbqkv, dwproj, dbproj).to(x.dtype)
     add = common.add
     h, dh = gn_parts(x.transpose(1, 2), gn_scale, gn_bias, groups,
                      None if dx is None else dx.transpose(1, 2), dgn_scale,
@@ -94,11 +119,33 @@ def _rows_and_widths(t, c, heads, samples):
             2 * heads * w + _PAD_A + _round_up(heads * w, 16) + _PAD_V)
 
 
-def smem_bytes(t, c, groups, heads, samples, mode):
+def _smem_bytes_bf16(t, c, groups, heads, samples):
+    """attnblock.cu bf::smem_bytes: fp32 (mean, rstd) per (sample, group),
+    channel sums, the GroupNorm's scale and bias, the output bias and the
+    padded qkv bias (rounded up to 4 floats); then in bf16 the weight ring
+    (2 stages of 64 columns × 72), x/h/O in rows of C (rounded up to 16) +
+    8, q and k in rows of heads·2·w + 8 and vᵀ in rows of T (rounded up to
+    16) + 8, w the head width rounded up to 16."""
+    tp, w = _round_up(t, 16), _round_up(c // heads, 16)
+    m = samples * tp
+    floats = _round_up(2 * samples * groups + samples * c + 3 * c
+                       + 3 * heads * w, 4)
+    return 4 * floats + 2 * (_STAGES * _NC * (_KC + _PAD_W)
+                             + m * (_round_up(c, 16) + 8)
+                             + m * (2 * heads * w + 8)
+                             + samples * heads * w * (tp + 8))
+
+
+def smem_bytes(t, c, groups, heads, samples, mode, dtype=torch.float32):
     """Dynamic shared memory of one block (must match attnblock.cu): h/O
     unless mode 2, qkv in mode 0, the weight ring (2 stages of 64 × 72),
     (mean, rstd) per (sample, group) and, unless mode 2, the GroupNorm's
-    scale and bias, the padded qkv bias and the output bias, float32."""
+    scale and bias, the padded qkv bias and the output bias, float32; bf16
+    (mode 0 only): ``_smem_bytes_bf16``."""
+    if dtype == torch.bfloat16:
+        if mode:
+            raise ValueError("the bf16 kernel has mode 0 only")
+        return _smem_bytes_bf16(t, c, groups, heads, samples)
     m, lda, ldq = _rows_and_widths(t, c, heads, samples)
     vectors = 3 * c + 3 * heads * _round_up(c // heads, 8)
     return 4 * ((m * lda if mode < 2 else 0) + (m * ldq if mode < 1 else 0)
@@ -127,20 +174,23 @@ def _cuda_core_working_set_fits(t, c, groups):
     return True
 
 
-def block_plan(t, c, groups, heads):
+def block_plan(t, c, groups, heads, dtype=torch.float32):
     """(samples per block, mode) for K3, or None where K3 does not take the
     shape: all in shared memory, with the most samples up to 64 rows that
-    let two blocks share an SM (2 at T = 16 and C = 128: on the H100 that
-    ran faster than 4 to a block, one block per SM), else the most that
-    fit one block; then one sample with qkv in device-memory scratch
-    (mode 1), then with h there too (mode 2)."""
+    let two blocks share an SM (2 at T = 16 and C = 128 in fp32: on the
+    H100 that ran faster than 4 to a block, one block per SM; 4 in bf16),
+    else the most that fit one block; then, in fp32 only, one sample with
+    qkv in device-memory scratch (mode 1), then with h there too (mode 2).
+    The fp32 plan decides the route (``AttentionBlock``)."""
     if (t > MAX_T or not 1 <= heads <= MAX_HEADS or c % heads
             or not _cuda_core_working_set_fits(t, c, groups)):
         return None
     for limit in (_TWO_BLOCKS, _SMEM_LIMIT):
         for samples in range(max(1, _PASS_ROWS // _round_up(t, 16)), 0, -1):
-            if smem_bytes(t, c, groups, heads, samples, 0) <= limit:
+            if smem_bytes(t, c, groups, heads, samples, 0, dtype) <= limit:
                 return samples, 0
+    if dtype == torch.bfloat16:
+        return None
     for mode in (1, 2):
         if smem_bytes(t, c, groups, heads, 1, mode) <= _SMEM_LIMIT:
             return 1, mode
@@ -150,10 +200,11 @@ def block_plan(t, c, groups, heads):
 def _launch(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups, heads):
     args = (x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj)
     b, t, c = x.shape
-    if any(a.dtype != torch.float32 for a in args):
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or any(a.dtype != torch.float32 for a in args[1:])):
         raise NotImplementedError(
-            "fused_attention_block kernel is float32 only (bf16: ROADMAP "
-            "Queue 2, K3 gaps)")
+            "fused_attention_block kernel takes float32 or bfloat16 x with "
+            "float32 parameters")
     if t > MAX_T:
         raise NotImplementedError(
             f"fused_attention_block kernel takes T <= {MAX_T}, got {t} "
@@ -166,12 +217,14 @@ def _launch(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups, heads):
             tuple(gn_bias.shape)) != ((c, 3 * c), (3 * c,), (c, c), (c,),
                                       (c,), (c,)):
         raise ValueError("weight shapes do not match C")
-    plan = block_plan(t, c, groups, heads)
+    plan = block_plan(t, c, groups, heads, x.dtype)
     if plan is None:
         raise NotImplementedError(
-            f"(T={t}, C={c}, groups={groups}) is beyond the shapes K3 "
-            "takes (ROADMAP Queue 2, K3 gaps)")
+            f"(T={t}, C={c}, groups={groups}, {x.dtype}) is beyond the "
+            "shapes K3 takes (ROADMAP Queue 2, K3 gaps)")
     samples, mode = plan
+    if x.dtype == torch.bfloat16:
+        return _launch_bf16(x, args[1:], groups, heads, samples)
     x = x.contiguous()
     out = torch.empty_like(x)
     ws = [a.contiguous() for a in args[1:]]
@@ -184,6 +237,27 @@ def _launch(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj, groups, heads):
               b, t, c, groups, heads, samples, mode,
               smem_bytes(t, c, groups, heads, samples, mode),
               1.0 / math.sqrt(math.sqrt(c // heads)))
+    return out
+
+
+def _launch_bf16(x, params, groups, heads, samples):
+    """``attn_block_bf16``: the weights cast to bf16 and transposed (one
+    copy each), the qk scale rounded to bf16."""
+    gn_scale, gn_bias, wqkv, bqkv, wproj, bproj = (
+        a.contiguous() for a in params)
+    b, t, c = x.shape
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    wq = torch.empty(3 * c, c, dtype=x.dtype, device=x.device)
+    wq.copy_(wqkv.t())
+    wp = torch.empty(c, c, dtype=x.dtype, device=x.device)
+    wp.copy_(wproj.t())
+    scale = float(torch.tensor(1.0 / math.sqrt(math.sqrt(c // heads)),
+                               dtype=torch.bfloat16))
+    K3.launch("attn_block_bf16", *map(common.ptr, (
+        x, gn_scale, gn_bias, wq, bqkv, wp, bproj, out)),
+        b, t, c, groups, heads, samples,
+        smem_bytes(t, c, groups, heads, samples, 0, x.dtype), scale)
     return out
 
 

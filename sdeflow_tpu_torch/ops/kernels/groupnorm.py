@@ -20,8 +20,16 @@ and a backward with grad mode on (a second reverse pass) through
 the kernels' launch plan (the C function ``choose``). The JAX package runs
 its kernel only under ``SDEFLOW_PALLAS_NN=1``, because on the TPU XLA's
 fusion of the plain chain matched it; eager PyTorch launches each operator
-of the plain chain, so here the kernels run in every GroupNorm on CUDA. The
-bf16 branch comes with bf16 compute.
+of the plain chain, so here the kernels run in every GroupNorm on CUDA.
+
+bf16 x (the score net's bf16 compute; gamma and beta stay fp32) takes the
+JAX package's sub-fp32 branch (:64-75): channel sums first, statistics in
+fp32, then scale = bf16(rstd·γ) and shift = bf16(β − mean·rstd·γ), one
+multiply and one add in bf16, SiLU in bf16, the output in x's dtype; the
+kernels' bf16 symbols (``group_norm_silu_bf16``,
+``group_norm_silu_bwd_bf16``) round where that plain version rounds. The
+tangent and the vjp of the bf16 branch are the fp32 closed forms evaluated
+on the widened inputs, their result rounded to x's dtype (dγ and dβ fp32).
 """
 
 from __future__ import annotations
@@ -36,17 +44,20 @@ from sdeflow_tpu_torch.ops.kernels import common
 
 EPS = 1e-5
 
+_FWD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 K5 = common.register(common.Kernel(
     "group_norm_silu", "groupnorm.cu",
-    {"group_norm_silu_f32": [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-     "group_norm_silu_plan": [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p]},
+    {"group_norm_silu_f32": _FWD_ARGS, "group_norm_silu_bf16": _FWD_ARGS,
+     "group_norm_silu_plan": [ctypes.c_longlong] + [ctypes.c_int] * 3
+     + [ctypes.c_void_p]},
 ))
 K5B = common.register(common.Kernel(
     "group_norm_silu_bwd", "groupnorm.cu",
-    {"group_norm_silu_bwd_f32": [ctypes.c_void_p] * 8
-     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
+    {"group_norm_silu_bwd_f32": _BWD_ARGS,
+     "group_norm_silu_bwd_bf16": _BWD_ARGS},
 ))
 
 # the launch plans' constants in csrc/groupnorm.cu
@@ -61,7 +72,8 @@ class Plan(NamedTuple):
     lanes: int    # threads on one part of a slab: lanes of a warp, or a block
     cluster: int  # parts (blocks) per slab
     nv: int       # vectors each thread holds in registers (0: streamed)
-    vec: int      # floats per vector: 4 (float4 loads) where S % 4 == 0
+    vec: int      # elements per vector: 4 fp32 or 8 bf16 (16-byte loads)
+    #               where S is a multiple of that, else 1
 
 
 def _pow2_at_least(v):
@@ -71,12 +83,18 @@ def _pow2_at_least(v):
     return p
 
 
-def launch_plan(n, s, aligned=True):
-    """The launch plan of K5 and K5b for slabs of n = (C/G)·S floats (the C
-    function ``choose`` in csrc/groupnorm.cu): a slab per 8, 16 or 32 lanes
-    up to 1,024 floats, a cluster of 2-8 blocks holding it in registers
-    above, and the same cluster streaming beyond what its registers hold."""
-    vec = 4 if s % 4 == 0 and aligned else 1
+def vector_width(dtype):
+    """Elements of one 16-byte load: 4 in fp32, 8 in bf16."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def launch_plan(n, s, aligned=True, width=4):
+    """The launch plan of K5 and K5b for slabs of n = (C/G)·S elements of
+    `width` per 16-byte vector (the C function ``choose`` in
+    csrc/groupnorm.cu): a slab per 8, 16 or 32 lanes up to 1,024 elements,
+    a cluster of 2-8 blocks holding it in registers above (at most 32
+    floats a thread), and the same cluster streaming beyond."""
+    vec = width if s % width == 0 and aligned else 1
     nvec = n // vec
     if n <= SMALL_MAX:
         if vec == 1:
@@ -84,21 +102,22 @@ def launch_plan(n, s, aligned=True):
             return Plan("small", 32, 1, 1 if nv <= 1 else 4 if nv <= 4
                         else 32, 1)
         lanes = 8 if nvec <= 8 else 16 if nvec <= 16 else 32
-        return Plan("small", lanes, 1, _pow2_at_least(-(-nvec // lanes)), 4)
+        return Plan("small", lanes, 1, _pow2_at_least(-(-nvec // lanes)),
+                    vec)
     cs = min(MAX_CLUSTER, max(2, _pow2_at_least(-(-n // BLOCK_FLOATS))))
     nv = _pow2_at_least(-(-nvec // (cs * THREADS)))
-    if vec == 4 and nv <= 8:
-        return Plan("cluster", THREADS, cs, nv, 4)
+    if vec > 1 and nv * vec <= 32:
+        return Plan("cluster", THREADS, cs, nv, vec)
     if vec == 1 and nv <= 16:
         return Plan("cluster", THREADS, cs, 16, 1)
     return Plan("stream", THREADS, MAX_CLUSTER, 0, vec)
 
 
-def kernel_plan(n, s, aligned=True):
+def kernel_plan(n, s, aligned=True, width=4):
     """The plan the compiled kernels choose (the C function ``choose``), to
     hold ``launch_plan`` to on a card."""
     out = (ctypes.c_int * 5)()
-    K5.lib().group_norm_silu_plan(n, s, int(aligned), out)
+    K5.lib().group_norm_silu_plan(n, s, int(aligned), width, out)
     kind, lanes, cluster, nv, vec = out
     return Plan(("small", "cluster", "stream")[kind], lanes, cluster, nv, vec)
 
@@ -133,19 +152,52 @@ def gn_parts(x, gamma, beta, groups, dx=None, dgamma=None, dbeta=None):
     return y, (None if dy is None else dy.expand(b, c, s))
 
 
+def _gn_bf16(x, gamma, beta, groups, silu):
+    """The sub-fp32 branch of ``_gn_math`` (ops/pallas/groupnorm.py:64-75)
+    on x (B, C, S) channels-first: statistics in fp32 from channel sums,
+    scale and shift rounded to x's dtype, then x·scale + shift and the
+    SiLU h·σ(h) in that dtype."""
+    b, c, s = x.shape
+    cg = c // groups
+    n = s * cg
+    xf = x.float()
+    mean = xf.sum(dim=-1).reshape(b, groups, cg).sum(dim=-1) / n
+    mean_c = mean.repeat_interleave(cg, dim=1)  # (B, C)
+    xc = xf - mean_c[:, :, None]
+    var = (xc * xc).sum(dim=-1).reshape(b, groups, cg).sum(dim=-1) / n
+    rstd_c = torch.rsqrt(var + EPS).repeat_interleave(cg, dim=1)
+    a = rstd_c * gamma
+    scale = a.to(x.dtype)[:, :, None]
+    shift = (beta - mean_c * a).to(x.dtype)[:, :, None]
+    h = x * scale + shift
+    return h * torch.sigmoid(h) if silu else h
+
+
 def gn_math(x, gamma, beta, groups, silu):
     """Plain version. x (B, C, S) channels-first, gamma/beta (C,); float32
-    (float64 runs the same math, for the autograd checks)."""
+    (float64 runs the same math, for the autograd checks), or bfloat16 x
+    with float32 gamma and beta (``_gn_bf16``)."""
+    if x.dtype == torch.bfloat16:
+        if gamma.dtype != torch.float32 or beta.dtype != torch.float32:
+            raise NotImplementedError(
+                "bf16 GroupNorm takes float32 gamma and beta (a bf16 "
+                "compute dtype keeps the parameters fp32)")
+        return _gn_bf16(x, gamma, beta, groups, silu)
     if x.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            "GroupNorm runs in float32 only (bf16: ROADMAP Queue 1 item 8)")
+            f"GroupNorm runs in float32 or bfloat16, not {x.dtype}")
     y, _ = gn_parts(x, gamma, beta, groups)
     return F.silu(y) if silu else y
 
 
 def gn_math_jvp(x, gamma, beta, groups, silu, dx, dgamma, dbeta):
     """Tangent of ``gn_math`` (None: no tangent; at least one is given);
-    the SiLU's is dy·σ(y)·(1 + y·(1 − σ(y)))."""
+    the SiLU's is dy·σ(y)·(1 + y·(1 − σ(y))). For bf16 x, the fp32 closed
+    form on the widened x and dx, rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        return gn_math_jvp(x.float(), gamma, beta, groups, silu,
+                           None if dx is None else dx.float(), dgamma,
+                           dbeta).to(x.dtype)
     y, dy = gn_parts(x, gamma, beta, groups, dx, dgamma, dbeta)
     if silu:
         sig = torch.sigmoid(y)
@@ -158,7 +210,13 @@ def gn_math_vjp(x, gamma, beta, groups, silu, dy):
     version of K5b): (dx, dγ, dβ) for the cotangent dy, with
     g = dy·σ(h)·(1 + h·(1 − σ(h))) under SiLU (else dy), d = g·γ,
     dx = rstd·(d − mean(d) − x̂·mean(d·x̂)) over each group,
-    dγ = Σ g·x̂ and dβ = Σ g over batch and space."""
+    dγ = Σ g·x̂ and dβ = Σ g over batch and space. For bf16 x and dy, the
+    fp32 closed form on the widened inputs, dx rounded to bf16 and dγ, dβ
+    fp32."""
+    if x.dtype == torch.bfloat16:
+        dx, dgamma, dbeta = gn_math_vjp(x.float(), gamma, beta, groups,
+                                        silu, dy.float())
+        return dx.to(x.dtype), dgamma, dbeta
     b, c, s = x.shape
     xhat, rstd = _normalized(x, groups)
     xc = xhat.reshape(b, c, s)
@@ -173,11 +231,17 @@ def gn_math_vjp(x, gamma, beta, groups, silu, dy):
     return dx.reshape(b, c, s), (g * xc).sum(dim=(0, 2)), g.sum(dim=(0, 2))
 
 
+_SYMBOL = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _checked(x, gamma, beta, groups, *more):
-    if any(a.dtype != torch.float32 for a in (x, gamma, beta, *more)):
+    if (x.dtype not in _SYMBOL or gamma.dtype != torch.float32
+            or beta.dtype != torch.float32
+            or any(a.dtype != x.dtype for a in more)):
         raise NotImplementedError(
-            "group_norm_silu kernel is float32 only (bf16: ROADMAP Queue 1 "
-            "item 8)")
+            "group_norm_silu kernel takes float32 or bfloat16 x (and dy) "
+            f"with float32 gamma and beta, got {x.dtype}, {gamma.dtype}, "
+            f"{beta.dtype}")
     c = x.shape[1]
     if c % groups or tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError(f"C={c} must divide by groups={groups}; gamma and "
@@ -191,7 +255,8 @@ def _launch(x, gamma, beta, groups, silu):
     x, gamma, beta = _checked(x, gamma, beta, groups)
     b, c, s = x.shape
     out = torch.empty_like(x)
-    K5.launch("group_norm_silu_f32", common.ptr(x), common.ptr(gamma),
+    K5.launch(f"group_norm_silu_{_SYMBOL[x.dtype]}", common.ptr(x),
+              common.ptr(gamma),
               common.ptr(beta), common.ptr(out), b, c, groups, s, int(silu))
     return out
 
@@ -202,12 +267,12 @@ def _launch_vjp(x, gamma, beta, groups, silu, dy):
     dx = torch.empty_like(x)
     dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
-    plan = launch_plan(c // groups * s, s, aligned)
+    plan = launch_plan(c // groups * s, s, aligned, vector_width(x.dtype))
     # per-part sums of g·x̂ and g for each channel, summed over B by the
     # entry's second kernel
     scratch = torch.empty(2 * c * b * plan.cluster, dtype=torch.float32,
                           device=x.device)
-    K5B.launch("group_norm_silu_bwd_f32", *map(common.ptr, (
+    K5B.launch(f"group_norm_silu_bwd_{_SYMBOL[x.dtype]}", *map(common.ptr, (
         x, gamma, beta, dy, dx, dgamma, dbeta, scratch)), scratch.numel(),
         b, c, groups, s, int(silu))
     return dx, dgamma, dbeta

@@ -2,6 +2,7 @@
 
     python -m sdeflow_tpu_torch.run --preset grf16 --eval-mmd --no-plots
     python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --no-plots --eval-mmd
+    python -m sdeflow_tpu_torch.run --preset grf16_production --no-plots
 
 Port of sdeflow_tpu/run.py:15-252. It runs on CUDA unless given --cpu,
 and raises when no CUDA device is present instead of falling back to the
@@ -108,7 +109,7 @@ def build_parser():
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default=None,
                    help="score-net compute dtype (TrainConfig.compute_dtype; "
-                        "bfloat16 is not ported yet)")
+                        "parameters, Adam state and loss stay float32)")
     p.add_argument("--print-ram", action="store_true",
                    help="log host RSS + device HBM at each print cadence "
                         "(working version of the reference's dormant "
@@ -127,12 +128,9 @@ def _unported(args):
         (args.eval_nll, "--eval-nll", "10 (exact NLL)"),
         (args.sampler in ("ode", "dpm"), f"--sampler {args.sampler}",
          "10 (samplers)"),
-        (bool(args.corrector_steps), "--corrector-steps", "3 (integrators)"),
         (args.dp > 1 or args.tp > 1, "--dp/--tp > 1", "14 (parallel)"),
         (args.attention_impl == "ring", "--attention-impl ring",
          "14 (parallel)"),
-        (args.compute_dtype == "bfloat16", "--compute-dtype bfloat16",
-         "8 (bf16 compute)"),
         (args.print_ram, "--print-ram", "15 (utils)"),
         (args.data_root is not None, "--data-root",
          "13 (file-backed data)"),

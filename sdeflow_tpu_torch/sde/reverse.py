@@ -10,8 +10,15 @@ parameters comes from ``.backward()`` through that JVP; denoising score
 matching (``dsm``, SGM) is reverse mode only. Every draw (t, the forward
 solve's normals or the closed-form kernel's ε, the probe v, the
 conditional latent's normal) can be injected, so that a test can replay the
-JAX package's keys. The PF-ODE and corrector drifts come with ROADMAP
-Queue 1 item 4.
+JAX package's keys. ``mu_ode`` is the probability-flow ODE's drift (its
+integrators come with ROADMAP Queue 1 item 10); ``corrector_drift`` and
+``corrector_noise`` serve the Langevin corrector of
+``ops/integrators.langevin_corrector``.
+
+Under a bf16 compute dtype the score net takes the fp32 state and returns
+an fp32 score (models/unet2d.py), so the SDE algebra, the Hutchinson JVP's
+reduction and the losses stay fp32; the JVP's tangent is cast to bf16 at
+the net's first convolution and back at its fp32 head.
 """
 
 from __future__ import annotations
@@ -109,6 +116,29 @@ class PluginReverseSDE:
         """σ(t)·w = √(1−λ)·g(T−t, y)·w."""
         return (1.0 - lmbd) ** 0.5 * self.base_sde.sigma_apply(
             self.T - t, y, w)
+
+    def mu_ode(self, t, y):
+        """The reversed-time probability-flow ODE drift
+        ½·g·a − f + ½·∇·Σ at s = T − t (for SGM ∇·Σ = 0, for MSGM 2f)."""
+        s = self.T - t
+        return (0.5 * self.ga(s, y) - self.base_sde.f(s, y)
+                + 0.5 * self.base_sde.div_sigma(s, y))
+
+    # -- Langevin corrector (predictor–corrector sampling) -------------------
+    def _corrector_time(self, t):
+        """The frozen forward time s = T − t, clamped below at t_epsilon."""
+        return max(self.T - float(t), float(self.base_sde.t_epsilon))
+
+    def corrector_drift(self, t, y):
+        """The preconditioned Langevin drift Γ∇log p + ∇·Γ with mobility
+        Γ = Σ(s, y) = g·gᵀ: g·a + ∇·Σ at s = max(T − t, t_epsilon)."""
+        s = self._corrector_time(t)
+        return self.ga(s, y) + self.base_sde.div_sigma(s, y)
+
+    def corrector_noise(self, t, y, z):
+        """The noise direction g(s, y)·z at s = max(T − t, t_epsilon), so
+        that the injected covariance is 2h·Σ."""
+        return self.base_sde.sigma_apply(self._corrector_time(t), y, z)
 
     # -- time sampling ----------------------------------------------------------
     def _device(self):

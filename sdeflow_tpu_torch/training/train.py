@@ -179,6 +179,13 @@ class Trainer:
         if print_ram:
             raise NotImplementedError("print_ram: ROADMAP Queue 1 item 15")
         net = gen_sde.score_net
+        low = sorted({str(p.dtype) for p in net.parameters()
+                      if p.dtype in (torch.bfloat16, torch.float16)})
+        if low:
+            raise ValueError(
+                f"score-net parameters in {low}: parameters, Adam moments "
+                "and the EMA stay float32 (a bf16 compute dtype casts them "
+                "at each use, models/unet2d.py)")
         self.optimizer = build_optimizer(
             net.parameters(), lr, grad_clip=grad_clip,
             weight_decay=weight_decay, lr_warmup_steps=lr_warmup_steps)

@@ -9,7 +9,8 @@ recomputed from its parsed constants against ``attention.smem_bytes``.
 (b) K6's block within 232,448 bytes at every T up to 1024 and head width
 up to 128; K3's plan (``block_plan``) found and within a block at every
 (T, C, groups, heads) that the CUDA-core design it replaced took (T ≤ 256,
-heads 1–8), so that no "auto" AttentionBlock changes route.
+heads 1–8), so that no "auto" AttentionBlock changes route (that case, one
+T at a time, in test_torch_attn_tc_plans.py).
 (c) An emulation of K3's projection chain at C = 128 (the 3xTF32 split of
 ``cvt.rna.tf32.f32``, each mma's exact products added to its fp32
 accumulator with rounding toward zero, as the tensor cores do, each ring
@@ -94,31 +95,6 @@ def _cuda_core_query_chunk(t, c, groups):
             return None
         tq = (tq + 1) // 2
     return tq
-
-
-@pytest.mark.parametrize("t", [1, 3, 4, 7, 8, 15, 16, 17, 32, 49, 64, 100,
-                               128, 255, 256])
-def test_k3_plans_every_shape_the_cuda_core_kernel_took(t):
-    ring = K3._STAGES * K3._KC * (K3._NC + K3._PAD_W)
-    seen = 0
-    for c in range(1, 12_000):
-        small = [g for g in range(1, 33) if c % g == 0]
-        for groups in {1, max(small), c}:
-            took = _cuda_core_query_chunk(t, c, groups) is not None
-            for heads in [h for h in range(1, K3.MAX_HEADS + 1) if c % h == 0]:
-                plan = K3.block_plan(t, c, groups, heads)
-                assert (plan is not None) == took, (t, c, groups, heads)
-                if plan is None:
-                    continue
-                seen += 1
-                samples, mode = plan
-                assert K3.smem_bytes(t, c, groups, heads, samples,
-                                     mode) <= SMEM_LIMIT
-                # the GroupNorm's channel sums fit the ring below mode 2
-                assert mode == 2 or samples * c <= ring
-        if _cuda_core_query_chunk(t, c, 1) is None:
-            break  # wider C does not fit either
-    assert seen > 100
 
 
 def tf32(x):

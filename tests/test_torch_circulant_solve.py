@@ -2,8 +2,8 @@
 of K1 and K2: the plain version against the JAX package's integrate_select,
 the port's whole-solve override against its per-step loop, when the
 override is taken, the solve's autograd rules, and the Python plan mirrors
-(the kernels themselves against the plain versions on a card are in
-test_torch_kernels_cuda.py).
+(their edges in test_torch_circulant_plans.py; the kernels themselves
+against the plain versions on a card are in test_torch_kernels_cuda*.py).
 
 Tolerances: against JAX rtol/atol 1e-5 in float32, as
 test_torch_forward.py's integrate_select check (the same products in the
@@ -26,8 +26,8 @@ from sdeflow_tpu.sde.forward import ForwardFlow as JaxFlow
 from sdeflow_tpu.sde.msgm import MSGMSde as JaxMSGM
 from sdeflow_tpu_torch.ops.integrators import integrate_select
 from sdeflow_tpu_torch.ops.kernels.circulant import (
-    K2, K2_SOLVE, RK4SolveSelect, RowPlan, circulant_plan,
-    circulant_rk4_solve_select, rk4_layout, rk4_plan, rk4_solve_select_math)
+    K2, K2_SOLVE, RK4SolveSelect, circulant_rk4_solve_select,
+    rk4_solve_select_math)
 from sdeflow_tpu_torch.sde import msgm
 from sdeflow_tpu_torch.sde.forward import ForwardFlow
 from sdeflow_tpu_torch.sde.msgm import MSGMSde, sqrt_beta_table
@@ -170,30 +170,3 @@ def test_solve_rules_match_torch_func_of_the_plain_loop(mode):
     # the public wrapper goes through the same Function
     torch.testing.assert_close(circulant_rk4_solve_select(*primals, sel, sd),
                                plain(*primals), rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("b,d,aligned,k1,k2", [
-    # warp plan: d % 32 == 0 up to 1,024, d/32 floats per lane, float4 where
-    # d % 128 == 0 and aligned; 8 (K1) or 4 (K2) rows per block
-    (1024, 256, True, ("warp", 8, 4, 8, 128), ("warp", 8, 4, 4, 256)),
-    (128, 256, False, ("warp", 8, 1, 8, 16), ("warp", 8, 1, 4, 32)),
-    (9, 32, True, ("warp", 1, 1, 8, 2), ("warp", 1, 1, 4, 3)),
-    (7, 96, True, ("warp", 3, 1, 8, 1), ("warp", 3, 1, 4, 2)),
-    (5, 128, True, ("warp", 4, 4, 8, 1), ("warp", 4, 4, 4, 2)),
-    (3, 1024, True, ("warp", 32, 4, 8, 1), ("warp", 32, 4, 4, 1)),
-    # general plan: one thread per element (K1), rk4_layout's rows (K2)
-    (3, 1056, True, ("general", 0, 1, 0, 13), ("general", 0, 1, 1, 3)),
-    (1000, 16, True, ("general", 0, 1, 0, 63), ("general", 0, 1, 16, 63)),
-    (5, 33, True, ("general", 0, 1, 0, 1), ("general", 0, 1, 7, 1)),
-    (2, 100_000, True, ("general", 0, 1, 0, 782), ("general", 0, 1, 1, 2)),
-])
-def test_plan_mirrors_at_the_edges(b, d, aligned, k1, k2):
-    assert circulant_plan(b, d, aligned) == RowPlan(*k1, False)
-    plan = rk4_plan(b, d, aligned)
-    assert plan[:5] == k2
-    if plan.kind == "general":
-        assert plan[3:] == rk4_layout(b, d)
-        # its buffers leave shared memory only for very wide rows
-        assert plan.in_smem == (d < 100_000)
-    else:
-        assert plan.in_smem is False

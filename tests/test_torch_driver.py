@@ -1,11 +1,12 @@
 """The experiment driver and its CLI against the JAX package's, without
 running the JAX driver: the grf presets and their ``_dbg`` shrink field by
 field, the run names and metric file names byte for byte, each arm's SDE
-as the JAX ``_build_arm`` makes it, the CLI's flags and defaults, the
-unported flags, one whole sweep of a shrunken grf configuration on the CPU
-(both arms trained by SSM, sampled, scored by MMD and SWD, saved, reloaded
-and rescored from the saved trajectories), the test set's stream, and a
-checkpoint round trip that must continue a run bit for bit on the CPU."""
+as the JAX ``_build_arm`` makes it, the CLI's flags and defaults (its
+unported flags in tests/test_torch_driver_unported.py), one whole sweep
+of a shrunken grf configuration on the CPU (both arms trained by SSM,
+sampled, scored by MMD and SWD, saved, reloaded and rescored from the
+saved trajectories), the test set's stream, and a checkpoint round trip
+that must continue a run bit for bit on the CPU."""
 
 import dataclasses
 import os
@@ -148,31 +149,6 @@ def _actions(parser):
 
 def test_cli_flags_and_defaults_match_jax():
     assert _actions(run.build_parser()) == _actions(jax_run.build_parser())
-
-
-UNPORTED = [
-    (["--eval-nll"], "item 10"),
-    (["--sampler", "ode"], "item 10"),
-    (["--sampler", "dpm"], "item 10"),
-    (["--corrector-steps", "1"], "item 3"),
-    (["--dp", "2"], "item 14"),
-    (["--tp", "2"], "item 14"),
-    (["--attention-impl", "ring"], "item 14"),
-    (["--compute-dtype", "bfloat16"], "item 8"),
-    (["--print-ram"], "item 15"),
-    (["--data-root", "data"], "item 13"),
-    ([], "item 13"),  # plots: no --no-plots
-]
-
-
-@pytest.mark.parametrize("flags,item", UNPORTED)
-def test_unported_flags_raise_before_training(tmp_path, flags, item):
-    out = tmp_path / "res"
-    plots = [] if not flags else ["--no-plots"]
-    with pytest.raises(NotImplementedError, match=item):
-        run.main(["--preset", "grf16_dbg", "--cpu", "--results-dir",
-                  str(out), *plots, *flags])
-    assert not out.exists()
 
 
 def test_cli_refuses_the_cpu_without_the_flag(tmp_path):

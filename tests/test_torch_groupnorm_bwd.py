@@ -5,7 +5,10 @@ mode, its backward the transpose of the ``custom_jvp`` rule) and against
 ``torch.func.vjp`` of ``gn_math``; ``GroupNormSiLU``'s backward with grad
 mode off on the CPU (the closed form, no launch); and the Python mirror of
 the kernels' launch plan at every GroupNorm shape of the grf16 and DSM
-paths (the CUDA kernels on a card are in test_torch_kernels_cuda.py).
+paths (``PATH_PLANS`` and ``check_path_plan``, whose cases run in
+test_torch_groupnorm_plans_grf16.py and test_torch_groupnorm_plans_dsm.py;
+the plans' edges are in test_torch_groupnorm_plan_edges.py, the CUDA
+kernels on a card in test_torch_kernels_cuda*.py).
 
 Tolerances: against JAX 1e-5·max of each gradient in float32 (sums in
 another order; dγ and dβ sum B·S terms); against ``torch.func`` rtol/atol
@@ -103,8 +106,9 @@ PATH_PLANS = {
 SHARED_BYTES = 4 * (2 * THREADS // 32 + 4)  # a cluster block's sums
 
 
-@pytest.mark.parametrize("c,s", sorted(PATH_PLANS))
-def test_launch_plan_at_the_paths_shapes(c, s):
+def check_path_plan(c, s):
+    """launch_plan at the GroupNorm shape (C, S) of a path: PATH_PLANS'
+    plan, and one whose threads hold the slab without streaming."""
     n = c // group_count(c) * s
     plan = launch_plan(n, s)
     assert tuple(plan) == PATH_PLANS[(c, s)]
@@ -116,23 +120,3 @@ def test_launch_plan_at_the_paths_shapes(c, s):
     # the lane groups tile a warp; one warp's slabs are whole
     assert plan.kind == ("small" if n <= SMALL_MAX else "cluster")
     assert 32 % plan.lanes == 0 or plan.lanes == THREADS
-
-
-@pytest.mark.parametrize("n,s,aligned,want", [
-    (32, 32, True, ("small", 8, 1, 1, 4)),
-    (36, 36, True, ("small", 16, 1, 1, 4)),
-    (68, 68, True, ("small", 32, 1, 1, 4)),
-    (132, 132, True, ("small", 32, 1, 2, 4)),
-    (1024, 1024, True, ("small", 32, 1, 8, 4)),
-    (1028, 1028, True, ("cluster", 256, 2, 1, 4)),
-    (8196, 8196, True, ("cluster", 256, 4, 4, 4)),
-    (16388, 16388, True, ("cluster", 256, 8, 4, 4)),
-    (65536, 65536, True, ("cluster", 256, 8, 8, 4)),
-    (65540, 65540, True, ("stream", 256, 8, 0, 4)),
-    (7, 7, True, ("small", 32, 1, 1, 1)),
-    (1023, 1023, True, ("small", 32, 1, 32, 1)),
-    (1025, 1025, True, ("cluster", 256, 2, 16, 1)),
-    (33333, 33333, True, ("stream", 256, 8, 0, 1)),
-    (256, 64, False, ("small", 32, 1, 32, 1))])
-def test_launch_plan_edges(n, s, aligned, want):
-    assert tuple(launch_plan(n, s, aligned)) == want

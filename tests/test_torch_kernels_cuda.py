@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
-imports no JAX, so it also runs where only PyTorch is installed:
+imports no JAX, so it also runs where only PyTorch is installed. The checks
+of the parametrized cases are the ``check_*`` functions here, with their
+case lists; the cases run from tests/test_torch_kernels_cuda_*.py (at most
+15 to a file), all of them with:
 
-    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda*.py
 
 Tolerances: K1, K2 and K2's solve bit for bit against the plain versions
 on every launch plan (the kernels round each product like the plain
@@ -90,9 +93,7 @@ def _misaligned(t):
     return out
 
 
-@pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("shape", CIRC_SHAPES)
-def test_circulant_kernel_matches_plain(dev, shape, aligned):
+def check_circulant_kernel(dev, shape, aligned):
     rng = np.random.default_rng(0)
     y, w = _rand(rng, *shape).to(dev), _rand(rng, *shape).to(dev)
     sb = (1.0 + _rand(rng, shape[0], 1).abs()).to(dev)
@@ -108,9 +109,10 @@ def test_circulant_kernel_matches_plain(dev, shape, aligned):
         assert torch.equal(circulant_apply(2.5, y, w), circ_math(2.5, y, w))
 
 
-@pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("shape", CIRC_SHAPES + [(128, 256), (2, 100_000)])
-def test_rk4_kernel_matches_plain(dev, shape, aligned):
+RK4_SHAPES = CIRC_SHAPES + [(128, 256), (2, 100_000)]
+
+
+def check_rk4_kernel(dev, shape, aligned):
     rng = np.random.default_rng(0)
     x, w = _rand(rng, *shape).to(dev), 0.3 * _rand(rng, *shape).to(dev)
     sb3 = torch.from_numpy(1.0 + rng.random((shape[0], 3)).astype(
@@ -150,10 +152,11 @@ def _select(kind, b, n, rng):
     return sel
 
 
-@pytest.mark.parametrize("kind", ["mixed", "zeros", "full"])
-@pytest.mark.parametrize("n,b,d", [(64, 128, 256), (8, 7, 96), (8, 5, 1056),
-                                   (8, 6, 100), (4, 3, 2048)])
-def test_solve_equals_the_per_step_kernel_loop(dev, n, b, d, kind):
+SOLVE_CASES = [(64, 128, 256), (8, 7, 96), (8, 5, 1056), (8, 6, 100),
+               (4, 3, 2048)]  # (n, b, d), each with three select kinds
+
+
+def check_solve_against_the_step_loop(dev, n, b, d, kind):
     rng = np.random.default_rng(3)
     x0 = _rand(rng, b, d).to(dev)
     z = _rand(rng, n, b, d).to(dev)
@@ -275,10 +278,16 @@ def _block_args(rng, b, t, c, dev):
     return [a.to(dev) for a in args]
 
 
-@pytest.mark.parametrize("b,t,c,heads", [
-    (1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
-    (16, 64, 64, 8), (8, 256, 64, 2), (5, 7, 24, 3)])
-def test_attention_block_kernel_matches_plain(dev, b, t, c, heads):
+K3_CASES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
+            (16, 64, 64, 8), (8, 256, 64, 2), (5, 7, 24, 3)]
+# T = 256 at C = 64 and T = 2 at C = 2048 put qkv in device-memory scratch
+# (mode 1), T = 1 at C = 4096 h too (mode 2); B not a multiple of the
+# samples per block (2 at T = 16); head widths 8
+K3_EDGES = [(3, 256, 64, 8), (5, 16, 128, 1), (7, 16, 64, 8), (3, 17, 32, 4),
+            (3, 2, 2048, 4), (2, 1, 4096, 8)]
+
+
+def check_attention_block_kernel(dev, b, t, c, heads):
     args = _block_args(np.random.default_rng(1), b, t, c, dev)
     groups = group_count(c)
     with torch.no_grad():
@@ -289,16 +298,6 @@ def test_attention_block_kernel_matches_plain(dev, b, t, c, heads):
         ref = attn_block_math(*args, groups, heads)
     assert (ref - args[0]).abs().max() > 0.1  # not the identity
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("b,t,c,heads", [
-    (3, 256, 64, 8), (5, 16, 128, 1), (7, 16, 64, 8), (3, 17, 32, 4),
-    (3, 2, 2048, 4), (2, 1, 4096, 8)])
-def test_attention_block_kernel_edges(dev, b, t, c, heads):
-    # T = 256 at C = 64 and T = 2 at C = 2048 put qkv in device-memory
-    # scratch (mode 1), T = 1 at C = 4096 h too (mode 2); B not a multiple
-    # of the samples per block (2 at T = 16); head widths 8
-    test_attention_block_kernel_matches_plain(dev, b, t, c, heads)
 
 
 def test_attention_block_kernel_rejects_what_it_does_not_cover(dev):
@@ -336,13 +335,14 @@ def _gn_inputs(b, c, s, dev, seed=3):
             (1.0 + 0.5 * _rand(rng, c)).to(dev), (0.5 * _rand(rng, c)).to(dev))
 
 
-@pytest.mark.parametrize("b,c,s,groups", [
-    (1024, 32, 256, 32), (1024, 96, 256, 32), (1024, 64, 64, 32),
-    (1024, 192, 64, 32), (1024, 256, 16, 32), (3, 5, 7, 5), (2, 10, 3, 2),
-    (2, 64, 4096, 32), *GN_PATH[5:], *GN_EDGES])
-@pytest.mark.parametrize("silu", [False, True])
-def test_groupnorm_kernel_matches_plain(dev, b, c, s, groups, silu):
-    # (2, 64, 4096) has slabs of 8192 floats: a cluster of 2 blocks
+# (2, 64, 4096) has slabs of 8192 floats: a cluster of 2 blocks
+GN_FWD_SHAPES = [(1024, 32, 256, 32), (1024, 96, 256, 32), (1024, 64, 64, 32),
+                 (1024, 192, 64, 32), (1024, 256, 16, 32), (3, 5, 7, 5),
+                 (2, 10, 3, 2), (2, 64, 4096, 32), *GN_PATH[5:], *GN_EDGES]
+GN_BWD_SHAPES = [(3, 5, 7, 5), (2, 10, 3, 2), *GN_PATH, *GN_EDGES]
+
+
+def check_groupnorm_kernel(dev, b, c, s, groups, silu):
     rng = np.random.default_rng(3)
     x = (3.0 * _rand(rng, b, c, s) + 1.0).to(dev)
     gamma = (1.0 + 0.5 * _rand(rng, c)).to(dev)
@@ -359,10 +359,7 @@ def test_groupnorm_kernel_matches_plain(dev, b, c, s, groups, silu):
             x, groups, gamma, beta, eps=1e-5), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,c,s,groups", [(3, 5, 7, 5), (2, 10, 3, 2),
-                                          *GN_PATH, *GN_EDGES])
-@pytest.mark.parametrize("silu", [False, True])
-def test_groupnorm_backward_kernel_matches_plain(dev, b, c, s, groups, silu):
+def check_groupnorm_backward_kernel(dev, b, c, s, groups, silu):
     x, gamma, beta = _gn_inputs(b, c, s, dev)
     dy = _rand(np.random.default_rng(4), b, c, s).to(dev)
     before = K5.launches, K5B.launches
@@ -402,12 +399,14 @@ def test_groupnorm_kernels_take_empty_slabs(dev):
     assert dx.shape == x.shape and not dgamma.any() and not dbeta.any()
 
 
-@pytest.mark.parametrize("b,t,c,heads", [
+ATTENTION_CASES = [
     (1024, 64, 64, 1), (1024, 16, 128, 1), (1024, 64, 64, 4),
     (4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1), (3, 37, 48, 3),
     (2, 5, 256, 2), (2, 1100, 64, 1), (2, 2049, 64, 1), (2, 1100, 60, 3),
-    (2, 2049, 8, 1), (2, 1100, 256, 4), (2, 1030, 126, 2)])
-def test_attention_kernel_matches_plain(dev, b, t, c, heads):
+    (2, 2049, 8, 1), (2, 1100, 256, 4), (2, 1030, 126, 2)]
+
+
+def check_attention_kernel(dev, b, t, c, heads):
     rng = np.random.default_rng(4)
     qkv = (1.5 * _rand(rng, b, t, 3 * c)).to(dev)
     kernel, other = (K4, K6) if t > 1024 else (K6, K4)
@@ -421,9 +420,11 @@ def test_attention_kernel_matches_plain(dev, b, t, c, heads):
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("t", [1, 15, 16, 17, 64, 1000, 1024])
-@pytest.mark.parametrize("heads,ch", [(1, 64), (4, 16), (8, 8), (1, 128)])
-def test_attention_kernel_short_and_tiled_edges(dev, t, heads, ch):
+SHORT_T = [1, 15, 16, 17, 64, 1000, 1024]
+HEAD_WIDTHS = [(1, 64), (4, 16), (8, 8), (1, 128)]  # (heads, ch)
+
+
+def check_attention_kernel_edges(dev, t, heads, ch):
     # K6's short-sequence design up to T = 64 (4, 2 or 1 units per block),
     # the tiled one above. Against the plain version in float64: at
     # T = 1000-1024 and ch = 128 the fp32 plain version is itself about
@@ -460,11 +461,13 @@ def _flash_inputs(rng, b, t, c, heads, dev):
     return qkv, dout, lse, delta.contiguous()
 
 
-@pytest.mark.parametrize("b,t,c,heads", [
+FLASH_CASES = [
     (4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1), (2, 1000, 64, 1),
     (3, 37, 48, 3), (2, 1100, 64, 1), (2, 2049, 64, 1), (2, 1000, 60, 3),
-    (2, 2049, 8, 1), (2, 1100, 256, 4), (2, 1030, 126, 2)])
-def test_flash_pair_kernels_match_plain(dev, b, t, c, heads):
+    (2, 2049, 8, 1), (2, 1100, 256, 4), (2, 1030, 126, 2)]
+
+
+def check_flash_pair_kernels(dev, b, t, c, heads):
     qkv, dout, lse, delta = _flash_inputs(np.random.default_rng(7), b, t, c,
                                           heads, dev)
     with torch.no_grad():

@@ -1,7 +1,8 @@
 """The score net: the JAX package's VorticityUNet and AttentionBlock against
 the port's, on both attention routes ("auto", which is kernel K3 for up to
 8 heads, and "unfused"), on the same weights (carried over by
-models/convert.py) and the same inputs.
+models/convert.py) and the same inputs (the whole VorticityUNet's cases in
+test_torch_models_unet.py).
 
 Every parameter, the zero-initialised output layers included, is
 overwritten with random values, so that every block does work. Tolerance:
@@ -68,19 +69,6 @@ def _pair(arch, batch, seed=0):
     tmodel = VorticityUNet(**kw)
     load_flax_params(tmodel, params)
     return jmodel, tmodel, params, x, t
-
-
-@pytest.mark.parametrize("arch,batch", [
-    (SMALL, 3), (GRF16, 2), (dict(SMALL, attention_impl="unfused"), 3)],
-    ids=["small", "grf16", "small-unfused"])
-def test_vorticity_unet_matches_jax(arch, batch):
-    jmodel, tmodel, params, x, t = _pair(arch, batch)
-    ref = np.asarray(jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x),
-                                           jnp.asarray(t)))
-    with torch.no_grad():
-        out = tmodel(torch.from_numpy(x), torch.from_numpy(t)).numpy()
-    assert np.abs(ref).max() > 0.1
-    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("impl,heads", [

@@ -1,4 +1,5 @@
-"""The SGM arm: the VP SDE, the DSM loss (direct, eps, debias) and DSM
+"""The SGM arm: the VP SDE (its methods' cases in
+tests/test_torch_sgm_methods.py), the DSM loss (direct, eps, debias) and DSM
 training, and the SSM loss and ELBO that the driver trains and reports the
 arm by, against the JAX package with its draws replayed.
 
@@ -92,15 +93,6 @@ class _Torch:
     @staticmethod
     def asarray(a):
         return torch.from_numpy(np.asarray(a, np.float32))
-
-
-@pytest.mark.parametrize("name", sorted(METHODS))
-def test_sgm_method_matches_jax(sdes, name):
-    jsde, tsde = sdes
-    y, w, t = _inputs()
-    ref = np.asarray(METHODS[name](jsde, jnp, y, w, t))
-    out = METHODS[name](tsde, _Torch, y, w, t).numpy()
-    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-5)
 
 
 def test_closed_form_kernel_and_latents_match_jax(sdes):
