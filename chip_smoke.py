@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH] [--only gn|driver|bf16|k7]
+    python3 chip_smoke.py [--record PATH]
+                          [--only gn|driver|bf16|k7|unfused_bf16]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -16,8 +17,11 @@ K7b; K5b is GroupNorm's backward, run by every training path); and the
 experiment driver's CLI on grf16 (both arms trained by SSM, sampled and
 scored: K1, K2's solve, K3, K5, K5b); and the grf16_production preset
 through the same CLI (bf16 compute in the score net: the bf16 variants of
-K3, K5 and K5b; EM sampling with a Langevin corrector step: K1). It holds
-every CUDA kernel of those paths against its plain PyTorch version:
+K3, K5 and K5b; EM sampling with a Langevin corrector step: K1); and bf16
+on the unfused route: the grf U-Net at 128×128 in bf16 trained by DSM and
+served (the bf16 variants of K6, K4, K7a and K7b), and grf16_production
+through the CLI on ``--attention-impl unfused`` (bf16 K6). It holds every
+CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -182,7 +186,9 @@ every CUDA kernel of those paths against its plain PyTorch version:
    2-step request (EM plus one corrector step); then
    ``sdeflow_tpu_torch.run.main`` with ``--preset grf16_production
    --iterations 8 --num-samples 1024 --eval-mmd --no-plots`` (batch 128,
-   EM-32 plus one Langevin corrector step), every kernel count set to 0
+   EM-32 plus one Langevin corrector step; cuDNN's deterministic
+   algorithms, so that the replay below compares the same trajectories
+   on every run), every kernel count set to 0
    just before and read just after: each arm's 8 bf16 steps with phase
    20's launches, finite losses, moving parameters, and parameters, Adam
    moments and EMA in fp32; each arm's request a finite (33, 1024, 256)
@@ -193,11 +199,42 @@ every CUDA kernel of those paths against its plain PyTorch version:
    keeps, or, against the same request computed in fp32, the kernel run
    no farther than 1.5× the plain bf16 run in rms |Δ| and in max |Δ|
    (plus 2e-2), relative to each state's rms (bf16's own noise on the
-   same draws); finite metrics, √MMD and SWD printed for both arms.
+   same draws), and within 2e-3 of the rms after the first
+   predictor-corrector step (readings there: 3e-4 to 4e-4); finite
+   metrics, √MMD and SWD printed for both arms;
+23. the bf16 entries of K6, K4, K7a and K7b against their plain twins,
+   TF32 off: K6 at (1024, 64, 64) with one and four heads, (1024, 16, 128)
+   and (128, 1024, 128); K4 and K7a at (4, 4096, 64) with one and two
+   heads and (2, 2048, 128); K7a and K7b also at the ragged (2, 1000, 64).
+   Two gates, both held: within 2e-2·max |plain bf16| of the plain bf16
+   twin, and no farther from the fp32 plain version on the widened bf16
+   inputs than 1.5× the plain bf16 twin's own distance plus 1e-3·max;
+   K7a's lse within 1e-4 of the fp32 plain's, K7b's dqkv within 1e-2·max
+   of attention_flash_bwd_math in bf16 (fp32 math rounded once); their
+   times per call through the Function and as direct launches at
+   (4, 4096, 64), (128, 4096, 64) (K4, K7a, K7b) and (128, 1024, 128) and
+   grf16's two shapes (K6), beside the plain twins, SDPA in bf16 (its
+   backward for K7b) and the bounds (bf16 products at 989 TFLOP/s);
+24. the grf U-Net at 128×128 in bf16 (phase 18's cell with compute dtype
+   bfloat16 and eps): on one batch of 8 with injected t and ε the DSM loss
+   and every gradient, kernel path against plain (loss rtol 1e-2, 3e-2 of
+   the loss's largest gradient entry, both paths measured against fp32);
+   two Trainer(loss="dsm") steps; 5 timed bare steps at batch 128 with
+   exactly 46 K5, 46 K5b, 6 K6, 5 K7a and 5 K7b launches, bf16 entries
+   only, and peak memory beside phase 18's fp32; one traced step; a no-grad
+   request at batch 16 (4 EM steps and one corrector step each) with
+   exactly 368 K5, 40 K4 and 48 K6 launches, finite, traced, replayed on
+   the plain path and held as phase 22 holds its replay;
+25. ``sdeflow_tpu_torch.run.main`` on grf16_production with
+   ``--attention-impl unfused`` (phase 22's run and checks without the
+   replay): per bf16 SSM step 46 K5, 46 K5b and 11 K6 (MSGM: 5 K1, one K2
+   solve), per request 92·32 K5 and 22·32 K6, no K3 and no float32 entry of
+   an attention kernel; finite losses and metrics, √MMD and SWD printed.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
-K5b, K6, K4, K7a, K7b, and the bf16 variants of K3, K5, K5b with their
-launches in the production run, each with its launches in the driver's
+K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
+launches in the production run and those of K6, K4, K7a, K7b with their
+launches in phases 24 and 25, each with its launches in the driver's
 run: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
@@ -211,7 +248,8 @@ CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
 top kernels) as JSON to PATH. With --only, builds the kernels and runs one
 part: gn times K5 and K5b at both GroupNorm mixes, with one traced DSM
-step; driver runs phase 20; bf16 phases 21 and 22; k7 times K7a and K7b
+step; driver runs phase 20; bf16 phases 21 and 22; unfused_bf16 phases
+23, 24 and 25; k7 times K7a and K7b
 at (128, 4096, 64), K7a's lse sweep (recorded, not held) and five bare DSM
 steps at batch 128 (copied beside another tree of the package, it times
 that tree: ``k7_timing``).
@@ -322,9 +360,17 @@ SYMBOL = {"circulant_apply": "circulant_apply", "circulant_rk4_step": "rk4_",
 # path holds no fp32 GroupNorm kernel)
 SYMBOL_BF16 = {"fused_attention_block": "attn_block_bf16_kernel",
                "group_norm_silu": "gn_silu_kernel",
-               "group_norm_silu_bwd": "gn_silu_bwd_kernel"}
+               "group_norm_silu_bwd": "gn_silu_bwd_kernel",
+               "qkv_attention": "qkv_attention_bf16_kernel",
+               "qkv_attention_flash": "flash_fwd_bf16_kernel",
+               "qkv_attention_stats": "flash_fwd_stats_bf16_kernel",
+               "qkv_attention_bwd": "flash_bwd_bf16_kernel"}
+# K7b's bf16 entry then rounds its fp32 sums into dqkv with a second kernel
+K7B_BF16_ROUND = "dqkv_round_bf16_kernel"
 KERNEL_SYMBOLS = (*dict.fromkeys(SYMBOL.values()), "gn_silu_bwd_params",
-                  SYMBOL_BF16["fused_attention_block"])
+                  *(v for k, v in SYMBOL_BF16.items()
+                    if k == "fused_attention_block" or "qkv" in k),
+                  K7B_BF16_ROUND)
 
 
 def log(*a):
@@ -1322,7 +1368,7 @@ def train_draws(gen, sampler, g, dev):
 
 
 def train_agreement(model, per_sample, g, x, draws, want, loss_tol=1e-4,
-                    grad_tol=1e-3, exact=None):
+                    grad_tol=1e-3, exact=None, bf16_only=False):
     """On one batch with injected draws: the kernel path's loss
     (per_sample(g, x, **draws).mean(), the SSM or DSM loss) and every
     parameter gradient against the plain path's (loss within loss_tol
@@ -1336,7 +1382,9 @@ def train_agreement(model, per_sample, g, x, draws, want, loss_tol=1e-4,
     up to tens of percent of its own largest entry from the fp32 one on
     either path (they round at other places: the kernels' tangents are
     fp32 closed forms, the plain path's forward-mode AD of bf16
-    operations), so two bf16 paths cannot be compared tensor by tensor."""
+    operations), so two bf16 paths cannot be compared tensor by tensor.
+    With bf16_only, the kernel path must launch no float32 entry of the
+    attention kernels."""
     from sdeflow_tpu_torch.ops.kernels import common
 
     def loss_and_grads():
@@ -1353,8 +1401,9 @@ def train_agreement(model, per_sample, g, x, draws, want, loss_tol=1e-4,
     peak = []
     common.reset_launches()
     loss_k, grads_k = loss_and_grads()
-    if launch_counts() != want:
-        raise AssertionError(f"kernel loss launched {launch_counts()}")
+    if launch_counts() != want or (bf16_only and f32_attention_launches()):
+        raise AssertionError(f"kernel loss launched {launch_counts()}, "
+                             f"{entry_counts()}")
     common.reset_launches()
     with plain_path():
         loss_p, grads_p = loss_and_grads()
@@ -1951,10 +2000,10 @@ DRIVER_KERNELS = ("circulant_apply", "circulant_rk4_solve",
                   "group_norm_silu_bwd")
 
 
-def sgm_ssm_want():
+def sgm_ssm_want(route="auto"):
     """Launches per bare SSM step of the SGM arm: the closed-form forward
     kernel (no K1, no K2), then the MSGM step's U-Net launches."""
-    want = train_want("auto")
+    want = train_want(route)
     return dict(want, circulant_apply=0, circulant_rk4_step=0,
                 circulant_rk4_solve=0)
 
@@ -2400,32 +2449,24 @@ PROD_LOSS_TOL, PROD_GRAD_TOL = 1e-2, 3e-2
 PROD_REPLAY_TOL = 2e-2
 
 
-def prod_gen_want():
-    """K3 and K5 launches per production request (the U-Net's per forward
-    times the net evaluations); K1 is counted, not held (4 per PC step
-    predicted: the predictor's drift and noise, the corrector's drift and
-    noise)."""
+def prod_gen_want(route="auto"):
+    """The U-Net's launches per production request on an AttentionBlock
+    route (its per forward times the net evaluations; on "auto" K3 and K5,
+    on "unfused" K5 and K6, the other attention kernels and K5b none); K1
+    is counted, not held (4 per PC step predicted: the predictor's drift
+    and noise, the corrector's drift and noise)."""
     evals = PROD_EVALS_PER_STEP * PROD_STEPS
-    return {"fused_attention_block": ATTN_BLOCKS * evals,
-            "group_norm_silu": GROUP_NORMS * evals}
+    return {k: n * evals for k, n in per_forward(route).items()}
 
 
 def check_production(g, dev, card):
     """Phase 22: the bf16 SSM loss of the SGM arm with kernels against
     plain; traces of one bf16 SSM step and one 2-step PC request; then
     ``sdeflow_tpu_torch.run.main`` on grf16_production with its checks."""
-    import tempfile
-
-    import numpy as np
-
     from sdeflow_tpu_torch import build_msgm_arm, build_sgm_arm, get_preset
     from sdeflow_tpu_torch import make_sampler_fn
-    from sdeflow_tpu_torch import run as run_mod
-    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
     from sdeflow_tpu_torch.experiments import driver as drv
-    from sdeflow_tpu_torch.ops import integrators
     from sdeflow_tpu_torch.ops.hutchinson import sample_v
-    from sdeflow_tpu_torch.ops.kernels import common
 
     cfg = get_preset("grf16_production")
     tc, sw = cfg.train, cfg.sweep
@@ -2481,7 +2522,30 @@ def check_production(g, dev, card):
     log_trace(f"{PROFILED_STEPS} PC steps (EM + {PROD_CORRECTOR} corrector)"
               f" of {N_SAMPLES} samples", rec["request_profile"])
     del model, gen, pc2
+    rec.update(production_run(g, dev, card, PROD_ARGS, "auto"))
+    return rec
 
+
+def production_run(g, dev, card, args, route, replay=True):
+    """``sdeflow_tpu_torch.run.main`` with args (a grf16_production run)
+    with its checks: every kernel count set to 0 just before and read just
+    after; each arm's bf16 steps with the launches of an SSM step on the
+    AttentionBlock route, finite losses, moving parameters, parameters,
+    Adam moments and EMA in fp32; each arm's request with the route's
+    launches per net evaluation, and no float32 entry of an attention
+    kernel; with replay, the MSGM request replayed on the plain path
+    (replay_gates); the metrics."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops import integrators
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    rec = {"card": card, "args": args, "route": route}
     # (b) the CLI's run, its kernels' launches counted from 0; every
     # corrector call's step size recorded
     steps, gens, scores, corr = [], [], [], []
@@ -2494,33 +2558,45 @@ def check_production(g, dev, card):
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
-        args = [*PROD_ARGS, "--results-dir", os.path.join(tmp, "results")]
+        argv = [*args, "--results-dir", os.path.join(tmp, "results")]
         os.chdir(tmp)
         try:
+            # with replay, cuDNN's deterministic algorithms: its default
+            # backward sums in an order that varies from run to run, and so
+            # did the trained weights, the trajectories and the extremes
+            # that the replay gates compare (on an H100, eight runs read
+            # kernel - plain 0.013-0.100 of the rms, and from the fp32 run
+            # the kernel run 0.021-0.111, the plain bf16 run 0.029-0.153)
             with counted_steps(steps), spied(drv, "generate", gens), \
                     spied(drv, "score_samples", scores), \
                     swapped([(integrators, "langevin_corrector",
-                              corrector)]):
+                              corrector)] + replay * [
+                                  (torch.backends.cudnn, "deterministic",
+                                   True)]):
                 common.reset_launches()
                 t0 = time.perf_counter()
-                results = run_mod.main(args)
+                results = run_mod.main(argv)
                 torch.cuda.synchronize()
                 rec["driver_s"] = time.perf_counter() - t0
                 rec["launches"] = launch_counts()
+                rec["entry_launches"] = entry_counts()
         finally:
             os.chdir(cwd)
-    log(f"production run: {rec['driver_s']:.1f} s, launches "
+    log(f"production run ({route} route): {rec['driver_s']:.1f} s, launches "
         f"{rec['launches']}")
-    missing = [k for k in DRIVER_KERNELS if not rec["launches"][k]]
-    if missing:
-        raise AssertionError(f"the production run never launched {missing}")
+    must = [("qkv_attention" if route == "unfused"
+             and k == "fused_attention_block" else k) for k in DRIVER_KERNELS]
+    missing = [k for k in must if not rec["launches"][k]]
+    if missing or f32_attention_launches():
+        raise AssertionError(f"the production run never launched {missing}"
+                             f" or launched {f32_attention_launches()}")
 
     # (c) training: both arms in bf16, fp32 parameters, moments and EMA
     arms = {"SGM": "SGM", "MSGM": "MSGM_sparseTenslogNorm"}
     rec["train"] = {}
     for arm, sde_name in arms.items():
         mine = [r for r in steps if r["arm"] == sde_name]
-        want = train_want("auto") if arm == "MSGM" else sgm_ssm_want()
+        want = train_want(route) if arm == "MSGM" else sgm_ssm_want(route)
         if len(mine) != DRIVER_ITERATIONS:
             raise AssertionError(f"{arm}: {len(mine)} train steps")
         bad = [r["launches"] for r in mine if r["launches"] != want]
@@ -2557,7 +2633,7 @@ def check_production(g, dev, card):
         raise AssertionError(f"{len(gens)} generation runs, {len(corr)} "
                              "corrector calls")
     rec["generate"] = {}
-    want = prod_gen_want()
+    want = prod_gen_want(route)
     for i, ((arm, is_msgm), r) in enumerate(zip(
             (("SGM", False), ("MSGM", True)), gens)):
         xs = r["out"]
@@ -2587,49 +2663,39 @@ def check_production(g, dev, card):
             f"{PROD_STEPS} steps, ε {min(eps):.3g} to {max(eps):.3g}")
     # the MSGM request replayed on the plain path (same x0 and draws), and
     # on the plain path computing in fp32: bf16's own distance
-    r = gens[1]
+    if replay:
+        r = gens[1]
 
-    def replay(fp32=False):
-        replay_g = torch.Generator(device=dev)
-        replay_g.set_state(r["generator_states"][0])
-        args = list(r["args"])
-        args[1] = replay_g
-        saved = {m: m.compute_dtype for m in args[0].score_net.modules()
-                 if hasattr(m, "compute_dtype")}
-        common.reset_launches()
-        try:
-            for m in saved:
-                m.compute_dtype = torch.float32 if fp32 else saved[m]
-            with plain_path():
-                out = drv.generate(*args, **r["kwargs"])
-        finally:
-            for m, dt in saved.items():
-                m.compute_dtype = dt
-        if any(launch_counts().values()):
-            raise AssertionError(f"plain replay launched {launch_counts()}")
-        return out
+        def rerun(fp32=False):
+            replay_g = torch.Generator(device=dev)
+            replay_g.set_state(r["generator_states"][0])
+            call = list(r["args"])
+            call[1] = replay_g
+            saved = {m: m.compute_dtype for m in call[0].score_net.modules()
+                     if hasattr(m, "compute_dtype")}
+            common.reset_launches()
+            try:
+                for m in saved:
+                    m.compute_dtype = torch.float32 if fp32 else saved[m]
+                with plain_path():
+                    out = drv.generate(*call, **r["kwargs"])
+            finally:
+                for m, dt in saved.items():
+                    m.compute_dtype = dt
+            if any(launch_counts().values()):
+                raise AssertionError(
+                    f"plain replay launched {launch_counts()}")
+            return out
 
-    xp = replay()
-    x32 = replay(fp32=True)
-    rep = replay_errs(r["out"], xp, filter_blowups)
-    own = replay_errs(xp, x32, filter_blowups)  # bf16's own distance
-    kf = replay_errs(r["out"], x32, filter_blowups)
-    rec["generate"]["MSGM"].update(plain_replay=rep, bf16_against_fp32=own,
-                                   kernel_against_fp32=kf)
-    ok = rep["rel"] <= PROD_REPLAY_TOL or (
-        kf["rms_rel"] <= 1.5 * own["rms_rel"]
-        and kf["rel"] <= 1.5 * own["rel"] + PROD_REPLAY_TOL)
-    log(f"MSGM production request replayed plain on the {rep['rows_kept']} "
-        f"rows that filter_blowups keeps: max over states of max |kernel - "
-        f"plain| / rms(plain) = {rep['rel']:.3g} at state {rep['state']} "
-        f"(max |Δ| {rep['max_abs_err']:.3g}, rms {rep['rms']:.3g}; "
-        f"tolerance {PROD_REPLAY_TOL:g}); against the same request in fp32, "
-        f"max |Δ| / rms the kernel run {kf['rel']:.3g}, the plain bf16 run "
-        f"{own['rel']:.3g}; rms |Δ| / rms {kf['rms_rel']:.3g} and "
-        f"{own['rms_rel']:.3g} (kernel-plain {rep['rms_rel']:.3g}); per "
-        f"state kernel-plain {[round(v, 4) for v in rep['rel_per_state']]}")
-    if not ok:
-        raise AssertionError("production request: kernel and plain disagree")
+        xp = rerun()
+        x32 = rerun(fp32=True)
+        rep = replay_errs(r["out"], xp, filter_blowups)
+        own = replay_errs(xp, x32, filter_blowups)  # bf16's own distance
+        kf = replay_errs(r["out"], x32, filter_blowups)
+        rec["generate"]["MSGM"].update(plain_replay=rep,
+                                       bf16_against_fp32=own,
+                                       kernel_against_fp32=kf)
+        replay_gates("MSGM production request", rep, own, kf)
 
     # (e) the metrics
     for k in drv.METRICS:
@@ -2645,6 +2711,456 @@ def check_production(g, dev, card):
         log(f"{card}: production {arm}: sqrt-MMD {o['mmd'] ** 0.5:.5f}, SWD "
             f"{o['swd']:.5f} (floor {o['mmd_ref'] ** 0.5:.5f}, "
             f"{o['nan_count']} rows dropped)")
+    return rec
+
+
+# phase 23: the bf16 variants of K6, K4, K7a and K7b against their plain
+# twins: the paths' shapes (grf16's unfused blocks, the DSM step's T = 1024
+# level, the T = 4096 blocks), two heads, a head width of 128 and a ragged T
+K6_BF16_SHAPES = [(1024, 64, 64, 1), (1024, 64, 64, 4), (1024, 16, 128, 1),
+                  (128, 1024, 128, 1)]
+K4_BF16_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
+K7_BF16_SHAPES = K4_BF16_SHAPES + [(2, 1000, 64, 1)]
+# two gates, both held: within 2e-2·max |plain bf16| of the plain bf16 twin
+# (two bf16 ulps: the kernels round where the JAX kernel bodies do, the
+# twins of K6 and K4 where the JAX math versions do), and no farther from
+# the fp32 plain version on the widened bf16 inputs than 1.5× the plain
+# bf16 twin's own distance from it plus 1e-3·max (the rule of
+# tests/test_torch_bf16.py; a gate at bf16's size alone passes a kernel
+# fault of that size). K7b's dqkv is held to attention_flash_bwd_math in
+# bf16 (fp32 math rounded once on both sides: about one bf16 ulp apart) at
+# 1e-2·max. K7a's lse against the fp32 plain version's (the same fp32
+# scores, the products exact on both sides, summed in another order):
+# 1e-5, fp32 K7a's bound (phase 17), from the first readings (2.86e-6 to
+# 3.81e-6 over K7_BF16_SHAPES)
+ATTN_BF16_TOL, K7B_BF16_TOL, K7A_BF16_LSE_TOL = 2e-2, 1e-2, 1e-5
+# where the bf16 kernels are timed: K4, K7a and K7b at the long-sequence
+# block's and the DSM step's T = 4096 shapes, K6 at the DSM step's T = 1024
+# level and at grf16's two unfused shapes (path (a)'s mix)
+ATTN_BF16_LONG = [(4, 4096, 64), (SGM_BATCH, 4096, 64)]
+K6_BF16_DSM = (SGM_BATCH, 1024, 128)
+
+
+def k6_bf16_cost(b, t, c, heads):
+    # K6's work with qkv read and out written in bf16
+    _, products, other = k6_cost(b, t, c, heads)
+    return 8 * b * t * c, products, other
+
+
+def k7a_bf16_cost(b, t, c, heads):
+    # and lse written in fp32
+    nbytes, products, other = k6_bf16_cost(b, t, c, heads)
+    return nbytes + 4 * b * heads * t, products, other
+
+
+def k7b_bf16_cost(b, t, c, heads):
+    # qkv, dO read and dqkv written in bf16, lse and Δ read in fp32; the
+    # five products once (the split of P and dS into two bf16 halves is the
+    # kernel's choice, not the function's work)
+    _, products, other = k7b_cost(b, t, c, heads)
+    return 2 * b * t * 7 * c + 8 * b * heads * t, products, other
+
+
+def entry_counts():
+    """Launches per C entry point of every kernel since the last reset."""
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    return {e: n for k in common.KERNELS.values()
+            for e, n in k.entry_launches.items()}
+
+
+def f32_attention_launches():
+    """The float32 entries of K6, K4, K7a and K7b that launched since the
+    last reset (none on a bf16 path)."""
+    return {e: n for e, n in entry_counts().items()
+            if e.startswith("qkv_attention") and e.endswith("_f32") and n}
+
+
+def bf16_gates(name, out, plain, fp32, tol):
+    """Both gates of phase 23; (distance from the plain bf16 twin, from
+    the fp32 plain, the plain twin's own from it), relative to the max."""
+    out, plain = out.float(), plain.float()
+    scale, scale32 = plain.abs().max().item(), fp32.abs().max().item()
+    err = (out - plain).abs().max().item() / scale
+    mine = (out - fp32).abs().max().item() / scale32
+    theirs = (plain - fp32).abs().max().item() / scale32
+    ok = (bool(torch.isfinite(out).all()) and err <= tol
+          and mine <= 1.5 * theirs + 1e-3)
+    log(f"  {name}: max |kernel - plain bf16| / max = {err:.3g} (tolerance "
+        f"{tol:g}); from the fp32 plain: kernel {mine:.3g}, plain bf16 "
+        f"{theirs:.3g} (the kernel's bound {1.5 * theirs + 1e-3:.3g})")
+    if not ok:
+        raise AssertionError(f"bf16 {name} disagrees with its plain twin")
+    return err, mine, theirs
+
+
+def check_attention_bf16(g, dev):
+    """Phase 23: the bf16 entries of K6, K4, K7a and K7b against their
+    plain twins (both gates; TF32 off, and the plain twins' bf16 products
+    summed in fp32), then their times per call through the Function and as
+    direct launches beside the plain twins, SDPA in bf16 (forward;
+    backward for K7b) and the bounds (bf16 products at 989 TFLOP/s)."""
+    from sdeflow_tpu_torch.ops.kernels import attention as ak
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    errs = collections.defaultdict(float)
+
+    def note(name, e):
+        errs[name] = max(errs[name], e[0])
+        errs[name + "_from_fp32"] = max(errs[name + "_from_fp32"], e[1])
+        errs[name + "_plain_from_fp32"] = max(
+            errs[name + "_plain_from_fp32"], e[2])
+
+    def draw(b, t, c, scale=1.5):
+        return (scale * torch.randn(b, t, c, generator=g, device=dev)).to(bf)
+
+    entries0 = entry_counts()
+    with torch.no_grad():
+        for b, t, c, heads in K6_BF16_SHAPES + K4_BF16_SHAPES:
+            name = "K4" if t > 1024 else "K6"
+            qkv = draw(b, t, 3 * c)
+            out = ak._launch(qkv, heads)
+            torch.cuda.synchronize()
+            log(f"bf16 {name} ({b}, {t}, {c}) heads={heads}:")
+            note(name, bf16_gates(name, out, ak.attention_reference(
+                qkv, heads), ak.attention_reference(qkv.float(), heads),
+                ATTN_BF16_TOL))
+            del qkv, out
+        for b, t, c, heads in K7_BF16_SHAPES:
+            qkv, dout = draw(b, t, 3 * c), draw(b, t, c, 1.0)
+            out, lse = ak._launch_stats(qkv, heads)
+            torch.cuda.synchronize()
+            out_p, _ = ak.attention_flash_stats_math(qkv, heads)
+            out32, lse32 = ak.attention_flash_stats_math(qkv.float(), heads)
+            log(f"bf16 K7a/K7b ({b}, {t}, {c}) heads={heads}:")
+            note("K7a", bf16_gates("K7a", out, out_p, out32, ATTN_BF16_TOL))
+            e_lse = (lse - lse32).abs().max().item()
+            errs["K7a_lse"] = max(errs["K7a_lse"], e_lse)
+            log(f"  K7a lse: max |kernel - fp32 plain| = {e_lse:.3g} "
+                f"(tolerance {K7A_BF16_LSE_TOL:g})")
+            if not e_lse <= K7A_BF16_LSE_TOL:
+                raise AssertionError(f"bf16 K7a's lse: {e_lse}")
+            delta = (ak._heads(dout, heads).float()
+                     * ak._heads(out_p, heads).float()).sum(-1)
+            dqkv = ak._launch_bwd(qkv, dout, lse32, delta, heads)
+            torch.cuda.synchronize()
+            note("K7b", bf16_gates(
+                "K7b", dqkv,
+                ak.attention_flash_bwd_math(qkv, dout, lse32, delta, heads),
+                ak.attention_flash_bwd_math(qkv.float(), dout.float(), lse32,
+                                            delta, heads), K7B_BF16_TOL))
+            del qkv, dout, out, lse, out_p, out32, lse32, delta, dqkv
+    launched = {e: n - entries0[e] for e, n in entry_counts().items()}
+    want = {"qkv_attention_bf16": len(K6_BF16_SHAPES),
+            "qkv_attention_flash_bf16": len(K4_BF16_SHAPES),
+            "qkv_attention_stats_bf16": len(K7_BF16_SHAPES),
+            "qkv_attention_bwd_bf16": len(K7_BF16_SHAPES)}
+    if {e: launched[e] for e in want} != want or f32_attention_launches():
+        raise AssertionError(f"phase 23 launched {launched}")
+
+    # times: K6 at grf16's unfused shapes and the DSM step's T = 1024
+    rows = {"k6": [], "k4": [], "k7a": [], "k7b": []}
+    for b, t, c in [s[:3] for s in K6_BF16_SHAPES if s[3] == 1]:
+        qkv = draw(b, t, 3 * c)
+        q, k, v = sdpa_args(qkv, 1)
+        iters = 50 if b * t * t <= 2**24 else 10
+        bound, by = bound_bf16_ms(*k6_bf16_cost(b, t, c, 1))
+        with torch.no_grad():
+            rows["k6"].append({
+                "shape": [b, t, c], "heads": 1,
+                "ms": cuda_ms(lambda: ak.qkv_attention(qkv, 1), iters),
+                "direct_ms": cuda_ms(lambda: ak._launch(qkv, 1), iters),
+                "plain_ms": cuda_ms(lambda: ak.attention_math(qkv, 1), iters),
+                "library_ms": cuda_ms(lambda: sdpa(q, k, v), iters),
+                "bound_ms": bound, "bound_by": by})
+        del qkv, q, k, v
+    # K4, K7a and K7b at T = 4096
+    for b, t, c in ATTN_BF16_LONG:
+        few = b > 16
+        it_f, it_b, it_p = (5, 3, 2) if few else (50, 20, 5)
+        qkv, dout = draw(b, t, 3 * c), draw(b, t, c, 1.0)
+        x = qkv.detach().requires_grad_()
+        y = ak.flash_attention_vjp(x, 1)
+        q, k, v = (a.requires_grad_() for a in sdpa_args(qkv, 1))
+        o = sdpa(q, k, v)
+        do = ak._heads(dout, 1).contiguous()
+        with torch.no_grad():
+            out, lse = ak._launch_stats(qkv, 1)
+            delta = (ak._heads(dout, 1).float()
+                     * ak._heads(out, 1).float()).sum(-1)
+            lib_fwd = cuda_ms(lambda: sdpa(q, k, v), it_f, 1)
+            for key, cost, fn, direct, plain in [
+                    ("k4", k6_bf16_cost, lambda: ak.qkv_attention(qkv, 1),
+                     lambda: ak._launch(qkv, 1),
+                     lambda: ak.attention_flash_math(qkv, 1)),
+                    ("k7a", k7a_bf16_cost,
+                     lambda: ak.flash_attention_vjp(qkv, 1),
+                     lambda: ak._launch_stats(qkv, 1),
+                     lambda: ak.attention_flash_stats_math(qkv, 1))]:
+                bound, by = bound_bf16_ms(*cost(b, t, c, 1))
+                rows[key].append({
+                    "shape": [b, t, c], "heads": 1,
+                    "ms": cuda_ms(fn, it_f, 1),
+                    "direct_ms": cuda_ms(direct, it_f, 1),
+                    "plain_ms": cuda_ms(plain, it_p, 1),
+                    "library_ms": lib_fwd, "bound_ms": bound, "bound_by": by})
+            bound, by = bound_bf16_ms(*k7b_bf16_cost(b, t, c, 1))
+            r7b = {
+                "shape": [b, t, c], "heads": 1,
+                "direct_ms": cuda_ms(lambda: ak._launch_bwd(
+                    qkv, dout, lse, delta, 1), it_b, 1),
+                "plain_ms": cuda_ms(lambda: ak.attention_flash_bwd_math(
+                    qkv, dout, lse, delta, 1), it_p, 1),
+                "bound_ms": bound, "bound_by": by}
+        r7b["ms"] = cuda_ms(lambda: torch.autograd.grad(
+            y, x, dout, retain_graph=True), it_b, 1)
+        r7b["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), do, retain_graph=True), it_b, 1)
+        rows["k7b"].append(r7b)
+        del qkv, dout, x, y, q, k, v, o, do, out, lse, delta
+    mm.allow_bf16_reduced_precision_reduction = reduced
+    for key, shapes in rows.items():
+        for r in shapes:
+            log(f"bf16 {key.upper()} at {r['shape']}: {r['ms']:.4f} ms per "
+                f"call (direct {r['direct_ms']:.4f}), plain "
+                f"{r['plain_ms']:.4f}, SDPA bf16 {r['library_ms']:.4f}, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return dict(rows, max_errs=dict(errs))
+
+
+# phase 24: the grf U-Net at 128×128 in bf16 (phase 18's cell with the
+# production preset's score-net knobs: bf16 compute, eps) trained by DSM at
+# batch 128 and served by a reduced no-grad request at batch 16 (4 EM steps
+# and one corrector step each; the model at full width)
+DSM_BF16_REQUEST, DSM_BF16_STEPS = 16, 4
+# the production replay's gate on its first predictor-corrector step: max
+# |kernel − plain| / rms of the state after one step (the MSGM replays
+# read 3e-4 to 4e-4 there on an H100; a bf16 ulp of the largest entry is
+# ~10× that). Phase 24's reduced request takes 4 steps, so its first step
+# carries a quarter of the way, and after it the plain bf16 run itself
+# lay 0.046-0.054 of the rms from the fp32 run on an H100: it
+# holds its first step relatively instead, the kernel run no farther from
+# the fp32 run than 1.5× the plain bf16 run at that state
+PROD_FIRST_STEP_TOL = 2e-3
+
+
+def replay_gates(what, rep, own, kf, first_absolute=True):
+    """The production request's replay gates (phase 22's): kernel − plain
+    within PROD_REPLAY_TOL of each state's rms, or the kernel run no
+    farther from the fp32 run than 1.5× the plain bf16 run; and, held
+    besides, after the first predictor-corrector step, kernel − plain
+    within PROD_FIRST_STEP_TOL (first_absolute) or the kernel run no
+    farther from the fp32 run than 1.5× the plain bf16 run there."""
+    first = rep["rel_per_state"][1]
+    first_ok = (first <= PROD_FIRST_STEP_TOL if first_absolute else
+                kf["rel_per_state"][1] <= 1.5 * own["rel_per_state"][1])
+    held = ("" if first_absolute else
+            f"; held instead: from fp32 there the kernel run "
+            f"{kf['rel_per_state'][1]:.3g}, the plain bf16 run "
+            f"{own['rel_per_state'][1]:.3g}")
+    log(f"{what} replayed plain on the {rep['rows_kept']} rows that "
+        f"filter_blowups keeps: max over states of max |kernel - plain| / "
+        f"rms(plain) = {rep['rel']:.3g} at state {rep['state']} (max |Δ| "
+        f"{rep['max_abs_err']:.3g}, rms {rep['rms']:.3g}; tolerance "
+        f"{PROD_REPLAY_TOL:g}), after the first step {first:.3g} (tolerance "
+        f"{PROD_FIRST_STEP_TOL:g}{held}); against the same request in fp32, "
+        f"max |Δ| / rms the kernel run {kf['rel']:.3g}, the plain bf16 run "
+        f"{own['rel']:.3g}; rms |Δ| / rms {kf['rms_rel']:.3g} and "
+        f"{own['rms_rel']:.3g} (kernel-plain {rep['rms_rel']:.3g}); per "
+        f"state kernel-plain {[round(v, 5) for v in rep['rel_per_state']]}")
+    ok = rep["rel"] <= PROD_REPLAY_TOL or (
+        kf["rms_rel"] <= 1.5 * own["rms_rel"]
+        and kf["rel"] <= 1.5 * own["rel"] + PROD_REPLAY_TOL)
+    if not (ok and first_ok):
+        raise AssertionError(
+            f"{what}: kernel and plain disagree (whole run "
+            f"{'held' if ok else 'failed'}: kernel-plain {rep['rel']:.3g}, "
+            f"from fp32 kernel {kf['rel']:.3g} / {kf['rms_rel']:.3g} rms, "
+            f"plain bf16 {own['rel']:.3g} / {own['rms_rel']:.3g} rms; first "
+            f"step {'held' if first_ok else 'failed'}: kernel-plain "
+            f"{first:.3g}, from fp32 kernel {kf['rel_per_state'][1]:.3g}, "
+            f"plain bf16 {own['rel_per_state'][1]:.3g})")
+
+
+def bf16_dsm_arm(g, dev):
+    """The SGM arm of _grf(128) with the production preset's score-net
+    knobs (bf16 compute, eps) and random weights; its train config and
+    sampler as sgm_arm's."""
+    from sdeflow_tpu_torch import build_sgm_arm
+    from sdeflow_tpu_torch.configs import _grf
+    from sdeflow_tpu_torch.experiments.driver import make_sampler
+
+    cfg = _grf(SGM_NPIXEL)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype="bfloat16", parameterization="eps"))
+    model, gen = build_sgm_arm(cfg, g, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():
+        model.core.conv_out.weight.mul_(0.1)
+    return cfg, model, gen, make_sampler(cfg, SGM_NPIXEL**2, dev)
+
+
+def dsm_bf16_request_want():
+    """Launches of the reduced request: per net evaluation the U-Net's 46
+    GroupNorms, its 5 blocks at T = 4096 (K4) and 6 at T = 1024 (K6)."""
+    evals = PROD_EVALS_PER_STEP * DSM_BF16_STEPS
+    blocks = {t: n for (_, t), n in SGM_BLOCKS.items()}
+    return {"group_norm_silu": 46 * evals,
+            "qkv_attention_flash": blocks[4096] * evals,
+            "qkv_attention": blocks[1024] * evals}
+
+
+def check_dsm_bf16(g, dev, card, fp32_peak=None):
+    """Phase 24: the bf16 grf U-Net at 128×128: the DSM loss and every
+    gradient, kernel path against plain on one batch of 8; two Trainer
+    steps; 5 timed bare steps at batch 128 with exact launches and peak
+    memory; one traced step; the reduced no-grad request with its exact
+    launches, a trace, and a replay on the plain path (bf16 and fp32)."""
+    from sdeflow_tpu_torch import Trainer, get_preset, make_sampler_fn
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    cfg, model, gen, sampler = bf16_dsm_arm(g, dev)
+    tc, dim = cfg.train, SGM_NPIXEL**2
+    want = {k: SGM_WANT.get(k, 0) for k in common.KERNELS}
+    log(f"bf16 SGM arm of grf{SGM_NPIXEL}: compute {tc.compute_dtype}, "
+        f"parameterization {tc.parameterization}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+
+    # (a) the kernel path against the plain path on one batch of 8, each
+    # measured against the same loss's gradients in fp32
+    b = SGM_AGREE_BATCH
+    x = sampler.sample(g, b)
+    draws = dict(t=gen.sample_t(g, b),
+                 noise=torch.randn(b, dim, generator=g, device=dev))
+    fp32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        tc, compute_dtype="float32"))
+    model32 = drv.make_model(fp32, dim, None, device=dev)
+    model32.load_state_dict(model.state_dict())
+    gen32 = dataclasses.replace(gen, score_net=model32)
+    with plain_path():
+        gen32.dsm(g, x, **draws).mean().backward()
+    exact = {n: p.grad.detach().clone()
+             for n, p in model32.named_parameters()}
+    del model32, gen32
+    common.reset_launches()
+    rec = {"agreement": train_agreement(
+        model, gen.dsm, g, x, draws, want, PROD_LOSS_TOL, PROD_GRAD_TOL,
+        exact, bf16_only=True)}
+
+    # (b) the Trainer: two DSM steps with ELBO prints
+    t0 = time.perf_counter()
+    trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
+                      loss="dsm", log_fn=log)
+    state, loss = trainer.run(g, 2, x_test=sampler.sample(g, SGM_BATCH))
+    torch.cuda.synchronize()
+    rec["trainer_s"] = time.perf_counter() - t0
+    if not (state.step == 2 and math.isfinite(loss)
+            and all(math.isfinite(h["elbo"]) for h in trainer.history)):
+        raise AssertionError(f"bf16 SGM Trainer: step {state.step}, {loss},"
+                             f" {trainer.history}")
+
+    def step():
+        return trainer.train_step(trainer.state, g,
+                                  sampler.sample(g, SGM_BATCH))[1]
+
+    # (c) timed bare steps at batch 128, bf16 entries only
+    rec.update(timed_train_steps(step, model, SGM_TIMED_STEPS, want,
+                                 SGM_BATCH))
+    if f32_attention_launches():
+        raise AssertionError(f"bf16 DSM steps: {f32_attention_launches()}")
+    dtypes = {str(p.dtype) for p in model.parameters()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"parameters {dtypes}")
+    log(f"{card}: bf16 DSM step at batch {SGM_BATCH}: "
+        f"{rec['ms_per_step']:.1f} ms, peak "
+        f"{rec['max_memory_allocated'] / 2**20:.1f} MiB (fp32, phase 18: "
+        + ("not run)" if fp32_peak is None else
+           f"{fp32_peak / 2**20:.1f} MiB)"))
+
+    # (d) where one bf16 DSM step's time goes
+    rec["profile"] = trace(step)
+    log_trace(f"one bf16 DSM step at batch {SGM_BATCH}", rec["profile"])
+
+    # (e) the no-grad request: EM with one corrector step, the production
+    # preset's knobs, reduced to batch 16 and 4 steps
+    sw = get_preset("grf16_production").sweep
+    sample = make_sampler_fn(gen, DSM_BF16_REQUEST, dim, DSM_BF16_STEPS,
+                             method=sw.backward_method, keep_all=True,
+                             include_t0=True,
+                             corrector_steps=sw.corrector_steps, snr=sw.snr,
+                             device=dev)
+    state0 = g.get_state()
+    common.reset_launches()
+    r = timed_call(sample, g)
+    xs = r["out"]
+    req_want = dsm_bf16_request_want()
+    got = {k: r["launches"][k] for k in common.KERNELS}
+    if (got != {k: req_want.get(k, 0) for k in got}
+            or f32_attention_launches() or not torch.isfinite(xs).all()
+            or tuple(xs.shape) != (DSM_BF16_STEPS + 1, DSM_BF16_REQUEST,
+                                   dim)):
+        raise AssertionError(f"bf16 request: launches {got}, "
+                             f"{f32_attention_launches()}, "
+                             f"{tuple(xs.shape)}")
+    rec["request"] = dict(ms=r["ms"], peak=r["peak"], launches=got)
+    log(f"{card}: bf16 request of {DSM_BF16_REQUEST} samples x "
+        f"{DSM_BF16_STEPS} EM steps + {sw.corrector_steps} corrector step: "
+        f"{r['ms']:.1f} ms, launches {got}")
+    rec["request_profile"] = trace(lambda: sample(g))
+    log_trace(f"the bf16 request ({DSM_BF16_REQUEST} x {DSM_BF16_STEPS} PC "
+              "steps)", rec["request_profile"])
+
+    def replay(fp32=False):
+        replay_g = torch.Generator(device=dev)
+        replay_g.set_state(state0)
+        saved = {m: m.compute_dtype for m in model.modules()
+                 if hasattr(m, "compute_dtype")}
+        common.reset_launches()
+        try:
+            for m in saved:
+                m.compute_dtype = torch.float32 if fp32 else saved[m]
+            with plain_path():
+                out = sample(replay_g)
+        finally:
+            for m, dt in saved.items():
+                m.compute_dtype = dt
+        if any(launch_counts().values()):
+            raise AssertionError(f"plain replay launched {launch_counts()}")
+        return out
+
+    xp = replay()
+    x32 = replay(fp32=True)
+    rep = replay_errs(xs, xp, filter_blowups)
+    own = replay_errs(xp, x32, filter_blowups)
+    kf = replay_errs(xs, x32, filter_blowups)
+    rec["request"].update(plain_replay=rep, bf16_against_fp32=own,
+                          kernel_against_fp32=kf)
+    replay_gates("the bf16 request", rep, own, kf, first_absolute=False)
+    return rec
+
+
+# phase 25: the grf16_production preset on the unfused route through the
+# CLI: every AttentionBlock module by module, its core the bf16 K6 (no K3)
+PROD_UNFUSED_ARGS = [*PROD_ARGS, "--attention-impl", "unfused"]
+
+
+def check_production_unfused(g, dev, card):
+    """Phase 25: ``sdeflow_tpu_torch.run.main`` on grf16_production with
+    ``--attention-impl unfused``, with production_run's checks on the
+    unfused route: per bf16 SSM step K5 46, K5b 46 and K6 11 (MSGM: K1 5,
+    K2's solve 1), per request K5 92·32 and K6 22·32 (MSGM: K1 counted),
+    no K3 and no float32 entry of an attention kernel."""
+    rec = production_run(g, dev, card, PROD_UNFUSED_ARGS, "unfused",
+                         replay=False)
+    if rec["launches"]["fused_attention_block"]:
+        raise AssertionError(f"the unfused run launched K3: "
+                             f"{rec['launches']}")
     return rec
 
 
@@ -2685,6 +3201,15 @@ def k7_timing(g, dev, record):
                                       SGM_BATCH)
 
 
+def bf16_unfused_phases(card, fp32_peak=None):
+    """Phases 23-25 as (label, record key, fn(g, dev))."""
+    return [("23", "attention_bf16", check_attention_bf16),
+            ("24", "dsm_bf16", lambda g, dev: check_dsm_bf16(
+                g, dev, card, fp32_peak)),
+            ("25", "production_unfused", lambda g, dev:
+             check_production_unfused(g, dev, card))]
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2696,13 +3221,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
-    ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7"),
+    ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
+                                       "unfused_bf16"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
                     "on grf16; bf16 runs phases 21 and 22, the bf16 kernels "
                     "and the grf16_production preset; k7 times K7a, K7b and "
-                    "the DSM step (k7_timing)")
+                    "the DSM step (k7_timing); unfused_bf16 runs phases 23, "
+                    "24 and 25, the bf16 attention kernels, the bf16 grf "
+                    "U-Net at 128x128 and grf16_production on the unfused "
+                    "route")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2754,6 +3283,12 @@ def main(argv=None):
                                 "NormalizeLogRadius", device=dev), dev)
         record["bf16"] = check_bf16_kernels(g, dev, mix)
         record["production"] = check_production(g, dev, card)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "unfused_bf16":
+        for label, key, fn in bf16_unfused_phases(card):
+            phase(label)
+            record[key] = fn(g, dev)
         write_record(opts.record, record)
         return 0
 
@@ -2939,6 +3474,15 @@ def main(argv=None):
     record["production"] = prod
     prod_k = prod["launches"]
 
+    # -- 23-25. bf16 on the unfused route: the kernels, the grf U-Net at
+    # 128×128 (DSM training, a request), grf16_production through the CLI
+    for label, key, fn in bf16_unfused_phases(
+            card, sgm["max_memory_allocated"]):
+        phase(label)
+        record[key] = fn(g, dev)
+    attn16, dsm16 = record["attention_bf16"], record["dsm_bf16"]
+    prod_u = record["production_unfused"]
+
     phase("table")
     # -- the kernel table ----------------------------------------------------
     k3_rows = list(k3.values())
@@ -3110,6 +3654,70 @@ def main(argv=None):
         k["driver_launches"] = drive[k["name"]]
         k["production_launches"] = (0 if k["name"] in bf16_of
                                     else prod_k[k["name"]])
+    # the bf16 variants of the unfused route's attention kernels: launches
+    # on path (a) (phase 25's production run on the unfused route) and path
+    # (b) (phase 24: per bf16 DSM step and in the reduced request); device
+    # time from phase 24's traces
+    entries = prod_u["entry_launches"]
+    dsm_step = dsm16["launches_per_step"]
+    dsm_req = dsm16["request"]["launches"]
+    per_step_ms = dsm16["profile"]["per_launch_ms"]
+    req_ms = dsm16["request_profile"]["per_launch_ms"]
+
+    def by_shape(rows, shape):
+        return next(r for r in rows if r["shape"] == list(shape))
+
+    k6_mix = [dict(r, calls_per_forward=BLOCK_MIX[tuple(r["shape"][1:])])
+              for r in attn16["k6"] if tuple(r["shape"][1:]) in BLOCK_MIX]
+    long_rows = {k: (by_shape(attn16[k], ATTN_BF16_LONG[0]),
+                     by_shape(attn16[k], ATTN_BF16_LONG[1]))
+                 for k in ("k4", "k7a", "k7b")}
+    errs16 = attn16["max_errs"]
+    kernels += [
+        dict(mixed(k6_mix), name="qkv_attention_bf16", id="K6 bf16",
+             counter="qkv_attention",
+             dsm_shape=dict(by_shape(attn16["k6"], K6_BF16_DSM),
+                            launches_per_step=dsm_step["qkv_attention"],
+                            device_ms=per_step_ms.get(
+                                SYMBOL_BF16["qkv_attention"])),
+             max_abs_err=errs16["K6"], source="sdeflow_tpu_torch/csrc/"
+             "attention.cu", launches=entries["qkv_attention_bf16"],
+             launches_per="grf16_production run on the unfused route "
+             "(phase 25: both arms' 8 bf16 SSM steps, ELBO prints and one "
+             "request each)",
+             dsm_launches_per_step=dsm_step["qkv_attention"],
+             dsm_request_launches=dsm_req["qkv_attention"],
+             device_ms=req_ms.get(SYMBOL_BF16["qkv_attention"])),
+        dict(long_rows["k4"][0], name="qkv_attention_flash_bf16",
+             id="K4 bf16", counter="qkv_attention_flash",
+             dsm_shape=long_rows["k4"][1], max_abs_err=errs16["K4"],
+             source="sdeflow_tpu_torch/csrc/flash_fwd.cu",
+             launches=dsm_req["qkv_attention_flash"],
+             launches_per=f"bf16 request of the grf U-Net at {SGM_NPIXEL}x"
+             f"{SGM_NPIXEL} (phase 24: {DSM_BF16_REQUEST} samples, "
+             f"{DSM_BF16_STEPS} EM steps and one corrector step each)",
+             device_ms=req_ms.get(SYMBOL_BF16["qkv_attention_flash"])),
+        *[dict(long_rows[key][0], name=f"{name}_bf16", id=f"{i} bf16",
+               counter=name, dsm_shape=long_rows[key][1],
+               max_abs_err=errs16[i], source=f"sdeflow_tpu_torch/csrc/{src}",
+               launches=dsm_step[name],
+               launches_per=f"bf16 DSM train step (grf U-Net, {SGM_NPIXEL}"
+               f"x{SGM_NPIXEL}, batch {SGM_BATCH}; phase 24)",
+               device_ms=sum(per_step_ms.get(sym, 0) for sym in syms),
+               device_shape=[SGM_BATCH, 4096, 64])
+          for i, key, name, src, syms in [
+              ("K7a", "k7a", "qkv_attention_stats", "flash_fwd.cu",
+               [SYMBOL_BF16["qkv_attention_stats"]]),
+              ("K7b", "k7b", "qkv_attention_bwd", "attention_bwd.cu",
+               [SYMBOL_BF16["qkv_attention_bwd"], K7B_BF16_ROUND])]],
+    ]
+    k7a16 = kernels[-2]
+    k7a16["lse_max_abs_err"] = errs16["K7a_lse"]
+    for k in kernels[-4:]:
+        k.update(route="cuda", driver_launches=0, production_launches=0,
+                 unfused_production_launches=entries[k["name"]],
+                 replaces=next(r["replaces"] for r in kernels
+                               if r["id"] == k["id"].split()[0]))
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

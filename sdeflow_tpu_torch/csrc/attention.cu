@@ -42,6 +42,24 @@
 // SM at head width 128, and each k-step's score products in a fresh
 // accumulator (one chain of 16 k-steps puts the output about 1e-5 from
 // float64 there).
+//
+// bfloat16 (qkv_attention_bf16; the score net's bf16 compute on the
+// unfused route, T <= 1024): qkv and out bf16, with the rounding points of
+// the JAX kernel body _attn_kernel on bf16 qkv (:124-142): the scale a
+// float32 scalar, so the scores are the fp32 sums of the exact bf16
+// products of the raw q and k times s^2; the softmax in fp32 and the
+// normalised weights rounded to bf16 for P V; P V accumulated in fp32 and
+// rounded to bf16 once. All products on mma.sync m16n8k16 with bf16
+// operands (mma_bf16.cuh). Up to T = 64 each unit is whole in shared
+// memory as above, Q and K rows of w + 8 bf16 and V transposed (w rows of
+// T rounded up to 16, + 8; w = ch rounded up to 16), loaded 8 channels a
+// thread where ch % 8 == 0; attn_tile.cuh's bf16 attend16 takes the
+// softmax in two passes over the one key tile, so that p is normalised
+// before it is rounded. Above T = 64, flash_fwd.cuh's bf16 body in its K6
+// variant (two passes over 64-key tiles, the second recomputing the
+// scores). Bound: bytes at the short sequences (half the float32 bytes:
+// 0.010 and 0.005 ms at (1024, 64, 64) and (1024, 16, 128)), the products
+// once over 989 TFLOP/s dense bf16 at (128, 1024, 128) (0.069 ms).
 
 #include <math.h>
 
@@ -149,6 +167,107 @@ qkv_attention_kernel_tiled(const float* __restrict__ qkv,
                                         scale2, vec);
 }
 
+int short_smem_bytes_bf16(int T, int w) {
+  const int tp = round_up(T, 16);
+  return 2 * units_per_block(T) *
+         (2 * tp * (w + bfm::kPadBf) + w * (tp + bfm::kPadBf));
+}
+
+template <int NT, int NO>
+__global__ void __launch_bounds__(kThreads, 3)
+qkv_attention_bf16_kernel(const bfm::bf16* __restrict__ qkv,
+                          bfm::bf16* __restrict__ out, long long units,
+                          int T, int heads, int ch, int w, float scale2,
+                          bool vec, bool pairs) {
+  using bfm::bf16;
+  extern __shared__ __align__(16) float smem[];
+  bf16* sm = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tp = round_up(T, 16), ld = w + bfm::kPadBf, ldv = tp + bfm::kPadBf;
+  const int upb = units_per_block(T), mtiles = tp / 16;
+  const int unit_elems = 2 * tp * ld + w * ldv;  // Q, K rows, then V^T
+  const long long u0 = (long long)blockIdx.x * upb;
+  const int nu = (int)min((long long)upb, units - u0);
+  const long long C = (long long)heads * ch, C3 = 3 * C;
+
+  // every unit's Q and K rows and V^T (zero past T and past ch): item i is
+  // (unit, row, chunk of cw channels); 16-byte loads where vec
+  const int cw = vec ? 8 : 1, chunks = w / cw, per_unit = tp * chunks;
+  for (int i = tid; i < nu * per_unit; i += kThreads) {
+    const int uu = i / per_unit, rem = i - uu * per_unit;
+    const int r = rem / chunks, c = (rem - r * chunks) * cw;
+    bf16* qd = sm + uu * unit_elems + r * ld + c;
+    bf16* kd = qd + tp * ld;
+    bf16* vd = sm + uu * unit_elems + 2 * tp * ld + c * ldv + r;
+    const long long unit = u0 + uu, b = unit / heads;
+    const bool ok = r < T && c < ch;
+    const bf16* src = qkv + (b * T + r) * C3 + (unit - b * heads) * 3 * ch + c;
+    if (vec) {
+      uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
+      if (ok) {
+        q = *reinterpret_cast<const uint4*>(src);
+        k = *reinterpret_cast<const uint4*>(src + ch);
+        v = *reinterpret_cast<const uint4*>(src + 2 * ch);
+      }
+      *reinterpret_cast<uint4*>(qd) = q;
+      *reinterpret_cast<uint4*>(kd) = k;
+      const bf16* vv = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vd[e * ldv] = vv[e];
+    } else {
+      const bf16 z = __float2bfloat16(0.f);
+      *qd = ok ? src[0] : z;
+      *kd = ok ? src[ch] : z;
+      *vd = ok ? src[2 * ch] : z;
+    }
+  }
+  __syncthreads();
+
+  const int u = warp / mtiles;
+  if (u >= nu) return;
+  const bf16* qs = sm + u * unit_elems;
+  const long long unit = u0 + u, b = unit / heads;
+  bf16* ob = out + b * T * C + (unit - b * heads) * ch;  // row t at + t*C
+  bfm::attend16<NT, NO>(
+      qs, qs + tp * ld, ld, qs + 2 * tp * ld, ldv, T, tp, w, scale2,
+      (warp % mtiles) * 16, 0, round_up(w, 8 * NO),
+      [&](int r, int c, float v0, float v1) {
+        if (r >= T || c >= ch) return;
+        bf16* o = ob + (long long)r * C + c;
+        if (pairs) {  // c + 1 < ch, 4-byte aligned
+          *reinterpret_cast<__nv_bfloat162*>(o) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          o[0] = __float2bfloat16_rn(v0);
+          if (c + 1 < ch) o[1] = __float2bfloat16_rn(v1);
+        }
+      });
+}
+
+template <int W>
+__global__ void __launch_bounds__(flash::kThreads)
+qkv_attention_bf16_kernel_tiled(const bfm::bf16* __restrict__ qkv,
+                                bfm::bf16* __restrict__ out, int T, int heads,
+                                int ch, float scale2, bool vec) {
+  flash::flash_fwd_bf16_body<W, false, true>(qkv, out, nullptr, T, heads, ch,
+                                             scale2, vec);
+}
+
+template <int NT, int NO>
+int launch_short_bf16(const bfm::bf16* qkv, bfm::bf16* out, long long B,
+                      int T, int heads, int ch, int w, int smem, float s2,
+                      bool vec, cudaStream_t stream) {
+  auto kernel = qkv_attention_bf16_kernel<NT, NO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = B * heads, upb = units_per_block(T);
+  const bool pairs = ch % 2 == 0 && ((uintptr_t)out & 3) == 0;
+  kernel<<<(unsigned int)((units + upb - 1) / upb), kThreads, smem, stream>>>(
+      qkv, out, units, T, heads, ch, w, s2, vec, pairs);
+  return (int)cudaGetLastError();
+}
+
 template <int NT, int NO>
 int launch_short(const float* qkv, float* out, long long B, int T, int heads,
                  int ch, int w, int smem, float s2, bool vec,
@@ -201,4 +320,39 @@ extern "C" int qkv_attention_f32(const float* qkv, float* out, long long B,
                                       vec, st)
                  : launch_short<8, 8>(qkv, out, B, T, heads, ch, w, smem, s2,
                                       vec, st);
+}
+
+// The bf16 entry: qkv and out bf16; smem as attention.py smem_bytes(T, ch,
+// torch.bfloat16) computes it, refused if this file computes another.
+extern "C" int qkv_attention_bf16(const bfm::bf16* qkv, bfm::bf16* out,
+                                  long long B, int T, int heads, int ch,
+                                  int smem, float scale, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const bool vec = ch % 8 == 0 && flash::aligned16(qkv);
+  const float s2 = scale * scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T > kShortT) {
+    if (ch <= 32)
+      return flash::launch_bf<32>(qkv_attention_bf16_kernel_tiled<32>, B, T,
+                                  heads, smem, st, qkv, out, T, heads, ch,
+                                  s2, vec);
+    if (ch <= 64)
+      return flash::launch_bf<64>(qkv_attention_bf16_kernel_tiled<64>, B, T,
+                                  heads, smem, st, qkv, out, T, heads, ch,
+                                  s2, vec);
+    return flash::launch_bf<128>(qkv_attention_bf16_kernel_tiled<128>, B, T,
+                                 heads, smem, st, qkv, out, T, heads, ch, s2,
+                                 vec);
+  }
+  const int w = round_up(ch, 16);
+  if (smem != short_smem_bytes_bf16(T, w)) return (int)cudaErrorInvalidValue;
+  if (T <= 16)
+    return w <= 16 ? launch_short_bf16<2, 2>(qkv, out, B, T, heads, ch, w,
+                                             smem, s2, vec, st)
+                   : launch_short_bf16<2, 8>(qkv, out, B, T, heads, ch, w,
+                                             smem, s2, vec, st);
+  return w <= 16 ? launch_short_bf16<8, 2>(qkv, out, B, T, heads, ch, w, smem,
+                                           s2, vec, st)
+                 : launch_short_bf16<8, 8>(qkv, out, B, T, heads, ch, w, smem,
+                                           s2, vec, st);
 }

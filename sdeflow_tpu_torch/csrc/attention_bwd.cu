@@ -65,9 +65,39 @@
 // s and dO v^T are formed once, 10 T^2 ch flops instead of 14, and key and
 // query tiles are 64 rows, so each Q/dO row is fetched T/64 times; (4) the
 // copy of the next query tile runs under the current tile's products.
+//
+// bfloat16 (qkv_attention_bwd_bf16; the score net's bf16 compute on the
+// unfused route): qkv and dout bf16, lse and delta fp32, dqkv bf16. The JAX
+// kernel body computes in fp32 throughout on the widened inputs (q*s and
+// k*s fp32, dO and v cast to fp32; :383-420) and rounds dqkv to bf16 once
+// (:421-433). Three places where that is easy to lose, and what this
+// kernel does:
+//   (a) dQ arrives by atomics and dK, dV by a flush every kFlush tiles:
+//       into a bf16 dqkv every one of those adds would round. The kernel
+//       adds into a zeroed fp32 scratch of (B, T, 3C) instead, and the
+//       entry rounds the scratch into dqkv once (dqkv_round_bf16_kernel).
+//   (b) p = exp(S - lse) drifts above 1 unless S here is K7a's S: the
+//       scores are formed exactly as flash_fwd.cuh's bf16 body forms them
+//       behind lse, the fp32 sum of the exact products of the raw bf16 q
+//       and k over the same k-steps in one chain, times s^2 rounded once
+//       (S^T = K Q^T takes the same products as Q K^T).
+//   (c) dP^T = V dO^T has bf16 operands, so bf16 mma.sync is exact up to
+//       its fp32 sums. P^T dO, dS^T Q and dS K take fp32 P and dS: each
+//       goes in as two bf16 halves, hi = bf16(x) and lo = bf16(x - hi)
+//       (mma_bf16.cuh), against the bf16 dO, q or k, two mma.sync
+//       m16n8k16 per 16-deep step where 3xTF32 takes six m16n8k8: hi + lo
+//       holds x to about 2^-17 of |x|, far below the bf16 rounding of
+//       dqkv, so the split loses nothing that the output keeps.
+// The tiles are as above, in bf16: K and V rows (raw, W + 8 bf16) resident,
+// the query tiles' Q and dO rows (W + 8 bf16) with lse and delta through
+// the two-stage ring, and the dS^T tile (fp32, 64 x rows + 8) in a buffer
+// of its own. Bound: the five products once over 989 TFLOP/s dense bf16,
+// 0.043 ms at (4, 4096, 64), against 0.004 ms for its 15 MB (the split's
+// second products and the scratch are the kernel's choice, not counted).
 
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -294,7 +324,250 @@ int launch_w(long long B, int T, int heads, int smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const float* p) { return ((uintptr_t)p & 15) == 0; }
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// ---- bfloat16 -------------------------------------------------------------
+
+template <int W>
+struct LayoutBf {
+  static constexpr int rows = Layout<W>::rows;
+  static constexpr int ld = W + bfm::kPadBf;  // K, V, Q and dO rows (bf16)
+  static constexpr int lds = rows + kPadDS;   // dS^T rows (fp32)
+  static constexpr int kv_bytes = 2 * 2 * kKeys * ld;
+  // Q and dO rows, then lse and delta
+  static constexpr int stage_bytes = 2 * 2 * rows * ld + 2 * 4 * rows;
+  static constexpr int ds_bytes = 4 * kKeys * lds;
+  static constexpr int bytes = kv_bytes + kStages * stage_bytes + ds_bytes;
+};
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_bf16_kernel(const bfm::bf16* __restrict__ qkv,
+                      const bfm::bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dqkv, int T, int heads, int ch,
+                      float scale2, bool vec) {
+  using bfm::bf16;
+  using L = LayoutBf<W>;
+  constexpr int R = L::rows, ld = L::ld, lds = L::lds;
+  constexpr int NQ = R / 8;  // query n-tiles of S^T
+  constexpr int NO = W / 8;  // channel n-tiles of dK, dV
+  constexpr int kSlabWarps = kWarps / (R / 16);
+  constexpr int NQO = NO / kSlabWarps;
+  extern __shared__ __align__(16) float smem[];
+  char* raw = reinterpret_cast<char*>(smem);
+  bf16* ks = reinterpret_cast<bf16*>(raw);  // the block's raw K rows
+  bf16* vs = ks + kKeys * ld;
+  char* ring = raw + L::kv_bytes;
+  float* dst = reinterpret_cast<float*>(ring + kStages * L::stage_bytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int nk = (T + kKeys - 1) / kKeys;
+  const int kt = (int)(blockIdx.x % nk);
+  const int hh = (int)((blockIdx.x / nk) % heads);
+  const long long b = (long long)blockIdx.x / ((long long)nk * heads);
+  const long long C = (long long)heads * ch, C3 = 3 * C;
+  const long long stat = (b * heads + hh) * T;
+  const bf16* head = qkv + b * T * C3 + hh * 3 * ch;   // row t at + t*C3
+  const bf16* dohead = dout + b * T * C + hh * ch;     // row t at + t*C
+  float* dhead = dqkv + b * T * C3 + hh * 3 * ch;
+  const int j0 = kt * kKeys;
+  const int nq = (T + R - 1) / R;
+
+  auto stage = [&](int i) {
+    return reinterpret_cast<bf16*>(ring + (i & 1) * L::stage_bytes);
+  };
+  auto load_tile = [&](int i) {
+    bf16* st = stage(i);
+    bfm::load_rows<R, W, kThreads>(st, ld, head, C3, i * R, T, ch, vec);
+    bfm::load_rows<R, W, kThreads>(st + R * ld, ld, dohead, C, i * R, T, ch,
+                                   vec);
+    float* ls = reinterpret_cast<float*>(st + 2 * R * ld);
+    for (int r = tid; r < R; r += kThreads) {
+      const int t = i * R + r;
+      tc::cp_async4(ls + r, lse + stat + (t < T ? t : 0), t < T);
+      tc::cp_async4(ls + R + r, delta + stat + (t < T ? t : 0), t < T);
+    }
+  };
+  bfm::load_rows<kKeys, W, kThreads>(ks, ld, head + ch, C3, j0, T, ch, vec);
+  bfm::load_rows<kKeys, W, kThreads>(vs, ld, head + 2 * ch, C3, j0, T, ch,
+                                     vec);
+  load_tile(0);
+  tc::cp_async_commit();
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int kr0 = warp * 16 + g;  // this lane's keys kr0 and kr0 + 8
+  const bool key_ok[2] = {j0 + kr0 < T, j0 + kr0 + 8 < T};
+
+  for (int it = 0; it < nq; ++it) {
+    if (it + 1 < nq) load_tile(it + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait_one();  // tile it (and K, V) has landed
+    __syncthreads();          // for every thread's copies
+    const bf16* qs = stage(it);
+    const bf16* dos = qs + R * ld;
+    const float* ls = reinterpret_cast<const float*>(dos + R * ld);
+    const float* dls = ls + R;
+    const int i0 = it * R;
+
+    // S^T = K Q^T and dP^T = V dO^T, exact products of bf16 operands
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      bfm::load_a(ka, ks + warp * 16 * ld + kk * 16, ld, g, q4);
+      bfm::load_a(va, vs + warp * 16 * ld + kk * 16, ld, g, q4);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int qo = (n * 8 + g) * ld + kk * 16 + 2 * q4;
+        bfm::mma(s[n], ka, bfm::ld2(qs + qo), bfm::ld2(qs + qo + 8));
+        bfm::mma(dp[n], va, bfm::ld2(dos + qo), bfm::ld2(dos + qo + 8));
+      }
+    }
+    // P^T and dS^T; element e of n-tile n: key kr0 + 8(e >> 1), query
+    // n*8 + 2*q4 + (e & 1) of the tile
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * q4 + (e & 1);
+        const bool ok = key_ok[e >> 1] && i0 + qi < T;
+        const float p = ok ? expf(__fmul_rn(s[n][e], scale2) - ls[qi]) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dls[qi]);
+      }
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, P^T and dS^T
+    // in two bf16 halves each
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) {  // queries 16kk..16kk+15
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      bfm::split_a(ph, pl, s[2 * kk], s[2 * kk + 1]);
+      bfm::split_a(dh, dl, dp[2 * kk], dp[2 * kk + 1]);
+      const int ro = (kk * 16 + 2 * q4) * ld + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int o = ro + n * 8;
+        const uint32_t d0 = bfm::ld2t(dos + o, ld);
+        const uint32_t d1 = bfm::ld2t(dos + o + 8 * ld, ld);
+        bfm::mma(dv[n], pl, d0, d1);
+        bfm::mma(dv[n], ph, d0, d1);
+        const uint32_t q0 = bfm::ld2t(qs + o, ld);
+        const uint32_t q1 = bfm::ld2t(qs + o + 8 * ld, ld);
+        bfm::mma(dk[n], dl, q0, q1);
+        bfm::mma(dk[n], dh, q0, q1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[(kr0 + 8 * (e >> 1)) * lds + n * 8 + 2 * q4 + (e & 1)] = dp[n][e];
+    __syncthreads();  // dS^T complete
+    {
+      // dQ of the tile: rows 16*slab.., channel n-tiles n0.. of this warp;
+      // A = dS (queries x keys) from dS^T in two bf16 halves
+      const int slab = warp / kSlabWarps, n0 = (warp % kSlabWarps) * NQO;
+      const int qr = slab * 16 + g;
+      float dq[NQO][4];
+#pragma unroll
+      for (int n = 0; n < NQO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {  // keys 16kk..16kk+15
+        const float* d0 = dst + (kk * 16 + 2 * q4) * lds + qr;  // key 2q4
+        const float* d8 = d0 + 8 * lds;                         // key 2q4+8
+        uint32_t ah[4], al[4];
+        bfm::split2(ah[0], al[0], d0[0], d0[lds]);
+        bfm::split2(ah[1], al[1], d0[8], d0[lds + 8]);
+        bfm::split2(ah[2], al[2], d8[0], d8[lds]);
+        bfm::split2(ah[3], al[3], d8[8], d8[lds + 8]);
+        const int ko = (kk * 16 + 2 * q4) * ld + n0 * 8 + g;
+#pragma unroll
+        for (int n = 0; n < NQO; ++n) {
+          const uint32_t k0 = bfm::ld2t(ks + ko + n * 8, ld);
+          const uint32_t k1 = bfm::ld2t(ks + ko + 8 * ld + n * 8, ld);
+          bfm::mma(dq[n], al, k0, k1);
+          bfm::mma(dq[n], ah, k0, k1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = i0 + qr + 8 * (e >> 1);
+          const int c = (n0 + n) * 8 + 2 * q4 + (e & 1);
+          if (t < T && c < ch)
+            atomicAdd(dhead + (long long)t * C3 + c, dq[n][e] * scale2);
+        }
+    }
+    if ((it + 1) % kFlush == 0 || it + 1 == nq) {
+      // add the accumulators into this block's own dK (times s^2) and dV
+      // rows of the scratch and restart them
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = j0 + kr0 + 8 * h;
+        float* row = dhead + (long long)t * C3;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = n * 8 + 2 * q4 + e;
+            if (t < T && c < ch) {
+              row[ch + c] += dk[n][2 * h + e] * scale2;
+              row[2 * ch + c] += dv[n][2 * h + e];
+            }
+            dk[n][2 * h + e] = dv[n][2 * h + e] = 0.f;
+          }
+      }
+    }
+    __syncthreads();  // the stage and dS^T are free again
+  }
+}
+
+// dqkv = bf16(acc), n elements (n % 4 == 0 and both aligned where vec4)
+__global__ void dqkv_round_bf16_kernel(const float* __restrict__ acc,
+                                       bfm::bf16* __restrict__ dqkv,
+                                       long long n, bool vec4) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec4) {
+    for (; 4 * i < n; i += stride) {
+      const float4 v = reinterpret_cast<const float4*>(acc)[i];
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dqkv + 4 * i);
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  } else {
+    for (; i < n; i += stride) dqkv[i] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
+template <int W>
+int launch_bf(long long B, int T, int heads, int smem, cudaStream_t stream,
+              const bfm::bf16* qkv, const bfm::bf16* dout, const float* lse,
+              const float* delta, float* acc, int ch, float scale2,
+              bool vec) {
+  if (smem != LayoutBf<W>::bytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_bf16_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = B * heads * ((T + kKeys - 1) / kKeys);
+  flash_bwd_bf16_kernel<W><<<(unsigned int)blocks, kThreads, smem, stream>>>(
+      qkv, dout, lse, delta, acc, T, heads, ch, scale2, vec);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -317,4 +590,39 @@ extern "C" int qkv_attention_bwd_f32(const float* qkv, const float* dout,
                         ch, scale, vec);
   return launch_w<128>(B, T, heads, smem, st, qkv, dout, lse, delta, dqkv, ch,
                        scale, vec);
+}
+
+// The bf16 entry: qkv, dout bf16, lse and delta fp32; acc a float32
+// scratch of dqkv's shape, zero on entry (the sums land there), then
+// rounded into dqkv (bf16) by a second launch on the same stream. smem as
+// attention.py bwd_smem_bytes(ch, torch.bfloat16) computes it, refused if
+// it is not this file's LayoutBf<W>::bytes.
+extern "C" int qkv_attention_bwd_bf16(const bfm::bf16* qkv,
+                                      const bfm::bf16* dout, const float* lse,
+                                      const float* delta, float* acc,
+                                      bfm::bf16* dqkv, long long B, int T,
+                                      int heads, int ch, int smem,
+                                      float scale, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const bool vec = ch % 8 == 0 && aligned16(qkv) && aligned16(dout);
+  const float s2 = scale * scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err;
+  if (ch <= 32)
+    err = launch_bf<32>(B, T, heads, smem, st, qkv, dout, lse, delta, acc, ch,
+                        s2, vec);
+  else if (ch <= 64)
+    err = launch_bf<64>(B, T, heads, smem, st, qkv, dout, lse, delta, acc, ch,
+                        s2, vec);
+  else
+    err = launch_bf<128>(B, T, heads, smem, st, qkv, dout, lse, delta, acc,
+                         ch, s2, vec);
+  if (err != 0) return err;
+  const long long n = B * T * 3LL * heads * ch;
+  const bool vec4 = n % 4 == 0 && aligned16(acc) && ((uintptr_t)dqkv & 7) == 0;
+  const long long items = vec4 ? n / 4 : n;
+  const long long blocks = (items + 255) / 256;
+  dqkv_round_bf16_kernel<<<(unsigned int)(blocks < 4096 ? blocks : 4096), 256,
+                           0, st>>>(acc, dqkv, n, vec4);
+  return (int)cudaGetLastError();
 }

@@ -79,6 +79,7 @@
 #include <math.h>
 
 #include "attn_tile.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -442,53 +443,15 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 namespace bf {
 
 using bf16 = __nv_bfloat16;
+using bfm::cp16;
+using bfm::ld2;
+using bfm::load_a;
+using bfm::mma;
+using bfm::pack;
+using bfm::rnd;
 
 constexpr int kPadR = 8;  // ring rows (an output column's k's): kKc + 8
 constexpr int kRing = kStages * kNc * (kKc + kPadR);  // bf16 elements
-
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// two adjacent bf16 (4-byte aligned) as one register
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a b on mma.sync m16n8k16, bf16 operands, fp32 accumulator. For
-// lane = 4g + q: A (16x16, row) a0 = (g, 2q..2q+1), a1 = (g+8, 2q..),
-// a2 = (g, 2q+8..), a3 = (g+8, 2q+8..); B (16x8, "col": B[k][n])
-// b0 = (k 2q..2q+1, n g), b1 = (k 2q+8.., n g); C as for m16n8k8.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows g, g + 8 and k 0..15 of a row-major tile at p
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p,
-                                       int ld, int g, int q4) {
-  const bf16* r0 = p + g * ld + 2 * q4;
-  const bf16* r1 = r0 + 8 * ld;
-  a[0] = ld2(r0);
-  a[1] = ld2(r1);
-  a[2] = ld2(r0 + 8);
-  a[3] = ld2(r1 + 8);
-}
-
-__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
 
 struct Dims {
   int T, C, G, heads, ch;
@@ -621,104 +584,6 @@ __device__ __forceinline__ void project(const bf16* A, int lda, int M, int K,
         }
       }
       __syncthreads();  // the stage is free for the copy two steps on
-    }
-  }
-}
-
-// Softmax attention of the 16 query rows r0.. of one (sample, head): q and
-// k (already scaled) in rows of stride ldq, v transposed (row c holds the
-// keys of channel c, stride ldv); rows and keys [0, rows) readable and
-// finite, columns [0, w). Keys go by in tiles of 8*NT (NT even): a first
-// pass takes each row's max m and sum l = sum exp(s - m) of its fp32
-// scores, a second forms p = bf16(exp(s - m) / l) (recomputing the scores
-// unless one tile holds every key) and accumulates P V in fp32 for the
-// output columns [oc0, oc1) in chunks of 8*NO. store(row, col, v0, v1) as
-// in attn_tile.cuh.
-template <int NT, int NO, class Store>
-__device__ __forceinline__ void attend16(const bf16* q, const bf16* k,
-                                         int ldq, const bf16* vt, int ldv,
-                                         int T, int rows, int w, int r0,
-                                         int oc0, int oc1, Store store) {
-  static_assert(NT % 2 == 0, "a P V k-step takes two score n-tiles");
-  constexpr int kTile = 8 * NT;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-  const int ntiles = (T + kTile - 1) / kTile;
-  const bf16* qr = q + (r0 + g) * ldq + 2 * q4;  // rows r0+g, r0+g+8
-  float s[NT][4];
-  auto scores = [&](int j) {
-    const int k0 = j * kTile;
-    const bf16* kr[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      kr[n] = k + min(k0 + n * 8 + g, rows - 1) * ldq + 2 * q4;
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    }
-    for (int c = 0; c < w; c += 16) {
-      const uint32_t a[4] = {ld2(qr + c), ld2(qr + 8 * ldq + c),
-                             ld2(qr + c + 8), ld2(qr + 8 * ldq + c + 8)};
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mma(s[n], a, ld2(kr[n] + c), ld2(kr[n] + c + 8));
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + n * 8 + 2 * q4 + (e & 1) >= T) s[n][e] = -INFINITY;
-  };
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < ntiles; ++j) {
-    scores(j);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // row r0+g (c0, c1), r0+g+8 (c2, c3)
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        sum += expf(s[n][2 * h] - m_new) + expf(s[n][2 * h + 1] - m_new);
-      l[h] = l[h] * expf(m[h] - m_new) + tc::quad_sum(sum);
-      m[h] = m_new;
-    }
-  }
-  for (int oc = oc0; oc < oc1; oc += 8 * NO) {
-    float o[NO][4];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    const bf16* vr[NO];  // this lane's value column of each n-tile
-#pragma unroll
-    for (int n = 0; n < NO; ++n) vr[n] = vt + min(oc + n * 8 + g, w - 1) * ldv;
-    for (int j = 0; j < ntiles; ++j) {
-      if (ntiles > 1 || oc != oc0) scores(j);
-      const int k0 = j * kTile;
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {  // keys k0+16kk..k0+16kk+15
-        const float(&s0)[4] = s[2 * kk];
-        const float(&s1)[4] = s[2 * kk + 1];
-        const uint32_t a[4] = {
-            pack(expf(s0[0] - m[0]) / l[0], expf(s0[1] - m[0]) / l[0]),
-            pack(expf(s0[2] - m[1]) / l[1], expf(s0[3] - m[1]) / l[1]),
-            pack(expf(s1[0] - m[0]) / l[0], expf(s1[1] - m[0]) / l[0]),
-            pack(expf(s1[2] - m[1]) / l[1], expf(s1[3] - m[1]) / l[1])};
-        // key pairs past the last row hold p = 0: clamp them to the last
-        // pair (rows is a multiple of 16)
-        const int key0 = min(k0 + kk * 16 + 2 * q4, rows - 2);
-        const int key1 = min(k0 + kk * 16 + 8 + 2 * q4, rows - 2);
-#pragma unroll
-        for (int n = 0; n < NO; ++n)
-          mma(o[n], a, ld2(vr[n] + key0), ld2(vr[n] + key1));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int c = oc + n * 8 + 2 * q4;
-      if (c < w) {
-        store(r0 + g, c, o[n][0], o[n][1]);
-        store(r0 + g + 8, c, o[n][2], o[n][3]);
-      }
     }
   }
 }
@@ -857,9 +722,11 @@ attn_block_bf16_kernel(const bf16* __restrict__ x,
     const int mt = rem2 / parts, part = rem2 - mt * parts;
     const bf16* qb = qk + s * tp * ldqk + hh * 2 * w;
     bf16* ob = hs + s * tp * lda + hh * ch;
-    attend16<NT, NO>(qb, qb + w, ldqk, vt + (s * d.heads + hh) * w * ldvt,
-                     ldvt, T, tp, w, mt * 16, part * 8 * NO,
-                     (part + 1) * 8 * NO,
+    // the scores are those of the scaled q and k: times 1
+    bfm::attend16<NT, NO>(qb, qb + w, ldqk,
+                          vt + (s * d.heads + hh) * w * ldvt, ldvt, T, tp,
+                          w, 1.f, mt * 16, part * 8 * NO,
+                          (part + 1) * 8 * NO,
                      [&](int r, int c, float v0, float v1) {
                        if (r >= T || c >= ch) return;
                        ob[r * lda + c] = __float2bfloat16_rn(v0);

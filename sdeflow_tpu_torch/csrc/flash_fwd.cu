@@ -22,6 +22,13 @@
 // 38 MB of qkv, out and lse at 3.35 TB/s.
 //
 // Design: flash_fwd.cuh.
+//
+// bfloat16 (qkv_attention_flash_bf16, qkv_attention_stats_bf16; the score
+// net's bf16 compute on the unfused route): qkv and out bf16, lse fp32, on
+// mma.sync m16n8k16 with bf16 operands (flash_fwd.cuh's bf16 body, with
+// the rounding points of the JAX kernel bodies on bf16 qkv). Bound: the
+// products once over 989 TFLOP/s dense bf16, 0.017 ms at (4, 4096, 64),
+// against 0.003 ms for its 8.4 MB.
 
 #include "flash_fwd.cuh"
 
@@ -42,6 +49,25 @@ flash_fwd_stats_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                        float* __restrict__ lse, int T, int heads, int ch,
                        float scale2, bool vec) {
   flash_fwd_body<W, true>(qkv, out, lse, T, heads, ch, scale2, vec);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const bfm::bf16* __restrict__ qkv,
+                      bfm::bf16* __restrict__ out, int T, int heads, int ch,
+                      float scale2, bool vec) {
+  flash_fwd_bf16_body<W, false, false>(qkv, out, nullptr, T, heads, ch,
+                                       scale2, vec);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_stats_bf16_kernel(const bfm::bf16* __restrict__ qkv,
+                            bfm::bf16* __restrict__ out,
+                            float* __restrict__ lse, int T, int heads,
+                            int ch, float scale2, bool vec) {
+  flash_fwd_bf16_body<W, true, false>(qkv, out, lse, T, heads, ch, scale2,
+                                      vec);
 }
 
 }  // namespace
@@ -82,4 +108,43 @@ extern "C" int qkv_attention_stats_f32(const float* qkv, float* out,
                         qkv, out, lse, T, heads, ch, s2, vec);
   return launch_w<128>(flash_fwd_stats_kernel<128>, B, T, heads, smem, st,
                        qkv, out, lse, T, heads, ch, s2, vec);
+}
+
+// The bf16 entries: qkv and out bf16, lse fp32; smem as attention.py
+// flash_fwd_smem_bytes(ch, torch.bfloat16) computes it, refused if it is
+// not LayoutBf<W>::bytes.
+extern "C" int qkv_attention_flash_bf16(const bfm::bf16* qkv, bfm::bf16* out,
+                                        long long B, int T, int heads,
+                                        int ch, int smem, float scale,
+                                        void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const bool vec = ch % 8 == 0 && aligned16(qkv);
+  const float s2 = scale * scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ch <= 32)
+    return launch_bf<32>(flash_fwd_bf16_kernel<32>, B, T, heads, smem, st,
+                         qkv, out, T, heads, ch, s2, vec);
+  if (ch <= 64)
+    return launch_bf<64>(flash_fwd_bf16_kernel<64>, B, T, heads, smem, st,
+                         qkv, out, T, heads, ch, s2, vec);
+  return launch_bf<128>(flash_fwd_bf16_kernel<128>, B, T, heads, smem, st,
+                        qkv, out, T, heads, ch, s2, vec);
+}
+
+extern "C" int qkv_attention_stats_bf16(const bfm::bf16* qkv, bfm::bf16* out,
+                                        float* lse, long long B, int T,
+                                        int heads, int ch, int smem,
+                                        float scale, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  const bool vec = ch % 8 == 0 && aligned16(qkv);
+  const float s2 = scale * scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ch <= 32)
+    return launch_bf<32>(flash_fwd_stats_bf16_kernel<32>, B, T, heads, smem,
+                         st, qkv, out, lse, T, heads, ch, s2, vec);
+  if (ch <= 64)
+    return launch_bf<64>(flash_fwd_stats_bf16_kernel<64>, B, T, heads, smem,
+                         st, qkv, out, lse, T, heads, ch, s2, vec);
+  return launch_bf<128>(flash_fwd_stats_bf16_kernel<128>, B, T, heads, smem,
+                        st, qkv, out, lse, T, heads, ch, s2, vec);
 }

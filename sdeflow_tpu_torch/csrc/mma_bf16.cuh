@@ -1,0 +1,139 @@
+// Helpers shared by the bf16 tensor-core kernels (attnblock.cu's bf16 K3;
+// the bf16 entries of attention.cu, flash_fwd.cu and attention_bwd.cu):
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulation, its fragment
+// loads from shared memory, the rounding to bf16, cp.async of bf16 rows,
+// and the split of an fp32 operand into two bf16 halves.
+//
+// Fragments of mma.sync.m16n8k16 with bf16 operands, for lane = 4*g + q
+// (g = lane >> 2, q = lane & 3), two bf16 to a register (the lower k
+// first):
+//   A (16x16, row-major)    a0 (g, 2q..2q+1)  a1 (g+8, 2q..2q+1)
+//                           a2 (g, 2q+8..2q+9)  a3 (g+8, 2q+8..2q+9)
+//   B (16x8, "col": B[k][n]) b0 (k=2q..2q+1, n=g)  b1 (k=2q+8..2q+9, n=g)
+//   C (16x8)                c0 (g, 2q)  c1 (g, 2q+1)  c2 (g+8, 2q)
+//                           c3 (g+8, 2q+1)
+// So two C tiles side by side (columns 0-7 and 8-15), rounded to bf16 in
+// pairs, are the A fragment of a product over those 16 columns, with no
+// shuffle (pack_a). A B fragment whose k runs along the rows of a
+// row-major tile takes its two k's from two rows (ld2t).
+//
+// The products of two bf16 are exact in fp32, so a product whose operands
+// are bf16 values costs one mma and keeps fp32 accuracy up to the sums. An
+// fp32 operand x goes in as hi = bf16(x) and lo = bf16(x - hi) (two mma):
+// hi + lo holds x to about 2^-17 of |x|, far below bf16's 2^-9.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace bfm {
+
+using bf16 = __nv_bfloat16;
+
+// rows of the bf16 kernels' shared-memory tiles: width + 8 elements (16
+// bytes), so that a 16-byte row start stays aligned and the fragment loads
+// of 8 rows fall in distinct banks
+constexpr int kPadBf = 8;
+
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two adjacent bf16 (4-byte aligned) as one register
+__device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// p[0] and p[ld] (one column of two rows) as one register
+__device__ __forceinline__ uint32_t ld2t(const bf16* p, int ld) {
+  const __nv_bfloat162 h = __halves2bfloat162(p[0], p[ld]);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d += a b on mma.sync m16n8k16, bf16 operands, fp32 accumulator
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows g, g + 8 and k 0..15 of a row-major tile at p
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p,
+                                       int ld, int g, int q4) {
+  const bf16* r0 = p + g * ld + 2 * q4;
+  const bf16* r1 = r0 + 8 * ld;
+  a[0] = ld2(r0);
+  a[1] = ld2(r1);
+  a[2] = ld2(r0 + 8);
+  a[3] = ld2(r1 + 8);
+}
+
+// The A fragment of the 16 columns held by two C tiles, rounded to bf16
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack(c0[0], c0[1]);
+  a[1] = pack(c0[2], c0[3]);
+  a[2] = pack(c1[0], c1[1]);
+  a[3] = pack(c1[2], c1[3]);
+}
+
+// x0, x1 as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi)
+__device__ __forceinline__ void split2(uint32_t& hi, uint32_t& lo, float x0,
+                                       float x1) {
+  const float h0 = rnd(x0), h1 = rnd(x1);
+  hi = pack(h0, h1);
+  lo = pack(x0 - h0, x1 - h1);
+}
+
+// pack_a of fp32 values as the two halves
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&c0)[4],
+                                        const float (&c1)[4]) {
+  split2(hi[0], lo[0], c0[0], c0[1]);
+  split2(hi[1], lo[1], c0[2], c0[3]);
+  split2(hi[2], lo[2], c1[0], c1[1]);
+  split2(hi[3], lo[3], c1[2], c1[3]);
+}
+
+__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// `rows` rows of width `w` (a multiple of 8) of a head's slice: row r of
+// the source at src + (r0 + r) * stride, channels [0, ch) real, the rest
+// and the rows at or past T zero; into dst with row stride ld. 16-byte
+// cp.async copies when vec (ch, the row stride and the base a multiple of
+// 8 elements), else element by element (plain stores, done at the next
+// barrier).
+template <int rows, int w, int threads>
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
+                                          long long stride, int r0, int T,
+                                          int ch, bool vec) {
+  if (vec) {
+    constexpr int chunks = w / 8;
+    for (int i = threadIdx.x; i < rows * chunks; i += threads) {
+      const int r = i / chunks, c = (i - r * chunks) * 8, t = r0 + r;
+      const bool ok = t < T && c < ch;
+      cp16(dst + r * ld + c, ok ? src + (long long)t * stride + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * w; i += threads) {
+      const int r = i / w, c = i - r * w, t = r0 + r;
+      dst[r * ld + c] = (t < T && c < ch) ? src[(long long)t * stride + c]
+                                          : __float2bfloat16(0.f);
+    }
+  }
+}
+
+}  // namespace bfm

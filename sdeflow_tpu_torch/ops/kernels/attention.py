@@ -10,7 +10,7 @@ sdeflow_tpu/ops/pallas/attention.py.
   (K6, the single-block ``_attention_pallas`` :225-255, T ≤ 1024; opt-in
   there under ``SDEFLOW_PALLAS_NN=1``; on the tensor cores in 3xTF32, each
   (sample, head) whole in shared memory up to T = 64 and flash_fwd.cuh's
-  tiles above) or, above T = 1024,
+  tiles above; bf16 on bf16 tensor cores) or, above T = 1024,
   ``csrc/flash_fwd.cu`` (K4, the flash-tiled ``_attention_flash``
   :201-222, on the tensor cores in 3xTF32); on CPU tensors it runs the
   plain version ``attention_reference`` (:106-112). Its rules
@@ -30,7 +30,8 @@ sdeflow_tpu/ops/pallas/attention.py.
   rounding, not bit for bit); its jvp is ``attention_flash_jvp``. K6, K4,
   K7a and K7b form every product on the tensor cores in 3xTF32 (fp32 split
   into two TF32 halves, three products), close enough to fp32 that the
-  tolerances against the plain fp32 versions stand. On CPU tensors the
+  tolerances against the plain fp32 versions stand; their bf16 entries
+  run on mma.sync m16n8k16 with bf16 operands (below). On CPU tensors the
   plain versions ``attention_flash_stats_math`` and
   ``attention_flash_bwd_math`` run.
 - ``attention_core`` (:491-502), the AttentionBlock's entry point, sends
@@ -48,16 +49,27 @@ sdeflow_tpu/ops/pallas/attention.py.
   tensor's ``requires_grad`` reads False even when autograd records the
   tensor it wraps, so the rule looks through the wrapper.
 
-Float32 (float64 in the plain versions, for the autograd checks) and head
-widths up to 128; anything else raises on CUDA. ``attention_math`` (and so
-the unfused route's plain version up to T = 1024, and K3's plain version)
-also takes bfloat16 qkv with the JAX package's bf16 semantics (the scale
-rounded to bf16 so that q and k stay bf16, scores and softmax in fp32, the
-weights cast to v's dtype for P·V; sdeflow_tpu/ops/pallas/attnblock.py:
-40-72), and ``attention_jvp`` evaluates its fp32 closed form on the widened
-bf16 inputs. K6, K4, K7a and K7b have no bf16 variant yet (ROADMAP Queue
-2): on CUDA they raise for bf16, and so does the tiled plain math above
-T = 1024.
+Float32 (float64 in the plain versions, for the autograd checks) or
+bfloat16, head widths up to 128; anything else raises on CUDA. In bf16 the
+plain versions keep the JAX math versions' semantics
+(``_attention_math`` :35-51, ``_attention_flash_math`` :54-103): the scale
+rounded to bf16 so that q·s and k·s stay bf16, the scores, the softmax
+statistics and P·V's sums in fp32, the weights cast to bf16 for P·V (the
+normalised softmax up to T = 1024, the tiles' unnormalised exp(s − m)
+above it), the output rounded to bf16 once, lse fp32; the plain K7a
+(``attention_flash_stats_math``) keeps its kernel body's instead, since
+K7b and its plain version recompute p and Δ from its O and lse. The tangents
+(``attention_jvp``, ``attention_flash_jvp``) and K7b's plain version
+(``attention_flash_bwd_math``) evaluate their fp32 forms on the widened
+bf16 inputs and round once, as K7b's body does (:383-433). The kernels'
+bf16 entries (``qkv_attention_bf16``, ``qkv_attention_flash_bf16``,
+``qkv_attention_stats_bf16``, ``qkv_attention_bwd_bf16``) keep the JAX
+kernel bodies' semantics instead: the scale a float32 scalar, so that the
+scores are those of q·s and k·s in fp32 (the kernels form q·kᵀ of the
+bf16 operands with exact products on bf16 tensor cores and multiply the
+fp32 sums by s²), the weights rounded where the bodies round them
+(:136, :189-191, :331-333), and K7b fp32 throughout, its sums in a
+float32 scratch rounded into dqkv once. float16 raises everywhere.
 """
 
 from __future__ import annotations
@@ -72,26 +84,34 @@ from torch.utils.checkpoint import checkpoint
 from sdeflow_tpu_torch.ops.kernels import common
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P, _P, ctypes.c_longlong] + [_I] * 4 + [ctypes.c_float, _P]
+_STATS_ARGS = [_P, _P, _P, ctypes.c_longlong] + [_I] * 4 + [ctypes.c_float,
+                                                             _P]
+# each kernel's launches are also counted per entry point
+# (Kernel.entry_launches), so that a run can tell the bf16 entries from the
+# float32 ones
 K6 = common.register(common.Kernel(
     "qkv_attention", "attention.cu",
-    {"qkv_attention_f32": [_P, _P, ctypes.c_longlong] + [_I] * 4
-     + [ctypes.c_float, _P]},
+    {"qkv_attention_f32": _FWD_ARGS, "qkv_attention_bf16": _FWD_ARGS},
 ))
 K4 = common.register(common.Kernel(
     "qkv_attention_flash", "flash_fwd.cu",
-    {"qkv_attention_flash_f32": [_P, _P, ctypes.c_longlong] + [_I] * 4
-     + [ctypes.c_float, _P]},
+    {"qkv_attention_flash_f32": _FWD_ARGS,
+     "qkv_attention_flash_bf16": _FWD_ARGS},
 ))
 K7A = common.register(common.Kernel(
     "qkv_attention_stats", "flash_fwd.cu",
-    {"qkv_attention_stats_f32": [_P, _P, _P, ctypes.c_longlong] + [_I] * 4
-     + [ctypes.c_float, _P]},
+    {"qkv_attention_stats_f32": _STATS_ARGS,
+     "qkv_attention_stats_bf16": _STATS_ARGS},
 ))
 K7B = common.register(common.Kernel(
     "qkv_attention_bwd", "attention_bwd.cu",
     {"qkv_attention_bwd_f32": [_P] * 5 + [ctypes.c_longlong] + [_I] * 4
+     + [ctypes.c_float, _P],
+     "qkv_attention_bwd_bf16": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4
      + [ctypes.c_float, _P]},
 ))
+_SYMBOL = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 MAX_HEAD_WIDTH = 128
 # tile constants of the .cu files (tests/test_torch_flash_tc.py parses the
@@ -100,6 +120,7 @@ _K6_WARPS, _K6_SHORT_T, _K6_KEYS = 4, 64, 32    # attention.cu (K6)
 _FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
 _BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
 _STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
+_PAD_BF = 8  # the bf16 kernels' rows: width + 8 elements (mma_bf16.cuh)
 _WIDTHS = (32, 64, 128)  # the head widths the tensor-core kernels pad to
 _FLASH_SEQ_THRESHOLD = 1024  # attention.py:148
 _FLASH_KV_BLOCK = 512        # :149
@@ -133,14 +154,20 @@ def _scale(qkv, num_heads):
     return 1.0 / math.sqrt(math.sqrt(qkv.shape[-1] // 3 // num_heads))
 
 
-_BF16_GAP = ("bf16 variants of K6, K4, K7a and K7b (the unfused attention "
-             "route): ROADMAP Queue 2")
-
-
 def _check_dtype(qkv):
-    if qkv.dtype not in (torch.float32, torch.float64):
+    """The plain versions run in float32, float64 (for the autograd checks)
+    and bfloat16; anything else raises, naming what is not ported."""
+    if qkv.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(
-            f"the tiled attention runs in float32 only ({_BF16_GAP})")
+            f"the attention core runs in float32 or bfloat16, not "
+            f"{qkv.dtype}: float16 and other dtypes are not ported (no "
+            "preset computes in them)")
+
+
+def _bf16_scale(qkv, num_heads):
+    """The scale rounded to bf16, as the JAX math versions take it
+    (``_attention_math`` :42-47)."""
+    return float(torch.tensor(_scale(qkv, num_heads), dtype=torch.bfloat16))
 
 
 def attention_math(qkv, num_heads):
@@ -149,14 +176,14 @@ def attention_math(qkv, num_heads):
     scores and the softmax in fp32, the weights cast to bf16 for P·V."""
     b, t, c3 = qkv.shape
     q, k, v = _split(qkv, num_heads)
-    scale = _scale(qkv, num_heads)
     if qkv.dtype == torch.bfloat16:
-        scale = float(torch.tensor(scale, dtype=torch.bfloat16))
+        scale = _bf16_scale(qkv, num_heads)
         w = torch.softmax(torch.einsum(
             "bthc,bshc->bhts", (q * scale).float(), (k * scale).float()),
             dim=-1).to(v.dtype)
     else:
         _check_dtype(qkv)
+        scale = _scale(qkv, num_heads)
         w = torch.softmax(torch.einsum("bthc,bshc->bhts", q * scale,
                                        k * scale), dim=-1)
     return torch.einsum("bhts,bshc->bthc", w, v).reshape(b, t, c3 // 3)
@@ -185,33 +212,46 @@ def attention_jvp(qkv, num_heads, dqkv):
 def _softmax_tile(qs, kb, vb, m, l, acc):
     """One key tile of the online softmax: the running max m, normaliser l
     and accumulator acc (B, heads, T, ·) updated by the scaled keys kb and
-    values vb (B, heads, blk, ch)."""
-    s = qs @ kb.transpose(-1, -2)
+    values vb (B, heads, blk, ch). With bf16 qs, kb and vb (m, l and acc
+    fp32): the scores in fp32 from the bf16 operands, and p cast to bf16
+    for an fp32-accumulated P·V (``_attention_flash_math`` :86-95)."""
+    wide = m.dtype
+    s = qs.to(wide) @ kb.to(wide).transpose(-1, -2)
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
     corr = torch.exp(m - m_new)
     p = torch.exp(s - m_new)
     return (m_new, l * corr + p.sum(dim=-1, keepdim=True),
-            acc * corr + p @ vb)
+            acc * corr + p.to(vb.dtype).to(wide) @ vb.to(wide))
 
 
-def _online_softmax(qkv, num_heads, kv_block, remat):
+def _online_softmax(qkv, num_heads, kv_block, remat, body=False):
     """(out (B, T, C), lse (B, heads, T)) by the online softmax over key
     tiles of kv_block rows (the last one shorter when T is ragged); with
-    remat each tile runs under a checkpoint, as ``jax.checkpoint`` does."""
+    remat each tile runs under a checkpoint, as ``jax.checkpoint`` does.
+    For bf16 qkv, ``_attention_flash_math``'s semantics (:72-102): the
+    scale rounded to bf16, q·s and k·s bf16, m, l and acc fp32, the output
+    rounded to bf16 once; lse fp32. With body, the kernel bodies' instead
+    (:163-198, :305-341): the scale a float32 scalar, so that q·s and k·s
+    are the fp32 products of the widened q and k; p is still cast to bf16
+    for P·V."""
     _check_dtype(qkv)
     q, k, v = _split_heads(qkv, num_heads)
-    scale = _scale(qkv, num_heads)
+    bf16 = qkv.dtype == torch.bfloat16
+    wide = torch.float32 if bf16 else qkv.dtype
+    if bf16 and body:
+        q, k = q.to(wide), k.to(wide)
+    scale = (_bf16_scale if bf16 and not body else _scale)(qkv, num_heads)
     qs = q * scale
     b, h, t, ch = q.shape
-    m = qs.new_full((b, h, t, 1), -math.inf)
-    l = qs.new_zeros((b, h, t, 1))
-    acc = qs.new_zeros((b, h, t, ch))
+    m = qs.new_full((b, h, t, 1), -math.inf, dtype=wide)
+    l = qs.new_zeros((b, h, t, 1), dtype=wide)
+    acc = qs.new_zeros((b, h, t, ch), dtype=wide)
     for j in range(0, t, kv_block):
         args = (qs, k[:, :, j:j + kv_block] * scale, v[:, :, j:j + kv_block],
                 m, l, acc)
         m, l, acc = (checkpoint(_softmax_tile, *args, use_reentrant=False)
                      if remat else _softmax_tile(*args))
-    return _merge(acc / l), (m + torch.log(l)).squeeze(-1)
+    return _merge(acc / l).to(qkv.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def attention_flash_math(qkv, num_heads, kv_block=None):
@@ -255,7 +295,12 @@ def attention_flash_jvp(qkv, num_heads, dqkv, kv_block=None):
     d_out = Σ_j p_j (ds_j v_j + dv_j) − out · Σ_j p_j ds_j, where
     ds = dq·s·(k·s)ᵀ + q·s·(dk·s)ᵀ. Each tile is checkpointed, so the
     gradient of this tangent (the SSM loss) holds no (T, T) tensor either.
-    ``attention_jvp`` when T % kv_block ≠ 0 (kv_block: 512 unless given)."""
+    ``attention_jvp`` when T % kv_block ≠ 0 (kv_block: 512 unless given).
+    For bf16 qkv the same in fp32 on the widened qkv and dqkv, rounded to
+    bf16, as ``attention_jvp``."""
+    if qkv.dtype == torch.bfloat16:
+        return attention_flash_jvp(qkv.float(), num_heads, dqkv.float(),
+                                   kv_block).to(qkv.dtype)
     kv_block = kv_block or _FLASH_KV_BLOCK
     b, t, c3 = qkv.shape
     if t % kv_block:
@@ -289,16 +334,30 @@ def attention_tangent(qkv, num_heads, dqkv):
 def attention_flash_stats_math(qkv, num_heads):
     """Plain version of K7a (``_flash_fwd_stats_kernel`` :299-341): the
     output and lse = m + log l of the scaled scores, (B, heads, T), by the
-    online softmax over key tiles of min(512, T) rows (any T)."""
+    online softmax over key tiles of min(512, T) rows (any T). For bf16
+    qkv, with K7a's body's semantics rather than ``_attention_flash_math``'s
+    (``_online_softmax`` with body): it is the forward of a pair whose
+    backward (K7b's body, and ``attention_flash_bwd_math``) recomputes
+    p = exp(s − lse) and Δ = rowsum(dO∘O) from the fp32 scores of the
+    widened qkv, and the pair's gradient is right only where O and lse come
+    from those same scores (from the bf16-rounded q·s and k·s, p drifts by
+    up to 2^-8 of |s|: at (2, 256, 64), two heads, the gradient lay 3-10×
+    farther from the fp32 one than JAX's pair does)."""
     return _online_softmax(qkv, num_heads, min(_FLASH_KV_BLOCK,
-                                               qkv.shape[1]), remat=False)
+                                               qkv.shape[1]), remat=False,
+                           body=True)
 
 
 def attention_flash_bwd_math(qkv, dout, lse, delta, num_heads):
     """Plain version of K7b (``_flash_bwd_kernel`` :371-433): over key tiles
     of min(128, T) rows, p = exp(s − lse), dV = pᵀ·dO,
     dS = p∘(dO·vᵀ − Δ), dK = dSᵀ·q·s·s and dQ += dS·k·s·s, written as the
-    interleaved [dq_h dk_h dv_h] of (B, T, 3C)."""
+    interleaved [dq_h dk_h dv_h] of (B, T, 3C). For bf16 qkv and dout, the
+    body's semantics (:383-433): the same in fp32 on the widened inputs,
+    dqkv rounded to bf16 once."""
+    if qkv.dtype == torch.bfloat16:
+        return attention_flash_bwd_math(qkv.float(), dout.float(), lse,
+                                        delta, num_heads).to(qkv.dtype)
     _check_dtype(qkv)
     q, k, v = _split_heads(qkv, num_heads)
     do = _heads(dout, num_heads)
@@ -325,31 +384,43 @@ def _padded_width(ch):
     return next(w for w in _WIDTHS if ch <= w)
 
 
-def flash_fwd_smem_bytes(ch):
+def flash_fwd_smem_bytes(ch, dtype=torch.float32):
     """Dynamic shared memory of one block of flash_fwd.cu (K4, K7a): the
     block's 64 scaled Q rows split into big and small halves (rows of W+4
     floats) and a two-stage ring of 64-row K tiles (W+4) and V tiles (W+8),
-    float32. 204,800 bytes at W = 128."""
+    float32. 204,800 bytes at W = 128. In bf16 (also K6's tiled bf16 body):
+    the 64 raw Q rows and the ring's K and V rows, all of W+8 bf16; 87,040
+    bytes at W = 128."""
     w = _padded_width(ch)
+    if dtype == torch.bfloat16:
+        return 2 * (w + _PAD_BF) * (_FWD_ROWS + 2 * _STAGES * _FWD_KEYS)
     return 4 * (2 * _FWD_ROWS * (w + _PAD_QK)
                 + _STAGES * _FWD_KEYS * (2 * w + _PAD_QK + _PAD_V))
 
 
-def smem_bytes(t, ch):
+def smem_bytes(t, ch, dtype=torch.float32):
     """Dynamic shared memory of one block of attention.cu (K6): above
     T = 64, flash_fwd.cuh's K6 variant: the block's 64 raw scaled Q rows
     (W+4 floats) and a two-stage ring of 32-row K (W+4) and V (W+8) tiles,
     102,400 bytes at W = 128; up to T = 64, per unit (sample, head) packed
     into the block (4 warps of 16 query rows: 4 units at T ≤ 16, 2 at
     T ≤ 32, else 1), T rounded up to 16 rows of Q and K (w + 4 floats) and
-    of V (w + 8), w = ch rounded up to 8."""
+    of V (w + 8), w = ch rounded up to 8. In bf16: above T = 64 the bf16
+    forward's layout (``flash_fwd_smem_bytes``); up to it per unit the Q
+    and K rows (w + 8 bf16) and Vᵀ, w rows of T rounded up to 16, + 8,
+    w = ch rounded up to 16."""
+    units = lambda tp: _K6_WARPS // (tp // 16)  # noqa: E731
+    if dtype == torch.bfloat16:
+        if t > _K6_SHORT_T:
+            return flash_fwd_smem_bytes(ch, dtype)
+        tp, w = -(-t // 16) * 16, -(-ch // 16) * 16
+        return 2 * units(tp) * (2 * tp * (w + _PAD_BF) + w * (tp + _PAD_BF))
     if t > _K6_SHORT_T:
         w = _padded_width(ch)
         return 4 * (_FWD_ROWS * (w + _PAD_QK)
                     + _STAGES * _K6_KEYS * (2 * w + _PAD_QK + _PAD_V))
     tp, w = -(-t // 16) * 16, -(-ch // 8) * 8
-    units = _K6_WARPS // (tp // 16)
-    return 4 * units * tp * (2 * (w + _PAD_QK) + w + _PAD_V)
+    return 4 * units(tp) * tp * (2 * (w + _PAD_QK) + w + _PAD_V)
 
 
 def bwd_query_rows(ch):
@@ -360,22 +431,31 @@ def bwd_query_rows(ch):
     return _BWD_ROWS_WIDE if wide else _BWD_ROWS
 
 
-def bwd_smem_bytes(ch):
+def bwd_smem_bytes(ch, dtype=torch.float32):
     """Dynamic shared memory of one block of attention_bwd.cu (K7b): the
     block's 64 keys' scaled K and V rows (W+4 floats) and a two-stage ring
     of query tiles (Q and dO rows of W+4, lse and Δ), float32; the dSᵀ tile
     (64 keys × rows+8) reuses its stage's Q and dO rows. 105,472 bytes at
-    W = 64 (two blocks per SM), 135,680 at W = 128."""
+    W = 64 (two blocks per SM), 135,680 at W = 128. In bf16: the K and V
+    rows and each stage's Q and dO rows of W+8 bf16, lse and Δ fp32, and
+    the dSᵀ tile (fp32) in a buffer of its own; 74,752 bytes at W = 64,
+    80,384 at W = 128."""
     w, rows = _padded_width(ch), bwd_query_rows(ch)
+    if dtype == torch.bfloat16:
+        return (4 * _BWD_KEYS * (w + _PAD_BF)
+                + _STAGES * (4 * rows * (w + _PAD_BF) + 8 * rows)
+                + 4 * _BWD_KEYS * (rows + _PAD_DS))
     return 4 * (2 * _BWD_KEYS * (w + _PAD_QK)
                 + _STAGES * (2 * rows * (w + _PAD_QK) + 2 * rows))
 
 
 def _checked(qkv, num_heads, what):
     """(contiguous qkv, B, T, ch) after the checks every launch makes."""
-    if qkv.dtype != torch.float32:
+    if qkv.dtype not in _SYMBOL:
         raise NotImplementedError(
-            f"{what} kernel is float32 only ({_BF16_GAP})")
+            f"{what} kernel takes float32 or bfloat16 qkv, not {qkv.dtype}:"
+            " float16 and other dtypes are not ported (no preset computes "
+            "in them)")
     b, t, c3 = qkv.shape
     if c3 % 3 or (c3 // 3) % num_heads:
         raise ValueError(f"3C={c3} must be 3·heads·ch for heads={num_heads}")
@@ -392,11 +472,12 @@ def _launch(qkv, num_heads):
     qkv, b, t, ch = _checked(qkv, num_heads, "qkv_attention")
     out = qkv.new_empty(b, t, num_heads * ch)
     args = (common.ptr(qkv), common.ptr(out), b, t, num_heads, ch)
+    sym, dt = _SYMBOL[qkv.dtype], qkv.dtype
     if t > _FLASH_SEQ_THRESHOLD:
-        K4.launch("qkv_attention_flash_f32", *args, flash_fwd_smem_bytes(ch),
-                  _scale(qkv, num_heads))
+        K4.launch(f"qkv_attention_flash_{sym}", *args,
+                  flash_fwd_smem_bytes(ch, dt), _scale(qkv, num_heads))
     else:
-        K6.launch("qkv_attention_f32", *args, smem_bytes(t, ch),
+        K6.launch(f"qkv_attention_{sym}", *args, smem_bytes(t, ch, dt),
                   _scale(qkv, num_heads))
     return out
 
@@ -405,28 +486,36 @@ def _launch_stats(qkv, num_heads):
     """K7a: (out, lse) as ``attention_flash_stats_math``."""
     qkv, b, t, ch = _checked(qkv, num_heads, "qkv_attention_stats")
     out = qkv.new_empty(b, t, num_heads * ch)
-    lse = qkv.new_empty(b, num_heads, t)
-    K7A.launch("qkv_attention_stats_f32", common.ptr(qkv), common.ptr(out),
-               common.ptr(lse), b, t, num_heads, ch,
-               flash_fwd_smem_bytes(ch), _scale(qkv, num_heads))
+    lse = qkv.new_empty(b, num_heads, t, dtype=torch.float32)
+    K7A.launch(f"qkv_attention_stats_{_SYMBOL[qkv.dtype]}", common.ptr(qkv),
+               common.ptr(out), common.ptr(lse), b, t, num_heads, ch,
+               flash_fwd_smem_bytes(ch, qkv.dtype), _scale(qkv, num_heads))
     return out, lse
 
 
 def _launch_bwd(qkv, dout, lse, delta, num_heads):
-    """K7b: dqkv as ``attention_flash_bwd_math``."""
+    """K7b: dqkv as ``attention_flash_bwd_math``; dout in qkv's dtype, lse
+    and Δ float32. In bf16 the kernel sums into a zeroed float32 scratch
+    of qkv's shape and rounds it into dqkv once."""
     qkv, b, t, ch = _checked(qkv, num_heads, "qkv_attention_bwd")
-    want = {"dout": (b, t, num_heads * ch), "lse": (b, num_heads, t),
-            "delta": (b, num_heads, t)}
+    want = {"dout": (qkv.dtype, (b, t, num_heads * ch)),
+            "lse": (torch.float32, (b, num_heads, t)),
+            "delta": (torch.float32, (b, num_heads, t))}
     for name, a in zip(want, (dout, lse, delta)):
-        if a.dtype != torch.float32 or tuple(a.shape) != want[name]:
+        if (a.dtype, tuple(a.shape)) != want[name]:
             raise ValueError(f"{name}: {a.dtype} {tuple(a.shape)}, want "
-                             f"float32 {want[name]}")
+                             f"{want[name]}")
     dout, lse, delta = (a.contiguous() for a in (dout, lse, delta))
-    dqkv = torch.zeros_like(qkv)  # the kernel adds dQ into its q slots
-    K7B.launch("qkv_attention_bwd_f32", *map(common.ptr, (
-        qkv, dout, lse, delta, dqkv)), b, t, num_heads, ch,
-        bwd_smem_bytes(ch), _scale(qkv, num_heads))
-    return dqkv
+    # the kernel adds dQ into the q slots of a zeroed float32 dqkv
+    acc = torch.zeros(qkv.shape, dtype=torch.float32, device=qkv.device)
+    ptrs = [qkv, dout, lse, delta, acc]
+    if qkv.dtype == torch.bfloat16:
+        dqkv = torch.empty_like(qkv)
+        ptrs.append(dqkv)
+    K7B.launch(f"qkv_attention_bwd_{_SYMBOL[qkv.dtype]}",
+               *map(common.ptr, ptrs), b, t, num_heads, ch,
+               bwd_smem_bytes(ch, qkv.dtype), _scale(qkv, num_heads))
+    return ptrs[-1]
 
 
 def _checkpointed(qkv, num_heads):
@@ -470,9 +559,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _):
         qkv, out, lse = ctx.saved_tensors
         h = ctx.num_heads
-        # Δ = rowsum(dO∘O) per (sample, head, row), left to PyTorch as the
-        # JAX package leaves it to XLA (:477-484)
-        delta = (_heads(dout, h) * _heads(out, h)).sum(dim=-1)
+        # Δ = rowsum(dO∘O) per (sample, head, row) in lse's precision (fp32
+        # from bf16 dO and O), left to PyTorch as the JAX package leaves it
+        # to XLA (:477-484)
+        wide = lse.dtype
+        delta = (_heads(dout, h).to(wide) * _heads(out, h).to(wide)).sum(-1)
         bwd = (_launch_bwd if common.use_kernel(qkv, dout)
                else attention_flash_bwd_math)
         return bwd(qkv, dout, lse, delta, h), None

@@ -93,13 +93,16 @@ class Kernel:
     """One CUDA source, its shared library and its launch count.
 
     ``launches`` is a plain integer that the wrapper increments each time it
-    launches the kernel (never for the plain version)."""
+    launches the kernel (never for the plain version); ``entry_launches``
+    counts the same launches per C entry point (a float32 and a bfloat16
+    entry of one kernel apart)."""
 
     def __init__(self, name: str, source: str, signatures: dict):
         self.name = name
         self.source = CSRC_DIR / source
         self.signatures = signatures  # C function -> ctypes argtypes
         self.launches = 0
+        self.entry_launches = dict.fromkeys(signatures, 0)
         self._lib = None
 
     def lib_path(self) -> Path:
@@ -150,6 +153,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
         self.launches += 1
+        self.entry_launches[fn] += 1
 
 
 KERNELS: dict = {}
@@ -174,6 +178,7 @@ def build_all():
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+        k.entry_launches = dict.fromkeys(k.entry_launches, 0)
 
 
 def use_kernel(*tensors) -> bool:

@@ -99,7 +99,10 @@ def test_grad_of_jvp_through_the_rules():
 
 
 def test_plain_version_refuses_bf16():
-    # the tiled plain version above T = 1024 (attention_math takes bf16 up
-    # to there, tests/test_torch_bf16.py)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        qkv_attention(_qkv(1, 2048, 6).to(torch.bfloat16), 1)
+    # the tiled plain version above T = 1024 takes bf16 too now
+    # (tests/test_torch_attention_bf16.py holds it to JAX); what it refuses
+    # is float16, naming the gap
+    out = qkv_attention(_qkv(1, 2048, 6).to(torch.bfloat16), 1)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="float16"):
+        qkv_attention(_qkv(1, 2048, 6).to(torch.float16), 1)

@@ -16,7 +16,7 @@ of it (3.0 % measured); the second criterion is the sharp one there.
 Besides: the score leaves a bf16 net as fp32; parameters, Adam moments and
 the EMA stay fp32 through three bf16 train steps; the production presets
 field by field against JAX's; the launch plans of the bf16 kernels; the
-unfused route's attention kernels refuse bf16; and the
+unfused route's attention kernels take bf16 and refuse float16; and the
 grf16_production_dbg CLI on the CPU."""
 
 import dataclasses
@@ -304,8 +304,12 @@ def test_bf16_launch_plans():
            / "attnblock.cu").read_text()
     pad = int(re.search(r"^constexpr int kPadR = (\d+);", src, re.M)[1])
     assert pad == ab._PAD_W
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        attn_k._checked(torch.zeros(1, 4, 24, dtype=BF), 1, "qkv_attention")
+    # the unfused route's attention kernels take bf16; float16 still raises
+    assert attn_k._checked(torch.zeros(1, 4, 24, dtype=BF), 1,
+                           "qkv_attention")[0].dtype == BF
+    with pytest.raises(NotImplementedError, match="float16"):
+        attn_k._checked(torch.zeros(1, 4, 24, dtype=torch.float16), 1,
+                        "qkv_attention")
 
 
 def test_production_dbg_cli_runs_on_the_cpu(tmp_path, capsys, monkeypatch):

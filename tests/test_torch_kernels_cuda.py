@@ -444,8 +444,9 @@ def test_attention_kernel_rejects_what_it_does_not_cover(dev):
     qkv = torch.randn(2, 8, 3 * 256, device=dev)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="128"):
         qkv_attention(qkv, 1)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
-        qkv_attention(qkv.to(torch.bfloat16), 2)
+    # bf16 has its own entry; float16 has none
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="float16"):
+        qkv_attention(qkv.to(torch.float16), 2)
     x = torch.randn(2, 8, 5, device=dev, dtype=torch.bfloat16)
     w = torch.ones(8, device=dev, dtype=torch.bfloat16)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
@@ -521,5 +522,5 @@ def test_flash_pair_rejects_what_it_does_not_cover(dev):
     qkv = torch.randn(2, 8, 3 * 256, device=dev)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="128"):
         flash_attention_vjp(qkv, 1)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="float32"):
-        flash_attention_vjp(qkv.to(torch.bfloat16), 2)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="float16"):
+        flash_attention_vjp(qkv.to(torch.float16), 2)
