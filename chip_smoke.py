@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--record PATH]
-                          [--only gn|driver|bf16|k7|unfused_bf16]
+                          [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -209,12 +209,16 @@ CUDA kernel of those paths against its plain PyTorch version:
    Two gates, both held: within 2e-2·max |plain bf16| of the plain bf16
    twin, and no farther from the fp32 plain version on the widened bf16
    inputs than 1.5× the plain bf16 twin's own distance plus 1e-3·max;
-   K7a's lse within 1e-4 of the fp32 plain's, K7b's dqkv within 1e-2·max
-   of attention_flash_bwd_math in bf16 (fp32 math rounded once); their
+   K7a's lse within 1e-5 of the fp32 plain's, K7b's dqkv within 1e-2·max
+   of attention_flash_bwd_math in bf16 (fp32 math rounded once) and equal
+   bit for bit on a second run (one writer per element); their
    times per call through the Function and as direct launches at
    (4, 4096, 64), (128, 4096, 64) (K4, K7a, K7b) and (128, 1024, 128) and
    grf16's two shapes (K6), beside the plain twins, SDPA in bf16 (its
-   backward for K7b) and the bounds (bf16 products at 989 TFLOP/s);
+   backward for K7b) and the bounds (bf16 products at 989 TFLOP/s); and
+   an "auto" AttentionBlock that K3 holds in fp32 but not in bf16, (4, 64,
+   16, 16) with 8 heads, in bf16: unfused (one K5, one K6 bf16, no K3),
+   held by the same two gates against the plain path;
 24. the grf U-Net at 128×128 in bf16 (phase 18's cell with compute dtype
    bfloat16 and eps): on one batch of 8 with injected t and ε the DSM loss
    and every gradient, kernel path against plain (loss rtol 1e-2, 3e-2 of
@@ -252,7 +256,9 @@ step; driver runs phase 20; bf16 phases 21 and 22; unfused_bf16 phases
 23, 24 and 25; k7 times K7a and K7b
 at (128, 4096, 64), K7a's lse sweep (recorded, not held) and five bare DSM
 steps at batch 128 (copied beside another tree of the package, it times
-that tree: ``k7_timing``).
+that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
+(128, 1024, 128), K7a and K7b at (128, 4096, 64) beside SDPA, and the bf16
+DSM step with its trace (``attn_bf16_timing``).
 """
 
 from __future__ import annotations
@@ -364,13 +370,13 @@ SYMBOL_BF16 = {"fused_attention_block": "attn_block_bf16_kernel",
                "qkv_attention": "qkv_attention_bf16_kernel",
                "qkv_attention_flash": "flash_fwd_bf16_kernel",
                "qkv_attention_stats": "flash_fwd_stats_bf16_kernel",
-               "qkv_attention_bwd": "flash_bwd_bf16_kernel"}
-# K7b's bf16 entry then rounds its fp32 sums into dqkv with a second kernel
-K7B_BF16_ROUND = "dqkv_round_bf16_kernel"
+               "qkv_attention_bwd": "flash_bwd_dkdv_bf16_kernel"}
+# K7b's bf16 entry launches its dK/dV kernel and then its dQ kernel
+K7B_BF16_DQ = "flash_bwd_dq_bf16_kernel"
 KERNEL_SYMBOLS = (*dict.fromkeys(SYMBOL.values()), "gn_silu_bwd_params",
                   *(v for k, v in SYMBOL_BF16.items()
                     if k == "fused_attention_block" or "qkv" in k),
-                  K7B_BF16_ROUND)
+                  K7B_BF16_DQ)
 
 
 def log(*a):
@@ -631,13 +637,16 @@ def device_times(fn, symbol, reps=50):
     time in that trace is the card's launch floor for one tiny launch.
     Returns (ms per launch, floor ms, launches per call)."""
     one = torch.zeros(1, device="cuda")
-    by_name = kernel_times(fn, reps, lambda: one.add_(1.0))
-    mine = [t for name, ts in by_name.items() if symbol in name for t in ts]
-    floor = min(sum(ts) / len(ts) for name, ts in by_name.items()
-                if "at::native::" in name)
-    if not mine:
-        raise AssertionError(f"no {symbol} kernel in the trace")
-    return sum(mine) / len(mine), floor, len(mine) / reps
+    for _ in range(3):  # the profiler has returned a window without events
+        by_name = kernel_times(fn, reps, lambda: one.add_(1.0))
+        mine = [t for name, ts in by_name.items() if symbol in name
+                for t in ts]
+        floors = [sum(ts) / len(ts) for name, ts in by_name.items()
+                  if "at::native::" in name]
+        if mine and floors:
+            return sum(mine) / len(mine), min(floors), len(mine) / reps
+    raise AssertionError(f"no {symbol} kernel or no PyTorch kernel in three "
+                         f"traces (kernels: {sorted(by_name)[:8]})")
 
 
 def device_per_call(fn, reps):
@@ -2794,6 +2803,44 @@ def bf16_gates(name, out, plain, fp32, tol):
     return err, mine, theirs
 
 
+# an "auto" AttentionBlock that K3 holds in fp32 (one sample, qkv in
+# scratch) but not in bf16: (B, C, H, W) and heads; 32 groups
+AUTO_BEYOND_K3, AUTO_BEYOND_K3_HEADS = (4, 64, 16, 16), 8
+
+
+def auto_block_beyond_k3(g, dev):
+    """The bf16 "auto" block at AUTO_BEYOND_K3 runs unfused (K5, then K6
+    bf16's tiled body at T = 256; no K3) and holds phase 23's gates
+    against the plain path in bf16 and in fp32."""
+    from sdeflow_tpu_torch.models.unet2d import AttentionBlock
+    from sdeflow_tpu_torch.ops.kernels.attnblock import block_plan
+
+    b, c, h, w = AUTO_BEYOND_K3
+    heads = AUTO_BEYOND_K3_HEADS
+    if (block_plan(h * w, c, 32, heads) is None
+            or block_plan(h * w, c, 32, heads, torch.bfloat16) is not None):
+        raise AssertionError("K3's plans moved: pick another shape")
+    block = AttentionBlock(c, heads).to(dev)
+    randomize_(block, g)
+    x = (1.5 * torch.randn(b, c, h, w, generator=g, device=dev)).to(
+        torch.bfloat16)
+    before, entries0 = launch_counts(), entry_counts()
+    with torch.no_grad():
+        out = block(x)
+        torch.cuda.synchronize()
+        got = {k: n - before[k] for k, n in launch_counts().items()}
+        entries = {e: n - entries0[e] for e, n in entry_counts().items()}
+        with plain_path():
+            plain, fp32 = block(x), block(x.float())
+    want = {k: 0 for k in got}
+    want.update(group_norm_silu=1, qkv_attention=1)
+    if got != want or entries["qkv_attention_bf16"] != 1:
+        raise AssertionError(f"the bf16 auto block launched {got}")
+    log(f"bf16 auto block {AUTO_BEYOND_K3} heads={heads} (K3 plans fp32 "
+        f"only): unfused, launches {got}")
+    return bf16_gates("auto block", out, plain, fp32, ATTN_BF16_TOL)
+
+
 def check_attention_bf16(g, dev):
     """Phase 23: the bf16 entries of K6, K4, K7a and K7b against their
     plain twins (both gates; TF32 off, and the plain twins' bf16 products
@@ -2847,20 +2894,26 @@ def check_attention_bf16(g, dev):
             delta = (ak._heads(dout, heads).float()
                      * ak._heads(out_p, heads).float()).sum(-1)
             dqkv = ak._launch_bwd(qkv, dout, lse32, delta, heads)
+            again = ak._launch_bwd(qkv, dout, lse32, delta, heads)
             torch.cuda.synchronize()
+            # one writer per element, sums in registers: bit for bit
+            if not torch.equal(dqkv.view(torch.int16),
+                               again.view(torch.int16)):
+                raise AssertionError("bf16 K7b differs from run to run")
             note("K7b", bf16_gates(
                 "K7b", dqkv,
                 ak.attention_flash_bwd_math(qkv, dout, lse32, delta, heads),
                 ak.attention_flash_bwd_math(qkv.float(), dout.float(), lse32,
                                             delta, heads), K7B_BF16_TOL))
-            del qkv, dout, out, lse, out_p, out32, lse32, delta, dqkv
+            del qkv, dout, out, lse, out_p, out32, lse32, delta, dqkv, again
     launched = {e: n - entries0[e] for e, n in entry_counts().items()}
     want = {"qkv_attention_bf16": len(K6_BF16_SHAPES),
             "qkv_attention_flash_bf16": len(K4_BF16_SHAPES),
             "qkv_attention_stats_bf16": len(K7_BF16_SHAPES),
-            "qkv_attention_bwd_bf16": len(K7_BF16_SHAPES)}
+            "qkv_attention_bwd_bf16": 2 * len(K7_BF16_SHAPES)}
     if {e: launched[e] for e in want} != want or f32_attention_launches():
         raise AssertionError(f"phase 23 launched {launched}")
+    note("auto_block", auto_block_beyond_k3(g, dev))
 
     # times: K6 at grf16's unfused shapes and the DSM step's T = 1024
     rows = {"k6": [], "k4": [], "k7a": [], "k7b": []}
@@ -3201,6 +3254,78 @@ def k7_timing(g, dev, record):
                                       SGM_BATCH)
 
 
+def attn_bf16_timing(g, dev, record):
+    """--only attn_bf16: K6 bf16 at the DSM step's T = 1024 level
+    (K6_BF16_DSM) and K7a and K7b bf16 at its T = 4096 shape as direct
+    launches, three runs each, beside SDPA in bf16 (forward; backward for
+    K7b) and the bounds; then bare bf16 DSM steps of the grf U-Net at
+    128x128, batch 128, with a trace and peak memory. To compare two trees
+    of the package in one call, copy this script into the other tree and
+    run both in turns."""
+    from sdeflow_tpu_torch import Trainer
+    from sdeflow_tpu_torch.ops.kernels import attention as ak
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    b, t, c = K6_BF16_DSM
+    qkv = (1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)).to(bf)
+    q, k, v = sdpa_args(qkv, 1)
+    with torch.no_grad():
+        record["k6"] = dict(
+            shape=[b, t, c],
+            direct_ms=[cuda_ms(lambda: ak._launch(qkv, 1), 20)
+                       for _ in range(3)],
+            library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
+            bound_ms=bound_bf16_ms(*k6_bf16_cost(b, t, c, 1))[0])
+    del qkv, q, k, v
+    b, t, c = ATTN_BF16_LONG[1]
+    qkv = (1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)).to(bf)
+    dout = torch.randn(b, t, c, generator=g, device=dev).to(bf)
+    q, k, v = (a.requires_grad_() for a in sdpa_args(qkv, 1))
+    o = sdpa(q, k, v)
+    do = ak._heads(dout, 1).contiguous()
+    with torch.no_grad():
+        out, lse = ak._launch_stats(qkv, 1)
+        delta = (ak._heads(dout, 1).float()
+                 * ak._heads(out, 1).float()).sum(-1)
+        record["k7a"] = dict(
+            shape=[b, t, c],
+            direct_ms=[cuda_ms(lambda: ak._launch_stats(qkv, 1), 5, 1)
+                       for _ in range(3)],
+            library_ms=cuda_ms(lambda: sdpa(q, k, v), 5, 1),
+            bound_ms=bound_bf16_ms(*k7a_bf16_cost(b, t, c, 1))[0])
+        record["k7b"] = dict(
+            shape=[b, t, c],
+            direct_ms=[cuda_ms(lambda: ak._launch_bwd(
+                qkv, dout, lse, delta, 1), 3, 1) for _ in range(3)],
+            bound_ms=bound_bf16_ms(*k7b_bf16_cost(b, t, c, 1))[0])
+    record["k7b"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        o, (q, k, v), do, retain_graph=True), 3, 1)
+    for key in ("k6", "k7a", "k7b"):
+        r = record[key]
+        log(f"bf16 {key.upper()} at {r['shape']}: direct "
+            f"{[round(x, 4) for x in r['direct_ms']]} ms, SDPA bf16 "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms")
+    del qkv, dout, q, k, v, o, do, out, lse, delta
+
+    _, model, gen, sampler = bf16_dsm_arm(g, dev)
+    trainer = Trainer(gen, sampler, lr=1e-4, batch_size=SGM_BATCH,
+                      loss="dsm")
+    want = {k: SGM_WANT.get(k, 0) for k in common.KERNELS}
+
+    def step():
+        return trainer.train_step(trainer.state, g,
+                                  sampler.sample(g, SGM_BATCH))[1]
+
+    step()  # warm: cuDNN's choices, the allocator
+    record["dsm_bf16"] = timed_train_steps(step, model, SGM_TIMED_STEPS,
+                                           want, SGM_BATCH)
+    record["dsm_bf16"]["profile"] = trace(step)
+    log_trace(f"one bf16 DSM step at batch {SGM_BATCH}",
+              record["dsm_bf16"]["profile"])
+
+
 def bf16_unfused_phases(card, fp32_peak=None):
     """Phases 23-25 as (label, record key, fn(g, dev))."""
     return [("23", "attention_bf16", check_attention_bf16),
@@ -3222,7 +3347,7 @@ def main(argv=None):
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
-                                       "unfused_bf16"),
+                                       "unfused_bf16", "attn_bf16"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -3231,7 +3356,8 @@ def main(argv=None):
                     "the DSM step (k7_timing); unfused_bf16 runs phases 23, "
                     "24 and 25, the bf16 attention kernels, the bf16 grf "
                     "U-Net at 128x128 and grf16_production on the unfused "
-                    "route")
+                    "route; attn_bf16 times K6, K7a and K7b bf16 at the DSM "
+                    "step's shapes and the bf16 DSM step (attn_bf16_timing)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3276,6 +3402,10 @@ def main(argv=None):
         return 0
     if opts.only == "k7":
         k7_timing(g, dev, record)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "attn_bf16":
+        attn_bf16_timing(g, dev, record)
         write_record(opts.record, record)
         return 0
     if opts.only == "bf16":
@@ -3709,7 +3839,7 @@ def main(argv=None):
               ("K7a", "k7a", "qkv_attention_stats", "flash_fwd.cu",
                [SYMBOL_BF16["qkv_attention_stats"]]),
               ("K7b", "k7b", "qkv_attention_bwd", "attention_bwd.cu",
-               [SYMBOL_BF16["qkv_attention_bwd"], K7B_BF16_ROUND])]],
+               [SYMBOL_BF16["qkv_attention_bwd"], K7B_BF16_DQ])]],
     ]
     k7a16 = kernels[-2]
     k7a16["lse_max_abs_err"] = errs16["K7a_lse"]

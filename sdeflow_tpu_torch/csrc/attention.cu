@@ -55,16 +55,20 @@
 // T rounded up to 16, + 8; w = ch rounded up to 16), loaded 8 channels a
 // thread where ch % 8 == 0; attn_tile.cuh's bf16 attend16 takes the
 // softmax in two passes over the one key tile, so that p is normalised
-// before it is rounded. Above T = 64, flash_fwd.cuh's bf16 body in its K6
-// variant (two passes over 64-key tiles, the second recomputing the
-// scores). Bound: bytes at the short sequences (half the float32 bytes:
-// 0.010 and 0.005 ms at (1024, 64, 64) and (1024, 16, 128)), the products
-// once over 989 TFLOP/s dense bf16 at (128, 1024, 128) (0.069 ms).
+// before it is rounded. Above T = 64, qkv_attention_bf16_kernel_tiled
+// (below): two passes over 64-key tiles, the first over K alone for each
+// row's max and sum, the second recomputing the scores for P V, 128 query
+// rows a block on wgmma (wgmma_bf16.cuh). Bound: bytes at the short
+// sequences (half the float32 bytes: 0.010 and 0.005 ms at (1024, 64, 64)
+// and (1024, 16, 128)), the products once over 989 TFLOP/s dense bf16 at
+// (128, 1024, 128) (0.069 ms; the second pass's recomputed scores make
+// the design's products 1.5x that).
 
 #include <math.h>
 
 #include "attn_tile.cuh"
 #include "flash_fwd.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -244,13 +248,195 @@ qkv_attention_bf16_kernel(const bfm::bf16* __restrict__ qkv,
       });
 }
 
+// K6 bf16 above T = 64: one block of kTiledGroups warpgroups per (sample,
+// head, kTiledRows query rows), warpgroup i owning rows 64i..64i+63; key
+// tiles of kTiledKeys rows through a kTiledStages-deep cp.async ring, all
+// tiles in wgmma_bf16.cuh's swizzled layout. Two passes over the key
+// tiles: the first loads K only and keeps each row's max m and sum l
+// (online), the second forms the scores again, p = exp(s - m) / l rounded
+// to bf16, and O += p V; so O needs no rescaling and is rounded to bf16
+// once. Both products on wgmma: S = Q K^T with Q and K from shared memory,
+// P V with P from registers and V from shared memory (MN-major). With the
+// scale folded into one FMA, exp((s - m) s^2) / l is 2^(s c - b) with
+// c = s^2 log2(e) and b = m c + log2 l; keys past T are masked in the
+// ragged last tile only.
+constexpr int kTiledGroups = 2;
+constexpr int kTiledRows = 64 * kTiledGroups;
+constexpr int kTiledKeys = 64;
+constexpr int kTiledStages = 2;
+
+// W: 64 or 128 (head widths up to 64 take 64, the swizzle's column block)
 template <int W>
-__global__ void __launch_bounds__(flash::kThreads)
+struct TiledBf {
+  static constexpr int q_bytes = 2 * kTiledRows * W;
+  static constexpr int stage_bytes = 2 * 2 * kTiledKeys * W;  // K, V
+  // + 1,024 to align the tiles to the swizzle's 1,024-byte atoms
+  static constexpr int bytes = 1024 + q_bytes + kTiledStages * stage_bytes;
+};
+
+template <int W>
+__global__ void __launch_bounds__(128 * kTiledGroups)
 qkv_attention_bf16_kernel_tiled(const bfm::bf16* __restrict__ qkv,
                                 bfm::bf16* __restrict__ out, int T, int heads,
                                 int ch, float scale2, bool vec) {
-  flash::flash_fwd_bf16_body<W, false, true>(qkv, out, nullptr, T, heads, ch,
-                                             scale2, vec);
+  using bfm::bf16;
+  using L = TiledBf<W>;
+  constexpr int kT = 128 * kTiledGroups;
+  constexpr int NT = kTiledKeys / 8;  // n-tiles of the score tile
+  constexpr int NO = W / 8;           // n-tiles of the output
+  extern __shared__ __align__(16) float smem[];
+  char* raw = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(raw);
+  char* ring = raw + L::q_bytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  const int grp = tid >> 7;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int nq = (T + kTiledRows - 1) / kTiledRows;
+  const int qt = (int)(blockIdx.x % nq);
+  const int hh = (int)((blockIdx.x / nq) % heads);
+  const long long b = (long long)blockIdx.x / ((long long)nq * heads);
+  const long long C = (long long)heads * ch, C3 = 3 * C;
+  const bf16* base = qkv + b * T * C3 + hh * 3 * ch;  // row t at + t*C3
+  const int q0 = qt * kTiledRows;
+  const int ntiles = (T + kTiledKeys - 1) / kTiledKeys;
+  const int steps = 2 * ntiles;  // step i: tile i % ntiles, pass i / ntiles
+
+  auto kstage = [&](int step) {
+    return reinterpret_cast<bf16*>(ring + (step % kTiledStages) *
+                                              L::stage_bytes);
+  };
+  auto load_tile = [&](int step) {  // K, and in the second pass V
+    bf16* ks = kstage(step);
+    const int k0 = (step % ntiles) * kTiledKeys;
+    wg::load_tile<kTiledKeys, W, kT>(ks, base + ch, C3, k0, T, ch, vec);
+    if (step >= ntiles)
+      wg::load_tile<kTiledKeys, W, kT>(ks + kTiledKeys * W, base + 2 * ch,
+                                       C3, k0, T, ch, vec);
+  };
+  wg::load_tile<kTiledRows, W, kT>(qs, base, C3, q0, T, ch, vec);
+#pragma unroll
+  for (int i = 0; i < kTiledStages - 1; ++i) {
+    load_tile(i);  // steps >= 2
+    tc::cp_async_commit();
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // per row (g, g + 8): the max m of the raw score sums, then l's sum of
+  // 2^((s - m) c); from the second pass on, b = m c + log2 l
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sc = scale2 * 1.4426950408889634f;  // c = s^2 log2(e)
+  const uint64_t dqa = wg::desc_k(qs + grp * 64 * 64);  // this group's rows
+
+  for (int step = 0; step < steps; ++step) {
+    bfm::cp_async_wait<kTiledStages - 2>();  // this step's tile has landed
+    wg::fence_smem();
+    __syncthreads();  // for every thread's copies; the oldest stage is free
+    if (step + kTiledStages - 1 < steps) load_tile(step + kTiledStages - 1);
+    tc::cp_async_commit();
+    const bf16* ks = kstage(step);
+    const bf16* vs = ks + kTiledKeys * W;
+    const int k0 = (step % ntiles) * kTiledKeys;
+
+    // the raw scores: the fp32 sums of the exact bf16 products q k^T (the
+    // scale s^2 goes into the exponent's FMA)
+    float s[NT][4];
+    float(&sv)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
+    const uint64_t dk = wg::desc_k(ks);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)  // k-step 0 overwrites
+      wg::mma_ss<kTiledKeys>(sv, dqa + wg::k_step(kTiledRows, kk),
+                             dk + wg::k_step(kTiledKeys, kk), kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    if (k0 + kTiledKeys > T) {  // the ragged last tile: keys past T
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + n * 8 + 2 * q4 + (e & 1) >= T) s[n][e] = -INFINITY;
+    }
+
+    if (step < ntiles) {  // the row max and sum
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // row g (c0, c1), row g + 8 (c2, c3)
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
+        const float mc = m_new * sc;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          sum += wg::ex2(fmaf(s[n][2 * h], sc, -mc)) +
+                 wg::ex2(fmaf(s[n][2 * h + 1], sc, -mc));
+        // the rescale 2^((m - m_new) c) is 0 on the first tile
+        l[h] = l[h] * wg::ex2((m[h] - m_new) * sc) + tc::quad_sum(sum);
+        m[h] = m_new;
+      }
+      if (step == ntiles - 1)
+        for (int h = 0; h < 2; ++h) l[h] = m[h] * sc + __log2f(l[h]);
+    } else {  // O += bf16(2^(s c - b)) V, l holding b
+      uint32_t a[NT / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {  // keys 16kk..16kk+15
+        float p[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[i][e] = wg::ex2(fmaf(s[2 * kk + i][e], sc, -l[e >> 1]));
+        bfm::pack_a(a[kk], p[0], p[1]);
+      }
+      float(&ov)[4 * NO] = *reinterpret_cast<float(*)[4 * NO]>(&o[0][0]);
+      const uint64_t dv = wg::desc_mn(vs, kTiledKeys);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        wg::mma_rs<W>(ov, a[kk], dv + wg::mn_step(kk), 1);
+      wg::commit();
+      wg::wait<0>();
+    }
+  }
+
+  const bool pairs = (ch & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = q0 + grp * 64 + warp * 16 + g + 8 * h;
+    if (t >= T) continue;
+    bf16* orow = out + (b * T + t) * C + hh * ch;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * q4;
+      if (pairs && c < ch) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(o[n][2 * h], o[n][2 * h + 1]);
+      } else {
+        if (c < ch) orow[c] = __float2bfloat16_rn(o[n][2 * h]);
+        if (c + 1 < ch) orow[c + 1] = __float2bfloat16_rn(o[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int W>
+int launch_tiled_bf16(const bfm::bf16* qkv, bfm::bf16* out, long long B,
+                      int T, int heads, int ch, int smem, float s2, bool vec,
+                      cudaStream_t stream) {
+  if (smem != TiledBf<W>::bytes) return (int)cudaErrorInvalidValue;
+  auto kernel = qkv_attention_bf16_kernel_tiled<W>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = B * heads * ((T + kTiledRows - 1) / kTiledRows);
+  kernel<<<(unsigned int)blocks, 128 * kTiledGroups, smem, stream>>>(
+      qkv, out, T, heads, ch, s2, vec);
+  return (int)cudaGetLastError();
 }
 
 template <int NT, int NO>
@@ -332,17 +518,11 @@ extern "C" int qkv_attention_bf16(const bfm::bf16* qkv, bfm::bf16* out,
   const float s2 = scale * scale;
   cudaStream_t st = (cudaStream_t)stream;
   if (T > kShortT) {
-    if (ch <= 32)
-      return flash::launch_bf<32>(qkv_attention_bf16_kernel_tiled<32>, B, T,
-                                  heads, smem, st, qkv, out, T, heads, ch,
-                                  s2, vec);
     if (ch <= 64)
-      return flash::launch_bf<64>(qkv_attention_bf16_kernel_tiled<64>, B, T,
-                                  heads, smem, st, qkv, out, T, heads, ch,
-                                  s2, vec);
-    return flash::launch_bf<128>(qkv_attention_bf16_kernel_tiled<128>, B, T,
-                                 heads, smem, st, qkv, out, T, heads, ch, s2,
-                                 vec);
+      return launch_tiled_bf16<64>(qkv, out, B, T, heads, ch, smem, s2, vec,
+                                   st);
+    return launch_tiled_bf16<128>(qkv, out, B, T, heads, ch, smem, s2, vec,
+                                  st);
   }
   const int w = round_up(ch, 16);
   if (smem != short_smem_bytes_bf16(T, w)) return (int)cudaErrorInvalidValue;

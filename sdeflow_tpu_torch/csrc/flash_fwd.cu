@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const bfm::bf16* __restrict__ qkv,
                       bfm::bf16* __restrict__ out, int T, int heads, int ch,
                       float scale2, bool vec) {
-  flash_fwd_bf16_body<W, false, false>(qkv, out, nullptr, T, heads, ch,
-                                       scale2, vec);
+  flash_fwd_bf16_body<W, false>(qkv, out, nullptr, T, heads, ch, scale2,
+                                vec);
 }
 
 template <int W>
@@ -66,8 +66,7 @@ flash_fwd_stats_bf16_kernel(const bfm::bf16* __restrict__ qkv,
                             bfm::bf16* __restrict__ out,
                             float* __restrict__ lse, int T, int heads,
                             int ch, float scale2, bool vec) {
-  flash_fwd_bf16_body<W, true, false>(qkv, out, lse, T, heads, ch, scale2,
-                                      vec);
+  flash_fwd_bf16_body<W, true>(qkv, out, lse, T, heads, ch, scale2, vec);
 }
 
 }  // namespace

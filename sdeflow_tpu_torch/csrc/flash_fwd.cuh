@@ -248,20 +248,18 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // ---- bfloat16 -------------------------------------------------------------
 //
 // The bf16 body: qkv and out bf16, lse fp32 (K4 and K7a through
-// flash_fwd.cu's qkv_attention_flash_bf16 and qkv_attention_stats_bf16, K6
-// above T = 64 through attention.cu's qkv_attention_bf16). It keeps the
-// rounding points of the JAX kernel bodies on bf16 qkv
-// (sdeflow_tpu/ops/pallas/attention.py:124-142, 161-198, 305-341), whose
-// scale is a float32 scalar, so that q*s and k*s are float32: the scores
-// are the fp32 sums of q k^T formed from the raw bf16 q and k on
-// mma.sync m16n8k16 (each product of two bf16 exact in fp32), times s^2
-// rounded once, equal to the body's fp32 scores up to fp32 rounding. The
-// weights are rounded to bf16 where the bodies round them: K4 and K7a
-// (online softmax, one pass) the unnormalised p = exp(s - m), K6 (kK6: two
-// passes over the key tiles, the first for each row's max and sum, the
-// second recomputing the scores) the normalised p = exp(s - m) / l; P V on
-// mma.sync with fp32 accumulation; m, l and the accumulator fp32; the
-// output rounded to bf16 once, lse = m + log l in fp32.
+// flash_fwd.cu's qkv_attention_flash_bf16 and qkv_attention_stats_bf16).
+// It keeps the rounding points of the JAX kernel bodies on bf16 qkv
+// (sdeflow_tpu/ops/pallas/attention.py:161-198, 305-341), whose scale is a
+// float32 scalar, so that q*s and k*s are float32: the scores are the fp32
+// sums of q k^T formed from the raw bf16 q and k on mma.sync m16n8k16
+// (each product of two bf16 exact in fp32), times s^2 rounded once, equal
+// to the body's fp32 scores up to fp32 rounding. The weights are rounded
+// to bf16 where the bodies round them, the unnormalised p = exp(s - m) of
+// the online softmax; P V on mma.sync with fp32 accumulation; m, l and the
+// accumulator fp32; the output rounded to bf16 once, lse = m + log l in
+// fp32. (K6's bf16 body above T = 64, which normalises p before it rounds
+// it, is attention.cu's own.)
 //
 // Layout: the block's 64 raw Q rows and a two-stage cp.async ring of
 // 64-row K and V tiles, rows of W + 8 bf16 (16-byte copies where ch is a
@@ -280,7 +278,7 @@ struct LayoutBf {
   static constexpr int bytes = 2 * (kRows * ld + kStages * stage);
 };
 
-template <int W, bool kStats, bool kK6>
+template <int W, bool kStats>
 __device__ __forceinline__ void flash_fwd_bf16_body(
     const bfm::bf16* __restrict__ qkv, bfm::bf16* __restrict__ out,
     float* __restrict__ lse, int T, int heads, int ch, float scale2,
@@ -304,7 +302,6 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
   const bf16* base = qkv + b * T * C3 + hh * 3 * ch;  // row t at + t*C3
   const int q0 = qt * kRows;
   const int ntiles = (T + kKeys - 1) / kKeys;
-  const int steps = (kK6 ? 2 : 1) * ntiles;  // K6: two passes
 
   auto load_tile = [&](int step) {  // tile step % ntiles into stage step & 1
     bf16* ks = ring + (step & 1) * L::stage;
@@ -324,15 +321,14 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const bf16* qw = qs + warp * 16 * ld;  // this warp's 16 rows
 
-  for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) load_tile(step + 1);
+  for (int step = 0; step < ntiles; ++step) {
+    if (step + 1 < ntiles) load_tile(step + 1);
     tc::cp_async_commit();
     tc::cp_async_wait_one();  // this step's tile (and Q) has landed
     __syncthreads();          // for every thread's copies
     const bf16* ks = ring + (step & 1) * L::stage;
     const bf16* vs = ks + kKeys * ld;
     const int k0 = (step % ntiles) * kKeys;
-    const bool second = kK6 && step >= ntiles;
 
     float s[NT][4];
 #pragma unroll
@@ -355,49 +351,37 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
                       ? -INFINITY
                       : __fmul_rn(s[n][e], scale2);
 
-    if (!second) {  // the row max and sum; K4, K7a: p = exp(s - m) here
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // row g (c0, c1), row g + 8 (c2, c3)
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-        const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
-        const float corr = expf(m[h] - m_new);  // 0 on the first tile
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const float p0 = expf(s[n][2 * h] - m_new);
-          const float p1 = expf(s[n][2 * h + 1] - m_new);
-          sum += p0 + p1;
-          if (!kK6) s[n][2 * h] = p0, s[n][2 * h + 1] = p1;
-        }
-        l[h] = l[h] * corr + tc::quad_sum(sum);
-        m[h] = m_new;
-        if (!kK6) {
-#pragma unroll
-          for (int n = 0; n < NO; ++n)
-            o[n][2 * h] *= corr, o[n][2 * h + 1] *= corr;
-        }
-      }
-    } else {  // K6's second pass: p = exp(s - m) / l
+    for (int h = 0; h < 2; ++h) {  // row g (c0, c1), row g + 8 (c2, c3)
+      float mx = -INFINITY;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
+      const float corr = expf(m[h] - m_new);  // 0 on the first tile
+      float sum = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = expf(s[n][e] - m[e >> 1]) / l[e >> 1];
-    }
-    if (!kK6 || second) {  // O += bf16(p) V
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {  // keys 16kk..16kk+15
-        uint32_t a[4];
-        bfm::pack_a(a, s[2 * kk], s[2 * kk + 1]);
-        const bf16* vr = vs + (kk * 16 + 2 * q4) * ld + g;
-#pragma unroll
-        for (int n = 0; n < NO; ++n)
-          bfm::mma(o[n], a, bfm::ld2t(vr + n * 8, ld),
-                   bfm::ld2t(vr + 8 * ld + n * 8, ld));
+      for (int n = 0; n < NT; ++n) {
+        const float p0 = expf(s[n][2 * h] - m_new);
+        const float p1 = expf(s[n][2 * h + 1] - m_new);
+        sum += p0 + p1;
+        s[n][2 * h] = p0, s[n][2 * h + 1] = p1;
       }
+      l[h] = l[h] * corr + tc::quad_sum(sum);
+      m[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        o[n][2 * h] *= corr, o[n][2 * h + 1] *= corr;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {  // O += bf16(p) V, keys 16kk..
+      uint32_t a[4];
+      bfm::pack_a(a, s[2 * kk], s[2 * kk + 1]);
+      const bf16* vr = vs + (kk * 16 + 2 * q4) * ld + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        bfm::mma(o[n], a, bfm::ld2t(vr + n * 8, ld),
+                 bfm::ld2t(vr + 8 * ld + n * 8, ld));
     }
     __syncthreads();  // the stage is free for the copy two steps on
   }
@@ -411,8 +395,8 @@ __device__ __forceinline__ void flash_fwd_bf16_body(
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int c = n * 8 + 2 * q4;
-      const float v0 = kK6 ? o[n][2 * h] : o[n][2 * h] / l[h];
-      const float v1 = kK6 ? o[n][2 * h + 1] : o[n][2 * h + 1] / l[h];
+      const float v0 = o[n][2 * h] / l[h];
+      const float v1 = o[n][2 * h + 1] / l[h];
       if (pairs && c + 1 < ch) {
         *reinterpret_cast<__nv_bfloat162*>(orow + c) =
             __floats2bfloat162_rn(v0, v1);

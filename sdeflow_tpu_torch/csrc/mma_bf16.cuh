@@ -56,6 +56,12 @@ __device__ __forceinline__ uint32_t ld2t(const bf16* p, int ld) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// Wait until at most n of this thread's cp.async groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
 // d += a b on mma.sync m16n8k16, bf16 operands, fp32 accumulator
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -89,9 +95,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
 // x0, x1 as the bf16 pairs hi = bf16(x) and lo = bf16(x - hi)
 __device__ __forceinline__ void split2(uint32_t& hi, uint32_t& lo, float x0,
                                        float x1) {
-  const float h0 = rnd(x0), h1 = rnd(x1);
-  hi = pack(h0, h1);
-  lo = pack(x0 - h0, x1 - h1);
+  hi = pack(x0, x1);  // bf16(x0) in the low half, bf16(x1) in the high
+  lo = pack(x0 - __uint_as_float(hi << 16),
+            x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // pack_a of fp32 values as the two halves

@@ -183,15 +183,16 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention over the flattened feature map: GroupNorm →
     qkv → attention → proj → residual (sdeflow_tpu/models/unet2d.py:
     227-272). ``attention_impl="auto"`` with at most 8 heads (``fused``)
-    runs the whole block as one call of kernel K3 when K3 holds the shape:
-    ``block_plan`` finds one (T ≤ 256 and the working set of the
-    CUDA-core design it replaced within one block). Otherwise, and on
-    ``"unfused"``, it runs module by module: GroupNorm32 (K5), the qkv
-    product, the attention core (ops/kernels/attention.py) and the output
-    product, the same function as the JAX package's plain composition for
-    "auto" blocks beyond its kernel (ops/pallas/attnblock.py:253-265). The
-    choice depends on the shape only, never on the device. Both routes hold
-    the same parameters."""
+    runs the whole block as one call of kernel K3 when K3 holds the shape
+    in x's dtype: ``block_plan`` finds one (T ≤ 256 and the working set of
+    the CUDA-core design it replaced within one block; in bf16 all in
+    shared memory, so fewer shapes). Otherwise, and on ``"unfused"``, it
+    runs module by module: GroupNorm32 (K5), the qkv product, the attention
+    core (ops/kernels/attention.py) and the output product, the same
+    function as the JAX package's plain composition for "auto" blocks
+    beyond its kernel (ops/pallas/attnblock.py:253-265). The choice depends
+    on the shape and dtype only, never on the device. Both routes hold the
+    same parameters."""
 
     def __init__(self, channels, num_heads=1, attention_impl="auto"):
         super().__init__()
@@ -212,7 +213,7 @@ class AttentionBlock(nn.Module):
         n, c, h, w = x.shape
         t = h * w
         if (self.fused and block_plan(t, c, self.norm.groups,
-                                      self.num_heads) is not None):
+                                      self.num_heads, x.dtype) is not None):
             x_flat = x.reshape(n, c, t).transpose(1, 2)  # (N, T, C)
             out = fused_attention_block(
                 x_flat, self.norm.scale, self.norm.bias, self.qkv.kernel,

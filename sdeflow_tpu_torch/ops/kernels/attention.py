@@ -25,13 +25,17 @@ sdeflow_tpu/ops/pallas/attention.py.
   ``FlashAttention``: its forward is ``csrc/flash_fwd.cu``'s second entry,
   K7a (``_attention_flash_stats`` :344-368), which also writes the per-row
   log-sum-exp of the scaled scores; its backward is ``csrc/attention_bwd.cu``,
-  K7b (``_attention_flash_bwd`` :436-452), one pass from the saved lse and
-  Δ = rowsum(dO∘O) whose dQ sums arrive by atomics (so two runs agree to
-  rounding, not bit for bit); its jvp is ``attention_flash_jvp``. K6, K4,
+  K7b (``_attention_flash_bwd`` :436-452), from the saved lse and
+  Δ = rowsum(dO∘O): in float32 one pass whose dQ sums arrive by atomics
+  (so two runs agree to rounding, not bit for bit), in bf16 a dK/dV kernel
+  and a dQ kernel, each sum with one writer (two runs agree bit for bit);
+  its jvp is ``attention_flash_jvp``. K6, K4,
   K7a and K7b form every product on the tensor cores in 3xTF32 (fp32 split
   into two TF32 halves, three products), close enough to fp32 that the
   tolerances against the plain fp32 versions stand; their bf16 entries
-  run on mma.sync m16n8k16 with bf16 operands (below). On CPU tensors the
+  take bf16 operands on the tensor cores (below): K4, K7a and K6 up to
+  T = 64 on mma.sync m16n8k16, K6 above T = 64 and K7b on wgmma. On CPU
+  tensors the
   plain versions ``attention_flash_stats_math`` and
   ``attention_flash_bwd_math`` run.
 - ``attention_core`` (:491-502), the AttentionBlock's entry point, sends
@@ -68,8 +72,8 @@ kernel bodies' semantics instead: the scale a float32 scalar, so that the
 scores are those of q·s and k·s in fp32 (the kernels form q·kᵀ of the
 bf16 operands with exact products on bf16 tensor cores and multiply the
 fp32 sums by s²), the weights rounded where the bodies round them
-(:136, :189-191, :331-333), and K7b fp32 throughout, its sums in a
-float32 scratch rounded into dqkv once. float16 raises everywhere.
+(:136, :189-191, :331-333), and K7b fp32 throughout, each sum rounded
+into dqkv once. float16 raises everywhere.
 """
 
 from __future__ import annotations
@@ -108,7 +112,7 @@ K7B = common.register(common.Kernel(
     "qkv_attention_bwd", "attention_bwd.cu",
     {"qkv_attention_bwd_f32": [_P] * 5 + [ctypes.c_longlong] + [_I] * 4
      + [ctypes.c_float, _P],
-     "qkv_attention_bwd_bf16": [_P] * 6 + [ctypes.c_longlong] + [_I] * 4
+     "qkv_attention_bwd_bf16": [_P] * 5 + [ctypes.c_longlong] + [_I] * 5
      + [ctypes.c_float, _P]},
 ))
 _SYMBOL = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -117,8 +121,10 @@ MAX_HEAD_WIDTH = 128
 # tile constants of the .cu files (tests/test_torch_flash_tc.py parses the
 # sources and holds these to them)
 _K6_WARPS, _K6_SHORT_T, _K6_KEYS = 4, 64, 32    # attention.cu (K6)
+_K6_TILED_ROWS, _K6_TILED_KEYS, _K6_TILED_STAGES = 128, 64, 2  # its bf16 body
 _FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
 _BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
+_BWD_BF_QUERIES, _BWD_BF_STAGES = 64, 3          # attention_bwd.cu's bf16
 _STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
 _PAD_BF = 8  # the bf16 kernels' rows: width + 8 elements (mma_bf16.cuh)
 _WIDTHS = (32, 64, 128)  # the head widths the tensor-core kernels pad to
@@ -384,6 +390,12 @@ def _padded_width(ch):
     return next(w for w in _WIDTHS if ch <= w)
 
 
+def _swizzled_width(ch):
+    """The width that the wgmma kernels (the tiled bf16 K6, bf16 K7b) pad a
+    head to: 64 or 128, whole column blocks of their 128-byte swizzle."""
+    return max(64, _padded_width(ch))
+
+
 def flash_fwd_smem_bytes(ch, dtype=torch.float32):
     """Dynamic shared memory of one block of flash_fwd.cu (K4, K7a): the
     block's 64 scaled Q rows split into big and small halves (rows of W+4
@@ -405,14 +417,17 @@ def smem_bytes(t, ch, dtype=torch.float32):
     102,400 bytes at W = 128; up to T = 64, per unit (sample, head) packed
     into the block (4 warps of 16 query rows: 4 units at T ≤ 16, 2 at
     T ≤ 32, else 1), T rounded up to 16 rows of Q and K (w + 4 floats) and
-    of V (w + 8), w = ch rounded up to 8. In bf16: above T = 64 the bf16
-    forward's layout (``flash_fwd_smem_bytes``); up to it per unit the Q
-    and K rows (w + 8 bf16) and Vᵀ, w rows of T rounded up to 16, + 8,
-    w = ch rounded up to 16."""
+    of V (w + 8), w = ch rounded up to 8. In bf16: above T = 64 the tiled
+    bf16 body's 128 raw Q rows and a two-stage ring of 64-row K and V
+    tiles, rows of W = 64 or 128 bf16 (``_swizzled_width``), and 1,024
+    bytes to align them (99,328 bytes at W = 128, two blocks per SM); up
+    to T = 64 per unit the Q and K rows (w + 8 bf16) and Vᵀ, w rows of T
+    rounded up to 16, + 8, w = ch rounded up to 16."""
     units = lambda tp: _K6_WARPS // (tp // 16)  # noqa: E731
     if dtype == torch.bfloat16:
         if t > _K6_SHORT_T:
-            return flash_fwd_smem_bytes(ch, dtype)
+            return 1024 + 2 * _swizzled_width(ch) * (
+                _K6_TILED_ROWS + 2 * _K6_TILED_STAGES * _K6_TILED_KEYS)
         tp, w = -(-t // 16) * 16, -(-ch // 16) * 16
         return 2 * units(tp) * (2 * tp * (w + _PAD_BF) + w * (tp + _PAD_BF))
     if t > _K6_SHORT_T:
@@ -436,17 +451,28 @@ def bwd_smem_bytes(ch, dtype=torch.float32):
     block's 64 keys' scaled K and V rows (W+4 floats) and a two-stage ring
     of query tiles (Q and dO rows of W+4, lse and Δ), float32; the dSᵀ tile
     (64 keys × rows+8) reuses its stage's Q and dO rows. 105,472 bytes at
-    W = 64 (two blocks per SM), 135,680 at W = 128. In bf16: the K and V
-    rows and each stage's Q and dO rows of W+8 bf16, lse and Δ fp32, and
-    the dSᵀ tile (fp32) in a buffer of its own; 74,752 bytes at W = 64,
-    80,384 at W = 128."""
+    W = 64 (two blocks per SM), 135,680 at W = 128. In bf16, of its dK/dV
+    kernel: the 64 keys' K and V rows and a three-stage ring of query tiles
+    (Q and dO rows, lse and Δ fp32), rows of W = 64 or 128 bf16
+    (``_swizzled_width``), and 1,024 bytes to align them; 68,096 bytes at
+    W = 64, 83,712 at W = 128."""
     w, rows = _padded_width(ch), bwd_query_rows(ch)
     if dtype == torch.bfloat16:
-        return (4 * _BWD_KEYS * (w + _PAD_BF)
-                + _STAGES * (4 * rows * (w + _PAD_BF) + 8 * rows)
-                + 4 * _BWD_KEYS * (rows + _PAD_DS))
+        w = _swizzled_width(ch)
+        return (1024 + 4 * _BWD_KEYS * w
+                + _BWD_BF_STAGES * (4 * rows * w + 8 * rows))
     return 4 * (2 * _BWD_KEYS * (w + _PAD_QK)
                 + _STAGES * (2 * rows * (w + _PAD_QK) + 2 * rows))
+
+
+def bwd_dq_smem_bytes(ch):
+    """Dynamic shared memory of one block of attention_bwd.cu's bf16 dQ
+    kernel: the block's 64 queries' Q and dO rows and a three-stage ring of
+    key tiles (K and V rows, ``bwd_query_rows`` of them), rows of W = 64 or
+    128 bf16, and 1,024 bytes to align them; 66,560 bytes at W = 64,
+    82,944 at W = 128."""
+    w, rows = _swizzled_width(ch), bwd_query_rows(ch)
+    return 1024 + 4 * w * (_BWD_BF_QUERIES + _BWD_BF_STAGES * rows)
 
 
 def _checked(qkv, num_heads, what):
@@ -495,8 +521,8 @@ def _launch_stats(qkv, num_heads):
 
 def _launch_bwd(qkv, dout, lse, delta, num_heads):
     """K7b: dqkv as ``attention_flash_bwd_math``; dout in qkv's dtype, lse
-    and Δ float32. In bf16 the kernel sums into a zeroed float32 scratch
-    of qkv's shape and rounds it into dqkv once."""
+    and Δ float32. In float32 the kernel adds dQ into a zeroed dqkv by
+    atomics; in bf16 two kernels write every element of dqkv once."""
     qkv, b, t, ch = _checked(qkv, num_heads, "qkv_attention_bwd")
     want = {"dout": (qkv.dtype, (b, t, num_heads * ch)),
             "lse": (torch.float32, (b, num_heads, t)),
@@ -506,16 +532,17 @@ def _launch_bwd(qkv, dout, lse, delta, num_heads):
             raise ValueError(f"{name}: {a.dtype} {tuple(a.shape)}, want "
                              f"{want[name]}")
     dout, lse, delta = (a.contiguous() for a in (dout, lse, delta))
-    # the kernel adds dQ into the q slots of a zeroed float32 dqkv
-    acc = torch.zeros(qkv.shape, dtype=torch.float32, device=qkv.device)
-    ptrs = [qkv, dout, lse, delta, acc]
+    ptrs = [common.ptr(a) for a in (qkv, dout, lse, delta)]
     if qkv.dtype == torch.bfloat16:
         dqkv = torch.empty_like(qkv)
-        ptrs.append(dqkv)
-    K7B.launch(f"qkv_attention_bwd_{_SYMBOL[qkv.dtype]}",
-               *map(common.ptr, ptrs), b, t, num_heads, ch,
-               bwd_smem_bytes(ch, qkv.dtype), _scale(qkv, num_heads))
-    return ptrs[-1]
+        smem = (bwd_smem_bytes(ch, qkv.dtype), bwd_dq_smem_bytes(ch))
+    else:
+        dqkv = torch.zeros_like(qkv)  # the q slots take atomic sums
+        smem = (bwd_smem_bytes(ch),)
+    K7B.launch(f"qkv_attention_bwd_{_SYMBOL[qkv.dtype]}", *ptrs,
+               common.ptr(dqkv), b, t, num_heads, ch, *smem,
+               _scale(qkv, num_heads))
+    return dqkv
 
 
 def _checkpointed(qkv, num_heads):

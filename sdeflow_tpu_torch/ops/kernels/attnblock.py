@@ -181,7 +181,8 @@ def block_plan(t, c, groups, heads, dtype=torch.float32):
     H100 that ran faster than 4 to a block, one block per SM; 4 in bf16),
     else the most that fit one block; then, in fp32 only, one sample with
     qkv in device-memory scratch (mode 1), then with h there too (mode 2).
-    The fp32 plan decides the route (``AttentionBlock``)."""
+    The plan in x's dtype decides the route (``AttentionBlock``): a bf16
+    block without one runs unfused."""
     if (t > MAX_T or not 1 <= heads <= MAX_HEADS or c % heads
             or not _cuda_core_working_set_fits(t, c, groups)):
         return None

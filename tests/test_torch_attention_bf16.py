@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from sdeflow_tpu.ops.pallas import attention as jax_attn
 from sdeflow_tpu.ops.pallas.common import force_interpret
 from sdeflow_tpu_torch.ops.kernels import attention as A
+from test_torch_flash_tc import _constants
 
 torch.set_num_threads(1)
 BF = torch.bfloat16
@@ -180,6 +181,21 @@ def test_attention_math_bf16_matches_jax_kernel(b, t, c):
     assert_bf16_close(out, math[jnp.bfloat16], math[jnp.float32], "math")
 
 
+@pytest.mark.parametrize("wrong", ["dout", "lse", "delta"])
+def test_bf16_bwd_launch_checks_its_inputs(wrong):
+    """K7b's launcher refuses a dout in another dtype than qkv, and lse or
+    Δ not fp32 (B, heads, T), naming the input, before any launch."""
+    b, t, c, h = 2, 64, 32, 2
+    args = {"dout": torch.zeros(b, t, c, dtype=BF),
+            "lse": torch.zeros(b, h, t), "delta": torch.zeros(b, h, t)}
+    args[wrong] = {"dout": torch.zeros(b, t, c),
+                   "lse": torch.zeros(b, h, t, dtype=BF),
+                   "delta": torch.zeros(b, h, t + 1)}[wrong]
+    with pytest.raises(ValueError, match=wrong):
+        A._launch_bwd(torch.zeros(b, t, 3 * c, dtype=BF), args["dout"],
+                      args["lse"], args["delta"], h)
+
+
 def test_bf16_kernel_layouts():
     """The launch checks take bf16 (float16 still raises, naming the gap);
     the bf16 shared-memory mirrors against the constants of the sources,
@@ -191,18 +207,39 @@ def test_bf16_kernel_layouts():
     src = (CSRC / "mma_bf16.cuh").read_text()
     pad = int(re.search(r"^constexpr int kPadBf = (\d+);", src, re.M)[1])
     assert pad == A._PAD_BF
+    k6 = {k: v for k, v in _constants("attention.cu").items()
+          if k.startswith("kTiled")}
+    bwd = _constants("attention_bwd.cu")
+    assert (k6["kTiledRows"], k6["kTiledKeys"], k6["kTiledStages"]) == (
+        A._K6_TILED_ROWS, A._K6_TILED_KEYS, A._K6_TILED_STAGES)
+    assert (bwd["kBfQueries"], bwd["kBfStages"]) == (A._BWD_BF_QUERIES,
+                                                     A._BWD_BF_STAGES)
     for ch in range(1, A.MAX_HEAD_WIDTH + 1):
         ld = A._padded_width(ch) + pad
         fwd = 2 * ld * (A._FWD_ROWS + 2 * A._STAGES * A._FWD_KEYS)
         assert A.flash_fwd_smem_bytes(ch, BF) == fwd <= 232_448
-        assert A.smem_bytes(2048, ch, BF) == fwd
+        # the wgmma kernels' tiles: whole 64-column blocks of the 128-byte
+        # swizzle, and 1,024 bytes to align them
+        w = 64 if ch <= 64 else 128
+        assert A._swizzled_width(ch) == w
+        tiled = 1024 + 2 * w * (k6["kTiledRows"]
+                                + 2 * k6["kTiledStages"] * k6["kTiledKeys"])
+        for t in (65, 1024):  # K6's tiled body
+            assert A.smem_bytes(t, ch, BF) == tiled <= 232_448
+        assert A.smem_bytes(2048, ch, BF) == tiled  # the mirror's branch
         rows = A.bwd_query_rows(ch)
-        bwd = (4 * A._BWD_KEYS * ld + A._STAGES * (4 * rows * ld + 8 * rows)
-               + 4 * A._BWD_KEYS * (rows + A._PAD_DS))
-        assert A.bwd_smem_bytes(ch, BF) == bwd <= 232_448
+        dkdv = (1024 + 4 * bwd["kKeys"] * w
+                + bwd["kBfStages"] * (4 * rows * w + 8 * rows))
+        dq = 1024 + 4 * w * (bwd["kBfQueries"] + bwd["kBfStages"] * rows)
+        assert A.bwd_smem_bytes(ch, BF) == dkdv <= 232_448
+        assert A.bwd_dq_smem_bytes(ch) == dq <= 232_448
         for t in (1, 16, 17, 64):  # a unit whole in shared memory
             assert A.smem_bytes(t, ch, BF) <= 232_448
     assert A.flash_fwd_smem_bytes(128, BF) == 87_040
-    assert A.bwd_smem_bytes(64, BF) == 74_752
+    # by shared memory (1 KB per block reserved): two tiled K6 blocks per SM
+    # at W = 128, three of each K7b kernel at W = 64
+    assert 2 * (A.smem_bytes(1024, 128, BF) + 1024) <= 233_472
+    assert 3 * (A.bwd_smem_bytes(64, BF) + 1024) <= 233_472
+    assert 3 * (A.bwd_dq_smem_bytes(64) + 1024) <= 233_472
     assert A.smem_bytes(64, 64, BF) == 27_648
     assert A.smem_bytes(16, 128, BF) == 59_392

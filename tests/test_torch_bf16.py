@@ -109,13 +109,15 @@ def test_group_norm_bf16_matches_jax(silu):
         return jax_gn(xx.transpose(0, 2, 1), g, bb, groups,
                       silu).transpose(0, 2, 1)
 
-    ref = {}
-    for dt in (jnp.bfloat16, jnp.float32):
-        xs = jnp.asarray(x, dt)
+    @jax.jit
+    def jax_ref(xs, dxs, dys):  # one compile per dtype, not one per op
         y, tan = jax.jvp(jf, (xs, gamma, beta),
-                         (jnp.asarray(dx, dt), dgamma, jnp.zeros_like(beta)))
+                         (dxs, dgamma, jnp.zeros_like(beta)))
         _, vjp = jax.vjp(jf, xs, gamma, beta)
-        ref[dt] = (y, tan, *vjp(jnp.asarray(dy, dt)))
+        return (y, tan, *vjp(dys))
+
+    ref = {dt: jax_ref(*(jnp.asarray(a, dt) for a in (x, dx, dy)))
+           for dt in (jnp.bfloat16, jnp.float32)}
     tx, tdx, tdy = (torch.from_numpy(a).to(BF) for a in (x, dx, dy))
     tg, tb = torch.from_numpy(gamma), torch.from_numpy(beta)
     out = gnk.gn_math(tx, tg, tb, groups, silu)
@@ -155,7 +157,8 @@ def test_attention_block_bf16_matches_jax():
     ref = {}
     for dt in (jnp.bfloat16, jnp.float32):
         f = lambda xx: jax_block(xx, *params, groups, heads)  # noqa: E731
-        ref[dt] = jax.jvp(f, (jnp.asarray(x, dt),), (jnp.asarray(dx, dt),))
+        ref[dt] = jax.jit(lambda a, da: jax.jvp(f, (a,), (da,)))(
+            jnp.asarray(x, dt), jnp.asarray(dx, dt))
     tp = [torch.from_numpy(p) for p in params]
     tx, tdx = torch.from_numpy(x).to(BF), torch.from_numpy(dx).to(BF)
     out = ab.attn_block_math(tx, *tp, groups, heads)
@@ -181,7 +184,7 @@ def test_resblock_bf16_matches_jax():
                             jnp.asarray(x), jnp.asarray(emb))
     params = randomize(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, np.float32), shapes["params"]), rng)
-    ref = {dt: JaxResBlock(**kw, dtype=dt).apply(
+    ref = {dt: jax.jit(JaxResBlock(**kw, dtype=dt).apply)(
         {"params": params}, jnp.asarray(x), jnp.asarray(emb))
         for dt in (jnp.bfloat16, jnp.float32)}
     block = load_flax_params(ResBlock(cin, temb, cout, dtype=BF), params)

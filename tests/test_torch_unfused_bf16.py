@@ -13,7 +13,9 @@ farther from JAX fp32 than 1.5× JAX bf16's own distance plus
 version; with the thresholds patched small on both sides (T > 32, key
 tiles of 16) the block takes the tiled path at T = 64: the pair
 K7a/K7b's plain versions under autograd, their tiled tangent under
-``torch.func.jvp``, where JAX differentiates its tiled math."""
+``torch.func.jvp``, where JAX differentiates its tiled math. An "auto"
+block that K3 holds in fp32 but not in bf16 runs unfused in bf16, and
+matches JAX's "auto" block."""
 
 import dataclasses
 
@@ -127,6 +129,60 @@ def test_unfused_block_bf16_matches_jax(monkeypatch, tiled):
         assert g.dtype == torch.float32, name
         assert_bf16_close(g, ref[jnp.bfloat16][3][mod][leaf],
                           ref[jnp.float32][3][mod][leaf], name)
+
+
+def _auto_block_routes(monkeypatch, side, c, heads, seed):
+    """The bf16 "auto" block at (side², c, heads) on the CPU with its two
+    routes spied on: (the routes taken, its output, JAX's "auto" block's
+    output in bf16 and in fp32 on the same weights)."""
+    from sdeflow_tpu_torch.models import unet2d
+
+    calls = []
+    for name in ("attention_core", "fused_attention_block"):
+        fn = getattr(unet2d, name)
+        monkeypatch.setattr(unet2d, name, lambda *a, fn=fn, name=name: (
+            calls.append(name), fn(*a))[1])
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((2.0 * rng.standard_normal((2, side, side, c))
+                          + 0.5).astype(np.float32)).to(BF).float().numpy()
+    shapes = jax.eval_shape(JaxAttentionBlock(c, heads).init,
+                            jax.random.PRNGKey(0), jnp.asarray(x))
+    params = _params(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes["params"]), rng)
+    ref = {dt: jax.jit(lambda xx, dt=dt: JaxAttentionBlock(
+        c, heads, dtype=dt).apply({"params": params}, xx))(
+            jnp.asarray(x, dt)) for dt in (jnp.bfloat16, jnp.float32)}
+    tblock = load_flax_params(AttentionBlock(c, heads), params)
+    assert tblock.fused
+    with torch.no_grad():
+        out = tblock(torch.from_numpy(x).permute(0, 3, 1, 2).to(BF))
+    assert out.dtype == BF
+    return calls, out.permute(0, 2, 3, 1), ref[jnp.bfloat16], ref[jnp.float32]
+
+
+@pytest.mark.parametrize("c", [32, 64], ids=["C32", "C64"])
+def test_auto_block_beyond_bf16_k3_runs_unfused(monkeypatch, c):
+    """An "auto" block that K3 holds in fp32 (one sample, qkv in scratch)
+    but not in bf16, (T, heads) = (256, 8), groups 32, takes the unfused
+    route in bf16 (it raised on CUDA while the fp32 plan decided), and
+    computes what JAX's "auto" block computes on the same weights."""
+    from sdeflow_tpu_torch.ops.kernels.attnblock import block_plan
+
+    assert block_plan(256, c, 32, 8) is not None
+    assert block_plan(256, c, 32, 8, BF) is None
+    calls, out, j16, j32 = _auto_block_routes(monkeypatch, 16, c, 8, 12)
+    assert calls == ["attention_core"]
+    assert_bf16_close(out, j16, j32, "out")
+
+
+@pytest.mark.parametrize("side,c", [(8, 64), (4, 128)],
+                         ids=["T64-C64", "T16-C128"])
+def test_auto_block_bf16_within_k3_stays_fused(monkeypatch, side, c):
+    """grf16's two block shapes, which K3 holds in bf16 too, keep the
+    fused route in bf16 (one K3 call, no attention core)."""
+    calls, out, j16, j32 = _auto_block_routes(monkeypatch, side, c, 1, 13)
+    assert calls == ["fused_attention_block"]
+    assert_bf16_close(out, j16, j32, "out")
 
 
 def test_production_dbg_unfused_cli_runs_on_the_cpu(tmp_path, capsys,

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""The bf16 kernels whose code a change leaves alone, from this tree against
+the same kernels built from another tree of the package, bit for bit, on
+one NVIDIA GPU.
+
+    python3 tools/torch_bf16_parent.py PARENT_DIR
+
+PARENT_DIR holds another checkout of the repository (for example the
+parent commit unpacked by ``git archive`` into the git-ignored
+``_parent/``). Both trees' ``csrc/attnblock.cu`` (K3) and
+``csrc/flash_fwd.cu`` (K4 and K7a) are built with nvcc, each against its
+own tree's headers; every kernel runs through this tree's wrapper on both
+libraries:
+
+- K3 in bf16 at grf16's two AttentionBlock shapes, (B, T, C) =
+  (1024, 64, 64) and (1024, 16, 128), and at (16, 64, 64) with four heads,
+  with random non-zero weights;
+- K4 and K7a in bf16 (out, and K7a's lse) at the T = 4096 blocks' shapes
+  (4, 4096, 64) and (128, 4096, 64), two heads, head width 128 and head
+  width 30 (element copies) with two heads.
+
+Exits non-zero unless every output is equal bit for bit.
+"""
+
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from sdeflow_tpu_torch.models.common import group_count  # noqa: E402
+from sdeflow_tpu_torch.ops.kernels import attention as ak  # noqa: E402
+from sdeflow_tpu_torch.ops.kernels import attnblock as ab  # noqa: E402
+from sdeflow_tpu_torch.ops.kernels import common  # noqa: E402
+
+K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (16, 64, 64, 4)]
+FLASH_SHAPES = [(4, 4096, 64, 1), (128, 4096, 64, 1), (4, 4096, 64, 2),
+                (2, 2048, 128, 1), (2, 1536, 60, 2)]
+
+
+def parent_lib(kernel, parent):
+    """The kernel's source in the parent tree, built against that tree's
+    headers (Kernel hashes and includes the headers beside its source)."""
+    src = (Path(parent).resolve() / "sdeflow_tpu_torch" / "csrc"
+           / kernel.source.name)
+    old = common.CSRC_DIR
+    common.CSRC_DIR = src.parent
+    try:
+        return common.Kernel(f"{kernel.name}_parent", str(src),
+                             kernel.signatures).lib()
+    finally:
+        common.CSRC_DIR = old
+
+
+def same(a, b):
+    return torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                       else a.view(torch.int32),
+                       b.view(torch.int16) if b.dtype == torch.bfloat16
+                       else b.view(torch.int32))
+
+
+def compare(what, kernel, libs, run):
+    """run() on each library; True if every output agrees bit for bit."""
+    outs = {}
+    try:
+        for name, lib in libs.items():
+            kernel._lib = lib
+            outs[name] = run()
+    finally:
+        kernel._lib = libs["this tree"]
+    torch.cuda.synchronize()
+    equal = all(same(a, b) for a, b in zip(outs["this tree"],
+                                           outs["parent"]))
+    print(f"{what}: bit for bit {'equal' if equal else 'DIFFERENT'} to the "
+          "parent's")
+    return equal
+
+
+def main(parent):
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    equal = True
+    libs = {"this tree": ab.K3.lib(), "parent": parent_lib(ab.K3, parent)}
+    for b, t, c, heads in K3_SHAPES:
+        args = [(2.0 * rnd(b, t, c) + 0.5).to(torch.bfloat16),
+                1.0 + 0.1 * rnd(c), 0.1 * rnd(c), rnd(c, 3 * c) / c**0.5,
+                0.1 * rnd(3 * c), rnd(c, c) / c**0.5, 0.1 * rnd(c)]
+        with torch.no_grad():
+            equal &= compare(
+                f"K3 bf16 at {(b, t, c)} heads={heads}", ab.K3, libs,
+                lambda: [ab._launch(*args, group_count(c), heads)])
+    # K4 and K7a share flash_fwd.cu: one parent library serves both
+    both = common.Kernel("flash_fwd", "flash_fwd.cu",
+                         {**ak.K4.signatures, **ak.K7A.signatures})
+    flash = parent_lib(both, parent)
+    for b, t, c, heads in FLASH_SHAPES:
+        qkv = (1.5 * rnd(b, t, 3 * c)).to(torch.bfloat16)
+        with torch.no_grad():
+            equal &= compare(
+                f"K4 bf16 at {(b, t, c)} heads={heads}", ak.K4,
+                {"this tree": ak.K4.lib(), "parent": flash},
+                lambda: [ak._launch(qkv, heads)])
+            equal &= compare(
+                f"K7a bf16 at {(b, t, c)} heads={heads}", ak.K7A,
+                {"this tree": ak.K7A.lib(), "parent": flash},
+                lambda: list(ak._launch_stats(qkv, heads)))
+        del qkv
+    return 0 if equal else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))
