@@ -211,7 +211,9 @@ CUDA kernel of those paths against its plain PyTorch version:
    inputs than 1.5× the plain bf16 twin's own distance plus 1e-3·max;
    K7a's lse within 1e-5 of the fp32 plain's, K7b's dqkv within 1e-2·max
    of attention_flash_bwd_math in bf16 (fp32 math rounded once) and equal
-   bit for bit on a second run (one writer per element); their
+   bit for bit on a second run (one writer per element); on each K4 shape
+   K4's out equal to K7a's bit for bit (one wgmma body under two symbols)
+   and K7a's out and lse equal bit for bit on a second run; their
    times per call through the Function and as direct launches at
    (4, 4096, 64), (128, 4096, 64) (K4, K7a, K7b) and (128, 1024, 128) and
    grf16's two shapes (K6), beside the plain twins, SDPA in bf16 (its
@@ -257,8 +259,9 @@ step; driver runs phase 20; bf16 phases 21 and 22; unfused_bf16 phases
 at (128, 4096, 64), K7a's lse sweep (recorded, not held) and five bare DSM
 steps at batch 128 (copied beside another tree of the package, it times
 that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
-(128, 1024, 128), K7a and K7b at (128, 4096, 64) beside SDPA, and the bf16
-DSM step with its trace (``attn_bf16_timing``).
+(128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
+(128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
+24's batch-16 request with its trace (``attn_bf16_timing``).
 """
 
 from __future__ import annotations
@@ -2730,6 +2733,10 @@ K6_BF16_SHAPES = [(1024, 64, 64, 1), (1024, 64, 64, 4), (1024, 16, 128, 1),
                   (128, 1024, 128, 1)]
 K4_BF16_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
 K7_BF16_SHAPES = K4_BF16_SHAPES + [(2, 1000, 64, 1)]
+# K4 and K7a bf16 (not K7b) also at the request's and the DSM step's
+# shapes, whose grids take the two-warpgroup block (flash_fwd_bf16_rows:
+# 128 rows); the shapes above all take the one-warpgroup block
+K4_K7A_BF16_WIDE = [(16, 4096, 64, 1), (SGM_BATCH, 4096, 64, 1)]
 # two gates, both held: within 2e-2·max |plain bf16| of the plain bf16 twin
 # (two bf16 ulps: the kernels round where the JAX kernel bodies do, the
 # twins of K6 and K4 where the JAX math versions do), and no farther from
@@ -2748,6 +2755,9 @@ ATTN_BF16_TOL, K7B_BF16_TOL, K7A_BF16_LSE_TOL = 2e-2, 1e-2, 1e-5
 # level and at grf16's two unfused shapes (path (a)'s mix)
 ATTN_BF16_LONG = [(4, 4096, 64), (SGM_BATCH, 4096, 64)]
 K6_BF16_DSM = (SGM_BATCH, 1024, 128)
+# K4 bf16 timed by --only attn_bf16: the long-sequence block's shape and
+# phase 24's request's (batch 16 at T = 4096)
+K4_BF16_TIMED = [(4, 4096, 64), (16, 4096, 64)]
 
 
 def k6_bf16_cost(b, t, c, heads):
@@ -2803,6 +2813,23 @@ def bf16_gates(name, out, plain, fp32, tol):
     return err, mine, theirs
 
 
+def k4_k7a_bits(ak, qkv, heads, out):
+    """K4 bf16's out (given) against K7a bf16's on the same qkv, and K7a
+    bf16 run twice: equal bit for bit (one body under two symbols, every
+    sum in one warpgroup's registers)."""
+    runs = [ak._launch_stats(qkv, heads) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (torch.equal(out.view(torch.int16), runs[0][0].view(torch.int16)),
+            torch.equal(runs[0][0].view(torch.int16),
+                        runs[1][0].view(torch.int16)),
+            torch.equal(runs[0][1].view(torch.int32),
+                        runs[1][1].view(torch.int32)))
+    log(f"  K4 out equal to K7a out bit for bit: {same[0]}; K7a again: out "
+        f"{same[1]}, lse {same[2]}")
+    if not all(same):
+        raise AssertionError(f"bf16 K4/K7a bit for bit: {same}")
+
+
 # an "auto" AttentionBlock that K3 holds in fp32 (one sample, qkv in
 # scratch) but not in bf16: (B, C, H, W) and heads; 32 groups
 AUTO_BEYOND_K3, AUTO_BEYOND_K3_HEADS = (4, 64, 16, 16), 8
@@ -2844,7 +2871,8 @@ def auto_block_beyond_k3(g, dev):
 def check_attention_bf16(g, dev):
     """Phase 23: the bf16 entries of K6, K4, K7a and K7b against their
     plain twins (both gates; TF32 off, and the plain twins' bf16 products
-    summed in fp32), then their times per call through the Function and as
+    summed in fp32; K4 and K7a in both their blocks, K4's out against
+    K7a's and K7a against itself bit for bit), then their times per call through the Function and as
     direct launches beside the plain twins, SDPA in bf16 (forward;
     backward for K7b) and the bounds (bf16 products at 989 TFLOP/s)."""
     from sdeflow_tpu_torch.ops.kernels import attention as ak
@@ -2865,9 +2893,17 @@ def check_attention_bf16(g, dev):
     def draw(b, t, c, scale=1.5):
         return (scale * torch.randn(b, t, c, generator=g, device=dev)).to(bf)
 
+    # K4 and K7a's one- and two-warpgroup blocks are both held
+    narrow, wide = ({ak.flash_fwd_bf16_rows(b, t, heads)
+                     for b, t, _, heads in shapes}
+                    for shapes in (K7_BF16_SHAPES, K4_K7A_BF16_WIDE))
+    if (narrow, wide) != ({64}, {128}):
+        raise AssertionError(f"bf16 K4/K7a rows per block {narrow}, {wide}:"
+                             " pick other shapes")
     entries0 = entry_counts()
     with torch.no_grad():
-        for b, t, c, heads in K6_BF16_SHAPES + K4_BF16_SHAPES:
+        for b, t, c, heads in (K6_BF16_SHAPES + K4_BF16_SHAPES
+                               + K4_K7A_BF16_WIDE):
             name = "K4" if t > 1024 else "K6"
             qkv = draw(b, t, 3 * c)
             out = ak._launch(qkv, heads)
@@ -2876,14 +2912,18 @@ def check_attention_bf16(g, dev):
             note(name, bf16_gates(name, out, ak.attention_reference(
                 qkv, heads), ak.attention_reference(qkv.float(), heads),
                 ATTN_BF16_TOL))
+            if name == "K4":
+                k4_k7a_bits(ak, qkv, heads, out)
             del qkv, out
-        for b, t, c, heads in K7_BF16_SHAPES:
-            qkv, dout = draw(b, t, 3 * c), draw(b, t, c, 1.0)
+        for b, t, c, heads in K7_BF16_SHAPES + K4_K7A_BF16_WIDE:
+            qkv = draw(b, t, 3 * c)
             out, lse = ak._launch_stats(qkv, heads)
             torch.cuda.synchronize()
             out_p, _ = ak.attention_flash_stats_math(qkv, heads)
             out32, lse32 = ak.attention_flash_stats_math(qkv.float(), heads)
-            log(f"bf16 K7a/K7b ({b}, {t}, {c}) heads={heads}:")
+            k7b = (b, t, c, heads) in K7_BF16_SHAPES
+            log(f"bf16 K7a{'/K7b' if k7b else ''} ({b}, {t}, {c}) "
+                f"heads={heads}:")
             note("K7a", bf16_gates("K7a", out, out_p, out32, ATTN_BF16_TOL))
             e_lse = (lse - lse32).abs().max().item()
             errs["K7a_lse"] = max(errs["K7a_lse"], e_lse)
@@ -2891,6 +2931,10 @@ def check_attention_bf16(g, dev):
                 f"(tolerance {K7A_BF16_LSE_TOL:g})")
             if not e_lse <= K7A_BF16_LSE_TOL:
                 raise AssertionError(f"bf16 K7a's lse: {e_lse}")
+            if not k7b:
+                del qkv, out, lse, out_p, out32, lse32
+                continue
+            dout = draw(b, t, c, 1.0)
             delta = (ak._heads(dout, heads).float()
                      * ak._heads(out_p, heads).float()).sum(-1)
             dqkv = ak._launch_bwd(qkv, dout, lse32, delta, heads)
@@ -2907,9 +2951,11 @@ def check_attention_bf16(g, dev):
                                             delta, heads), K7B_BF16_TOL))
             del qkv, dout, out, lse, out_p, out32, lse32, delta, dqkv, again
     launched = {e: n - entries0[e] for e, n in entry_counts().items()}
+    n_k4 = len(K4_BF16_SHAPES) + len(K4_K7A_BF16_WIDE)
     want = {"qkv_attention_bf16": len(K6_BF16_SHAPES),
-            "qkv_attention_flash_bf16": len(K4_BF16_SHAPES),
-            "qkv_attention_stats_bf16": len(K7_BF16_SHAPES),
+            "qkv_attention_flash_bf16": n_k4,
+            "qkv_attention_stats_bf16": (len(K7_BF16_SHAPES)
+                                         + len(K4_K7A_BF16_WIDE) + 2 * n_k4),
             "qkv_attention_bwd_bf16": 2 * len(K7_BF16_SHAPES)}
     if {e: launched[e] for e in want} != want or f32_attention_launches():
         raise AssertionError(f"phase 23 launched {launched}")
@@ -3057,6 +3103,39 @@ def bf16_dsm_arm(g, dev):
     return cfg, model, gen, make_sampler(cfg, SGM_NPIXEL**2, dev)
 
 
+def bf16_request(gen, dev):
+    """Phase 24's no-grad request on gen: EM with one corrector step, the
+    production preset's knobs, reduced to batch DSM_BF16_REQUEST and
+    DSM_BF16_STEPS steps; (sweep knobs, sampler fn(g))."""
+    from sdeflow_tpu_torch import get_preset, make_sampler_fn
+
+    sw = get_preset("grf16_production").sweep
+    return sw, make_sampler_fn(gen, DSM_BF16_REQUEST, SGM_NPIXEL**2,
+                               DSM_BF16_STEPS, method=sw.backward_method,
+                               keep_all=True, include_t0=True,
+                               corrector_steps=sw.corrector_steps,
+                               snr=sw.snr, device=dev)
+
+
+def check_bf16_request(r):
+    """A timed_call record of bf16_request's sampler: its exact launches,
+    no float32 attention entry since the last reset, and finite samples of
+    the expected shape; returns the launches."""
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    want = dsm_bf16_request_want()
+    got = {k: r["launches"][k] for k in common.KERNELS}
+    xs = r["out"]
+    if (got != {k: want.get(k, 0) for k in got}
+            or f32_attention_launches() or not torch.isfinite(xs).all()
+            or tuple(xs.shape) != (DSM_BF16_STEPS + 1, DSM_BF16_REQUEST,
+                                   SGM_NPIXEL**2)):
+        raise AssertionError(f"bf16 request: launches {got}, "
+                             f"{f32_attention_launches()}, "
+                             f"{tuple(xs.shape)}")
+    return got
+
+
 def dsm_bf16_request_want():
     """Launches of the reduced request: per net evaluation the U-Net's 46
     GroupNorms, its 5 blocks at T = 4096 (K4) and 6 at T = 1024 (K6)."""
@@ -3073,7 +3152,7 @@ def check_dsm_bf16(g, dev, card, fp32_peak=None):
     steps; 5 timed bare steps at batch 128 with exact launches and peak
     memory; one traced step; the reduced no-grad request with its exact
     launches, a trace, and a replay on the plain path (bf16 and fp32)."""
-    from sdeflow_tpu_torch import Trainer, get_preset, make_sampler_fn
+    from sdeflow_tpu_torch import Trainer
     from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
     from sdeflow_tpu_torch.experiments import driver as drv
     from sdeflow_tpu_torch.ops.kernels import common
@@ -3142,25 +3221,12 @@ def check_dsm_bf16(g, dev, card, fp32_peak=None):
 
     # (e) the no-grad request: EM with one corrector step, the production
     # preset's knobs, reduced to batch 16 and 4 steps
-    sw = get_preset("grf16_production").sweep
-    sample = make_sampler_fn(gen, DSM_BF16_REQUEST, dim, DSM_BF16_STEPS,
-                             method=sw.backward_method, keep_all=True,
-                             include_t0=True,
-                             corrector_steps=sw.corrector_steps, snr=sw.snr,
-                             device=dev)
+    sw, sample = bf16_request(gen, dev)
     state0 = g.get_state()
     common.reset_launches()
     r = timed_call(sample, g)
     xs = r["out"]
-    req_want = dsm_bf16_request_want()
-    got = {k: r["launches"][k] for k in common.KERNELS}
-    if (got != {k: req_want.get(k, 0) for k in got}
-            or f32_attention_launches() or not torch.isfinite(xs).all()
-            or tuple(xs.shape) != (DSM_BF16_STEPS + 1, DSM_BF16_REQUEST,
-                                   dim)):
-        raise AssertionError(f"bf16 request: launches {got}, "
-                             f"{f32_attention_launches()}, "
-                             f"{tuple(xs.shape)}")
+    got = check_bf16_request(r)
     rec["request"] = dict(ms=r["ms"], peak=r["peak"], launches=got)
     log(f"{card}: bf16 request of {DSM_BF16_REQUEST} samples x "
         f"{DSM_BF16_STEPS} EM steps + {sw.corrector_steps} corrector step: "
@@ -3256,12 +3322,14 @@ def k7_timing(g, dev, record):
 
 def attn_bf16_timing(g, dev, record):
     """--only attn_bf16: K6 bf16 at the DSM step's T = 1024 level
-    (K6_BF16_DSM) and K7a and K7b bf16 at its T = 4096 shape as direct
-    launches, three runs each, beside SDPA in bf16 (forward; backward for
-    K7b) and the bounds; then bare bf16 DSM steps of the grf U-Net at
-    128x128, batch 128, with a trace and peak memory. To compare two trees
-    of the package in one call, copy this script into the other tree and
-    run both in turns."""
+    (K6_BF16_DSM), K4 bf16 at K4_BF16_TIMED, and K7a and K7b bf16 at the
+    DSM step's T = 4096 shape as direct launches, three runs each, beside
+    SDPA in bf16 (forward; backward for K7b) and the bounds; then bare bf16
+    DSM steps of the grf U-Net at 128x128, batch 128, with a trace and peak
+    memory, and phase 24's request (batch 16, 4 EM steps and one corrector
+    step) three times with a trace. To compare two trees of the package in
+    one call, copy this script into the other tree and run both in
+    turns."""
     from sdeflow_tpu_torch import Trainer
     from sdeflow_tpu_torch.ops.kernels import attention as ak
     from sdeflow_tpu_torch.ops.kernels import common
@@ -3279,6 +3347,18 @@ def attn_bf16_timing(g, dev, record):
             library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
             bound_ms=bound_bf16_ms(*k6_bf16_cost(b, t, c, 1))[0])
     del qkv, q, k, v
+    record["k4"] = []
+    for b, t, c in K4_BF16_TIMED:
+        qkv = (1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)).to(bf)
+        q, k, v = sdpa_args(qkv, 1)
+        with torch.no_grad():
+            record["k4"].append(dict(
+                shape=[b, t, c],
+                direct_ms=[cuda_ms(lambda: ak._launch(qkv, 1), 50)
+                           for _ in range(3)],
+                library_ms=cuda_ms(lambda: sdpa(q, k, v), 50),
+                bound_ms=bound_bf16_ms(*k6_bf16_cost(b, t, c, 1))[0]))
+        del qkv, q, k, v
     b, t, c = ATTN_BF16_LONG[1]
     qkv = (1.5 * torch.randn(b, t, 3 * c, generator=g, device=dev)).to(bf)
     dout = torch.randn(b, t, c, generator=g, device=dev).to(bf)
@@ -3302,8 +3382,8 @@ def attn_bf16_timing(g, dev, record):
             bound_ms=bound_bf16_ms(*k7b_bf16_cost(b, t, c, 1))[0])
     record["k7b"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         o, (q, k, v), do, retain_graph=True), 3, 1)
-    for key in ("k6", "k7a", "k7b"):
-        r = record[key]
+    for key, r in [("k6", record["k6"]), *(("k4", r) for r in record["k4"]),
+                   ("k7a", record["k7a"]), ("k7b", record["k7b"])]:
         log(f"bf16 {key.upper()} at {r['shape']}: direct "
             f"{[round(x, 4) for x in r['direct_ms']]} ms, SDPA bf16 "
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms")
@@ -3324,6 +3404,20 @@ def attn_bf16_timing(g, dev, record):
     record["dsm_bf16"]["profile"] = trace(step)
     log_trace(f"one bf16 DSM step at batch {SGM_BATCH}",
               record["dsm_bf16"]["profile"])
+
+    # phase 24's request on the same net (its weights as the steps left
+    # them): one warm run, three timed, one traced
+    sw, sample = bf16_request(gen, dev)
+    sample(g)
+    runs = [timed_call(sample, g) for _ in range(3)]
+    for r in runs:
+        check_bf16_request(r)
+    record["request"] = dict(ms=[r["ms"] for r in runs],
+                             profile=trace(lambda: sample(g)))
+    log(f"bf16 request of {DSM_BF16_REQUEST} samples x {DSM_BF16_STEPS} EM "
+        f"steps + {sw.corrector_steps} corrector step: "
+        f"{[round(r['ms'], 1) for r in runs]} ms")
+    log_trace("the bf16 request", record["request"]["profile"])
 
 
 def bf16_unfused_phases(card, fp32_peak=None):
@@ -3356,8 +3450,9 @@ def main(argv=None):
                     "the DSM step (k7_timing); unfused_bf16 runs phases 23, "
                     "24 and 25, the bf16 attention kernels, the bf16 grf "
                     "U-Net at 128x128 and grf16_production on the unfused "
-                    "route; attn_bf16 times K6, K7a and K7b bf16 at the DSM "
-                    "step's shapes and the bf16 DSM step (attn_bf16_timing)")
+                    "route; attn_bf16 times K6, K4, K7a and K7b bf16 at the "
+                    "DSM step's and the request's shapes, the bf16 DSM step "
+                    "and the bf16 request (attn_bf16_timing)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -285,8 +285,7 @@ qkv_attention_bf16_kernel_tiled(const bfm::bf16* __restrict__ qkv,
   constexpr int NT = kTiledKeys / 8;  // n-tiles of the score tile
   constexpr int NO = W / 8;           // n-tiles of the output
   extern __shared__ __align__(16) float smem[];
-  char* raw = reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+  char* raw = wg::align1024(smem);
   bf16* qs = reinterpret_cast<bf16*>(raw);
   char* ring = raw + L::q_bytes;
 

@@ -77,10 +77,11 @@
 //       (two kernels, below), and each writes its part of dqkv once. No
 //       atomics, no scratch: two runs agree bit for bit.
 //   (b) p = exp(S - lse) drifts above 1 unless S here is K7a's S: the
-//       scores are formed exactly as flash_fwd.cuh's bf16 body forms them
-//       behind lse, the fp32 sum of the exact products of the raw bf16 q
-//       and k over the same k-steps in one chain, times s^2 rounded once
-//       (S^T = K Q^T and S = Q K^T take the same products).
+//       scores are formed as flash_fwd.cu's bf16 body forms them behind
+//       lse, the fp32 sum of the exact products of the raw bf16 q and k
+//       over the same k-steps in one chain on wgmma, the scale s^2 folded
+//       into the exponent's FMA (S^T = K Q^T and S = Q K^T take the same
+//       products).
 //   (c) dP = dO V^T has bf16 operands, so a bf16 product is exact up to
 //       its fp32 sums. P^T dO, dS^T Q and dS K take fp32 P and dS: each
 //       goes in as two bf16 halves, hi = bf16(x) and lo = bf16(x - hi)
@@ -420,23 +421,6 @@ __device__ __forceinline__ void store_rows(bfm::bf16* out, long long stride,
   }
 }
 
-// n-tiles a[N/8][4] of an m64nN accumulator as wgmma's N/2 registers
-template <int N>
-__device__ __forceinline__ float (&flat(float (&a)[N / 8][4]))[N / 2] {
-  return *reinterpret_cast<float(*)[N / 2]>(&a[0][0]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) a[n][0] = a[n][1] = a[n][2] = a[n][3] = 0.f;
-}
-
-__device__ __forceinline__ char* align1024(void* p) {
-  return reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 // Both kernels run one loop over the streamed tiles. Per tile i: the
 // softmax of its scores (in registers since the last wait) into the split
 // A operands; the products that take them (dV, dK or dQ) issued; then,
@@ -460,7 +444,7 @@ flash_bwd_dkdv_bf16_kernel(const bfm::bf16* __restrict__ qkv,
   constexpr int NQ = R / 8;  // query n-tiles of S^T
   constexpr int NO = W / 8;  // channel n-tiles of dK, dV
   extern __shared__ __align__(16) float smem[];
-  char* raw = align1024(smem);
+  char* raw = wg::align1024(smem);
   bf16* ks = reinterpret_cast<bf16*>(raw);  // the block's raw K rows
   bf16* vs = ks + kKeys * W;
   char* ring = raw + L::kv_bytes;
@@ -504,9 +488,9 @@ flash_bwd_dkdv_bf16_kernel(const bfm::bf16* __restrict__ qkv,
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk) {  // k-step 0 overwrites
-      wg::mma_ss<R>(flat<R>(s), dks + wg::k_step(kKeys, kk),
+      wg::mma_ss<R>(wg::flat<R>(s), dks + wg::k_step(kKeys, kk),
                     dqs + wg::k_step(R, kk), kk > 0);
-      wg::mma_ss<R>(flat<R>(dp), dvs + wg::k_step(kKeys, kk),
+      wg::mma_ss<R>(wg::flat<R>(dp), dvs + wg::k_step(kKeys, kk),
                     dos + wg::k_step(R, kk), kk > 0);
     }
     wg::commit();
@@ -525,8 +509,8 @@ flash_bwd_dkdv_bf16_kernel(const bfm::bf16* __restrict__ qkv,
   wg::wait<0>();
 
   float dk[NO][4], dv[NO][4];
-  zero(dk);
-  zero(dv);
+  wg::zero(dk);
+  wg::zero(dv);
   const int kr0 = warp * 16 + g;  // this lane's keys kr0 and kr0 + 8
   const bool key_ok[2] = {j0 + kr0 < T, j0 + kr0 + 8 < T};
 
@@ -564,10 +548,10 @@ flash_bwd_dkdv_bf16_kernel(const bfm::bf16* __restrict__ qkv,
 #pragma unroll
     for (int kk = 0; kk < NQ / 2; ++kk) {
       const uint64_t o = dos + wg::mn_step(kk), q = dqs + wg::mn_step(kk);
-      wg::mma_rs<W>(flat<W>(dv), pl[kk], o, 1);
-      wg::mma_rs<W>(flat<W>(dv), ph[kk], o, 1);
-      wg::mma_rs<W>(flat<W>(dk), dl[kk], q, 1);
-      wg::mma_rs<W>(flat<W>(dk), dh[kk], q, 1);
+      wg::mma_rs<W>(wg::flat<W>(dv), pl[kk], o, 1);
+      wg::mma_rs<W>(wg::flat<W>(dv), ph[kk], o, 1);
+      wg::mma_rs<W>(wg::flat<W>(dk), dl[kk], q, 1);
+      wg::mma_rs<W>(wg::flat<W>(dk), dh[kk], q, 1);
     }
     wg::commit();
     if (it + 1 < nq) {
@@ -600,7 +584,7 @@ flash_bwd_dq_bf16_kernel(const bfm::bf16* __restrict__ qkv,
   constexpr int NK = R / 8;  // key n-tiles of S
   constexpr int NO = W / 8;  // channel n-tiles of dQ
   extern __shared__ __align__(16) float smem[];
-  char* raw = align1024(smem);
+  char* raw = wg::align1024(smem);
   bf16* qs = reinterpret_cast<bf16*>(raw);  // the block's raw Q rows
   bf16* dos = qs + kBfQueries * W;
   char* ring = raw + L::qo_bytes;
@@ -636,9 +620,9 @@ flash_bwd_dq_bf16_kernel(const bfm::bf16* __restrict__ qkv,
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < W / 16; ++kk) {  // k-step 0 overwrites
-      wg::mma_ss<R>(flat<R>(s), dqs + wg::k_step(kBfQueries, kk),
+      wg::mma_ss<R>(wg::flat<R>(s), dqs + wg::k_step(kBfQueries, kk),
                     dks + wg::k_step(R, kk), kk > 0);
-      wg::mma_ss<R>(flat<R>(dp), dos_ + wg::k_step(kBfQueries, kk),
+      wg::mma_ss<R>(wg::flat<R>(dp), dos_ + wg::k_step(kBfQueries, kk),
                     dvs + wg::k_step(R, kk), kk > 0);
     }
     wg::commit();
@@ -654,7 +638,7 @@ flash_bwd_dq_bf16_kernel(const bfm::bf16* __restrict__ qkv,
     dr[h] = t < T ? delta[stat + t] : 0.f;
   }
   float dq[NO][4];
-  zero(dq);
+  wg::zero(dq);
 
   wg::load_tile<kBfQueries, W, kThreads>(qs, head, C3, i0, T, ch, vec);
   wg::load_tile<kBfQueries, W, kThreads>(dos, dout + b * T * C + hh * ch, C,
@@ -692,8 +676,8 @@ flash_bwd_dq_bf16_kernel(const bfm::bf16* __restrict__ qkv,
 #pragma unroll
     for (int kk = 0; kk < NK / 2; ++kk) {
       const uint64_t k = dkm + wg::mn_step(kk);
-      wg::mma_rs<W>(flat<W>(dq), dl[kk], k, 1);
-      wg::mma_rs<W>(flat<W>(dq), dh[kk], k, 1);
+      wg::mma_rs<W>(wg::flat<W>(dq), dl[kk], k, 1);
+      wg::mma_rs<W>(wg::flat<W>(dq), dh[kk], k, 1);
     }
     wg::commit();
     if (j + 1 < nk) {

@@ -33,7 +33,6 @@
 
 #include <math.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace flash {
@@ -244,182 +243,5 @@ int launch_w(Kernel kernel, long long B, int T, int heads, int smem,
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-// ---- bfloat16 -------------------------------------------------------------
-//
-// The bf16 body: qkv and out bf16, lse fp32 (K4 and K7a through
-// flash_fwd.cu's qkv_attention_flash_bf16 and qkv_attention_stats_bf16).
-// It keeps the rounding points of the JAX kernel bodies on bf16 qkv
-// (sdeflow_tpu/ops/pallas/attention.py:161-198, 305-341), whose scale is a
-// float32 scalar, so that q*s and k*s are float32: the scores are the fp32
-// sums of q k^T formed from the raw bf16 q and k on mma.sync m16n8k16
-// (each product of two bf16 exact in fp32), times s^2 rounded once, equal
-// to the body's fp32 scores up to fp32 rounding. The weights are rounded
-// to bf16 where the bodies round them, the unnormalised p = exp(s - m) of
-// the online softmax; P V on mma.sync with fp32 accumulation; m, l and the
-// accumulator fp32; the output rounded to bf16 once, lse = m + log l in
-// fp32. (K6's bf16 body above T = 64, which normalises p before it rounds
-// it, is attention.cu's own.)
-//
-// Layout: the block's 64 raw Q rows and a two-stage cp.async ring of
-// 64-row K and V tiles, rows of W + 8 bf16 (16-byte copies where ch is a
-// multiple of 8 and qkv 16-byte aligned, element copies otherwise). The
-// score tile's A fragment is Q's rows, its B fragments K's rows (two
-// adjacent channels to a register); P V's A fragment is two score n-tiles
-// rounded in pairs, its B fragments two V rows each (ld2t). Bound: the
-// products on the bf16 tensor cores at the DSM step's shapes, as for the
-// float32 body; a simple first kernel on mma.sync (wgmma, TMA and a
-// persistent grid are later work).
-
-template <int W>
-struct LayoutBf {
-  static constexpr int ld = W + bfm::kPadBf;  // Q, K and V rows, bf16
-  static constexpr int stage = 2 * kKeys * ld;
-  static constexpr int bytes = 2 * (kRows * ld + kStages * stage);
-};
-
-template <int W, bool kStats>
-__device__ __forceinline__ void flash_fwd_bf16_body(
-    const bfm::bf16* __restrict__ qkv, bfm::bf16* __restrict__ out,
-    float* __restrict__ lse, int T, int heads, int ch, float scale2,
-    bool vec) {
-  using L = LayoutBf<W>;
-  using bfm::bf16;
-  constexpr int NT = kKeys / 8;  // n-tiles of the score tile
-  constexpr int NO = W / 8;      // n-tiles of the output
-  constexpr int ld = L::ld;
-  extern __shared__ __align__(16) float smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = qs + kRows * ld;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q4 = lane & 3;
-  const int nq = (T + kRows - 1) / kRows;
-  const int qt = (int)(blockIdx.x % nq);
-  const int hh = (int)((blockIdx.x / nq) % heads);
-  const long long b = (long long)blockIdx.x / ((long long)nq * heads);
-  const long long C = (long long)heads * ch, C3 = 3 * C;
-  const bf16* base = qkv + b * T * C3 + hh * 3 * ch;  // row t at + t*C3
-  const int q0 = qt * kRows;
-  const int ntiles = (T + kKeys - 1) / kKeys;
-
-  auto load_tile = [&](int step) {  // tile step % ntiles into stage step & 1
-    bf16* ks = ring + (step & 1) * L::stage;
-    const int k0 = (step % ntiles) * kKeys;
-    bfm::load_rows<kKeys, W, kThreads>(ks, ld, base + ch, C3, k0, T, ch,
-                                       vec);
-    bfm::load_rows<kKeys, W, kThreads>(ks + kKeys * ld, ld, base + 2 * ch,
-                                       C3, k0, T, ch, vec);
-  };
-  bfm::load_rows<kRows, W, kThreads>(qs, ld, base, C3, q0, T, ch, vec);
-  load_tile(0);
-  tc::cp_async_commit();
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const bf16* qw = qs + warp * 16 * ld;  // this warp's 16 rows
-
-  for (int step = 0; step < ntiles; ++step) {
-    if (step + 1 < ntiles) load_tile(step + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait_one();  // this step's tile (and Q) has landed
-    __syncthreads();          // for every thread's copies
-    const bf16* ks = ring + (step & 1) * L::stage;
-    const bf16* vs = ks + kKeys * ld;
-    const int k0 = (step % ntiles) * kKeys;
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < W / 16; ++kk) {
-      uint32_t a[4];
-      bfm::load_a(a, qw + kk * 16, ld, g, q4);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* kr = ks + (n * 8 + g) * ld + kk * 16 + 2 * q4;
-        bfm::mma(s[n], a, bfm::ld2(kr), bfm::ld2(kr + 8));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)  // keys past T get -inf
-        s[n][e] = k0 + n * 8 + 2 * q4 + (e & 1) >= T
-                      ? -INFINITY
-                      : __fmul_rn(s[n][e], scale2);
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // row g (c0, c1), row g + 8 (c2, c3)
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
-      const float corr = expf(m[h] - m_new);  // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float p0 = expf(s[n][2 * h] - m_new);
-        const float p1 = expf(s[n][2 * h + 1] - m_new);
-        sum += p0 + p1;
-        s[n][2 * h] = p0, s[n][2 * h + 1] = p1;
-      }
-      l[h] = l[h] * corr + tc::quad_sum(sum);
-      m[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        o[n][2 * h] *= corr, o[n][2 * h + 1] *= corr;
-    }
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {  // O += bf16(p) V, keys 16kk..
-      uint32_t a[4];
-      bfm::pack_a(a, s[2 * kk], s[2 * kk + 1]);
-      const bf16* vr = vs + (kk * 16 + 2 * q4) * ld + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        bfm::mma(o[n], a, bfm::ld2t(vr + n * 8, ld),
-                 bfm::ld2t(vr + 8 * ld + n * 8, ld));
-    }
-    __syncthreads();  // the stage is free for the copy two steps on
-  }
-
-  const bool pairs = (ch & 1) == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int t = q0 + warp * 16 + g + 8 * h;
-    if (t >= T) continue;
-    bf16* orow = out + (b * T + t) * C + hh * ch;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int c = n * 8 + 2 * q4;
-      const float v0 = o[n][2 * h] / l[h];
-      const float v1 = o[n][2 * h + 1] / l[h];
-      if (pairs && c + 1 < ch) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(v0, v1);
-      } else {
-        if (c < ch) orow[c] = __float2bfloat16_rn(v0);
-        if (c + 1 < ch) orow[c + 1] = __float2bfloat16_rn(v1);
-      }
-    }
-    if (kStats && q4 == 0)
-      lse[(b * heads + hh) * T + t] = m[h] + logf(l[h]);
-  }
-}
-
-template <int W, typename Kernel, typename... Args>
-int launch_bf(Kernel kernel, long long B, int T, int heads, int smem,
-              cudaStream_t stream, Args... args) {
-  if (smem != LayoutBf<W>::bytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = B * heads * ((T + kRows - 1) / kRows);
-  kernel<<<(unsigned int)blocks, kThreads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace flash

@@ -1,5 +1,6 @@
 // Hopper's warpgroup products for the bf16 attention kernels (attention.cu's
-// tiled K6, attention_bwd.cu's K7b): wgmma.mma_async m64nNk16 with bf16
+// tiled K6, flash_fwd.cu's K4 and K7a, attention_bwd.cu's K7b):
+// wgmma.mma_async m64nNk16 with bf16
 // operands and fp32 accumulation, A from shared memory or from registers,
 // B from shared memory through a matrix descriptor; and the shared-memory
 // tile layout both read.
@@ -104,6 +105,24 @@ __host__ __device__ constexpr uint64_t mn_step(int kk) {
   return (uint64_t)kk * 16 * 128 >> 4;
 }
 
+// the first 1,024-byte boundary at or after p (the swizzle's atoms)
+__device__ __forceinline__ char* align1024(void* p) {
+  return reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// n-tiles a[N/8][4] of an m64nN accumulator as wgmma's N/2 registers
+template <int N>
+__device__ __forceinline__ float (&flat(float (&a)[N / 8][4]))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(&a[0][0]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) a[n][0] = a[n][1] = a[n][2] = a[n][3] = 0.f;
+}
+
 // 2^x on the SFU (ex2.approx: about 2 ulp; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -121,6 +140,22 @@ template <int n>
 __device__ __forceinline__ void wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
 }
+// Ties each register of an accumulator (or of a register A operand) to
+// this point of the program, so that the compiler moves no instruction that
+// reads or defines it across (CUTLASS's warpgroup_fence_operand). Before
+// wgmma.fence it keeps the other instructions that define the operands out
+// of the products' pipeline stage, where ptxas would serialise the products
+// (C7515); after wgmma.wait_group it keeps their readers after the wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // threads' shared-memory writes, before the barrier, for wgmma's reads
 __device__ __forceinline__ void fence_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -144,6 +179,23 @@ __device__ __forceinline__ void fence_smem() {
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+// ... as outputs only
+#define WG_W32(d)                                                            \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),    \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),           \
+      "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),       \
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),       \
+      "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),       \
+      "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),       \
+      "=f"(d[31])
+#define WG_W64(d)                                                            \
+  WG_W32(d), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),             \
+      "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]),       \
+      "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]),       \
+      "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]),       \
+      "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),       \
+      "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]),       \
+      "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
 #define WG_R16                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_R32                                                               \
@@ -176,6 +228,27 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
         : "l"(a), "l"(b), "r"(acc));                                         \
   }
 
+// d = A B, A (64 x 16) and B (16 x N) from shared memory, both K-major:
+// the first k-step of a product whose accumulator enters it holding
+// nothing (its registers are outputs only, so that no instruction that
+// wrote them last is tied to the product)
+template <int N>
+__device__ __forceinline__ void mma_ss_first(float (&d)[N / 2], uint64_t a,
+                                             uint64_t b);
+
+// (the operand numbers after the N/2 accumulators: A, B, a zero)
+#define WG_SS0(N, RL, DL, IA, IB, IC)                                        \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_ss_first<N>(float(&d)[N / 2],          \
+                                                  uint64_t a, uint64_t b) {  \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" IC ", 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " RL       \
+        ", %" IA ", %" IB ", p, 1, 1, 0, 0;\n}\n"                             \
+        : DL(d)                                                              \
+        : "l"(a), "l"(b), "r"(0));                                           \
+  }
+
 // d (+)= A B, A (64 x 16) from registers (a: the warp's mma.sync A
 // fragment), B (16 x N) from shared memory, MN-major
 template <int N>
@@ -196,14 +269,20 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));     \
   }
 
-// the score products (N = the streamed tile's rows: 32 or 64) and the
+// the score products (N = the streamed tile's rows: 32, 64 or 128) and the
 // products into the head width (N = W: 64 or 128)
 WG_SS(32, WG_R16, WG_D16, "16", "17", "18")
 WG_SS(64, WG_R32, WG_D32, "32", "33", "34")
+WG_SS(128, WG_R64, WG_D64, "64", "65", "66")
+WG_SS0(64, WG_R32, WG_W32, "32", "33", "34")
+WG_SS0(128, WG_R64, WG_W64, "64", "65", "66")
 WG_RS(64, WG_R32, WG_D32, "32", "33", "34", "35", "36", "37")
 WG_RS(128, WG_R64, WG_D64, "64", "65", "66", "67", "68", "69")
 
 #undef WG_SS
+#undef WG_SS0
+#undef WG_W32
+#undef WG_W64
 #undef WG_RS
 #undef WG_D16
 #undef WG_D32

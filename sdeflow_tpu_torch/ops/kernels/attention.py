@@ -33,8 +33,8 @@ sdeflow_tpu/ops/pallas/attention.py.
   K7a and K7b form every product on the tensor cores in 3xTF32 (fp32 split
   into two TF32 halves, three products), close enough to fp32 that the
   tolerances against the plain fp32 versions stand; their bf16 entries
-  take bf16 operands on the tensor cores (below): K4, K7a and K6 up to
-  T = 64 on mma.sync m16n8k16, K6 above T = 64 and K7b on wgmma. On CPU
+  take bf16 operands on the tensor cores (below): K6 up to T = 64 on
+  mma.sync m16n8k16, K6 above T = 64, K4, K7a and K7b on wgmma. On CPU
   tensors the
   plain versions ``attention_flash_stats_math`` and
   ``attention_flash_bwd_math`` run.
@@ -123,6 +123,10 @@ MAX_HEAD_WIDTH = 128
 _K6_WARPS, _K6_SHORT_T, _K6_KEYS = 4, 64, 32    # attention.cu (K6)
 _K6_TILED_ROWS, _K6_TILED_KEYS, _K6_TILED_STAGES = 128, 64, 2  # its bf16 body
 _FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
+# flash_fwd.cu's bf16 body: key tiles, ring depth, query rows per consumer
+# warpgroup, and the grid from which a block takes two warpgroups
+_FWD_BF_KEYS, _FWD_BF_STAGES, _FWD_BF_GROUP_ROWS, _FWD_BF_WIDE_FROM = (
+    64, 4, 64, 264)
 _BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
 _BWD_BF_QUERIES, _BWD_BF_STAGES = 64, 3          # attention_bwd.cu's bf16
 _STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
@@ -391,21 +395,38 @@ def _padded_width(ch):
 
 
 def _swizzled_width(ch):
-    """The width that the wgmma kernels (the tiled bf16 K6, bf16 K7b) pad a
-    head to: 64 or 128, whole column blocks of their 128-byte swizzle."""
+    """The width that the wgmma kernels (the tiled bf16 K6, bf16 K4, K7a
+    and K7b) pad a head to: 64 or 128, whole column blocks of their
+    128-byte swizzle."""
     return max(64, _padded_width(ch))
 
 
-def flash_fwd_smem_bytes(ch, dtype=torch.float32):
+def flash_fwd_bf16_rows(b, t, heads):
+    """Query rows per block of flash_fwd.cu's bf16 body (K4, K7a; its
+    ``bf_groups``): 128, two consumer warpgroups sharing each K and V tile,
+    where the grid of 128-row blocks holds at least 264 of them (two per
+    SM of the H100's 132); else 64, one warpgroup, so that a small grid
+    still spreads over the SMs ((4, 4096, 64): 256 blocks of 64 rows, not
+    128 of 128)."""
+    wide = 2 * _FWD_BF_GROUP_ROWS
+    if b * heads * -(-t // wide) >= _FWD_BF_WIDE_FROM:
+        return wide
+    return _FWD_BF_GROUP_ROWS
+
+
+def flash_fwd_smem_bytes(ch, dtype=torch.float32, rows=_FWD_ROWS):
     """Dynamic shared memory of one block of flash_fwd.cu (K4, K7a): the
     block's 64 scaled Q rows split into big and small halves (rows of W+4
     floats) and a two-stage ring of 64-row K tiles (W+4) and V tiles (W+8),
-    float32. 204,800 bytes at W = 128. In bf16 (also K6's tiled bf16 body):
-    the 64 raw Q rows and the ring's K and V rows, all of W+8 bf16; 87,040
-    bytes at W = 128."""
-    w = _padded_width(ch)
+    float32. 204,800 bytes at W = 128. In bf16, for a block of ``rows``
+    query rows (``flash_fwd_bf16_rows``): its raw Q rows and a four-stage
+    ring of 64-row K and V tiles, rows of W = 64 or 128 bf16
+    (``_swizzled_width``), and 1,024 bytes to align them; 82,944 bytes at
+    W = 64 with 128 rows (two blocks an SM), 164,864 at W = 128."""
     if dtype == torch.bfloat16:
-        return 2 * (w + _PAD_BF) * (_FWD_ROWS + 2 * _STAGES * _FWD_KEYS)
+        return 1024 + 2 * _swizzled_width(ch) * (
+            rows + 2 * _FWD_BF_STAGES * _FWD_BF_KEYS)
+    w = _padded_width(ch)
     return 4 * (2 * _FWD_ROWS * (w + _PAD_QK)
                 + _STAGES * _FWD_KEYS * (2 * w + _PAD_QK + _PAD_V))
 
@@ -501,7 +522,8 @@ def _launch(qkv, num_heads):
     sym, dt = _SYMBOL[qkv.dtype], qkv.dtype
     if t > _FLASH_SEQ_THRESHOLD:
         K4.launch(f"qkv_attention_flash_{sym}", *args,
-                  flash_fwd_smem_bytes(ch, dt), _scale(qkv, num_heads))
+                  flash_fwd_smem_bytes(ch, dt, flash_fwd_bf16_rows(
+                      b, t, num_heads)), _scale(qkv, num_heads))
     else:
         K6.launch(f"qkv_attention_{sym}", *args, smem_bytes(t, ch, dt),
                   _scale(qkv, num_heads))
@@ -515,7 +537,8 @@ def _launch_stats(qkv, num_heads):
     lse = qkv.new_empty(b, num_heads, t, dtype=torch.float32)
     K7A.launch(f"qkv_attention_stats_{_SYMBOL[qkv.dtype]}", common.ptr(qkv),
                common.ptr(out), common.ptr(lse), b, t, num_heads, ch,
-               flash_fwd_smem_bytes(ch, qkv.dtype), _scale(qkv, num_heads))
+               flash_fwd_smem_bytes(ch, qkv.dtype, flash_fwd_bf16_rows(
+                   b, t, num_heads)), _scale(qkv, num_heads))
     return out, lse
 
 

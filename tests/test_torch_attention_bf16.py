@@ -210,18 +210,22 @@ def test_bf16_kernel_layouts():
     k6 = {k: v for k, v in _constants("attention.cu").items()
           if k.startswith("kTiled")}
     bwd = _constants("attention_bwd.cu")
+    fwd = _constants("flash_fwd.cu")
+    assert (fwd["kBfKeys"], fwd["kBfStages"], fwd["kBfGroupRows"]) == (
+        A._FWD_BF_KEYS, A._FWD_BF_STAGES, A._FWD_BF_GROUP_ROWS)
     assert (k6["kTiledRows"], k6["kTiledKeys"], k6["kTiledStages"]) == (
         A._K6_TILED_ROWS, A._K6_TILED_KEYS, A._K6_TILED_STAGES)
     assert (bwd["kBfQueries"], bwd["kBfStages"]) == (A._BWD_BF_QUERIES,
                                                      A._BWD_BF_STAGES)
     for ch in range(1, A.MAX_HEAD_WIDTH + 1):
-        ld = A._padded_width(ch) + pad
-        fwd = 2 * ld * (A._FWD_ROWS + 2 * A._STAGES * A._FWD_KEYS)
-        assert A.flash_fwd_smem_bytes(ch, BF) == fwd <= 232_448
         # the wgmma kernels' tiles: whole 64-column blocks of the 128-byte
         # swizzle, and 1,024 bytes to align them
         w = 64 if ch <= 64 else 128
         assert A._swizzled_width(ch) == w
+        for rows in (64, 128):  # K4's and K7a's bf16 blocks
+            flash = 1024 + 2 * w * (rows + 2 * fwd["kBfStages"]
+                                    * fwd["kBfKeys"])
+            assert A.flash_fwd_smem_bytes(ch, BF, rows) == flash <= 232_448
         tiled = 1024 + 2 * w * (k6["kTiledRows"]
                                 + 2 * k6["kTiledStages"] * k6["kTiledKeys"])
         for t in (65, 1024):  # K6's tiled body
@@ -235,7 +239,8 @@ def test_bf16_kernel_layouts():
         assert A.bwd_dq_smem_bytes(ch) == dq <= 232_448
         for t in (1, 16, 17, 64):  # a unit whole in shared memory
             assert A.smem_bytes(t, ch, BF) <= 232_448
-    assert A.flash_fwd_smem_bytes(128, BF) == 87_040
+    assert A.flash_fwd_smem_bytes(128, BF, 128) == 164_864
+    assert A.flash_fwd_smem_bytes(64, BF, 128) == 82_944
     # by shared memory (1 KB per block reserved): two tiled K6 blocks per SM
     # at W = 128, three of each K7b kernel at W = 64
     assert 2 * (A.smem_bytes(1024, 128, BF) + 1024) <= 233_472

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""The bf16 kernels whose code a change leaves alone, from this tree against
-the same kernels built from another tree of the package, bit for bit, on
-one NVIDIA GPU.
+"""The attention kernels whose code a change leaves alone, from this tree
+against the same kernels built from another tree of the package, bit for
+bit, on one NVIDIA GPU.
 
     python3 tools/torch_bf16_parent.py PARENT_DIR
 
 PARENT_DIR holds another checkout of the repository (for example the
 parent commit unpacked by ``git archive`` into the git-ignored
-``_parent/``). Both trees' ``csrc/attnblock.cu`` (K3) and
-``csrc/flash_fwd.cu`` (K4 and K7a) are built with nvcc, each against its
-own tree's headers; every kernel runs through this tree's wrapper on both
-libraries:
+``_parent/``). Both trees' ``csrc/attnblock.cu`` (K3), ``csrc/attention.cu``
+(K6), ``csrc/attention_bwd.cu`` (K7b) and ``csrc/flash_fwd.cu`` (K4 and
+K7a) are built with nvcc, each against its own tree's headers; every
+kernel runs through this tree's wrapper on both libraries:
 
 - K3 in bf16 at grf16's two AttentionBlock shapes, (B, T, C) =
   (1024, 64, 64) and (1024, 16, 128), and at (16, 64, 64) with four heads,
   with random non-zero weights;
-- K4 and K7a in bf16 (out, and K7a's lse) at the T = 4096 blocks' shapes
-  (4, 4096, 64) and (128, 4096, 64), two heads, head width 128 and head
-  width 30 (element copies) with two heads.
+- K6 in bf16 on its short path (grf16's two shapes, and T = 13 with head
+  width 10 and two heads) and its tiled path (the DSM step's
+  (128, 1024, 128), T = 65 and 1000 with three and four heads);
+- K7b in bf16 (dqkv) at the DSM step's (128, 4096, 64), at (4, 4096, 64),
+  head width 128, and head width 30 (element copies) with two heads, from
+  this tree's K7a lse;
+- K4 and K7a in float32 (out, and K7a's lse) at (4, 4096, 64) with one and
+  two heads and (2, 2048, 128).
 
 Exits non-zero unless every output is equal bit for bit.
 """
@@ -34,8 +39,11 @@ from sdeflow_tpu_torch.ops.kernels import attnblock as ab  # noqa: E402
 from sdeflow_tpu_torch.ops.kernels import common  # noqa: E402
 
 K3_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (16, 64, 64, 4)]
-FLASH_SHAPES = [(4, 4096, 64, 1), (128, 4096, 64, 1), (4, 4096, 64, 2),
-                (2, 2048, 128, 1), (2, 1536, 60, 2)]
+K6_SHAPES = [(1024, 64, 64, 1), (1024, 16, 128, 1), (5, 13, 20, 2),
+             (128, 1024, 128, 1), (3, 65, 72, 3), (2, 1000, 160, 4)]
+K7B_SHAPES = [(128, 4096, 64, 1), (4, 4096, 64, 1), (2, 2048, 128, 1),
+              (2, 1536, 60, 2)]
+FP32_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
 
 
 def parent_lib(kernel, parent):
@@ -95,19 +103,40 @@ def main(parent):
             equal &= compare(
                 f"K3 bf16 at {(b, t, c)} heads={heads}", ab.K3, libs,
                 lambda: [ab._launch(*args, group_count(c), heads)])
-    # K4 and K7a share flash_fwd.cu: one parent library serves both
+    for kernel, shapes in ((ak.K6, K6_SHAPES), (ak.K7B, K7B_SHAPES)):
+        libs = {"this tree": kernel.lib(),
+                "parent": parent_lib(kernel, parent)}
+        for b, t, c, heads in shapes:
+            qkv = (1.5 * rnd(b, t, 3 * c)).to(torch.bfloat16)
+            with torch.no_grad():
+                if kernel is ak.K6:
+                    equal &= compare(
+                        f"K6 bf16 at {(b, t, c)} heads={heads}", kernel,
+                        libs, lambda: [ak._launch(qkv, heads)])
+                    continue
+                dout = rnd(b, t, c).to(torch.bfloat16)
+                out, lse = ak._launch_stats(qkv, heads)
+                delta = (ak._heads(dout, heads).float()
+                         * ak._heads(out, heads).float()).sum(-1)
+                equal &= compare(
+                    f"K7b bf16 at {(b, t, c)} heads={heads}", kernel, libs,
+                    lambda: [ak._launch_bwd(qkv, dout, lse, delta, heads)])
+                del dout, out, lse, delta
+            del qkv
+    # K4 and K7a share flash_fwd.cu: one parent library serves both; their
+    # float32 body (flash_fwd.cuh) is the one this comparison holds
     both = common.Kernel("flash_fwd", "flash_fwd.cu",
                          {**ak.K4.signatures, **ak.K7A.signatures})
     flash = parent_lib(both, parent)
-    for b, t, c, heads in FLASH_SHAPES:
-        qkv = (1.5 * rnd(b, t, 3 * c)).to(torch.bfloat16)
+    for b, t, c, heads in FP32_SHAPES:
+        qkv = 1.5 * rnd(b, t, 3 * c)
         with torch.no_grad():
             equal &= compare(
-                f"K4 bf16 at {(b, t, c)} heads={heads}", ak.K4,
+                f"K4 float32 at {(b, t, c)} heads={heads}", ak.K4,
                 {"this tree": ak.K4.lib(), "parent": flash},
                 lambda: [ak._launch(qkv, heads)])
             equal &= compare(
-                f"K7a bf16 at {(b, t, c)} heads={heads}", ak.K7A,
+                f"K7a float32 at {(b, t, c)} heads={heads}", ak.K7A,
                 {"this tree": ak.K7A.lib(), "parent": flash},
                 lambda: list(ak._launch_stats(qkv, heads)))
         del qkv
