@@ -175,11 +175,16 @@ CUDA kernel of those paths against its plain PyTorch version:
    forward's GroupNorm mix at B = 1024 and B = 128, SiLU on and off (K5
    within 1.6e-2·max |plain|, two bf16 ulps; K5b's dx within
    2e-2·max |dx| of the vjp of the bf16 forward evaluated in fp32, dγ and
-   dβ within 1e-3·max of float64), K3 at (1024, 64, 64) and
-   (1024, 16, 128) with random non-zero weights (2e-2·max |plain|); their
+   dβ within 1e-3·max of float64); K3 with random non-zero weights at
+   (64, 64) and (16, 128) at B = 1024 and B = 128, (16, 64, 64) with four
+   heads and (4, 256, 32) and (4, 256, 64) with eight heads and 32 groups,
+   by phase 23's two gates (within 2e-2·max |plain bf16|; no farther from
+   the fp32 plain than 1.5× the twin plus 1e-3·max), equal bit for bit on
+   a second run, one device kernel per direct call (a trace); their
    times at grf16's GroupNorm mixes (B = 1024, B = 128) and K3's two
-   shapes beside the plain versions, PyTorch's GroupNorm forward and
-   backward in bf16 and the bounds (bf16 products at 989 TFLOP/s);
+   shapes at both batches beside the plain versions, PyTorch's GroupNorm
+   forward and backward in bf16 and the bounds (bf16 products at 989
+   TFLOP/s, bytes with K3's weights read in fp32);
 22. the production preset: the SGM arm's bf16 SSM loss and every
    gradient, kernel path against plain on one batch of 128 (rtol 1e-2,
    3e-2·max |g|, exact launches), a traced bf16 SSM step and a traced
@@ -218,9 +223,10 @@ CUDA kernel of those paths against its plain PyTorch version:
    (4, 4096, 64), (128, 4096, 64) (K4, K7a, K7b) and (128, 1024, 128) and
    grf16's two shapes (K6), beside the plain twins, SDPA in bf16 (its
    backward for K7b) and the bounds (bf16 products at 989 TFLOP/s); and
-   an "auto" AttentionBlock that K3 holds in fp32 but not in bf16, (4, 64,
-   16, 16) with 8 heads, in bf16: unfused (one K5, one K6 bf16, no K3),
-   held by the same two gates against the plain path;
+   the "auto" AttentionBlock (4, 64, 16, 16) with 8 heads in bf16 (T =
+   256, which bf16 K3 took only unfused before it read its weights in the
+   kernel): one K3 bf16 launch, no K5 and no K6, held by the same two
+   gates against the plain path;
 24. the grf U-Net at 128×128 in bf16 (phase 18's cell with compute dtype
    bfloat16 and eps): on one batch of 8 with injected t and ε the DSM loss
    and every gradient, kernel path against plain (loss rtol 1e-2, 3e-2 of
@@ -488,10 +494,11 @@ def k5b_cost(b, c, s, silu, size=4):
 
 
 def k3_bf16_cost(b, t, c, heads):
-    # K3's work in bf16: x in and out and the two weight matrices in bf16
-    # (as the wrapper's cast copies hand them over), the four vectors fp32
+    # K3's work in bf16: x read and out written in bf16, the two weight
+    # matrices (4 C² floats) and the four vectors read in fp32, as the
+    # kernel takes them
     _, products, other = k3_cost(b, t, c, heads)
-    return 2 * (2 * b * t * c + 4 * c * c) + 4 * 6 * c, products, other
+    return 2 * 2 * b * t * c + 4 * (4 * c * c + 6 * c), products, other
 
 
 def bound_bf16_ms(nbytes, product_flops, other_flops):
@@ -650,6 +657,25 @@ def device_times(fn, symbol, reps=50):
             return sum(mine) / len(mine), min(floors), len(mine) / reps
     raise AssertionError(f"no {symbol} kernel or no PyTorch kernel in three "
                          f"traces (kernels: {sorted(by_name)[:8]})")
+
+
+def kernels_per_call(fn, reps=20, tries=5):
+    """Device kernels per call of fn() by name, from a trace of `reps`
+    calls each followed by a one-element add (its kernel not counted). A
+    trace counts only where it holds all `reps` adds and a whole number of
+    each other kernel per call: the profiler has dropped most events of a
+    window of short kernels."""
+    one = torch.zeros(1, device="cuda")
+    tick = lambda: one.add_(1.0)  # noqa: E731
+    for _ in range(tries):
+        marks = set(kernel_times(tick, reps))
+        by_name = kernel_times(fn, reps, tick)
+        if (len(marks) == 1 and len(by_name.get(min(marks), ())) == reps
+                and all(len(v) % reps == 0 for v in by_name.values())):
+            return {n: len(v) / reps for n, v in by_name.items()
+                    if n not in marks}
+    raise AssertionError(f"no trace of {reps} calls held every event in "
+                         f"{tries} tries")
 
 
 def device_per_call(fn, reps):
@@ -2336,6 +2362,10 @@ def check_driver(g, dev, card):
 
 # phase 21: the bf16 variants of K5, K5b and K3 against their plain twins
 K3_BF16_SHAPES = [(1024, 64, 64), (1024, 16, 128)]  # (B, T, C), one head
+# K3 bf16 is also held at the SSM step's batch, with four heads (head width
+# 16: chunk 16, V stored transposed), and at the T = 256, 8-head blocks of
+# groups 32 that fp32 holds with qkv in scratch: (B, T, C, heads, groups)
+K3_BF16_MORE = [(16, 64, 64, 4, 32), (4, 256, 32, 8, 32), (4, 256, 64, 8, 32)]
 # K5: two bf16 ulps of the largest output; K5b: dx against the fp32
 # evaluation of the vjp of the bf16 forward (the kernel rounds dx once, the
 # plain fp32 vjp not at all), dγ and dβ (fp32 sums over the batch) against
@@ -2353,11 +2383,10 @@ def rel_err(a, ref):
 def check_bf16_kernels(g, dev, mix):
     """Phase 21: K5, K5b and K3 in bf16 against their plain twins: K5 and
     K5b at every (C, S) of a grf16 forward's GroupNorm mix at B = 1024 and
-    B = 128, SiLU on and off; K3 at K3_BF16_SHAPES with random non-zero
-    weights; their times at grf16's mixes beside the plain versions,
-    PyTorch's GroupNorm forward and backward in bf16 and the bounds."""
+    B = 128, SiLU on and off; K3 as check_k3_bf16 holds it; their times at
+    grf16's mixes beside the plain versions, PyTorch's GroupNorm forward
+    and backward in bf16 and the bounds."""
     from sdeflow_tpu_torch.models.common import group_count
-    from sdeflow_tpu_torch.ops.kernels import attnblock as ab
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
     bf = torch.bfloat16
@@ -2398,32 +2427,9 @@ def check_bf16_kernels(g, dev, mix):
         f"max |plain| K5 {errs['k5']:.3g} (tolerance {K5_BF16_TOL:g}), K5b "
         f"dx {errs['k5b_dx']:.3g} ({K5B_BF16_TOL:g}), dγ/dβ against float64 "
         f"{errs['k5b_params']:.3g} ({K5B_PARAM_TOL:g})")
-    k3 = []
-    with torch.no_grad():
-        for b, t, c in K3_BF16_SHAPES:
-            args = block_args(g, dev, b, t, c)
-            args[0] = args[0].to(bf)
-            groups = group_count(c)
-            out = ab._launch(*args, groups, 1)
-            torch.cuda.synchronize()
-            e = rel_err(out, ab.attn_block_math(*args, groups, 1).float())
-            log(f"bf16 K3 ({b}, {t}, {c}): max |kernel - plain| / max "
-                f"|plain| = {e:.3g} (tolerance {K3_BF16_TOL:g})")
-            if not e <= K3_BF16_TOL:
-                raise AssertionError(f"bf16 K3 disagrees with plain: {e}")
-            errs["k3"] = max(errs["k3"], e)
-            bound, by = bound_bf16_ms(*k3_bf16_cost(b, t, c, 1))
-            k3.append({
-                "shape": [b, t, c], "heads": 1, "max_abs_err": e,
-                "calls_per_forward": BLOCK_MIX[(t, c)],
-                "ms": cuda_ms(lambda: ab.fused_attention_block(
-                    *args, groups, 1)),
-                "direct_ms": cuda_ms(lambda: ab._launch(*args, groups, 1)),
-                "plain_ms": cuda_ms(lambda: ab.attn_block_math(
-                    *args, groups, 1)),
-                "bound_ms": bound, "bound_by": by})
-            del args, out
-    rows = {"k3": k3}
+    k3 = check_k3_bf16(g, dev, errs)
+    rows = {"k3": [r for r in k3 if r["shape"][0] == N_SAMPLES],
+            "k3_ssm": [r for r in k3 if r["shape"][0] == TRAIN_BATCH]}
     for name, b, iters in (("grf16", N_SAMPLES, 20), ("ssm", TRAIN_BATCH, 20)):
         rows[f"k5_{name}"] = k5_rows(g, dev, mix, b, iters, bf)
         log_k5_rows(f"bf16 K5 ({name} mix)", rows[f"k5_{name}"])
@@ -2434,6 +2440,70 @@ def check_bf16_kernels(g, dev, mix):
             f"{r['direct_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return dict(rows, max_errs=errs, gn_checks=checks)
+
+
+def check_k3_bf16(g, dev, errs):
+    """K3 bf16 (``_launch``, one kernel a call) against its plain twin at
+    K3_BF16_SHAPES at B = 1024 and 128, and at K3_BF16_MORE, with random
+    non-zero weights: phase 23's two gates (within K3_BF16_TOL·max of the
+    plain bf16 twin; no farther from the fp32 plain on the widened inputs
+    than 1.5× the twin plus 1e-3·max), equal bit for bit on a second run,
+    and exactly one device kernel per direct call in a trace. Returns the
+    timed rows (one head, both batches): per call through the Function,
+    direct, plain, bound."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import attnblock as ab
+
+    bf = torch.bfloat16
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    shapes = [(b, t, c, 1, group_count(c)) for b in (N_SAMPLES, TRAIN_BATCH)
+              for t, c in [s[1:] for s in K3_BF16_SHAPES]] + K3_BF16_MORE
+    rows = []
+    with torch.no_grad():
+        for b, t, c, heads, groups in shapes:
+            args = block_args(g, dev, b, t, c)
+            args[0] = args[0].to(bf)
+            if ab.block_plan(t, c, groups, heads, bf) is None:
+                raise AssertionError(f"K3 bf16 has no plan at {(t, c)}")
+            out = ab._launch(*args, groups, heads)
+            again = ab._launch(*args, groups, heads)
+            torch.cuda.synchronize()
+            log(f"bf16 K3 ({b}, {t}, {c}) heads={heads} groups={groups}, "
+                f"plan {tuple(ab.block_plan(t, c, groups, heads, bf))}:")
+            err, mine, theirs = bf16_gates(
+                "K3", out, ab.attn_block_math(*args, groups, heads),
+                ab.attn_block_math(args[0].float(), *args[1:], groups,
+                                   heads), K3_BF16_TOL)
+            errs["k3"] = max(errs["k3"], err)
+            if not torch.equal(out.view(torch.int16), again.view(torch.int16)):
+                raise AssertionError(f"bf16 K3 at {(b, t, c)} differs from "
+                                     "run to run")
+            kernels = kernels_per_call(
+                lambda: ab._launch(*args, groups, heads))
+            per_call = sum(kernels.values())
+            log(f"  bit for bit on a second run; {per_call:g} device "
+                f"kernel(s) per direct call: {sorted(kernels)}")
+            if per_call != 1 or not all("attn_block_bf16_kernel" in k
+                                        for k in kernels):
+                raise AssertionError(f"a direct K3 bf16 call ran {kernels}")
+            if heads == 1:
+                bound, by = bound_bf16_ms(*k3_bf16_cost(b, t, c, 1))
+                rows.append({
+                    "shape": [b, t, c], "heads": 1, "max_abs_err": err,
+                    "from_fp32": mine, "plain_from_fp32": theirs,
+                    "calls_per_forward": BLOCK_MIX[(t, c)],
+                    "ms": cuda_ms(lambda: ab.fused_attention_block(
+                        *args, groups, 1)),
+                    "direct_ms": cuda_ms(lambda: ab._launch(*args, groups,
+                                                            1)),
+                    "plain_ms": cuda_ms(lambda: ab.attn_block_math(
+                        *args, groups, 1)),
+                    "bound_ms": bound, "bound_by": by})
+            del args, out, again
+    mm.allow_bf16_reduced_precision_reduction = reduced
+    return rows
 
 
 # phase 22: the grf16_production preset through the CLI: both arms trained
@@ -2830,22 +2900,24 @@ def k4_k7a_bits(ak, qkv, heads, out):
         raise AssertionError(f"bf16 K4/K7a bit for bit: {same}")
 
 
-# an "auto" AttentionBlock that K3 holds in fp32 (one sample, qkv in
-# scratch) but not in bf16: (B, C, H, W) and heads; 32 groups
+# an "auto" AttentionBlock at T = 256 with 8 heads that fp32 K3 holds with
+# qkv in scratch and bf16 K3 in shared memory: (B, C, H, W) and heads; 32
+# groups
 AUTO_BEYOND_K3, AUTO_BEYOND_K3_HEADS = (4, 64, 16, 16), 8
 
 
 def auto_block_beyond_k3(g, dev):
-    """The bf16 "auto" block at AUTO_BEYOND_K3 runs unfused (K5, then K6
-    bf16's tiled body at T = 256; no K3) and holds phase 23's gates
-    against the plain path in bf16 and in fp32."""
+    """The bf16 "auto" block at AUTO_BEYOND_K3 runs on K3 bf16 (one K3
+    launch, no K5, no K6; it ran unfused while bf16 K3 held only blocks
+    that fit shared memory whole) and holds phase 23's gates against the
+    plain path in bf16 and in fp32."""
     from sdeflow_tpu_torch.models.unet2d import AttentionBlock
     from sdeflow_tpu_torch.ops.kernels.attnblock import block_plan
 
     b, c, h, w = AUTO_BEYOND_K3
     heads = AUTO_BEYOND_K3_HEADS
     if (block_plan(h * w, c, 32, heads) is None
-            or block_plan(h * w, c, 32, heads, torch.bfloat16) is not None):
+            or block_plan(h * w, c, 32, heads, torch.bfloat16) is None):
         raise AssertionError("K3's plans moved: pick another shape")
     block = AttentionBlock(c, heads).to(dev)
     randomize_(block, g)
@@ -2860,11 +2932,11 @@ def auto_block_beyond_k3(g, dev):
         with plain_path():
             plain, fp32 = block(x), block(x.float())
     want = {k: 0 for k in got}
-    want.update(group_norm_silu=1, qkv_attention=1)
-    if got != want or entries["qkv_attention_bf16"] != 1:
+    want.update(fused_attention_block=1)
+    if got != want or entries["attn_block_bf16"] != 1:
         raise AssertionError(f"the bf16 auto block launched {got}")
-    log(f"bf16 auto block {AUTO_BEYOND_K3} heads={heads} (K3 plans fp32 "
-        f"only): unfused, launches {got}")
+    log(f"bf16 auto block {AUTO_BEYOND_K3} heads={heads} (T = 256): K3 "
+        f"bf16, launches {got}")
     return bf16_gates("auto block", out, plain, fp32, ATTN_BF16_TOL)
 
 
@@ -3842,6 +3914,7 @@ def main(argv=None):
     kernels += [
         dict(mixed(bf["k3"]), name="fused_attention_block_bf16",
              id="K3 bf16", counter="fused_attention_block",
+             ssm_mix=mixed(bf["k3_ssm"]),
              max_abs_err=bf["max_errs"]["k3"], library_ms=None,
              source="sdeflow_tpu_torch/csrc/attnblock.cu",
              device_ms=prod["request_profile"]["per_launch_ms"].get(

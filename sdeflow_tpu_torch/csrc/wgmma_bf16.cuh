@@ -1,5 +1,6 @@
 // Hopper's warpgroup products for the bf16 attention kernels (attention.cu's
-// tiled K6, flash_fwd.cu's K4 and K7a, attention_bwd.cu's K7b):
+// tiled K6, flash_fwd.cu's K4 and K7a, attention_bwd.cu's K7b, attnblock.cu's
+// K3):
 // wgmma.mma_async m64nNk16 with bf16
 // operands and fp32 accumulation, A from shared memory or from registers,
 // B from shared memory through a matrix descriptor; and the shared-memory
@@ -279,6 +280,146 @@ WG_SS0(128, WG_R64, WG_W64, "64", "65", "66")
 WG_RS(64, WG_R32, WG_D32, "32", "33", "34", "35", "36", "37")
 WG_RS(128, WG_R64, WG_D64, "64", "65", "66", "67", "68", "69")
 
+// the accumulator lists of the widths below 16 and above 64 registers, and
+// their register lists (the score products of attnblock.cu's bf16 K3)
+#define WG_D8(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),                \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define WG_D96(d)                                                            \
+  WG_D64(d), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),       \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),       \
+      "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),       \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]),       \
+      "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),       \
+      "+f"(d[94]), "+f"(d[95])
+#define WG_D128(d)                                                           \
+  WG_D96(d), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), \
+      "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),  \
+      "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),  \
+      "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),  \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),  \
+      "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),  \
+      "+f"(d[126]), "+f"(d[127])
+#define WG_R8                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_R96                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "        \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "        \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "        \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "        \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "        \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "        \
+  "%93, %94, %95}"
+#define WG_R128                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "       \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "        \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "        \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "        \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "        \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "        \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "        \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "        \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "       \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "       \
+  "%127}"
+
+// d (+)= A B, A (64 x 16) from registers (a: the warp's mma.sync A
+// fragment), B (16 x N) from shared memory, K-major (attnblock.cu's bf16
+// K3: the weights stored as W^T, K of the scores, V^T of P V)
+template <int N>
+__device__ __forceinline__ void mma_rs_k(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc);
+
+// (the operand numbers after the N/2 accumulators: a0..a3, B, acc)
+#define WG_RSK(N, RL, DL, I0, I1, I2, I3, IB, IC)                            \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_rs_k<N>(                               \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b, int acc) {        \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" IC ", 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " RL       \
+        ", {%" I0 ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, 0;\n}\n"   \
+        : DL(d)                                                              \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));     \
+  }
+
+WG_RSK(16, WG_R8, WG_D8, "8", "9", "10", "11", "12", "13")
+WG_RSK(32, WG_R16, WG_D16, "16", "17", "18", "19", "20", "21")
+WG_RSK(64, WG_R32, WG_D32, "32", "33", "34", "35", "36", "37")
+WG_RSK(128, WG_R64, WG_D64, "64", "65", "66", "67", "68", "69")
+WG_RSK(192, WG_R96, WG_D96, "96", "97", "98", "99", "100", "101")
+WG_RSK(256, WG_R128, WG_D128, "128", "129", "130", "131", "132", "133")
+
+// ... as outputs only, for the first k-step of a product (attnblock.cu)
+#define WG_W8(d)                                                             \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),                \
+      "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+#define WG_W16(d)                                                            \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),                \
+      "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),            \
+      "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),       \
+      "=f"(d[15])
+#define WG_W96(d)                                                            \
+  WG_W64(d), "=f"(d[64]), "=f"(d[65]), "=f"(d[66]), "=f"(d[67]), "=f"(d[68]), \
+      "=f"(d[69]), "=f"(d[70]), "=f"(d[71]), "=f"(d[72]), "=f"(d[73]),       \
+      "=f"(d[74]), "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]),       \
+      "=f"(d[79]), "=f"(d[80]), "=f"(d[81]), "=f"(d[82]), "=f"(d[83]),       \
+      "=f"(d[84]), "=f"(d[85]), "=f"(d[86]), "=f"(d[87]), "=f"(d[88]),       \
+      "=f"(d[89]), "=f"(d[90]), "=f"(d[91]), "=f"(d[92]), "=f"(d[93]),       \
+      "=f"(d[94]), "=f"(d[95])
+#define WG_W128(d)                                                           \
+  WG_W96(d), "=f"(d[96]), "=f"(d[97]), "=f"(d[98]), "=f"(d[99]), "=f"(d[100]), \
+      "=f"(d[101]), "=f"(d[102]), "=f"(d[103]), "=f"(d[104]), "=f"(d[105]),  \
+      "=f"(d[106]), "=f"(d[107]), "=f"(d[108]), "=f"(d[109]), "=f"(d[110]),  \
+      "=f"(d[111]), "=f"(d[112]), "=f"(d[113]), "=f"(d[114]), "=f"(d[115]),  \
+      "=f"(d[116]), "=f"(d[117]), "=f"(d[118]), "=f"(d[119]), "=f"(d[120]),  \
+      "=f"(d[121]), "=f"(d[122]), "=f"(d[123]), "=f"(d[124]), "=f"(d[125]),  \
+      "=f"(d[126]), "=f"(d[127])
+
+// d = A B, A (64 x 16) from registers, B (16 x N) K-major (mma_rs_k's
+// first k-step: its accumulator holds nothing on entry, so that no earlier
+// value of it is kept live across the instructions before the product)
+template <int N>
+__device__ __forceinline__ void mma_rs_k_first(float (&d)[N / 2],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b);
+// the same with B MN-major (mma_rs's first k-step)
+template <int N>
+__device__ __forceinline__ void mma_rs_first(float (&d)[N / 2],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b);
+
+// (the operand numbers after the N/2 accumulators: a0..a3, B, a zero)
+#define WG_RS0(NAME, TB, N, RL, DL, I0, I1, I2, I3, IB, IC)                 \
+  template <>                                                                \
+  __device__ __forceinline__ void NAME<N>(                                   \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b) {                 \
+    asm volatile(                                                            \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" IC ", 0;\n"                     \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " RL       \
+        ", {%" I0 ", %" I1 ", %" I2 ", %" I3 "}, %" IB ", p, 1, 1, " #TB     \
+        ";\n}\n"                                                             \
+        : DL(d)                                                              \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));       \
+  }
+
+WG_RS0(mma_rs_k_first, 0, 16, WG_R8, WG_W8, "8", "9", "10", "11", "12", "13")
+WG_RS0(mma_rs_k_first, 0, 32, WG_R16, WG_W16, "16", "17", "18", "19", "20",
+       "21")
+WG_RS0(mma_rs_k_first, 0, 64, WG_R32, WG_W32, "32", "33", "34", "35", "36",
+       "37")
+WG_RS0(mma_rs_k_first, 0, 128, WG_R64, WG_W64, "64", "65", "66", "67", "68",
+       "69")
+WG_RS0(mma_rs_k_first, 0, 192, WG_R96, WG_W96, "96", "97", "98", "99", "100",
+       "101")
+WG_RS0(mma_rs_k_first, 0, 256, WG_R128, WG_W128, "128", "129", "130", "131",
+       "132", "133")
+WG_RS0(mma_rs_first, 1, 64, WG_R32, WG_W32, "32", "33", "34", "35", "36",
+       "37")
+
 #undef WG_SS
 #undef WG_SS0
 #undef WG_W32
@@ -290,5 +431,17 @@ WG_RS(128, WG_R64, WG_D64, "64", "65", "66", "67", "68", "69")
 #undef WG_R16
 #undef WG_R32
 #undef WG_R64
+#undef WG_RSK
+#undef WG_D8
+#undef WG_D96
+#undef WG_D128
+#undef WG_R8
+#undef WG_R96
+#undef WG_R128
+#undef WG_RS0
+#undef WG_W8
+#undef WG_W16
+#undef WG_W96
+#undef WG_W128
 
 }  // namespace wg

@@ -185,8 +185,10 @@ class AttentionBlock(nn.Module):
     227-272). ``attention_impl="auto"`` with at most 8 heads (``fused``)
     runs the whole block as one call of kernel K3 when K3 holds the shape
     in x's dtype: ``block_plan`` finds one (T ≤ 256 and the working set of
-    the CUDA-core design it replaced within one block; in bf16 all in
-    shared memory, so fewer shapes). Otherwise, and on ``"unfused"``, it
+    the CUDA-core design it replaced within one block; in bf16, a launch
+    plan of the wgmma body, which holds the T = 256 multi-head blocks that
+    fp32 holds with qkv in scratch, but not the widest C that fp32 reaches
+    only with h in scratch too). Otherwise, and on ``"unfused"``, it
     runs module by module: GroupNorm32 (K5), the qkv product, the attention
     core (ops/kernels/attention.py) and the output product, the same
     function as the JAX package's plain composition for "auto" blocks

@@ -20,8 +20,6 @@ unfused route's attention kernels take bf16 and refuse float16; and the
 grf16_production_dbg CLI on the CPU."""
 
 import dataclasses
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -288,9 +286,11 @@ def test_production_presets_match_jax(name):
 
 def test_bf16_launch_plans():
     """K5's plan in bf16 takes 16-byte vectors of 8 elements where S is a
-    multiple of 8; K3's bf16 plan holds grf16's blocks in shared memory
-    (more samples to a block where fp32 took two), the ring's constants
-    of attnblock.cu mirrored; the route stays the fp32 plan's."""
+    multiple of 8; K3's bf16 plan holds grf16's blocks with the weights
+    resident and two x buffers a warpgroup (two warpgroups at T = 64, one
+    unit of 4 samples at T = 16), its shared memory as attnblock.cu lays
+    it out (tests/test_torch_attn_bf16_plan.py holds the mirror to the
+    source); the fp32 plan keeps its own."""
     assert gnk.vector_width(BF) == 8 and gnk.vector_width(torch.float32) == 4
     assert tuple(gnk.launch_plan(6 * 256, 256, True, 8)) == (
         "cluster", 256, 2, 1, 8)
@@ -298,15 +298,16 @@ def test_bf16_launch_plans():
         "small", 16, 1, 1, 8)
     assert tuple(gnk.launch_plan(2 * 64, 60, True, 8)) == (
         "small", 32, 1, 4, 1)
-    assert ab.block_plan(64, 64, 32, 1, BF) == (1, 0)
-    assert ab.block_plan(16, 128, 32, 1, BF) == (4, 0)
+    plan64 = ab.block_plan(64, 64, 32, 1, BF)
+    plan16 = ab.block_plan(16, 128, 32, 1, BF)
+    assert plan64 == ab.Bf16Plan(1, 64, 2, 1, 2)
+    assert plan16 == ab.Bf16Plan(4, 64, 1, 1, 2)
     assert ab.block_plan(16, 128, 32, 1) == (2, 0)
-    assert ab.smem_bytes(64, 64, 32, 1, 1, 0, BF) == 56_320
-    assert ab.smem_bytes(16, 128, 32, 1, 4, 0, BF) == 100_352
-    src = (Path(ab.__file__).resolve().parents[2] / "csrc"
-           / "attnblock.cu").read_text()
-    pad = int(re.search(r"^constexpr int kPadR = (\d+);", src, re.M)[1])
-    assert pad == ab._PAD_W
+    # 1,024 to align; Wqkv^T (192 rows) and Wproj^T (64) of one 64-column
+    # block; 2 KB of vectors; per warpgroup K and V (8 KB each), two x
+    # buffers and h (64 rows of 72 bf16), the (scale, shift) pairs: 45,056
+    assert ab._smem_bytes_bf16(64, 64, 32, 1, plan64) == 125_952
+    assert ab._smem_bytes_bf16(16, 128, 32, 1, plan16) == 224_256
     # the unfused route's attention kernels take bf16; float16 still raises
     assert attn_k._checked(torch.zeros(1, 4, 24, dtype=BF), 1,
                            "qkv_attention")[0].dtype == BF

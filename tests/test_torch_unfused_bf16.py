@@ -13,9 +13,9 @@ farther from JAX fp32 than 1.5× JAX bf16's own distance plus
 version; with the thresholds patched small on both sides (T > 32, key
 tiles of 16) the block takes the tiled path at T = 64: the pair
 K7a/K7b's plain versions under autograd, their tiled tangent under
-``torch.func.jvp``, where JAX differentiates its tiled math. An "auto"
-block that K3 holds in fp32 but not in bf16 runs unfused in bf16, and
-matches JAX's "auto" block."""
+``torch.func.jvp``, where JAX differentiates its tiled math. The "auto"
+blocks at T = 256 with 8 heads take K3's route in bf16 as in fp32, and
+match JAX's "auto" block."""
 
 import dataclasses
 
@@ -162,16 +162,17 @@ def _auto_block_routes(monkeypatch, side, c, heads, seed):
 
 @pytest.mark.parametrize("c", [32, 64], ids=["C32", "C64"])
 def test_auto_block_beyond_bf16_k3_runs_unfused(monkeypatch, c):
-    """An "auto" block that K3 holds in fp32 (one sample, qkv in scratch)
-    but not in bf16, (T, heads) = (256, 8), groups 32, takes the unfused
-    route in bf16 (it raised on CUDA while the fp32 plan decided), and
-    computes what JAX's "auto" block computes on the same weights."""
+    """The "auto" block at (T, heads) = (256, 8), groups 32, which K3 holds
+    in fp32 with qkv in scratch, and which bf16 K3 held only unfused until
+    its kernel read the fp32 weights itself (the name keeps that history),
+    now takes K3's route in bf16 too, and computes what JAX's "auto" block
+    computes on the same weights."""
     from sdeflow_tpu_torch.ops.kernels.attnblock import block_plan
 
     assert block_plan(256, c, 32, 8) is not None
-    assert block_plan(256, c, 32, 8, BF) is None
+    assert block_plan(256, c, 32, 8, BF) is not None
     calls, out, j16, j32 = _auto_block_routes(monkeypatch, 16, c, 8, 12)
-    assert calls == ["attention_core"]
+    assert calls == ["fused_attention_block"]
     assert_bf16_close(out, j16, j32, "out")
 
 
