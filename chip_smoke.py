@@ -575,12 +575,12 @@ def trace(fn, ops=("GroupNormSiLUBackward",)):
                        for e in kernels):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    per_launch = {}
+    per_launch, total = {}, {}
     for short in KERNEL_SYMBOLS:
         hits = [(ms, n) for name, (ms, n) in by_name.items() if short in name]
         if hits:
-            per_launch[short] = (sum(h[0] for h in hits)
-                                 / sum(h[1] for h in hits))
+            total[short] = sum(h[0] for h in hits)
+            per_launch[short] = total[short] / sum(h[1] for h in hits)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
 
     def outermost(e, op):
@@ -601,7 +601,8 @@ def trace(fn, ops=("GroupNormSiLUBackward",)):
         "idle_share": 1.0 - busy / 1e3 / wall_ms,
         "kernel_ms_total": sum(ms for ms, _ in by_name.values()),
         "kernel_launches": len(kernels),
-        "per_launch_ms": per_launch, "op_device_ms": op_ms,
+        "per_launch_ms": per_launch, "ms_by_symbol": total,
+        "op_device_ms": op_ms,
         "aten_native_ms": aten_ms,
         "top": [{"name": n, "ms": ms, "calls": c} for n, (ms, c) in top],
     }
@@ -2005,18 +2006,31 @@ def check_sgm_training(g, dev):
 
 def gn_timing(g, dev, record):
     """--only gn: K5 and its backward timed at grf16's GroupNorm mix
-    (B = 1024) and at the DSM step's (B = 128), and one traced DSM step at
-    batch 128 with the device time under GroupNormSiLUBackward."""
+    (B = 1024) and at the DSM step's (B = 128), in fp32 and, at the DSM
+    step's, in bf16 beside ``F.group_norm`` in bf16 and its backward (the
+    bound from k5_cost / k5b_cost at 2 bytes an element); and one traced
+    fp32 DSM step at batch 128 with the device time under
+    GroupNormSiLUBackward."""
     from sdeflow_tpu_torch import Trainer, build_msgm_arm, get_preset
 
     model, _ = build_msgm_arm(get_preset("grf16"), g, device=dev)
     mix = gn_mix(model, dev)
-    for name, mx, b, iters in [("grf16", mix, N_SAMPLES, 20),
-                               ("dsm", SGM_GN_MIX, SGM_BATCH, 5)]:
-        record[f"k5_{name}"] = k5_rows(g, dev, mx, b, iters)
+    bf = torch.bfloat16
+    for name, mx, b, iters, dt in [
+            ("grf16", mix, N_SAMPLES, 20, torch.float32),
+            ("dsm", SGM_GN_MIX, SGM_BATCH, 5, torch.float32),
+            ("dsm_bf16", SGM_GN_MIX, SGM_BATCH, 5, bf)]:
+        record[f"k5_{name}"] = k5_rows(g, dev, mx, b, iters, dt)
         log_k5_rows(f"K5 ({name})", record[f"k5_{name}"])
-        record[f"k5b_{name}"] = k5b_rows(g, dev, mx, b, iters)
+        record[f"k5b_{name}"] = k5b_rows(g, dev, mx, b, iters, dt)
         log_k5_rows(f"K5b ({name})", record[f"k5b_{name}"])
+    for key in ("k5_dsm_bf16", "k5b_dsm_bf16"):
+        rows = record[key]
+        mean = {k: weighted(rows, k) for k in (
+            "ms", "direct_ms", "plain_ms", "library_ms", "bound_ms")}
+        record[key + "_mix"] = mean
+        log(f"{key} over the DSM mix, per launch: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in mean.items()))
     tc, model, gen, sampler = sgm_arm(g, dev)
     trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
                       loss="dsm")
@@ -2375,17 +2389,70 @@ K5_BF16_TOL, K5B_BF16_TOL, K5B_PARAM_TOL = 1.6e-2, 2e-2, 1e-3
 K3_BF16_TOL = 2e-2
 
 
+def bits_equal(a, b):
+    """a and b equal bit for bit (bf16 or fp32)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
 def rel_err(a, ref):
     """max |a − ref| / max |ref|, in the precision of ref."""
     return ((a.to(ref.dtype) - ref).abs().max() / ref.abs().max()).item()
 
 
+def check_k5_k5b_bf16(g, dev, b, c, s, silu, errs):
+    """bf16 K5 and K5b at one (B, C, S, silu) against their plain twins
+    (K5 within K5_BF16_TOL, dx within K5B_BF16_TOL, dγ/dβ against float64
+    within K5B_PARAM_TOL), K5b equal bit for bit on a second run; the
+    worst errors go into errs."""
+    from sdeflow_tpu_torch.models.common import group_count
+    from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
+
+    bf = torch.bfloat16
+    x, gamma, beta, groups = gn_args(g, dev, b, c, s, group_count(c), bf)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+    out = gnk._launch(x, gamma, beta, groups, silu)
+    dx, dgam, dbet = gnk._launch_vjp(x, gamma, beta, groups, silu, dy)
+    again = gnk._launch_vjp(x, gamma, beta, groups, silu, dy)
+    torch.cuda.synchronize()
+    if not all(bits_equal(u, v) for u, v in zip((dx, dgam, dbet), again)):
+        raise AssertionError(f"bf16 K5b at {(b, c, s)} silu={silu}: a "
+                             "second run differs")
+    e5 = rel_err(out, gnk.gn_math(x, gamma, beta, groups, silu).float())
+    del out, again
+    dx_ref = gnk.gn_math_vjp(x.float(), gamma, beta, groups, silu,
+                             dy.float())[0]
+    e_dx = rel_err(dx, dx_ref)
+    del dx_ref
+    _, dg64, db64 = gnk.gn_math_vjp(x.double(), gamma.double(),
+                                    beta.double(), groups, silu, dy.double())
+    e_p = max(rel_err(dgam, dg64), rel_err(dbet, db64))
+    if not (e5 <= K5_BF16_TOL and e_dx <= K5B_BF16_TOL
+            and e_p <= K5B_PARAM_TOL):
+        raise AssertionError(
+            f"bf16 K5/K5b at {(b, c, s)} silu={silu}: K5 {e5:.3g}, dx "
+            f"{e_dx:.3g}, dγ/dβ {e_p:.3g}")
+    errs["k5"] = max(errs["k5"], e5)
+    errs["k5b_dx"] = max(errs["k5b_dx"], e_dx)
+    errs["k5b_params"] = max(errs["k5b_params"], e_p)
+
+
+def log_k5_k5b_bf16(what, checks, errs):
+    log(f"bf16 K5/K5b at {checks} (B, C, S, silu) of {what}: max |kernel - "
+        f"plain| / max |plain| K5 {errs['k5']:.3g} (tolerance "
+        f"{K5_BF16_TOL:g}), K5b dx {errs['k5b_dx']:.3g} ({K5B_BF16_TOL:g}), "
+        f"dγ/dβ against float64 {errs['k5b_params']:.3g} "
+        f"({K5B_PARAM_TOL:g}); K5b equal bit for bit on a second run")
+
+
 def check_bf16_kernels(g, dev, mix):
     """Phase 21: K5, K5b and K3 in bf16 against their plain twins: K5 and
     K5b at every (C, S) of a grf16 forward's GroupNorm mix at B = 1024 and
-    B = 128, SiLU on and off; K3 as check_k3_bf16 holds it; their times at
-    grf16's mixes beside the plain versions, PyTorch's GroupNorm forward
-    and backward in bf16 and the bounds."""
+    B = 128, SiLU on and off, and at every (C, S, silu) of the bf16 DSM
+    step's mix (SGM_GN_MIX) at its batch, where K5b bf16 takes its cluster
+    kernel at clusters of 1, 2, 4 and 8 blocks; K3 as check_k3_bf16 holds
+    it; their times at grf16's mixes beside the plain versions, PyTorch's
+    GroupNorm forward and backward in bf16 and the bounds."""
     from sdeflow_tpu_torch.models.common import group_count
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
@@ -2396,37 +2463,24 @@ def check_bf16_kernels(g, dev, mix):
         for b in (N_SAMPLES, TRAIN_BATCH):
             for c, s in sorted({(c, s) for c, s, _ in mix}):
                 for silu in (False, True):
-                    x, gamma, beta, groups = gn_args(g, dev, b, c, s,
-                                                     group_count(c), bf)
-                    dy = torch.randn(x.shape, generator=g,
-                                     device=dev).to(bf)
-                    out = gnk._launch(x, gamma, beta, groups, silu)
-                    dx, dgam, dbet = gnk._launch_vjp(x, gamma, beta, groups,
-                                                     silu, dy)
-                    torch.cuda.synchronize()
-                    e5 = rel_err(out, gnk.gn_math(x, gamma, beta, groups,
-                                                  silu).float())
-                    dx_ref = gnk.gn_math_vjp(x.float(), gamma, beta, groups,
-                                             silu, dy.float())[0]
-                    _, dg64, db64 = gnk.gn_math_vjp(
-                        x.double(), gamma.double(), beta.double(), groups,
-                        silu, dy.double())
-                    e_dx = rel_err(dx, dx_ref)
-                    e_p = max(rel_err(dgam, dg64), rel_err(dbet, db64))
-                    if not (e5 <= K5_BF16_TOL and e_dx <= K5B_BF16_TOL
-                            and e_p <= K5B_PARAM_TOL):
-                        raise AssertionError(
-                            f"bf16 K5/K5b at {(b, c, s)} silu={silu}: K5 "
-                            f"{e5:.3g}, dx {e_dx:.3g}, dγ/dβ {e_p:.3g}")
-                    errs["k5"] = max(errs["k5"], e5)
-                    errs["k5b_dx"] = max(errs["k5b_dx"], e_dx)
-                    errs["k5b_params"] = max(errs["k5b_params"], e_p)
+                    check_k5_k5b_bf16(g, dev, b, c, s, silu, errs)
                     checks += 1
-                    del x, dy, out, dx, dx_ref, dg64, db64
-    log(f"bf16 K5/K5b at {checks} (B, C, S, silu): max |kernel - plain| / "
-        f"max |plain| K5 {errs['k5']:.3g} (tolerance {K5_BF16_TOL:g}), K5b "
-        f"dx {errs['k5b_dx']:.3g} ({K5B_BF16_TOL:g}), dγ/dβ against float64 "
-        f"{errs['k5b_params']:.3g} ({K5B_PARAM_TOL:g})")
+    log_k5_k5b_bf16("grf16's mix", checks, errs)
+    plans = {(c, s): gnk.bwd_bf16_plan(c // group_count(c) * s, s)
+             for c, s, _ in SGM_GN_MIX}
+    clusters = {p.cluster for p in plans.values() if p.kind == "cluster"}
+    if clusters != {1, 2, 4, 8} or any(p.kind == "small"
+                                       for p in plans.values()):
+        raise AssertionError(f"bf16 K5b plans at the DSM mix: {plans}")
+    dsm_errs = {"k5": 0.0, "k5b_dx": 0.0, "k5b_params": 0.0}
+    with torch.no_grad():
+        for c, s, silu in sorted(SGM_GN_MIX):
+            check_k5_k5b_bf16(g, dev, SGM_BATCH, c, s, silu, dsm_errs)
+            torch.cuda.empty_cache()
+    log_k5_k5b_bf16(f"the bf16 DSM step's mix at B = {SGM_BATCH} (K5b "
+                    f"clusters {sorted(clusters)})", len(SGM_GN_MIX),
+                    dsm_errs)
+    errs.update({f"dsm_{k}": v for k, v in dsm_errs.items()})
     k3 = check_k3_bf16(g, dev, errs)
     rows = {"k3": [r for r in k3 if r["shape"][0] == N_SAMPLES],
             "k3_ssm": [r for r in k3 if r["shape"][0] == TRAIN_BATCH]}
@@ -2439,7 +2493,7 @@ def check_bf16_kernels(g, dev, mix):
         log(f"bf16 K3 at {r['shape']}: {r['ms']:.4f} ms per call (direct "
             f"{r['direct_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return dict(rows, max_errs=errs, gn_checks=checks)
+    return dict(rows, max_errs=errs, gn_checks=checks + len(SGM_GN_MIX))
 
 
 def check_k3_bf16(g, dev, errs):
@@ -2545,8 +2599,7 @@ def check_production(g, dev, card):
     """Phase 22: the bf16 SSM loss of the SGM arm with kernels against
     plain; traces of one bf16 SSM step and one 2-step PC request; then
     ``sdeflow_tpu_torch.run.main`` on grf16_production with its checks."""
-    from sdeflow_tpu_torch import build_msgm_arm, build_sgm_arm, get_preset
-    from sdeflow_tpu_torch import make_sampler_fn
+    from sdeflow_tpu_torch import build_sgm_arm, get_preset
     from sdeflow_tpu_torch.experiments import driver as drv
     from sdeflow_tpu_torch.ops.hutchinson import sample_v
 
@@ -2590,7 +2643,17 @@ def check_production(g, dev, card):
     log_trace(f"one bf16 SGM SSM train step at batch {TRAIN_BATCH}",
               rec["ssm_profile"])
     del model, gen, trainer
-    # where a production request's time goes: 2 PC steps of the MSGM arm
+    rec["request_profile"] = pc_request_profile(cfg, g, dev)
+    rec.update(production_run(g, dev, card, PROD_ARGS, "auto"))
+    return rec
+
+
+def pc_request_profile(cfg, g, dev):
+    """Where a production request's time goes: a trace of 2 PC steps of
+    cfg's MSGM arm (random weights) at 1,024 samples."""
+    from sdeflow_tpu_torch import build_msgm_arm, make_sampler_fn
+
+    sw = cfg.sweep
     model, gen = build_msgm_arm(cfg, g, device=dev)
     randomize_(model, g)
     with torch.no_grad():
@@ -2599,13 +2662,20 @@ def check_production(g, dev, card):
                           method=sw.backward_method, norm_correction=True,
                           corrector_steps=sw.corrector_steps, snr=sw.snr,
                           device=dev)
-    rec["request_profile"] = dict(trace(lambda: pc2(g)),
-                                  steps=PROFILED_STEPS)
+    prof = dict(trace(lambda: pc2(g)), steps=PROFILED_STEPS)
     log_trace(f"{PROFILED_STEPS} PC steps (EM + {PROD_CORRECTOR} corrector)"
-              f" of {N_SAMPLES} samples", rec["request_profile"])
-    del model, gen, pc2
-    rec.update(production_run(g, dev, card, PROD_ARGS, "auto"))
-    return rec
+              f" of {N_SAMPLES} samples, {cfg.train.attention_impl} route",
+              prof)
+    return prof
+
+
+def unfused_production():
+    """grf16_production on the unfused attention route."""
+    from sdeflow_tpu_torch import get_preset
+
+    cfg = get_preset("grf16_production")
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, attention_impl="unfused"))
 
 
 def production_run(g, dev, card, args, route, replay=True):
@@ -2797,9 +2867,12 @@ def production_run(g, dev, card, args, route, replay=True):
 
 
 # phase 23: the bf16 variants of K6, K4, K7a and K7b against their plain
-# twins: the paths' shapes (grf16's unfused blocks, the DSM step's T = 1024
-# level, the T = 4096 blocks), two heads, a head width of 128 and a ragged T
+# twins: the paths' shapes (grf16's unfused blocks in the request and the
+# SSM step, whose K6 tiles pack 4 and 1 units at T = 16, the DSM step's
+# T = 1024 level, the T = 4096 blocks), two heads, a head width of 128 and a
+# ragged T
 K6_BF16_SHAPES = [(1024, 64, 64, 1), (1024, 64, 64, 4), (1024, 16, 128, 1),
+                  (TRAIN_BATCH, 64, 64, 1), (TRAIN_BATCH, 16, 128, 1),
                   (128, 1024, 128, 1)]
 K4_BF16_SHAPES = [(4, 4096, 64, 1), (4, 4096, 64, 2), (2, 2048, 128, 1)]
 K7_BF16_SHAPES = K4_BF16_SHAPES + [(2, 1000, 64, 1)]
@@ -2944,7 +3017,8 @@ def check_attention_bf16(g, dev):
     """Phase 23: the bf16 entries of K6, K4, K7a and K7b against their
     plain twins (both gates; TF32 off, and the plain twins' bf16 products
     summed in fp32; K4 and K7a in both their blocks, K4's out against
-    K7a's and K7a against itself bit for bit), then their times per call through the Function and as
+    K7a's, K6 and K7a against themselves bit for bit), then their times
+    per call through the Function and as
     direct launches beside the plain twins, SDPA in bf16 (forward;
     backward for K7b) and the bounds (bf16 products at 989 TFLOP/s)."""
     from sdeflow_tpu_torch.ops.kernels import attention as ak
@@ -2979,6 +3053,12 @@ def check_attention_bf16(g, dev):
             name = "K4" if t > 1024 else "K6"
             qkv = draw(b, t, 3 * c)
             out = ak._launch(qkv, heads)
+            if name == "K6":  # bit for bit on a second run
+                again = ak._launch(qkv, heads)
+                torch.cuda.synchronize()
+                if not bits_equal(out, again):
+                    raise AssertionError(f"bf16 K6 at {(b, t, c, heads)}: "
+                                         "a second run differs")
             torch.cuda.synchronize()
             log(f"bf16 {name} ({b}, {t}, {c}) heads={heads}:")
             note(name, bf16_gates(name, out, ak.attention_reference(
@@ -3024,7 +3104,7 @@ def check_attention_bf16(g, dev):
             del qkv, dout, out, lse, out_p, out32, lse32, delta, dqkv, again
     launched = {e: n - entries0[e] for e, n in entry_counts().items()}
     n_k4 = len(K4_BF16_SHAPES) + len(K4_K7A_BF16_WIDE)
-    want = {"qkv_attention_bf16": len(K6_BF16_SHAPES),
+    want = {"qkv_attention_bf16": 2 * len(K6_BF16_SHAPES),
             "qkv_attention_flash_bf16": n_k4,
             "qkv_attention_stats_bf16": (len(K7_BF16_SHAPES)
                                          + len(K4_K7A_BF16_WIDE) + 2 * n_k4),
@@ -3352,6 +3432,7 @@ def check_production_unfused(g, dev, card):
     if rec["launches"]["fused_attention_block"]:
         raise AssertionError(f"the unfused run launched K3: "
                              f"{rec['launches']}")
+    rec["request_profile"] = pc_request_profile(unfused_production(), g, dev)
     return rec
 
 
@@ -3398,11 +3479,15 @@ def attn_bf16_timing(g, dev, record):
     DSM step's T = 4096 shape as direct launches, three runs each, beside
     SDPA in bf16 (forward; backward for K7b) and the bounds; then bare bf16
     DSM steps of the grf U-Net at 128x128, batch 128, with a trace and peak
-    memory, and phase 24's request (batch 16, 4 EM steps and one corrector
-    step) three times with a trace. To compare two trees of the package in
-    one call, copy this script into the other tree and run both in
+    memory (K5b bf16 46 a step), and phase 24's request (batch 16, 4 EM
+    steps and one corrector step) three times with a trace; then a traced
+    bf16 SGM SSM step (batch 128) and a traced 2-step PC request (1,024
+    samples) of grf16_production on the unfused route (K6 bf16's short
+    path 11 a step and 22 a PC step). To compare two trees of the package
+    in one call, copy this script into the other tree and run both in
     turns."""
-    from sdeflow_tpu_torch import Trainer
+    from sdeflow_tpu_torch import Trainer, build_sgm_arm
+    from sdeflow_tpu_torch.experiments import driver as drv
     from sdeflow_tpu_torch.ops.kernels import attention as ak
     from sdeflow_tpu_torch.ops.kernels import common
 
@@ -3491,6 +3576,24 @@ def attn_bf16_timing(g, dev, record):
         f"{[round(r['ms'], 1) for r in runs]} ms")
     log_trace("the bf16 request", record["request"]["profile"])
 
+    # grf16_production on the unfused route: a traced bf16 SSM step and a
+    # traced 2-step PC request
+    del model, gen, sampler, trainer, sw, sample
+    torch.cuda.empty_cache()
+    cfg = unfused_production()
+    model, gen = build_sgm_arm(cfg, None, device=dev)
+    randomize_(model, g)
+    with torch.no_grad():
+        model.core.conv_out.weight.mul_(0.1)
+    sampler = drv.make_sampler(cfg, DIM, device=dev)
+    trainer = drv.make_trainer(cfg, gen, sampler, TRAIN_BATCH, log_fn=log)
+    record["ssm_unfused_profile"] = trace(lambda: trainer.train_step(
+        trainer.state, g, sampler.sample(g, TRAIN_BATCH)))
+    log_trace(f"one bf16 SGM SSM step at batch {TRAIN_BATCH}, unfused route",
+              record["ssm_unfused_profile"])
+    del model, gen, sampler, trainer
+    record["request_unfused_profile"] = pc_request_profile(cfg, g, dev)
+
 
 def bf16_unfused_phases(card, fp32_peak=None):
     """Phases 23-25 as (label, record key, fn(g, dev))."""
@@ -3523,8 +3626,9 @@ def main(argv=None):
                     "24 and 25, the bf16 attention kernels, the bf16 grf "
                     "U-Net at 128x128 and grf16_production on the unfused "
                     "route; attn_bf16 times K6, K4, K7a and K7b bf16 at the "
-                    "DSM step's and the request's shapes, the bf16 DSM step "
-                    "and the bf16 request (attn_bf16_timing)")
+                    "DSM step's and the request's shapes, the bf16 DSM step, "
+                    "the bf16 request and grf16_production's unfused SSM "
+                    "step and request (attn_bf16_timing)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3911,6 +4015,10 @@ def main(argv=None):
                "group_norm_silu_bwd": "K5b"}
     req = prod["generate"]["MSGM"]["launches"]
     ssm = prod["train"]["SGM"]["launches_per_step"]
+
+    def worst(key):  # phase 21's worst at grf16's mix and the DSM step's
+        return max(bf["max_errs"][key], bf["max_errs"][f"dsm_{key}"])
+
     kernels += [
         dict(mixed(bf["k3"]), name="fused_attention_block_bf16",
              id="K3 bf16", counter="fused_attention_block",
@@ -3923,7 +4031,7 @@ def main(argv=None):
                  SYMBOL_BF16["fused_attention_block"])),
         dict(mixed(bf["k5_grf16"]), name="group_norm_silu_bf16",
              id="K5 bf16", counter="group_norm_silu",
-             ssm_mix=mixed(bf["k5_ssm"]), max_abs_err=bf["max_errs"]["k5"],
+             ssm_mix=mixed(bf["k5_ssm"]), max_abs_err=worst("k5"),
              source="sdeflow_tpu_torch/csrc/groupnorm.cu",
              device_ms=prod["request_profile"]["per_launch_ms"].get(
                  SYMBOL_BF16["group_norm_silu"]),
@@ -3933,11 +4041,15 @@ def main(argv=None):
                    grf16_mix=mixed(bf["k5b_grf16"])),
              name="group_norm_silu_bwd_bf16", id="K5b bf16",
              counter="group_norm_silu_bwd",
-             max_abs_err=bf["max_errs"]["k5b_dx"],
-             max_rel_err_params=bf["max_errs"]["k5b_params"],
+             max_abs_err=worst("k5b_dx"),
+             max_rel_err_params=worst("k5b_params"),
              source="sdeflow_tpu_torch/csrc/groupnorm.cu",
              train_device_ms=sum(prod["ssm_profile"]["per_launch_ms"].get(
-                 k, 0) for k in ("gn_silu_bwd_kernel", "gn_silu_bwd_params"))),
+                 k, 0) for k in ("gn_silu_bwd_kernel", "gn_silu_bwd_params")),
+             dsm_step_device_ms=sum(dsm16["profile"]["ms_by_symbol"].get(
+                 k, 0) for k in ("gn_silu_bwd_kernel", "gn_silu_bwd_params")),
+             dsm_launches_per_step=dsm16["launches_per_step"][
+                 "group_norm_silu_bwd"]),
     ]
     for k in kernels[-3:]:
         c = k["counter"]
@@ -3965,15 +4077,17 @@ def main(argv=None):
     def by_shape(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape))
 
-    k6_mix = [dict(r, calls_per_forward=BLOCK_MIX[tuple(r["shape"][1:])])
-              for r in attn16["k6"] if tuple(r["shape"][1:]) in BLOCK_MIX]
+    k6_mix, k6_ssm = ([dict(r, calls_per_forward=BLOCK_MIX[tuple(
+        r["shape"][1:])]) for r in attn16["k6"] if r["shape"][0] == b
+        and tuple(r["shape"][1:]) in BLOCK_MIX] for b in (N_SAMPLES,
+                                                          TRAIN_BATCH))
     long_rows = {k: (by_shape(attn16[k], ATTN_BF16_LONG[0]),
                      by_shape(attn16[k], ATTN_BF16_LONG[1]))
                  for k in ("k4", "k7a", "k7b")}
     errs16 = attn16["max_errs"]
     kernels += [
         dict(mixed(k6_mix), name="qkv_attention_bf16", id="K6 bf16",
-             counter="qkv_attention",
+             counter="qkv_attention", ssm_mix=mixed(k6_ssm),
              dsm_shape=dict(by_shape(attn16["k6"], K6_BF16_DSM),
                             launches_per_step=dsm_step["qkv_attention"],
                             device_ms=per_step_ms.get(
@@ -3985,7 +4099,9 @@ def main(argv=None):
              "request each)",
              dsm_launches_per_step=dsm_step["qkv_attention"],
              dsm_request_launches=dsm_req["qkv_attention"],
-             device_ms=req_ms.get(SYMBOL_BF16["qkv_attention"])),
+             device_ms=req_ms.get(SYMBOL_BF16["qkv_attention"]),
+             unfused_request_device_ms=prod_u["request_profile"][
+                 "per_launch_ms"].get(SYMBOL_BF16["qkv_attention"])),
         dict(long_rows["k4"][0], name="qkv_attention_flash_bf16",
              id="K4 bf16", counter="qkv_attention_flash",
              dsm_shape=long_rows["k4"][1], max_abs_err=errs16["K4"],

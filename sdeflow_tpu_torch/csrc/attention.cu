@@ -49,20 +49,24 @@
 // float32 scalar, so the scores are the fp32 sums of the exact bf16
 // products of the raw q and k times s^2; the softmax in fp32 and the
 // normalised weights rounded to bf16 for P V; P V accumulated in fp32 and
-// rounded to bf16 once. All products on mma.sync m16n8k16 with bf16
-// operands (mma_bf16.cuh). Up to T = 64 each unit is whole in shared
-// memory as above, Q and K rows of w + 8 bf16 and V transposed (w rows of
-// T rounded up to 16, + 8; w = ch rounded up to 16), loaded 8 channels a
-// thread where ch % 8 == 0; attn_tile.cuh's bf16 attend16 takes the
-// softmax in two passes over the one key tile, so that p is normalised
-// before it is rounded. Above T = 64, qkv_attention_bf16_kernel_tiled
-// (below): two passes over 64-key tiles, the first over K alone for each
-// row's max and sum, the second recomputing the scores for P V, 128 query
-// rows a block on wgmma (wgmma_bf16.cuh). Bound: bytes at the short
-// sequences (half the float32 bytes: 0.010 and 0.005 ms at (1024, 64, 64)
-// and (1024, 16, 128)), the products once over 989 TFLOP/s dense bf16 at
-// (128, 1024, 128) (0.069 ms; the second pass's recomputed scores make
-// the design's products 1.5x that).
+// rounded to bf16 once. All products on wgmma (wgmma_bf16.cuh) with bf16
+// operands. Up to T = 64, qkv_attention_bf16_kernel_short (below): a
+// persistent grid of one warpgroup a block walking tiles of 64 rows, each
+// S whole (sample, head) units packed row after row (S = 64 / T, fewer
+// where the tiles would leave SMs idle; a select mask keeps each query to
+// its own unit's keys), through a two-slot ring in shared memory whose
+// next tile's Q, K and V are copied by cp.async while this tile computes;
+// the whole key row is one 64-key score tile, so the softmax takes its max
+// and sum in registers and the scores are formed once whatever the head
+// width; V is read MN-major through its descriptor; O is staged in the
+// tile's Q slot and stored 16 bytes at a time. Above T = 64,
+// qkv_attention_bf16_kernel_tiled (below): two passes over 64-key tiles,
+// the first over K alone for each row's max and sum, the second
+// recomputing the scores for P V, 128 query rows a block. Bound: bytes at
+// the short sequences (half the float32 bytes: 0.010 and 0.005 ms at
+// (1024, 64, 64) and (1024, 16, 128)), the products once over 989 TFLOP/s
+// dense bf16 at (128, 1024, 128) (0.069 ms; the second pass's recomputed
+// scores make the design's products 1.5x that).
 
 #include <math.h>
 
@@ -171,81 +175,240 @@ qkv_attention_kernel_tiled(const float* __restrict__ qkv,
                                         scale2, vec);
 }
 
-int short_smem_bytes_bf16(int T, int w) {
-  const int tp = round_up(T, 16);
-  return 2 * units_per_block(T) *
-         (2 * tp * (w + bfm::kPadBf) + w * (tp + bfm::kPadBf));
+// K6 bf16 up to T = 64, for Hopper. A block is one warpgroup; the grid is
+// persistent (as many blocks as the SMs hold, qkv_attention_bf16_plan) and
+// walks tiles of kShortRows rows: S units (sample, head) packed row after
+// row, unit p of the tile in rows pT..pT+T-1 (short_samples). Each tile's
+// Q, K and V rows (all 64, zero past the tile's rows and past ch) sit in
+// one slot of a kShortStages ring, in wgmma_bf16.cuh's 128-byte-swizzled
+// layout at the head width W (64 or 128); the next tile's copy is issued
+// (16-byte cp.async where vec, element copies otherwise) before this
+// tile's products. Every product runs all its k-steps (a k-step skipped on
+// a run-time bound makes ptxas serialise the products, C7520), on zeros
+// past ch and past the tile's rows. S = Q K^T is one m64n64 product from
+// shared memory, so the softmax runs in registers in one pass over the whole
+// key row, keys outside the row's own unit masked; p = bf16(2^(s c - m c)
+// / l), c = s^2 log2(e), normalised before it is rounded; O = P V with P
+// from registers and V MN-major from shared memory (no transpose); O is
+// rounded to bf16 into the tile's Q slot and stored 16 bytes at a time
+// where vec_out (ch % 8 == 0 and out aligned), element by element
+// otherwise.
+constexpr int kShortThreads = 128;  // one warpgroup a block
+constexpr int kShortRows = 64;      // rows (and keys) of a tile: m64
+constexpr int kShortStages = 2;     // tile slots of the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// W: 64 or 128; the blocks an SM is asked to hold (registers: 128 or 255
+// a thread; shared memory: 4 x 50,176 or 2 x 99,328 bytes)
+template <int W>
+struct ShortBf {
+  static constexpr int tile_bytes = 2 * kShortRows * W;  // Q, K or V
+  static constexpr int stage_bytes = 3 * tile_bytes;
+  // + 1,024 to align the slots to the swizzle's 1,024-byte atoms
+  static constexpr int bytes = 1024 + kShortStages * stage_bytes;
+  static constexpr int min_blocks = W == 64 ? 4 : 2;
+};
+
+// units (sample, head) packed into one tile: as many as fit 64 rows, fewer
+// where that would leave SMs without a tile (the SSM step's B = 128)
+__host__ __device__ int short_samples(int T, long long units, int sms) {
+  const long long fit = kShortRows / T, spread = units / sms;
+  return (int)(spread < 1 ? 1 : fit < spread ? fit : spread);
 }
 
-template <int NT, int NO>
-__global__ void __launch_bounds__(kThreads, 3)
-qkv_attention_bf16_kernel(const bfm::bf16* __restrict__ qkv,
-                          bfm::bf16* __restrict__ out, long long units,
-                          int T, int heads, int ch, int w, float scale2,
-                          bool vec, bool pairs) {
+template <int W>
+__global__ void __launch_bounds__(kShortThreads, ShortBf<W>::min_blocks)
+qkv_attention_bf16_kernel_short(const bfm::bf16* __restrict__ qkv,
+                                bfm::bf16* __restrict__ out, long long units,
+                                int T, int heads, int ch, int S, float scale2,
+                                bool vec, bool vec_out) {
   using bfm::bf16;
+  using L = ShortBf<W>;
   extern __shared__ __align__(16) float smem[];
-  bf16* sm = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int tp = round_up(T, 16), ld = w + bfm::kPadBf, ldv = tp + bfm::kPadBf;
-  const int upb = units_per_block(T), mtiles = tp / 16;
-  const int unit_elems = 2 * tp * ld + w * ldv;  // Q, K rows, then V^T
-  const long long u0 = (long long)blockIdx.x * upb;
-  const int nu = (int)min((long long)upb, units - u0);
+  char* ring = wg::align1024(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
   const long long C = (long long)heads * ch, C3 = 3 * C;
+  const long long tiles = (units + S - 1) / S;
+  const float sc = scale2 * kLog2e;
 
-  // every unit's Q and K rows and V^T (zero past T and past ch): item i is
-  // (unit, row, chunk of cw channels); 16-byte loads where vec
-  const int cw = vec ? 8 : 1, chunks = w / cw, per_unit = tp * chunks;
-  for (int i = tid; i < nu * per_unit; i += kThreads) {
-    const int uu = i / per_unit, rem = i - uu * per_unit;
-    const int r = rem / chunks, c = (rem - r * chunks) * cw;
-    bf16* qd = sm + uu * unit_elems + r * ld + c;
-    bf16* kd = qd + tp * ld;
-    bf16* vd = sm + uu * unit_elems + 2 * tp * ld + c * ldv + r;
-    const long long unit = u0 + uu, b = unit / heads;
-    const bool ok = r < T && c < ch;
-    const bf16* src = qkv + (b * T + r) * C3 + (unit - b * heads) * 3 * ch + c;
-    if (vec) {
-      uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
-      if (ok) {
-        q = *reinterpret_cast<const uint4*>(src);
-        k = *reinterpret_cast<const uint4*>(src + ch);
-        v = *reinterpret_cast<const uint4*>(src + 2 * ch);
+  // real rows of tile tt: whole units
+  auto tile_rows = [&](long long tt) {
+    return (int)min((long long)S, units - tt * S) * T;
+  };
+  // row r of tile tt (r < its rows) in qkv and out: (sample row, head)
+  auto row_of = [&](long long tt, int r, long long& brow, int& hh) {
+    const int p = r / T;
+    const long long u = tt * S + p, b = u / heads;
+    brow = b * T + (r - p * T);
+    hh = (int)(u - b * heads);
+  };
+  // thread tid takes chunk (tid % kChunks) of rows tid / kChunks,
+  // + kRowStep, ...: each row's place in qkv and out found once
+  constexpr int kChunks = W / 8, kRowStep = kShortThreads / kChunks;
+  const int jc = tid % kChunks;
+  auto copy_tile = [&](long long tt, int slot) {
+    char* st = ring + slot * L::stage_bytes;
+    const int rows = tile_rows(tt);
+    for (int r = tid / kChunks; r < kShortRows; r += kRowStep) {
+      const bf16* src = qkv;
+      if (r < rows) {
+        long long brow;
+        int hh;
+        row_of(tt, r, brow, hh);
+        src = qkv + brow * C3 + hh * 3 * ch;
       }
-      *reinterpret_cast<uint4*>(qd) = q;
-      *reinterpret_cast<uint4*>(kd) = k;
-      const bf16* vv = reinterpret_cast<const bf16*>(&v);
+      if (vec) {  // 16-byte chunks, zero past ch and past the tile's rows
+        const bool ok = r < rows && 8 * jc < ch;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vd[e * ldv] = vv[e];
-    } else {
-      const bf16 z = __float2bfloat16(0.f);
-      *qd = ok ? src[0] : z;
-      *kd = ok ? src[ch] : z;
-      *vd = ok ? src[2 * ch] : z;
+        for (int part = 0; part < 3; ++part)
+          bfm::cp16(reinterpret_cast<bf16*>(
+                        st + part * L::tile_bytes +
+                        wg::chunk_offset(r, jc, kShortRows)),
+                    ok ? src + part * ch + 8 * jc : qkv, ok);
+      } else {  // element by element
+#pragma unroll
+        for (int part = 0; part < 3; ++part)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int c = 8 * jc + e;
+            *reinterpret_cast<bf16*>(st + part * L::tile_bytes +
+                                     wg::chunk_offset(r, jc, kShortRows) +
+                                     e * 2) =
+                r < rows && c < ch ? src[part * ch + c]
+                                   : __float2bfloat16(0.f);
+          }
+      }
+    }
+  };
+
+  long long tt = blockIdx.x;
+  if (tt < tiles) copy_tile(tt, 0);
+  tc::cp_async_commit();
+  for (int it = 0; tt < tiles; ++it, tt += gridDim.x) {
+    const int slot = it & 1;
+    __syncthreads();  // every thread is done with the other slot's tile
+    if (tt + gridDim.x < tiles) copy_tile(tt + gridDim.x, slot ^ 1);
+    tc::cp_async_commit();
+    bfm::cp_async_wait<1>();  // this tile's copies have landed
+    wg::fence_smem();
+    __syncthreads();  // for every thread's copies
+    char* st = ring + slot * L::stage_bytes;
+    const bf16* qs = reinterpret_cast<const bf16*>(st);
+    const bf16* ks = reinterpret_cast<const bf16*>(st + L::tile_bytes);
+    const bf16* vs = reinterpret_cast<const bf16*>(st + 2 * L::tile_bytes);
+    const int rows = tile_rows(tt);
+
+    // the raw scores: the fp32 sums of the exact bf16 products q k^T over
+    // the whole key row (the scale s^2 goes into the exponent's FMA)
+    float s[kShortRows / 2];
+    const uint64_t dq = wg::desc_k(qs), dk = wg::desc_k(ks);
+    wg::fence();
+    wg::mma_ss_first<kShortRows>(s, dq, dk);
+#pragma unroll
+    for (int kk = 1; kk < W / 16; ++kk)
+      wg::mma_ss<kShortRows>(s, dq + wg::k_step(kShortRows, kk),
+                             dk + wg::k_step(kShortRows, kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(s);
+
+    // each row's own unit's keys [lo, lo + T) (none past the tile's rows)
+    int lo[2];
+    float mc[2], inv[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int i = 16 * warp + g + 8 * h2;
+      lo[h2] = i < rows ? i / T * T : kShortRows;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kShortRows / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jk = nt * 8 + 2 * q4 + e;
+          if (jk >= lo[h2] && jk < lo[h2] + T)
+            mx = fmaxf(mx, s[4 * nt + 2 * h2 + e]);
+        }
+      mx = tc::quad_max(mx);
+      mc[h2] = mx == -INFINITY ? 0.f : mx * sc;  // no key: p = 0
+    }
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kShortRows / 8; ++nt)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jk = nt * 8 + 2 * q4 + e;
+          float& v = s[4 * nt + 2 * h2 + e];
+          v = jk >= lo[h2] && jk < lo[h2] + T ? wg::ex2(fmaf(v, sc, -mc[h2]))
+                                              : 0.f;
+          l[h2] += v;
+        }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      l[h2] = tc::quad_sum(l[h2]);
+      inv[h2] = l[h2] > 0.f ? 1.f / l[h2] : 0.f;
+    }
+    uint32_t pf[kShortRows / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kShortRows / 16; ++kk) {
+      float c0[4], c1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c0[e] = s[8 * kk + e] * inv[e >> 1];
+        c1[e] = s[8 * kk + 4 + e] * inv[e >> 1];
+      }
+      bfm::pack_a(pf[kk], c0, c1);
+      wg::pin(pf[kk]);
+    }
+
+    // O = P V, V MN-major
+    float o[W / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+    const uint64_t dv = wg::desc_mn(vs, kShortRows);
+    wg::pin(o);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kShortRows / 16; ++kk)
+      wg::mma_rs<W>(o, pf[kk], dv + wg::mn_step(kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(o);
+
+    // O rounded to bf16 into the Q slot (after every warp's products),
+    // then stored row by row
+    __syncthreads();
+    char* os = st;
+#pragma unroll
+    for (int nt = 0; nt < W / 8; ++nt)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = 16 * warp + g + 8 * h2, c = nt * 8 + 2 * q4;
+        *reinterpret_cast<uint32_t*>(os + wg::chunk_offset(r, nt, kShortRows) +
+                                     (c & 7) * 2) =
+            bfm::pack(o[4 * nt + 2 * h2], o[4 * nt + 2 * h2 + 1]);
+      }
+    __syncthreads();
+    for (int r = tid / kChunks; r < rows; r += kRowStep) {
+      long long brow;
+      int hh;
+      row_of(tt, r, brow, hh);
+      bf16* dst = out + brow * C + hh * ch;
+      const char* o = os + wg::chunk_offset(r, jc, kShortRows);
+      if (vec_out) {
+        if (8 * jc < ch)
+          *reinterpret_cast<uint4*>(dst + 8 * jc) =
+              *reinterpret_cast<const uint4*>(o);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (8 * jc + e < ch)
+            dst[8 * jc + e] = *reinterpret_cast<const bf16*>(o + e * 2);
+      }
     }
   }
-  __syncthreads();
-
-  const int u = warp / mtiles;
-  if (u >= nu) return;
-  const bf16* qs = sm + u * unit_elems;
-  const long long unit = u0 + u, b = unit / heads;
-  bf16* ob = out + b * T * C + (unit - b * heads) * ch;  // row t at + t*C
-  bfm::attend16<NT, NO>(
-      qs, qs + tp * ld, ld, qs + 2 * tp * ld, ldv, T, tp, w, scale2,
-      (warp % mtiles) * 16, 0, round_up(w, 8 * NO),
-      [&](int r, int c, float v0, float v1) {
-        if (r >= T || c >= ch) return;
-        bf16* o = ob + (long long)r * C + c;
-        if (pairs) {  // c + 1 < ch, 4-byte aligned
-          *reinterpret_cast<__nv_bfloat162*>(o) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          o[0] = __float2bfloat16_rn(v0);
-          if (c + 1 < ch) o[1] = __float2bfloat16_rn(v1);
-        }
-      });
 }
 
 // K6 bf16 above T = 64: one block of kTiledGroups warpgroups per (sample,
@@ -438,18 +601,58 @@ int launch_tiled_bf16(const bfm::bf16* qkv, bfm::bf16* out, long long B,
   return (int)cudaGetLastError();
 }
 
-template <int NT, int NO>
+// The short bf16 kernel's launch at W: samples a tile, tiles, the blocks
+// an SM holds and the grid (as many blocks as the SMs hold, at most one a
+// tile). The SM count and the blocks an SM holds are read once, on the
+// device current at the first call: a process drives one card.
+struct ShortPlan {
+  int S, per_sm;
+  long long tiles, grid;
+};
+
+template <int W>
+cudaError_t short_plan(long long units, int T, ShortPlan& p) {
+  static int sms = 0, per_sm = 0;
+  if (per_sm == 0) {
+    auto kernel = qkv_attention_bf16_kernel_short<W>;
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 ShortBf<W>::bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kShortThreads, ShortBf<W>::bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  }
+  p.S = short_samples(T, units, sms);
+  p.per_sm = per_sm;
+  p.tiles = (units + p.S - 1) / p.S;
+  p.grid = p.tiles < (long long)sms * per_sm ? p.tiles : (long long)sms * per_sm;
+  return cudaSuccess;
+}
+
+template <int W>
 int launch_short_bf16(const bfm::bf16* qkv, bfm::bf16* out, long long B,
-                      int T, int heads, int ch, int w, int smem, float s2,
-                      bool vec, cudaStream_t stream) {
-  auto kernel = qkv_attention_bf16_kernel<NT, NO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                      int T, int heads, int ch, int smem, float s2, bool vec,
+                      cudaStream_t stream) {
+  if (smem != ShortBf<W>::bytes) return (int)cudaErrorInvalidValue;
+  ShortPlan p;
+  const long long units = B * heads;
+  cudaError_t err = short_plan<W>(units, T, p);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(qkv_attention_bf16_kernel_short<W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
   if (err != cudaSuccess) return (int)err;
-  const long long units = B * heads, upb = units_per_block(T);
-  const bool pairs = ch % 2 == 0 && ((uintptr_t)out & 3) == 0;
-  kernel<<<(unsigned int)((units + upb - 1) / upb), kThreads, smem, stream>>>(
-      qkv, out, units, T, heads, ch, w, s2, vec, pairs);
+  const bool vec_out = ch % 8 == 0 && flash::aligned16(out);
+  qkv_attention_bf16_kernel_short<W>
+      <<<(unsigned int)p.grid, kShortThreads, smem, stream>>>(
+          qkv, out, units, T, heads, ch, p.S, s2, vec, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -523,15 +726,22 @@ extern "C" int qkv_attention_bf16(const bfm::bf16* qkv, bfm::bf16* out,
     return launch_tiled_bf16<128>(qkv, out, B, T, heads, ch, smem, s2, vec,
                                   st);
   }
-  const int w = round_up(ch, 16);
-  if (smem != short_smem_bytes_bf16(T, w)) return (int)cudaErrorInvalidValue;
-  if (T <= 16)
-    return w <= 16 ? launch_short_bf16<2, 2>(qkv, out, B, T, heads, ch, w,
-                                             smem, s2, vec, st)
-                   : launch_short_bf16<2, 8>(qkv, out, B, T, heads, ch, w,
-                                             smem, s2, vec, st);
-  return w <= 16 ? launch_short_bf16<8, 2>(qkv, out, B, T, heads, ch, w, smem,
-                                           s2, vec, st)
-                 : launch_short_bf16<8, 8>(qkv, out, B, T, heads, ch, w, smem,
-                                           s2, vec, st);
+  if (ch <= 64)
+    return launch_short_bf16<64>(qkv, out, B, T, heads, ch, smem, s2, vec,
+                                 st);
+  return launch_short_bf16<128>(qkv, out, B, T, heads, ch, smem, s2, vec, st);
+}
+
+// The plan of the bf16 entry's short path (T <= 64) on this card, for the
+// card tests to hold attention.py short_bf16_plan to: plan = (samples a
+// tile, tiles, grid, blocks an SM holds, shared memory a block).
+extern "C" int qkv_attention_bf16_plan(long long B, int T, int heads, int ch,
+                                       long long* plan) {
+  ShortPlan p;
+  const cudaError_t err = ch <= 64 ? short_plan<64>(B * heads, T, p)
+                                   : short_plan<128>(B * heads, T, p);
+  if (err != cudaSuccess) return (int)err;
+  plan[0] = p.S, plan[1] = p.tiles, plan[2] = p.grid, plan[3] = p.per_sm;
+  plan[4] = ch <= 64 ? ShortBf<64>::bytes : ShortBf<128>::bytes;
+  return 0;
 }

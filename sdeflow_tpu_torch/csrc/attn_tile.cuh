@@ -29,7 +29,6 @@
 
 #include <math.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace tc {
@@ -126,112 +125,3 @@ __device__ __forceinline__ void attend16(const float* q, int ldq,
 }
 
 }  // namespace tc
-
-namespace bfm {
-
-// The same in bf16 on mma.sync m16n8k16 (mma_bf16.cuh), shared by K3's
-// bf16 kernel (attnblock.cu) and K6's bf16 entry at short sequences
-// (attention.cu): the 16 query rows r0.. of one (sample, head), q and k
-// bf16 in rows of stride ldq, v transposed (row c holds the keys of
-// channel c, stride ldv); rows and keys [0, rows) readable and finite,
-// columns [0, w). The scores are the fp32 sums of the exact bf16 products
-// times scale2, rounded once (K3 passes 1: its q and k are already
-// scaled; K6 passes s^2 for the raw q and k). Keys go by in tiles of 8*NT
-// (NT even): a first pass takes each row's max m and sum
-// l = sum exp(s - m) of its fp32 scores, a second forms
-// p = bf16(exp(s - m) / l) (recomputing the scores unless one tile holds
-// every key) and accumulates P V in fp32 for the output columns [oc0, oc1)
-// in chunks of 8*NO. store(row, col, v0, v1) as above.
-template <int NT, int NO, class Store>
-__device__ __forceinline__ void attend16(const bf16* q, const bf16* k,
-                                         int ldq, const bf16* vt, int ldv,
-                                         int T, int rows, int w,
-                                         float scale2, int r0, int oc0,
-                                         int oc1, Store store) {
-  static_assert(NT % 2 == 0, "a P V k-step takes two score n-tiles");
-  constexpr int kTile = 8 * NT;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q4 = lane & 3;
-  const int ntiles = (T + kTile - 1) / kTile;
-  const bf16* qr = q + (r0 + g) * ldq + 2 * q4;  // rows r0+g, r0+g+8
-  float s[NT][4];
-  auto scores = [&](int j) {
-    const int k0 = j * kTile;
-    const bf16* kr[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      kr[n] = k + min(k0 + n * 8 + g, rows - 1) * ldq + 2 * q4;
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    }
-    for (int c = 0; c < w; c += 16) {
-      const uint32_t a[4] = {ld2(qr + c), ld2(qr + 8 * ldq + c),
-                             ld2(qr + c + 8), ld2(qr + 8 * ldq + c + 8)};
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mma(s[n], a, ld2(kr[n] + c), ld2(kr[n] + c + 8));
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = k0 + n * 8 + 2 * q4 + (e & 1) >= T
-                      ? -INFINITY
-                      : __fmul_rn(s[n][e], scale2);
-  };
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < ntiles; ++j) {
-    scores(j);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // row r0+g (c0, c1), r0+g+8 (c2, c3)
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
-      const float m_new = fmaxf(m[h], tc::quad_max(mx));  // key k0 < T
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        sum += expf(s[n][2 * h] - m_new) + expf(s[n][2 * h + 1] - m_new);
-      l[h] = l[h] * expf(m[h] - m_new) + tc::quad_sum(sum);
-      m[h] = m_new;
-    }
-  }
-  for (int oc = oc0; oc < oc1; oc += 8 * NO) {
-    float o[NO][4];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    const bf16* vr[NO];  // this lane's value column of each n-tile
-#pragma unroll
-    for (int n = 0; n < NO; ++n) vr[n] = vt + min(oc + n * 8 + g, w - 1) * ldv;
-    for (int j = 0; j < ntiles; ++j) {
-      if (ntiles > 1 || oc != oc0) scores(j);
-      const int k0 = j * kTile;
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {  // keys k0+16kk..k0+16kk+15
-        const float(&s0)[4] = s[2 * kk];
-        const float(&s1)[4] = s[2 * kk + 1];
-        const uint32_t a[4] = {
-            pack(expf(s0[0] - m[0]) / l[0], expf(s0[1] - m[0]) / l[0]),
-            pack(expf(s0[2] - m[1]) / l[1], expf(s0[3] - m[1]) / l[1]),
-            pack(expf(s1[0] - m[0]) / l[0], expf(s1[1] - m[0]) / l[0]),
-            pack(expf(s1[2] - m[1]) / l[1], expf(s1[3] - m[1]) / l[1])};
-        // key pairs past the last row hold p = 0: clamp them to the last
-        // pair (rows is a multiple of 16)
-        const int key0 = min(k0 + kk * 16 + 2 * q4, rows - 2);
-        const int key1 = min(k0 + kk * 16 + 8 + 2 * q4, rows - 2);
-#pragma unroll
-        for (int n = 0; n < NO; ++n)
-          mma(o[n], a, ld2(vr[n] + key0), ld2(vr[n] + key1));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int c = oc + n * 8 + 2 * q4;
-      if (c < w) {
-        store(r0 + g, c, o[n][0], o[n][1]);
-        store(r0 + g + 8, c, o[n][2], o[n][3]);
-      }
-    }
-  }
-}
-
-}  // namespace bfm

@@ -14,8 +14,9 @@
 //
 // bfloat16 (the score net's bf16 compute, group_norm_silu_bf16 and
 // group_norm_silu_bwd_bf16; ops/pallas/groupnorm.py:64-75, the sub-fp32
-// branch): the same plans over the same slabs, each 16-byte load carrying 8
-// elements instead of 4, the statistics in fp32 from the widened values;
+// branch): K5 takes the same plans over the same slabs, each 16-byte load
+// carrying 8 elements instead of 4, the statistics in fp32 from the
+// widened values; K5b has a plan of its own (below, choose_bwd_bf16);
 // then the apply rounds where the plain version (ops/kernels/groupnorm.py
 // gn_math) rounds: scale = bf16(rstd*gamma), shift = bf16(beta -
 // mean*rstd*gamma), h = bf16(bf16(x*scale) + shift), and under SiLU
@@ -62,8 +63,8 @@
 //   cluster of 8, each block looping over its share, which it reads three
 //   times (K5) or four (K5b). No present path takes it.
 //
-// K5b's dgamma and dbeta: each part of a slab (a lane group, or one block
-// of a cluster) writes its per-channel sums of g and g*xhat into a
+// K5b's dgamma and dbeta in fp32: each part of a slab (a lane group, or one
+// block of a cluster) writes its per-channel sums of g and g*xhat into a
 // (2, C, B*cluster) scratch, zero for channels it does not hold; a second
 // kernel of the same C entry sums each row in a fixed order. No atomics, so
 // the gradient is the same from run to run.
@@ -200,6 +201,13 @@ struct Affine {
 // dL/dh from dL/dout: the SiLU's derivative sig(h) * (1 + h * (1 - sig(h)))
 __device__ __forceinline__ float silu_grad(float dy, float h) {
   const float sg = 1.f / (1.f + expf(-h));
+  return dy * sg * (1.f + h * (1.f - sg));
+}
+
+// ... with a fast sigmoid (__expf, __fdividef: a few ulp of fp32, far below
+// the bf16 rounding of the dx it feeds; K5b in bf16)
+__device__ __forceinline__ float silu_grad_fast(float dy, float h) {
+  const float sg = __fdividef(1.f, 1.f + __expf(-h));
   return dy * sg * (1.f + h * (1.f - sg));
 }
 
@@ -780,11 +788,31 @@ cudaError_t launch_small(const Plan& p, const Args<T>& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// blocks of k in clusters of `cluster` (1 to 8) on st
+template <class A>
+cudaError_t launch_clusters(void (*k)(const A), long long blocks, int cluster,
+                            const A& a, cudaStream_t st) {
+  if (k == nullptr || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <bool BWD, class T>
 cudaError_t launch_large(const Plan& p, const Args<T>& a, cudaStream_t st) {
   constexpr int W = kVec<T>;
-  const long long blocks = a.slabs * p.cluster;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   KernelFn<T> k;
   if (p.kind == kStream) {
     k = p.vec == 1 ? cluster_kernel<1, 0, BWD, T>()
@@ -794,21 +822,7 @@ cudaError_t launch_large(const Plan& p, const Args<T>& a, cudaStream_t st) {
   } else {
     k = cluster_nv<W, BWD, T>(p.nv);
   }
-  if (k == nullptr) return cudaErrorInvalidConfiguration;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned int)blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, k, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_clusters(k, a.slabs * p.cluster, p.cluster, a, st);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -861,6 +875,521 @@ int backward(const T* x, const float* gamma, const float* beta, const T* dy,
   return (int)cudaGetLastError();
 }
 
+// ---- K5b in bf16: a plan of its own ------------------------------------------
+//
+// The fp32 plan counted in elements gave a bf16 block half the bytes of an
+// fp32 block for the same rounds of cluster-wide sums, and small slabs of
+// the 128x128 DSM step clusters of tiny blocks. Here (choose_bwd_bf16,
+// mirrored by groupnorm.py bwd_bf16_plan) a block of kThreads holds
+// kBfBlockElems elements, 16 KB of x as an fp32 block holds 4,096 floats:
+// 4 vectors of 8 a thread, x as loaded (widened where used) and g = dL/dh
+// computed once in fp32 (a fast sigmoid); a warp's lanes a slab of up to
+// kBfSmallMax; a cluster only past one block (2 blocks at 16,384
+// elements, 8 at 49,152). Two rounds of sums a block's slab, each in one
+// fixed order (a few lanes' slab takes one more, of shuffles only): (1)
+// the count, mean and centred sum of squares of each part, from its
+// registers, combined by Chan's rule (no second trip over the values, no
+// E[x^2] - E[x]^2); (2) per channel of the slab, sum g and sum
+// g*xhat (up to kBfChannels channels a round, as many values as the slab
+// has channels), from which dbeta's and dgamma's slab sums come and, times
+// gamma, the slab's sums of d and d*xhat that dx needs. Across warps and
+// blocks one warp adds the partials in order and shares the result. The
+// slab's leader writes its channels' sums into a (2, C, B) scratch (no
+// zeros for channels a part lacks), which gn_silu_bwd_params adds over
+// the batch in a second launch: a last-block ticket in the same launch was
+// slower (one block's walk over 2C rows of B sums, latency-bound, cost
+// more than the launch: PERF.md, K5b bf16). dx is rounded to bf16 once, at
+// its store. Slabs past a cluster's registers stream through the bf16
+// instance of the fp32 plan's stream kernel.
+
+constexpr int kBfSmallMax = 1024;     // elements: the small plan's largest slab
+constexpr int kBfBlockElems = 8192;   // elements a block holds (8 a vector)
+constexpr int kBfScalarElems = 4096;  // ... one a vector (16 a thread)
+constexpr int kBfChannels = 8;        // channels summed a round
+
+// count, mean and centred sum of squares of a part of a slab
+struct Stats {
+  float n, m, q;
+};
+
+// Chan's combination of the parts a and b (a before b)
+__device__ __forceinline__ Stats chan(Stats a, Stats b) {
+  if (b.n == 0.f) return a;
+  if (a.n == 0.f) return b;
+  const float t = a.n + b.n, d = b.m - a.m, f = b.n / t;
+  return {t, fmaf(d, f, a.m), a.q + b.q + d * d * a.n * f};
+}
+
+// the parts of a warp's lanes combined by an xor tree; both partners
+// combine (lower lane, upper lane), so every lane gets the same bits
+__device__ __forceinline__ Stats warp_stats(Stats s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const Stats t = {__shfl_xor_sync(0xffffffffu, s.n, o),
+                     __shfl_xor_sync(0xffffffffu, s.m, o),
+                     __shfl_xor_sync(0xffffffffu, s.q, o)};
+    s = (lane & o) ? chan(t, s) : chan(s, t);
+  }
+  return s;
+}
+
+// v[0..kk) summed over L neighbouring lanes (every lane gets the sums)
+template <int L, int K>
+__device__ __forceinline__ void lanes_sum(float (&v)[K], int kk) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (k < kk)
+#pragma unroll
+      for (int o = L / 2; o; o >>= 1)
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+}
+
+// The threads of one slab: L lanes of a warp, whose statistics take two
+// rounds of shuffles (the sum, then the centred sum of squares about the
+// mean: cheaper than Chan's rule, a division a level) ...
+template <int L>
+struct BfLanes {
+  static constexpr bool kTwoRounds = true;
+  template <int K>
+  __device__ __forceinline__ void sums(float (&v)[K], int kk, int) const {
+    lanes_sum<L>(v, kk);
+  }
+  __device__ __forceinline__ bool leader() const {
+    return threadIdx.x % L == 0;
+  }
+  __device__ __forceinline__ void done() const {}
+};
+
+// ... or the blocks of a cluster (of 1 to 8), each holding one part: warp
+// trees, then the block's warps in order (warp 0 from shared memory), then
+// the cluster's blocks in order (warp 0 reading each block's by
+// distributed shared memory), the result in shared memory for every
+// thread: the same bits in every block
+struct BfCluster {
+  static constexpr bool kTwoRounds = false;  // Chan's rule, one round
+  cg::cluster_group cluster;
+  float* red;    // shared: kWarps * 2 * kBfChannels, then 2 * kBfChannels
+  float* slots;  // shared: 4 + 2 * kBfChannels
+  int blocks;
+
+  __device__ __forceinline__ float* res() const {
+    return red + kWarps * 2 * kBfChannels;
+  }
+  __device__ __forceinline__ Stats stats(Stats s) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    s = warp_stats(s);
+    if (lane == 0)
+      red[3 * warp] = s.n, red[3 * warp + 1] = s.m, red[3 * warp + 2] = s.q;
+    __syncthreads();
+    float* out = blocks > 1 ? slots : res();
+    if (threadIdx.x == 0) {
+      Stats b = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        b = chan(b, {red[3 * w], red[3 * w + 1], red[3 * w + 2]});
+      out[0] = b.n, out[1] = b.m, out[2] = b.q;
+    }
+    if (blocks > 1) {
+      cluster.sync();
+      if (threadIdx.x == 0) {
+        Stats b = {0.f, 0.f, 0.f};
+        for (int r = 0; r < blocks; ++r) {
+          const float* o = cluster.map_shared_rank(slots, r);
+          b = chan(b, {o[0], o[1], o[2]});
+        }
+        res()[0] = b.n, res()[1] = b.m, res()[2] = b.q;
+      }
+    }
+    __syncthreads();
+    return {res()[0], res()[1], res()[2]};
+  }
+  // the sums of v[0..kk); round > 0 reuses the slots once every block has
+  // read the last round's
+  template <int K>
+  __device__ __forceinline__ void sums(float (&v)[K], int kk,
+                                       int round) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    lanes_sum<32>(v, kk);
+    __syncthreads();  // the last round's red and results have been read
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k < kk) red[k * kWarps + warp] = v[k];
+    __syncthreads();
+    if (blocks > 1 && round > 0) cluster.sync();
+    if (warp == 0 && lane < kk) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) t += red[lane * kWarps + w];
+      (blocks > 1 ? slots + 4 : res())[lane] = t;
+    }
+    if (blocks > 1) {
+      cluster.sync();
+      if (warp == 0 && lane < kk) {
+        float t = 0.f;
+        for (int r = 0; r < blocks; ++r)
+          t += *cluster.map_shared_rank(slots + 4 + lane, r);
+        res()[lane] = t;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < kk) v[k] = res()[k];
+  }
+  __device__ __forceinline__ bool leader() const {
+    return threadIdx.x == 0 && cluster.block_rank() == 0;
+  }
+  // no block may leave while another can still read its slots
+  __device__ __forceinline__ void done() const {
+    if (blocks > 1) cluster.sync();
+  }
+};
+
+// V bf16 as loaded (their bits): a 16-byte vector, or one element
+template <int V>
+struct BfRaw {
+  uint4 u;
+};
+template <>
+struct BfRaw<1> {
+  unsigned short u;
+};
+
+template <int V>
+__device__ __forceinline__ void bf_load(BfRaw<V>& r, const bf16* p) {
+  if constexpr (V == 1)
+    r.u = __bfloat16_as_ushort(p[0]);
+  else
+    r.u = __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <int V>
+__device__ __forceinline__ void bf_zero(BfRaw<V>& r) {
+  if constexpr (V == 1)
+    r.u = 0;
+  else
+    r.u = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Ties the bits to this point of the program, so that the compiler widens
+// them again where they are used next instead of keeping every widened
+// value alive across a round of sums: 8 floats a vector where the bits
+// take 4 registers (255 registers and spills without)
+template <int V>
+__device__ __forceinline__ void launder(BfRaw<V>& r) {
+  if constexpr (V == 1)
+    asm volatile("" : "+h"(r.u));
+  else
+    asm volatile("" : "+r"(r.u.x), "+r"(r.u.y), "+r"(r.u.z), "+r"(r.u.w));
+}
+
+template <int V>
+__device__ __forceinline__ void widen(const BfRaw<V>& r, float (&d)[V]) {
+  if constexpr (V == 1) {
+    d[0] = __bfloat162float(__ushort_as_bfloat16(r.u));
+  } else {
+    const uint32_t w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      d[2 * i] = f.x;
+      d[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// where one slab's sums of g (dbeta) and g * xhat (dgamma) go: row c0 + c
+// (and C + c0 + c) of the (2, C, B) scratch, column b
+struct BfParams {
+  float* scratch;
+  long long b, B;
+  int C, c0;
+};
+
+template <int V, int NV, class Grp>
+__device__ __forceinline__ void bwd_bf16_body(
+    Grp& grp, const Part& p, const bf16* __restrict__ xs,
+    const bf16* __restrict__ dys, const float* __restrict__ gs,
+    const float* __restrict__ bs, bf16* __restrict__ dxs,
+    const BfParams& out, int cg, int S, bool act) {
+  const int n = cg * S;
+  BfRaw<V> xr[NV], dr[NV];
+  int cj[NV];  // the channel (of the slab) of vector j
+  ChannelWalk walk((p.beg + p.tid) * V, p.stride * V, S);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    cj[j] = walk.c;
+    walk.next();
+    if (k < p.cnt) {
+      bf_load<V>(xr[j], xs + (size_t)(p.beg + k) * V);
+      bf_load<V>(dr[j], dys + (size_t)(p.beg + k) * V);
+    } else {
+      bf_zero<V>(xr[j]);
+      bf_zero<V>(dr[j]);
+    }
+  }
+  auto valid = [&](int j) { return p.tid + p.stride * j < p.cnt; };
+  auto launder_x = [&]() {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) launder<V>(xr[j]);
+  };
+  // (1) this thread's count, mean and centred sum of squares, combined
+  float sum = 0.f, cnt = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (valid(j)) {
+      float x[V];
+      widen<V>(xr[j], x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum += x[i];
+      cnt += (float)V;
+    }
+  }
+  float mean;
+  if constexpr (Grp::kTwoRounds) {
+    float t[1] = {sum};
+    grp.sums(t, 1, 0);
+    mean = t[0] / (float)n;
+  } else {
+    mean = cnt > 0.f ? sum / cnt : 0.f;  // this part's, until combined
+  }
+  float q[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (valid(j)) {
+      float x[V];
+      widen<V>(xr[j], x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = x[i] - mean;
+        q[0] = fmaf(d, d, q[0]);
+      }
+    }
+  }
+  if constexpr (Grp::kTwoRounds) {
+    grp.sums(q, 1, 0);
+  } else {
+    const Stats st = grp.stats({cnt, mean, q[0]});
+    mean = st.m, q[0] = st.q;
+  }
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+
+  // g = dL/dh, once, kept in registers: the SiLU's derivative at h = xhat
+  // gamma + beta (a fast sigmoid), or dy; x stays as its bits
+  float g[NV][V];
+  launder_x();
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    widen<V>(dr[j], g[j]);
+    if (act && valid(j)) {
+      float x[V];
+      widen<V>(xr[j], x);
+      const float gam = __ldg(gs + cj[j]), bet = __ldg(bs + cj[j]);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        g[j][i] = silu_grad_fast(g[j][i], fmaf((x[i] - mean) * rstd, gam, bet));
+    }
+  }
+
+  // (2) per channel, sum g and sum g * xhat, kBfChannels a round; the
+  // slab's sums of d = g gamma and d xhat follow from them
+  float sd = 0.f, sdx = 0.f;
+  for (int c0 = 0, round = 0; c0 < cg; c0 += kBfChannels, ++round) {
+    const int kc = min(cg - c0, kBfChannels);  // channels this round
+    float acc[2 * kBfChannels];  // (sum g, sum g xhat) per channel
+#pragma unroll
+    for (int k = 0; k < 2 * kBfChannels; ++k) acc[k] = 0.f;
+    launder_x();
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = cj[j] - c0;
+      if (valid(j) && c >= 0 && c < kBfChannels) {
+        float x[V];
+        widen<V>(xr[j], x);
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          s0 += g[j][i];
+          s1 = fmaf(g[j][i], (x[i] - mean) * rstd, s1);
+        }
+#pragma unroll
+        for (int k = 0; k < kBfChannels; ++k)
+          if (c == k) acc[2 * k] += s0, acc[2 * k + 1] += s1;
+      }
+    }
+    grp.sums(acc, 2 * kc, round);
+#pragma unroll
+    for (int k = 0; k < kBfChannels; ++k) {
+      if (k < kc) {
+        const int c = c0 + k;
+        const float gam = __ldg(gs + c);
+        sd = fmaf(gam, acc[2 * k], sd);
+        sdx = fmaf(gam, acc[2 * k + 1], sdx);
+        if (p.store && grp.leader()) {
+          out.scratch[(size_t)(out.c0 + c) * out.B + out.b] = acc[2 * k + 1];
+          out.scratch[((size_t)out.C + out.c0 + c) * out.B + out.b] =
+              acc[2 * k];
+        }
+      }
+    }
+  }
+  const float md = sd / (float)n, mdx = sdx / (float)n;
+  launder_x();
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (valid(j) && p.store) {
+      float x[V];
+      widen<V>(xr[j], x);
+      const float gam = __ldg(gs + cj[j]);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        x[i] = rstd * (g[j][i] * gam - md - (x[i] - mean) * rstd * mdx);
+      store<V>(dxs + (size_t)(p.beg + p.tid + p.stride * j) * V, x);
+    }
+  }
+  grp.done();
+}
+
+struct BfArgs {
+  const bf16* x;
+  const float* gamma;
+  const float* beta;
+  const bf16* dy;
+  bf16* dx;
+  float* scratch;  // (2, C, B)
+  long long slabs, B;
+  int G, cg, S, act;
+};
+
+template <int L, int V, int NV>
+__global__ void __launch_bounds__(kThreads, 3)
+gn_silu_bwd_kernel_bf16_small(const BfArgs a) {
+  const long long slab0 =
+      (long long)blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const bool ok = slab0 < a.slabs;
+  const long long slab = ok ? slab0 : 0;
+  const int n = a.cg * a.S, c0 = (int)(slab % a.G) * a.cg;
+  BfLanes<L> grp;
+  const Part p{0, n / V, (int)(threadIdx.x % L), L, ok};
+  const BfParams out{a.scratch, slab / a.G, a.B, a.G * a.cg, c0};
+  bwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
+                       a.gamma + c0, a.beta + c0, a.dx + slab * n, out, a.cg,
+                       a.S, a.act);
+}
+
+template <int V, int NV>
+__global__ void __launch_bounds__(kThreads, 3)
+gn_silu_bwd_kernel_bf16_cluster(const BfArgs a) {
+  __shared__ float red[(kWarps + 1) * 2 * kBfChannels];
+  __shared__ float slots[4 + 2 * kBfChannels];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const long long slab = blockIdx.x / cs;
+  const int n = a.cg * a.S, c0 = (int)(slab % a.G) * a.cg;
+  const int nvec = n / V, chunk = (nvec + cs - 1) / cs;
+  const int beg = min(rank * chunk, nvec);
+  const Part p{beg, min(chunk, nvec - beg), (int)threadIdx.x, kThreads, true};
+  BfCluster grp{cluster, red, slots, cs};
+  const BfParams out{a.scratch, slab / a.G, a.B, a.G * a.cg, c0};
+  bwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
+                       a.gamma + c0, a.beta + c0, a.dx + slab * n, out, a.cg,
+                       a.S, a.act);
+}
+
+// ops/kernels/groupnorm.py bwd_bf16_plan is this function in Python
+Plan choose_bwd_bf16(long long n, int S, bool aligned) {
+  const int vec = (S % 8 == 0 && aligned) ? 8 : 1;
+  const long long nvec = n / vec;
+  if (n <= kBfSmallMax) {
+    if (vec == 1) {  // 32 lanes, 1, 4 or 32 elements each
+      const int nv = pow2_at_least(cdiv(n, 32));
+      return {kSmall, 32, 1, nv <= 1 ? 1 : nv <= 4 ? 4 : 32, 1};
+    }
+    const int lanes = nvec <= 8 ? 8 : nvec <= 16 ? 16 : 32;
+    return {kSmall, lanes, 1, pow2_at_least(cdiv(nvec, lanes)), 8};
+  }
+  const int cap = vec == 8 ? kBfBlockElems / kThreads / 8
+                           : kBfScalarElems / kThreads;  // vectors a thread
+  int cs = pow2_at_least(cdiv(nvec, (long long)kThreads * cap));
+  if (cs > kMaxCluster) cs = kMaxCluster;
+  const int nv = pow2_at_least(cdiv(nvec, (long long)cs * kThreads));
+  if (nv <= cap) return {kCluster, kThreads, cs, vec == 8 ? nv : cap, vec};
+  return {kStream, kThreads, kMaxCluster, 0, vec};
+}
+
+using BfKernel = void (*)(const BfArgs);
+
+BfKernel bf_small_kernel(const Plan& p) {
+  if (p.vec == 1)
+    return p.nv == 1   ? gn_silu_bwd_kernel_bf16_small<32, 1, 1>
+           : p.nv == 4 ? gn_silu_bwd_kernel_bf16_small<32, 1, 4>
+                       : gn_silu_bwd_kernel_bf16_small<32, 1, 32>;
+  if (p.lanes == 8) return gn_silu_bwd_kernel_bf16_small<8, 8, 1>;
+  if (p.lanes == 16) return gn_silu_bwd_kernel_bf16_small<16, 8, 1>;
+  switch (p.nv) {
+    case 1: return gn_silu_bwd_kernel_bf16_small<32, 8, 1>;
+    case 2: return gn_silu_bwd_kernel_bf16_small<32, 8, 2>;
+    case 4: return gn_silu_bwd_kernel_bf16_small<32, 8, 4>;
+  }
+  return nullptr;
+}
+
+BfKernel bf_cluster_kernel(const Plan& p) {
+  if (p.vec == 1) return gn_silu_bwd_kernel_bf16_cluster<1, 16>;
+  switch (p.nv) {
+    case 1: return gn_silu_bwd_kernel_bf16_cluster<8, 1>;
+    case 2: return gn_silu_bwd_kernel_bf16_cluster<8, 2>;
+    case 4: return gn_silu_bwd_kernel_bf16_cluster<8, 4>;
+  }
+  return nullptr;
+}
+
+int backward_bf16(const bf16* x, const float* gamma, const float* beta,
+                  const bf16* dy, bf16* dx, float* dgamma, float* dbeta,
+                  float* scratch, long long scratch_floats, long long B,
+                  int C, int G, int S, int silu, cudaStream_t st) {
+  const long long n = (long long)(C / G) * S;
+  const Plan plan = choose_bwd_bf16(
+      n, S, aligned16(x) && aligned16(dx) && aligned16(dy));
+  if (plan.kind == kStream) {  // the fp32 plan's stream kernel, in bf16
+    const Args<bf16> a{x, gamma, beta, dy, dx, scratch, B * G, G, C / G, S,
+                       silu};
+    const long long rows = B * plan.cluster;
+    if (2 * (long long)C * rows > scratch_floats)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = launch_clusters(
+        plan.vec == 1 ? cluster_kernel<1, 0, true, bf16>()
+                      : cluster_kernel<8, 0, true, bf16>(),
+        a.slabs * plan.cluster, plan.cluster, a, st);
+    if (err != cudaSuccess) return (int)err;
+    gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma,
+                                                        dbeta, C, rows);
+    return (int)cudaGetLastError();
+  }
+  if (2 * (long long)C * B > scratch_floats) return (int)cudaErrorInvalidValue;
+  const BfArgs a{x, gamma, beta, dy, dx, scratch, B * G, B, G, C / G, S,
+                 silu};
+  cudaError_t err;
+  if (plan.kind == kSmall) {
+    const BfKernel k = bf_small_kernel(plan);
+    if (k == nullptr) return (int)cudaErrorInvalidConfiguration;
+    k<<<(unsigned int)cdiv(a.slabs, kThreads / plan.lanes), kThreads, 0,
+        st>>>(a);
+    err = cudaGetLastError();
+  } else {
+    err = launch_clusters(bf_cluster_kernel(plan), a.slabs * plan.cluster,
+                          plan.cluster, a, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+  gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma, dbeta,
+                                                      C, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int group_norm_silu_f32(const float* x, const float* gamma,
@@ -904,12 +1433,36 @@ extern "C" int group_norm_silu_bwd_f32(
                   scratch_floats, B, C, G, S, silu, stream);
 }
 
-// K5b in bf16: x, dy and dx bf16; gamma, beta, dgamma, dbeta fp32
+// K5b in bf16: x, dy and dx bf16; gamma, beta, dgamma, dbeta fp32, on the
+// plan of choose_bwd_bf16; scratch holds scratch_floats floats, at least
+// 2 * C * B (2 * C * B * 8 where the plan streams).
 extern "C" int group_norm_silu_bwd_bf16(
     const bf16* x, const float* gamma, const float* beta, const bf16* dy,
     bf16* dx, float* dgamma, float* dbeta, float* scratch,
     long long scratch_floats, long long B, int C, int G, int S, int silu,
     void* stream) {
-  return backward(x, gamma, beta, dy, dx, dgamma, dbeta, scratch,
-                  scratch_floats, B, C, G, S, silu, stream);
+  if (C == 0) return 0;
+  if ((long long)(C / G) * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B * G == 0 || S == 0) {  // no element: the sums are zero
+    cudaError_t err = cudaMemsetAsync(dgamma, 0, C * sizeof(float), st);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dbeta, 0, C * sizeof(float), st);
+    return (int)err;
+  }
+  return backward_bf16(x, gamma, beta, dy, dx, dgamma, dbeta, scratch,
+                       scratch_floats, B, C, G, S, silu, st);
+}
+
+// K5b bf16's plan for slabs of n elements (as group_norm_silu_plan), for the
+// card tests to hold groupnorm.py bwd_bf16_plan to
+extern "C" int group_norm_silu_bwd_bf16_plan(long long n, int S, int aligned,
+                                             int* plan) {
+  const Plan p = choose_bwd_bf16(n, S, aligned != 0);
+  plan[0] = p.kind;
+  plan[1] = p.lanes;
+  plan[2] = p.cluster;
+  plan[3] = p.nv;
+  plan[4] = p.vec;
+  return 0;
 }

@@ -1,8 +1,8 @@
 // Helpers shared by the bf16 tensor-core kernels (attnblock.cu's bf16 K3;
-// the bf16 entries of attention.cu, flash_fwd.cu and attention_bwd.cu):
-// mma.sync m16n8k16 with bf16 operands and fp32 accumulation, its fragment
-// loads from shared memory, the rounding to bf16, cp.async of bf16 rows,
-// and the split of an fp32 operand into two bf16 halves.
+// the bf16 entries of attention.cu, flash_fwd.cu and attention_bwd.cu, all
+// on wgmma, whose register A operand is mma.sync m16n8k16's A fragment):
+// that fragment's loads from shared memory, the rounding to bf16, 16-byte
+// cp.async, and the split of an fp32 operand into two bf16 halves.
 //
 // Fragments of mma.sync.m16n8k16 with bf16 operands, for lane = 4*g + q
 // (g = lane >> 2, q = lane & 3), two bf16 to a register (the lower k
@@ -14,8 +14,7 @@
 //                           c3 (g+8, 2q+1)
 // So two C tiles side by side (columns 0-7 and 8-15), rounded to bf16 in
 // pairs, are the A fragment of a product over those 16 columns, with no
-// shuffle (pack_a). A B fragment whose k runs along the rows of a
-// row-major tile takes its two k's from two rows (ld2t).
+// shuffle (pack_a).
 //
 // The products of two bf16 are exact in fp32, so a product whose operands
 // are bf16 values costs one mma and keeps fp32 accuracy up to the sums. An
@@ -31,11 +30,6 @@ namespace bfm {
 
 using bf16 = __nv_bfloat16;
 
-// rows of the bf16 kernels' shared-memory tiles: width + 8 elements (16
-// bytes), so that a 16-byte row start stays aligned and the fragment loads
-// of 8 rows fall in distinct banks
-constexpr int kPadBf = 8;
-
 __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -50,26 +44,10 @@ __device__ __forceinline__ uint32_t ld2(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// p[0] and p[ld] (one column of two rows) as one register
-__device__ __forceinline__ uint32_t ld2t(const bf16* p, int ld) {
-  const __nv_bfloat162 h = __halves2bfloat162(p[0], p[ld]);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // Wait until at most n of this thread's cp.async groups are in flight.
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
-}
-
-// d += a b on mma.sync m16n8k16, bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The A fragment of rows g, g + 8 and k 0..15 of a row-major tile at p
@@ -114,32 +92,6 @@ __device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool ok) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0));
-}
-
-// `rows` rows of width `w` (a multiple of 8) of a head's slice: row r of
-// the source at src + (r0 + r) * stride, channels [0, ch) real, the rest
-// and the rows at or past T zero; into dst with row stride ld. 16-byte
-// cp.async copies when vec (ch, the row stride and the base a multiple of
-// 8 elements), else element by element (plain stores, done at the next
-// barrier).
-template <int rows, int w, int threads>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int r0, int T,
-                                          int ch, bool vec) {
-  if (vec) {
-    constexpr int chunks = w / 8;
-    for (int i = threadIdx.x; i < rows * chunks; i += threads) {
-      const int r = i / chunks, c = (i - r * chunks) * 8, t = r0 + r;
-      const bool ok = t < T && c < ch;
-      cp16(dst + r * ld + c, ok ? src + (long long)t * stride + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * w; i += threads) {
-      const int r = i / w, c = i - r * w, t = r0 + r;
-      dst[r * ld + c] = (t < T && c < ch) ? src[(long long)t * stride + c]
-                                          : __float2bfloat16(0.f);
-    }
-  }
 }
 
 }  // namespace bfm

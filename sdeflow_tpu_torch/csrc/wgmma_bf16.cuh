@@ -1,5 +1,5 @@
 // Hopper's warpgroup products for the bf16 attention kernels (attention.cu's
-// tiled K6, flash_fwd.cu's K4 and K7a, attention_bwd.cu's K7b, attnblock.cu's
+// K6, flash_fwd.cu's K4 and K7a, attention_bwd.cu's K7b, attnblock.cu's
 // K3):
 // wgmma.mma_async m64nNk16 with bf16
 // operands and fp32 accumulation, A from shared memory or from registers,

@@ -33,9 +33,8 @@ sdeflow_tpu/ops/pallas/attention.py.
   K7a and K7b form every product on the tensor cores in 3xTF32 (fp32 split
   into two TF32 halves, three products), close enough to fp32 that the
   tolerances against the plain fp32 versions stand; their bf16 entries
-  take bf16 operands on the tensor cores (below): K6 up to T = 64 on
-  mma.sync m16n8k16, K6 above T = 64, K4, K7a and K7b on wgmma. On CPU
-  tensors the
+  take bf16 operands on the tensor cores (below), all on wgmma (K6 up to
+  T = 64 by ``short_bf16_plan``'s persistent tiles). On CPU tensors the
   plain versions ``attention_flash_stats_math`` and
   ``attention_flash_bwd_math`` run.
 - ``attention_core`` (:491-502), the AttentionBlock's entry point, sends
@@ -80,6 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -96,7 +96,8 @@ _STATS_ARGS = [_P, _P, _P, ctypes.c_longlong] + [_I] * 4 + [ctypes.c_float,
 # float32 ones
 K6 = common.register(common.Kernel(
     "qkv_attention", "attention.cu",
-    {"qkv_attention_f32": _FWD_ARGS, "qkv_attention_bf16": _FWD_ARGS},
+    {"qkv_attention_f32": _FWD_ARGS, "qkv_attention_bf16": _FWD_ARGS,
+     "qkv_attention_bf16_plan": [ctypes.c_longlong] + [_I] * 3 + [_P]},
 ))
 K4 = common.register(common.Kernel(
     "qkv_attention_flash", "flash_fwd.cu",
@@ -122,6 +123,7 @@ MAX_HEAD_WIDTH = 128
 # sources and holds these to them)
 _K6_WARPS, _K6_SHORT_T, _K6_KEYS = 4, 64, 32    # attention.cu (K6)
 _K6_TILED_ROWS, _K6_TILED_KEYS, _K6_TILED_STAGES = 128, 64, 2  # its bf16 body
+_K6_SHORT_ROWS, _K6_SHORT_STAGES = 64, 2  # its bf16 body up to T = 64
 _FWD_ROWS, _FWD_KEYS = 64, 64                    # flash_fwd.cu (K4, K7a)
 # flash_fwd.cu's bf16 body: key tiles, ring depth, query rows per consumer
 # warpgroup, and the grid from which a block takes two warpgroups
@@ -130,7 +132,6 @@ _FWD_BF_KEYS, _FWD_BF_STAGES, _FWD_BF_GROUP_ROWS, _FWD_BF_WIDE_FROM = (
 _BWD_KEYS, _BWD_ROWS, _BWD_ROWS_WIDE, _BWD_WIDE_FROM = 64, 64, 32, 128
 _BWD_BF_QUERIES, _BWD_BF_STAGES = 64, 3          # attention_bwd.cu's bf16
 _STAGES, _PAD_QK, _PAD_V, _PAD_DS = 2, 4, 8, 8    # both tensor-core files
-_PAD_BF = 8  # the bf16 kernels' rows: width + 8 elements (mma_bf16.cuh)
 _WIDTHS = (32, 64, 128)  # the head widths the tensor-core kernels pad to
 _FLASH_SEQ_THRESHOLD = 1024  # attention.py:148
 _FLASH_KV_BLOCK = 512        # :149
@@ -442,21 +443,55 @@ def smem_bytes(t, ch, dtype=torch.float32):
     bf16 body's 128 raw Q rows and a two-stage ring of 64-row K and V
     tiles, rows of W = 64 or 128 bf16 (``_swizzled_width``), and 1,024
     bytes to align them (99,328 bytes at W = 128, two blocks per SM); up
-    to T = 64 per unit the Q and K rows (w + 8 bf16) and Vᵀ, w rows of T
-    rounded up to 16, + 8, w = ch rounded up to 16."""
+    to T = 64 a two-slot ring of 64-row tiles of Q, K and V at W, and
+    1,024 bytes to align them (50,176 bytes at W = 64, 99,328 at W =
+    128), whatever T and the units a tile (``short_bf16_plan``)."""
     units = lambda tp: _K6_WARPS // (tp // 16)  # noqa: E731
     if dtype == torch.bfloat16:
         if t > _K6_SHORT_T:
             return 1024 + 2 * _swizzled_width(ch) * (
                 _K6_TILED_ROWS + 2 * _K6_TILED_STAGES * _K6_TILED_KEYS)
-        tp, w = -(-t // 16) * 16, -(-ch // 16) * 16
-        return 2 * units(tp) * (2 * tp * (w + _PAD_BF) + w * (tp + _PAD_BF))
+        return 1024 + _K6_SHORT_STAGES * 3 * 2 * _K6_SHORT_ROWS * (
+            _swizzled_width(ch))
     if t > _K6_SHORT_T:
         w = _padded_width(ch)
         return 4 * (_FWD_ROWS * (w + _PAD_QK)
                     + _STAGES * _K6_KEYS * (2 * w + _PAD_QK + _PAD_V))
     tp, w = -(-t // 16) * 16, -(-ch // 8) * 8
     return 4 * units(tp) * tp * (2 * (w + _PAD_QK) + w + _PAD_V)
+
+
+class ShortBf16Plan(NamedTuple):
+    samples: int  # units (sample, head) packed row after row into a tile
+    tiles: int    # tiles of 64 rows that the persistent grid walks
+    width: int    # W: the head width padded to 64 or 128
+    smem: int     # shared memory a block (``smem_bytes``)
+
+
+def short_bf16_plan(b, t, heads, ch, sms):
+    """The plan of K6 bf16 up to T = 64 (attention.cu ``short_samples``
+    and ``ShortBf``): each tile packs as many units (sample, head) as fit
+    its 64 rows, fewer where the tiles would leave some of the card's
+    ``sms`` SMs without one (down to one unit a tile); a block, one
+    warpgroup, walks tiles through a two-slot ring. The grid (as many
+    blocks as the SMs hold) is the card's: ``kernel_short_bf16_plan``."""
+    if not 1 <= t <= _K6_SHORT_T or not 1 <= ch <= MAX_HEAD_WIDTH:
+        raise ValueError(f"the short bf16 path takes T in 1..{_K6_SHORT_T}"
+                         f" and head widths up to {MAX_HEAD_WIDTH}")
+    units = b * heads
+    samples = max(1, min(_K6_SHORT_ROWS // t, units // sms))
+    return ShortBf16Plan(samples, -(-units // samples), _swizzled_width(ch),
+                         smem_bytes(t, ch, torch.bfloat16))
+
+
+def kernel_short_bf16_plan(b, t, heads, ch):
+    """The compiled kernel's plan on this card (``qkv_attention_bf16_plan``):
+    (samples a tile, tiles, grid, blocks an SM holds, shared memory)."""
+    out = (ctypes.c_longlong * 5)()
+    err = K6.lib().qkv_attention_bf16_plan(b, t, heads, ch, out)
+    if err:
+        raise RuntimeError(f"qkv_attention_bf16_plan: CUDA error {err}")
+    return tuple(out)
 
 
 def bwd_query_rows(ch):

@@ -30,6 +30,8 @@ kernels' bf16 symbols (``group_norm_silu_bf16``,
 ``group_norm_silu_bwd_bf16``) round where that plain version rounds. The
 tangent and the vjp of the bf16 branch are the fp32 closed forms evaluated
 on the widened inputs, their result rounded to x's dtype (dγ and dβ fp32).
+K5b in bf16 runs on a plan of its own (``bwd_bf16_plan``, sized in
+bytes), one part a slab, so its dγ/dβ scratch is (2, C, B).
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ K5 = common.register(common.Kernel(
 K5B = common.register(common.Kernel(
     "group_norm_silu_bwd", "groupnorm.cu",
     {"group_norm_silu_bwd_f32": _BWD_ARGS,
-     "group_norm_silu_bwd_bf16": _BWD_ARGS},
+     "group_norm_silu_bwd_bf16": _BWD_ARGS,
+     "group_norm_silu_bwd_bf16_plan": [ctypes.c_longlong] + [ctypes.c_int] * 2
+     + [ctypes.c_void_p]},
 ))
 
 # the launch plans' constants in csrc/groupnorm.cu
@@ -65,6 +69,10 @@ THREADS = 256       # threads per block
 SMALL_MAX = 1024    # floats: the largest slab of the small plan
 BLOCK_FLOATS = 4096  # floats per block that the cluster size aims at
 MAX_CLUSTER = 8     # blocks per cluster
+# K5b bf16's plan (choose_bwd_bf16), in elements: the small plan's largest
+# slab, and what a cluster block holds with 16-byte loads (4 vectors of 8 a
+# thread: 16 KB of x, an fp32 block's bytes) and without (16 a thread)
+BF16_SMALL_MAX, BF16_BLOCK_ELEMS, BF16_SCALAR_ELEMS = 1024, 8192, 4096
 
 
 class Plan(NamedTuple):
@@ -113,13 +121,54 @@ def launch_plan(n, s, aligned=True, width=4):
     return Plan("stream", THREADS, MAX_CLUSTER, 0, vec)
 
 
+def bwd_bf16_plan(n, s, aligned=True):
+    """K5b bf16's own plan (the C function ``choose_bwd_bf16``), sized in
+    bytes: a cluster block of 256 threads holds 8,192 elements (16 KB of
+    x, the bytes of an fp32 block's 4,096 floats; 4 vectors of 8 a thread,
+    which also keeps g = dL/dh in fp32 registers), so a slab takes one
+    block up to 8,192 elements and a cluster only above (2 blocks at
+    16,384, 8 at 49,152), and the fp32 plan's stream kernel beyond 8
+    blocks' registers; up to 1,024 elements 8, 16 or 32 lanes of a warp.
+    Without 16-byte loads (S % 8 ≠ 0 or a misaligned tensor) one element a
+    vector: 32 lanes up to 1,024, 16 elements a thread of a cluster block
+    above, streaming beyond."""
+    vec = 8 if s % 8 == 0 and aligned else 1
+    nvec = n // vec
+    if n <= BF16_SMALL_MAX:
+        if vec == 1:
+            nv = _pow2_at_least(-(-n // 32))
+            return Plan("small", 32, 1, 1 if nv <= 1 else 4 if nv <= 4
+                        else 32, 1)
+        lanes = 8 if nvec <= 8 else 16 if nvec <= 16 else 32
+        return Plan("small", lanes, 1, _pow2_at_least(-(-nvec // lanes)), 8)
+    cap = (BF16_BLOCK_ELEMS // THREADS // 8 if vec == 8
+           else BF16_SCALAR_ELEMS // THREADS)  # vectors a thread
+    cs = min(MAX_CLUSTER, _pow2_at_least(-(-nvec // (THREADS * cap))))
+    nv = _pow2_at_least(-(-nvec // (cs * THREADS)))
+    if nv <= cap:
+        return Plan("cluster", THREADS, cs, nv if vec == 8 else cap, vec)
+    return Plan("stream", THREADS, MAX_CLUSTER, 0, vec)
+
+
+def _plan_of(out):
+    kind, lanes, cluster, nv, vec = out
+    return Plan(("small", "cluster", "stream")[kind], lanes, cluster, nv, vec)
+
+
 def kernel_plan(n, s, aligned=True, width=4):
     """The plan the compiled kernels choose (the C function ``choose``), to
     hold ``launch_plan`` to on a card."""
     out = (ctypes.c_int * 5)()
     K5.lib().group_norm_silu_plan(n, s, int(aligned), width, out)
-    kind, lanes, cluster, nv, vec = out
-    return Plan(("small", "cluster", "stream")[kind], lanes, cluster, nv, vec)
+    return _plan_of(out)
+
+
+def kernel_bwd_bf16_plan(n, s, aligned=True):
+    """K5b bf16's compiled plan (``choose_bwd_bf16``), to hold
+    ``bwd_bf16_plan`` to on a card."""
+    out = (ctypes.c_int * 5)()
+    K5B.lib().group_norm_silu_bwd_bf16_plan(n, s, int(aligned), out)
+    return _plan_of(out)
 
 
 def _normalized(x, groups):
@@ -267,10 +316,16 @@ def _launch_vjp(x, gamma, beta, groups, silu, dy):
     dx = torch.empty_like(x)
     dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(beta)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
-    plan = launch_plan(c // groups * s, s, aligned, vector_width(x.dtype))
     # per-part sums of g·x̂ and g for each channel, summed over B by the
-    # entry's second kernel
-    scratch = torch.empty(2 * c * b * plan.cluster, dtype=torch.float32,
+    # entry's second kernel: one part a slab on bf16's own plan unless it
+    # streams
+    n = c // groups * s
+    if x.dtype == torch.bfloat16:
+        plan = bwd_bf16_plan(n, s, aligned)
+        parts = plan.cluster if plan.kind == "stream" else 1
+    else:
+        parts = launch_plan(n, s, aligned, vector_width(x.dtype)).cluster
+    scratch = torch.empty(2 * c * b * parts, dtype=torch.float32,
                           device=x.device)
     K5B.launch(f"group_norm_silu_bwd_{_SYMBOL[x.dtype]}", *map(common.ptr, (
         x, gamma, beta, dy, dx, dgamma, dbeta, scratch)), scratch.numel(),

@@ -21,9 +21,6 @@ q·s in fp32. The head widths make the scale inexact in bf16 (ch = 32, 64,
 (T > 1024, key tiles of 512) are patched small on both sides where a test
 needs the tiled math at a small T."""
 
-import re
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -38,7 +35,6 @@ from test_torch_flash_tc import _constants
 
 torch.set_num_threads(1)
 BF = torch.bfloat16
-CSRC = Path(A.__file__).resolve().parents[2] / "csrc"
 
 
 def _inputs(shape, seed, scale=1.5):
@@ -204,11 +200,10 @@ def test_bf16_kernel_layouts():
     assert (qkv.dtype, b, t, ch) == (BF, 2, 4, 4)
     with pytest.raises(NotImplementedError, match="float16"):
         A._checked(torch.zeros(2, 4, 24, dtype=torch.float16), 2, "k")
-    src = (CSRC / "mma_bf16.cuh").read_text()
-    pad = int(re.search(r"^constexpr int kPadBf = (\d+);", src, re.M)[1])
-    assert pad == A._PAD_BF
     k6 = {k: v for k, v in _constants("attention.cu").items()
-          if k.startswith("kTiled")}
+          if k.startswith(("kTiled", "kShort"))}
+    assert (k6["kShortRows"], k6["kShortStages"]) == (A._K6_SHORT_ROWS,
+                                                      A._K6_SHORT_STAGES)
     bwd = _constants("attention_bwd.cu")
     fwd = _constants("flash_fwd.cu")
     assert (fwd["kBfKeys"], fwd["kBfStages"], fwd["kBfGroupRows"]) == (
@@ -237,8 +232,9 @@ def test_bf16_kernel_layouts():
         dq = 1024 + 4 * w * (bwd["kBfQueries"] + bwd["kBfStages"] * rows)
         assert A.bwd_smem_bytes(ch, BF) == dkdv <= 232_448
         assert A.bwd_dq_smem_bytes(ch) == dq <= 232_448
-        for t in (1, 16, 17, 64):  # a unit whole in shared memory
-            assert A.smem_bytes(t, ch, BF) <= 232_448
+        short = 1024 + k6["kShortStages"] * 3 * 2 * k6["kShortRows"] * w
+        for t in (1, 16, 17, 64):  # the short path's ring of 64-row tiles
+            assert A.smem_bytes(t, ch, BF) == short <= 232_448
     assert A.flash_fwd_smem_bytes(128, BF, 128) == 164_864
     assert A.flash_fwd_smem_bytes(64, BF, 128) == 82_944
     # by shared memory (1 KB per block reserved): two tiled K6 blocks per SM
@@ -246,5 +242,8 @@ def test_bf16_kernel_layouts():
     assert 2 * (A.smem_bytes(1024, 128, BF) + 1024) <= 233_472
     assert 3 * (A.bwd_smem_bytes(64, BF) + 1024) <= 233_472
     assert 3 * (A.bwd_dq_smem_bytes(64) + 1024) <= 233_472
-    assert A.smem_bytes(64, 64, BF) == 27_648
-    assert A.smem_bytes(16, 128, BF) == 59_392
+    # the short path's blocks an SM: four at W = 64, two at W = 128
+    assert 4 * (A.smem_bytes(64, 64, BF) + 1024) <= 233_472
+    assert 2 * (A.smem_bytes(16, 128, BF) + 1024) <= 233_472
+    assert A.smem_bytes(64, 64, BF) == 50_176
+    assert A.smem_bytes(16, 128, BF) == 99_328
