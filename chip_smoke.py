@@ -172,10 +172,14 @@ CUDA kernel of those paths against its plain PyTorch version:
    equal;
 21. the bf16 variants against their plain twins (gn_math and gn_math_vjp,
    attn_block_math in bf16): K5 and K5b at every (C, S) of a grf16
-   forward's GroupNorm mix at B = 1024 and B = 128, SiLU on and off (K5
-   within 1.6e-2·max |plain|, two bf16 ulps; K5b's dx within
-   2e-2·max |dx| of the vjp of the bf16 forward evaluated in fp32, dγ and
-   dβ within 1e-3·max of float64); K3 with random non-zero weights at
+   forward's GroupNorm mix at B = 1024 and B = 128, SiLU on and off, and
+   at every (C, S, SiLU) of the bf16 DSM step's mix at B = 128, whose
+   plans (K5 bf16: clusters of 1, 2 and 4 blocks; K5b bf16: 1, 2, 4 and 8)
+   are asserted (K5 within 1.6e-2·max |plain|, two bf16 ulps, and no
+   farther from the fp32 plain than 1.5× the twin plus 1e-3·max; K5b's dx
+   within 2e-2·max |dx| of the vjp of the bf16 forward evaluated in fp32,
+   dγ and dβ within 1e-3·max of float64; both equal bit for bit on a
+   second run); K3 with random non-zero weights at
    (64, 64) and (16, 128) at B = 1024 and B = 128, (16, 64, 64) with four
    heads and (4, 256, 32) and (4, 256, 64) with eight heads and 32 groups,
    by phase 23's two gates (within 2e-2·max |plain bf16|; no farther from
@@ -259,8 +263,9 @@ three times over 494.7 TFLOP/s dense TF32, and the other flops over
 CUDA device, outside the repository, or when any check fails. With
 --record, also writes the full record (every measurement, the profiles'
 top kernels) as JSON to PATH. With --only, builds the kernels and runs one
-part: gn times K5 and K5b at both GroupNorm mixes, with one traced DSM
-step; driver runs phase 20; bf16 phases 21 and 22; unfused_bf16 phases
+part: gn times K5 and K5b at both GroupNorm mixes, and K5 bf16 at its
+three mixes with its device time and each mix's means beside the bound
+and F.group_norm, with one traced DSM step; driver runs phase 20; bf16 phases 21 and 22; unfused_bf16 phases
 23, 24 and 25; k7 times K7a and K7b
 at (128, 4096, 64), K7a's lse sweep (recorded, not held) and five bare DSM
 steps at batch 128 (copied beside another tree of the package, it times
@@ -778,11 +783,12 @@ def gn_args(g, dev, b, c, s, groups, dtype=torch.float32):
             0.1 * torch.randn(c, generator=g, device=dev), groups)
 
 
-def k5_rows(g, dev, mix, b, iters=50, dtype=torch.float32):
+def k5_rows(g, dev, mix, b, iters=50, dtype=torch.float32, device=False):
     """K5's times at each (C, S, silu) of a forward's GroupNorm mix at
     batch b with x in `dtype`, beside its plain version,
     torch.nn.functional.group_norm (on bf16 x with bf16 gamma and beta)
-    and the bound."""
+    and the bound; with `device`, also its device time per launch alone
+    (a trace of direct launches)."""
     from sdeflow_tpu_torch.models.common import group_count
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
@@ -804,6 +810,10 @@ def k5_rows(g, dev, mix, b, iters=50, dtype=torch.float32):
                 "library_ms": cuda_ms(lambda: torch.nn.functional.group_norm(
                     x, groups, lg, lb, eps=1e-5), iters),
                 "bound_ms": bound, "bound_by": by})
+            if device:
+                rows[-1]["device_ms"] = device_times(
+                    lambda: gnk._launch(*a, silu), SYMBOL["group_norm_silu"],
+                    iters)[0]
             del x, gamma, beta, a
     return rows
 
@@ -863,9 +873,11 @@ def k5b_rows(g, dev, mix, b, iters=20, dtype=torch.float32):
 def log_k5_rows(what, rows):
     for r in rows:
         old = f"old rule {r['old_ms']:.4f}, " if "old_ms" in r else ""
+        dev = (f"device {r['device_ms']:.5f}, " if "device_ms" in r
+               else "")
         log(f"{what} at {r['shape']} silu={r['silu']} "
             f"x{r['calls_per_forward']}: per call {r['ms']:.4f} ms, direct "
-            f"{r['direct_ms']:.4f}, plain {r['plain_ms']:.4f}, {old}"
+            f"{r['direct_ms']:.4f}, {dev}plain {r['plain_ms']:.4f}, {old}"
             f"PyTorch's {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
             "ms")
 
@@ -2008,9 +2020,11 @@ def gn_timing(g, dev, record):
     """--only gn: K5 and its backward timed at grf16's GroupNorm mix
     (B = 1024) and at the DSM step's (B = 128), in fp32 and, at the DSM
     step's, in bf16 beside ``F.group_norm`` in bf16 and its backward (the
-    bound from k5_cost / k5b_cost at 2 bytes an element); and one traced
-    fp32 DSM step at batch 128 with the device time under
-    GroupNormSiLUBackward."""
+    bound from k5_cost / k5b_cost at 2 bytes an element); K5 bf16 also at
+    grf16's mix (B = 1024) and the SSM step's (B = 128), with its device
+    time alone at all three bf16 mixes, each mix's means per launch
+    printed; and one traced fp32 DSM step at batch 128 with the device
+    time under GroupNormSiLUBackward."""
     from sdeflow_tpu_torch import Trainer, build_msgm_arm, get_preset
 
     model, _ = build_msgm_arm(get_preset("grf16"), g, device=dev)
@@ -2020,16 +2034,22 @@ def gn_timing(g, dev, record):
             ("grf16", mix, N_SAMPLES, 20, torch.float32),
             ("dsm", SGM_GN_MIX, SGM_BATCH, 5, torch.float32),
             ("dsm_bf16", SGM_GN_MIX, SGM_BATCH, 5, bf)]:
-        record[f"k5_{name}"] = k5_rows(g, dev, mx, b, iters, dt)
+        record[f"k5_{name}"] = k5_rows(g, dev, mx, b, iters, dt,
+                                       device=dt == bf)
         log_k5_rows(f"K5 ({name})", record[f"k5_{name}"])
         record[f"k5b_{name}"] = k5b_rows(g, dev, mx, b, iters, dt)
         log_k5_rows(f"K5b ({name})", record[f"k5b_{name}"])
-    for key in ("k5_dsm_bf16", "k5b_dsm_bf16"):
+    for name, b in (("grf16_bf16", N_SAMPLES), ("ssm_bf16", TRAIN_BATCH)):
+        record[f"k5_{name}"] = k5_rows(g, dev, mix, b, 20, bf, device=True)
+        log_k5_rows(f"K5 ({name})", record[f"k5_{name}"])
+    for key in ("k5_dsm_bf16", "k5_grf16_bf16", "k5_ssm_bf16",
+                "k5b_dsm_bf16"):
         rows = record[key]
         mean = {k: weighted(rows, k) for k in (
-            "ms", "direct_ms", "plain_ms", "library_ms", "bound_ms")}
+            "ms", "direct_ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms") if k in rows[0]}
         record[key + "_mix"] = mean
-        log(f"{key} over the DSM mix, per launch: " + ", ".join(
+        log(f"{key} over its mix, per launch: " + ", ".join(
             f"{k} {v:.4f}" for k, v in mean.items()))
     tc, model, gen, sampler = sgm_arm(g, dev)
     trainer = Trainer(gen, sampler, lr=tc.lr, batch_size=SGM_BATCH,
@@ -2402,9 +2422,10 @@ def rel_err(a, ref):
 
 def check_k5_k5b_bf16(g, dev, b, c, s, silu, errs):
     """bf16 K5 and K5b at one (B, C, S, silu) against their plain twins
-    (K5 within K5_BF16_TOL, dx within K5B_BF16_TOL, dγ/dβ against float64
-    within K5B_PARAM_TOL), K5b equal bit for bit on a second run; the
-    worst errors go into errs."""
+    (K5 within K5_BF16_TOL and no farther from the fp32 plain version than
+    1.5× the twin plus 1e-3·max, dx within K5B_BF16_TOL, dγ/dβ against
+    float64 within K5B_PARAM_TOL), both equal bit for bit on a second run;
+    the worst errors go into errs."""
     from sdeflow_tpu_torch.models.common import group_count
     from sdeflow_tpu_torch.ops.kernels import groupnorm as gnk
 
@@ -2412,14 +2433,24 @@ def check_k5_k5b_bf16(g, dev, b, c, s, silu, errs):
     x, gamma, beta, groups = gn_args(g, dev, b, c, s, group_count(c), bf)
     dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
     out = gnk._launch(x, gamma, beta, groups, silu)
+    out2 = gnk._launch(x, gamma, beta, groups, silu)
     dx, dgam, dbet = gnk._launch_vjp(x, gamma, beta, groups, silu, dy)
     again = gnk._launch_vjp(x, gamma, beta, groups, silu, dy)
     torch.cuda.synchronize()
-    if not all(bits_equal(u, v) for u, v in zip((dx, dgam, dbet), again)):
-        raise AssertionError(f"bf16 K5b at {(b, c, s)} silu={silu}: a "
+    if not all(bits_equal(u, v) for u, v in zip((out, dx, dgam, dbet),
+                                                (out2, *again))):
+        raise AssertionError(f"bf16 K5/K5b at {(b, c, s)} silu={silu}: a "
                              "second run differs")
-    e5 = rel_err(out, gnk.gn_math(x, gamma, beta, groups, silu).float())
-    del out, again
+    twin = gnk.gn_math(x, gamma, beta, groups, silu).float()
+    e5 = rel_err(out, twin)
+    fp32 = gnk.gn_math(x.float(), gamma, beta, groups, silu)
+    mine = (out.float() - fp32).abs().max().item()
+    theirs = (twin - fp32).abs().max().item()
+    if mine > 1.5 * theirs + 1e-3 * fp32.abs().max().item():
+        raise AssertionError(
+            f"bf16 K5 at {(b, c, s)} silu={silu}: {mine:.3g} from fp32, the "
+            f"twin {theirs:.3g}")
+    del out, out2, again, twin, fp32
     dx_ref = gnk.gn_math_vjp(x.float(), gamma, beta, groups, silu,
                              dy.float())[0]
     e_dx = rel_err(dx, dx_ref)
@@ -2442,7 +2473,8 @@ def log_k5_k5b_bf16(what, checks, errs):
         f"plain| / max |plain| K5 {errs['k5']:.3g} (tolerance "
         f"{K5_BF16_TOL:g}), K5b dx {errs['k5b_dx']:.3g} ({K5B_BF16_TOL:g}), "
         f"dγ/dβ against float64 {errs['k5b_params']:.3g} "
-        f"({K5B_PARAM_TOL:g}); K5b equal bit for bit on a second run")
+        f"({K5B_PARAM_TOL:g}); K5 no farther from fp32 than 1.5× the twin; "
+        "K5 and K5b equal bit for bit on a second run")
 
 
 def check_bf16_kernels(g, dev, mix):
@@ -2450,7 +2482,8 @@ def check_bf16_kernels(g, dev, mix):
     K5b at every (C, S) of a grf16 forward's GroupNorm mix at B = 1024 and
     B = 128, SiLU on and off, and at every (C, S, silu) of the bf16 DSM
     step's mix (SGM_GN_MIX) at its batch, where K5b bf16 takes its cluster
-    kernel at clusters of 1, 2, 4 and 8 blocks; K3 as check_k3_bf16 holds
+    kernel at clusters of 1, 2, 4 and 8 blocks and K5 bf16 its own at 1, 2
+    and 4; K3 as check_k3_bf16 holds
     it; their times at grf16's mixes beside the plain versions, PyTorch's
     GroupNorm forward and backward in bf16 and the bounds."""
     from sdeflow_tpu_torch.models.common import group_count
@@ -2472,14 +2505,21 @@ def check_bf16_kernels(g, dev, mix):
     if clusters != {1, 2, 4, 8} or any(p.kind == "small"
                                        for p in plans.values()):
         raise AssertionError(f"bf16 K5b plans at the DSM mix: {plans}")
+    # K5 bf16: one block up to 16,384 elements, clusters of 2 and 4 above
+    fwd_plans = {(c, s): gnk.fwd_bf16_plan(c // group_count(c) * s, s)
+                 for c, s, _ in SGM_GN_MIX}
+    fwd_clusters = {p.cluster for p in fwd_plans.values()}
+    if fwd_clusters != {1, 2, 4} or any(p.kind != "cluster"
+                                        for p in fwd_plans.values()):
+        raise AssertionError(f"bf16 K5 plans at the DSM mix: {fwd_plans}")
     dsm_errs = {"k5": 0.0, "k5b_dx": 0.0, "k5b_params": 0.0}
     with torch.no_grad():
         for c, s, silu in sorted(SGM_GN_MIX):
             check_k5_k5b_bf16(g, dev, SGM_BATCH, c, s, silu, dsm_errs)
             torch.cuda.empty_cache()
-    log_k5_k5b_bf16(f"the bf16 DSM step's mix at B = {SGM_BATCH} (K5b "
-                    f"clusters {sorted(clusters)})", len(SGM_GN_MIX),
-                    dsm_errs)
+    log_k5_k5b_bf16(f"the bf16 DSM step's mix at B = {SGM_BATCH} (K5 "
+                    f"clusters {sorted(fwd_clusters)}, K5b clusters "
+                    f"{sorted(clusters)})", len(SGM_GN_MIX), dsm_errs)
     errs.update({f"dsm_{k}": v for k, v in dsm_errs.items()})
     k3 = check_k3_bf16(g, dev, errs)
     rows = {"k3": [r for r in k3 if r["shape"][0] == N_SAMPLES],
@@ -4036,7 +4076,11 @@ def main(argv=None):
              device_ms=prod["request_profile"]["per_launch_ms"].get(
                  SYMBOL_BF16["group_norm_silu"]),
              train_device_ms=prod["ssm_profile"]["per_launch_ms"].get(
-                 SYMBOL_BF16["group_norm_silu"])),
+                 SYMBOL_BF16["group_norm_silu"]),
+             dsm_step_device_ms=dsm16["profile"]["ms_by_symbol"].get(
+                 SYMBOL_BF16["group_norm_silu"], 0),
+             dsm_launches_per_step=dsm16["launches_per_step"][
+                 "group_norm_silu"]),
         dict(mixed(bf["k5b_ssm"], old_ms=weighted(bf["k5b_ssm"], "old_ms"),
                    grf16_mix=mixed(bf["k5b_grf16"])),
              name="group_norm_silu_bwd_bf16", id="K5b bf16",

@@ -14,15 +14,14 @@
 //
 // bfloat16 (the score net's bf16 compute, group_norm_silu_bf16 and
 // group_norm_silu_bwd_bf16; ops/pallas/groupnorm.py:64-75, the sub-fp32
-// branch): K5 takes the same plans over the same slabs, each 16-byte load
-// carrying 8 elements instead of 4, the statistics in fp32 from the
-// widened values; K5b has a plan of its own (below, choose_bwd_bf16);
-// then the apply rounds where the plain version (ops/kernels/groupnorm.py
-// gn_math) rounds: scale = bf16(rstd*gamma), shift = bf16(beta -
-// mean*rstd*gamma), h = bf16(bf16(x*scale) + shift), and under SiLU
-// out = bf16(h * bf16(sigmoid(h))). K5b widens x and dy and runs the fp32
-// vjp (the plain version's closed form evaluated in fp32), rounding dx to
-// bf16 once at its store; dgamma and dbeta stay fp32.
+// branch): kernels and plans of their own (below, choose_bf16), each
+// 16-byte load carrying 8 elements, the statistics in fp32 from the
+// widened values; K5's apply rounds where the plain version
+// (ops/kernels/groupnorm.py gn_math) rounds: scale = bf16(rstd*gamma),
+// shift = bf16(beta - mean*rstd*gamma), h = bf16(bf16(x*scale) + shift),
+// and under SiLU out = bf16(h * bf16(sigmoid(h))). K5b widens x and dy and
+// runs the fp32 vjp (the plain version's closed form evaluated in fp32),
+// rounding dx to bf16 once at its store; dgamma and dbeta stay fp32.
 //
 // Replaces: the Pallas kernel _gn_kernel / _gn_pallas in
 // sdeflow_tpu/ops/pallas/groupnorm.py:78-136 (entry group_norm_silu
@@ -55,13 +54,13 @@
 //   shared memory across the block and distributed shared memory across the
 //   cluster (each block reads the others' partials after cluster.sync()), in
 //   one fixed order, so every block gets the same bits. A thread holds at
-//   most 32 floats (NV * V <= 32: in bf16 a cluster covers slabs up to
-//   65,536 elements too). One warp per slab,
+//   most 32 floats (NV * V <= 32). One warp per slab,
 //   as before, left 3-4 warps on an SM walking 2K-49K floats one after
 //   another, and read x twice; a cluster splits the slab over up to 8 SMs.
 // - stream (larger slabs, or S % 4 != 0 beyond 32,768 floats): the same
 //   cluster of 8, each block looping over its share, which it reads three
-//   times (K5) or four (K5b). No present path takes it.
+//   times (K5) or four (K5b). No present path takes it; the bf16 plans
+//   stream through its bf16 instances.
 //
 // K5b's dgamma and dbeta in fp32: each part of a slab (a lane group, or one
 // block of a cluster) writes its per-channel sums of g and g*xhat into a
@@ -903,9 +902,10 @@ int backward(const T* x, const float* gamma, const float* beta, const T* dy,
 // instance of the fp32 plan's stream kernel.
 
 constexpr int kBfSmallMax = 1024;     // elements: the small plan's largest slab
-constexpr int kBfBlockElems = 8192;   // elements a block holds (8 a vector)
-constexpr int kBfScalarElems = 4096;  // ... one a vector (16 a thread)
+constexpr int kBfBlockElems = 8192;   // elements a block of K5b holds
+constexpr int kBfScalarElems = 4096;  // ... without 16-byte loads (16 a thread)
 constexpr int kBfChannels = 8;        // channels summed a round
+constexpr int kBfFwdBlockElems = 16384;  // elements a block of K5 holds
 
 // count, mean and centred sum of squares of a part of a slab
 struct Stats {
@@ -1258,9 +1258,9 @@ struct BfArgs {
   const bf16* x;
   const float* gamma;
   const float* beta;
-  const bf16* dy;
-  bf16* dx;
-  float* scratch;  // (2, C, B)
+  const bf16* dy;  // K5b
+  bf16* out;       // K5: out; K5b: dx
+  float* scratch;  // K5b: (2, C, B)
   long long slabs, B;
   int G, cg, S, act;
 };
@@ -1277,7 +1277,7 @@ gn_silu_bwd_kernel_bf16_small(const BfArgs a) {
   const Part p{0, n / V, (int)(threadIdx.x % L), L, ok};
   const BfParams out{a.scratch, slab / a.G, a.B, a.G * a.cg, c0};
   bwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
-                       a.gamma + c0, a.beta + c0, a.dx + slab * n, out, a.cg,
+                       a.gamma + c0, a.beta + c0, a.out + slab * n, out, a.cg,
                        a.S, a.act);
 }
 
@@ -1296,12 +1296,233 @@ gn_silu_bwd_kernel_bf16_cluster(const BfArgs a) {
   BfCluster grp{cluster, red, slots, cs};
   const BfParams out{a.scratch, slab / a.G, a.B, a.G * a.cg, c0};
   bwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.dy + slab * n,
-                       a.gamma + c0, a.beta + c0, a.dx + slab * n, out, a.cg,
+                       a.gamma + c0, a.beta + c0, a.out + slab * n, out, a.cg,
                        a.S, a.act);
 }
 
-// ops/kernels/groupnorm.py bwd_bf16_plan is this function in Python
-Plan choose_bwd_bf16(long long n, int S, bool aligned) {
+// ---- K5 in bf16: kernels of its own -----------------------------------------
+//
+// Bound: bytes (2 read and 2 written an element). On the fp32 plan a bf16
+// block held 4,096 elements (8 KB), so every slab of the 128x128 DSM step
+// took a cluster of 2-8 blocks and two rounds of cluster-wide sums. Here
+// (choose_fwd_bf16, mirrored by groupnorm.py fwd_bf16_plan) a block of
+// kThreads holds kBfFwdBlockElems elements, 32 KB of x as its bits (8
+// vectors of 8 a thread, 64 registers, four blocks an SM), so a slab of up
+// to 16,384 elements takes one block and no cluster barrier, and larger
+// ones (24,576 to 49,152 in the DSM step) clusters of 2 or 4; a warp's
+// lanes a slab up to kBfSmallMax. The statistics: in a few lanes two
+// rounds of shuffles (the sum, then the centred squares); across warps
+// and blocks one round, each part's count, mean and centred sum of
+// squares combined by Chan's rule in one fixed order (BfCluster: one
+// round of distributed shared memory, then the barrier that keeps a block
+// until the others have read its slots). The affine and SiLU run on the
+// bits in bf16x2 (a product and a sum rounded once each) with a fast
+// sigmoid that rounds as the plain version's (sigmoid_bf16), so with the
+// same scale and shift every output has the plain version's bits; on the
+// small plan the sums keep the fp32 plan's order, so there K5 bf16 gives
+// the bits it gave on that plan. Measured against 16 KB blocks (clusters
+// from 16,384 elements: slower by the cluster barriers) and against a
+// persistent grid that copies each slab into shared memory by the TMA
+// while it normalises the one before (slower up to 16,384 elements, where
+// its per-slab barriers dominate): PERF.md, K5 bf16. Slabs past 8 blocks
+// stream through the fp32 plan's stream kernel in bf16.
+
+// bf16x2 products and sums rounded once to nearest (the explicit .rn keeps
+// ptxas from contracting a product and a sum into one rounding)
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// bf16(sigmoid(h)) with the plain version's bits (PyTorch's sigmoid in
+// fp32, 1 / (1 + exp(-h)) with the accurate exponential and division, then
+// rounded), from the fast exponential and the approximate reciprocal that
+// keeps subnormals (__fdividef's gives 0 where 1 + exp(-h) passes 2^126, so
+// three bf16 h near -87.5 rounded otherwise): a few fp32 ulps off, which
+// no bf16 h carries across a bf16 rounding midpoint.
+// test_torch_kernels_cuda_k5_bf16_dsm.py holds K5 bf16's SiLU to PyTorch's
+// at every bf16 h of magnitude below 128; beyond, both saturate (to 1, and
+// to 0 through an infinite 1 + exp(-h)).
+__device__ __forceinline__ float sigmoid_bf16(float h) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(1.f + __expf(-h)));
+  return round_bf16(r);
+}
+
+// One channel's scale = bf16(rstd gamma) and shift = bf16(beta - mean rstd
+// gamma), the shift's fp32 value in one fused multiply-add as the resident
+// kernels above form it (the small plan's slabs then get their bits); as
+// floats and as bf16x2 pairs
+struct BfAffine {
+  float sc, sh;
+  uint32_t sc2, sh2;
+  __device__ __forceinline__ BfAffine(float mean, float rstd, float gam,
+                                      float bet) {
+    const float a = __fmul_rn(rstd, gam);
+    const uint32_t s = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+    const uint32_t t =
+        __bfloat16_as_ushort(__float2bfloat16_rn(__fmaf_rn(-mean, a, bet)));
+    sc = __uint_as_float(s << 16);
+    sh = __uint_as_float(t << 16);
+    sc2 = s | (s << 16);
+    sh2 = t | (t << 16);
+  }
+  // two elements: h = bf16(bf16(x scale) + shift), then under SiLU
+  // bf16(h bf16(sigmoid(h))): a product and a sum of bf16 values are exact
+  // in fp32, so rounding them once in bf16x2 gives the plain version's bits
+  __device__ __forceinline__ uint32_t pair(uint32_t x, bool act) const {
+    uint32_t h = bf2_add(bf2_mul(x, sc2), sh2);
+    if (act) {
+      const __nv_bfloat162 s = __floats2bfloat162_rn(
+          sigmoid_bf16(__uint_as_float(h << 16)),
+          sigmoid_bf16(__uint_as_float(h & 0xffff0000u)));
+      h = bf2_mul(h, *reinterpret_cast<const uint32_t*>(&s));
+    }
+    return h;
+  }
+  // ... one element, the same steps in fp32 rounded to bf16
+  __device__ __forceinline__ unsigned short one(unsigned short x,
+                                                bool act) const {
+    float h = round_bf16(__fadd_rn(
+        round_bf16(__fmul_rn(__uint_as_float((uint32_t)x << 16), sc)), sh));
+    if (act) h = __fmul_rn(h, sigmoid_bf16(h));
+    return __bfloat16_as_ushort(__float2bfloat16_rn(h));
+  }
+  template <int V>
+  __device__ __forceinline__ void apply(BfRaw<V>& r, bool act) const {
+    if constexpr (V == 1) {
+      r.u = one(r.u, act);
+    } else {
+      r.u.x = pair(r.u.x, act);
+      r.u.y = pair(r.u.y, act);
+      r.u.z = pair(r.u.z, act);
+      r.u.w = pair(r.u.w, act);
+    }
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void bf_store(bf16* p, const BfRaw<V>& r) {
+  if constexpr (V == 1)
+    p[0] = __ushort_as_bfloat16(r.u);
+  else
+    *reinterpret_cast<uint4*>(p) = r.u;
+}
+
+// K5 bf16 on one part of a slab held in registers: the statistics (two
+// rounds of shuffles in a few lanes, else Chan's rule in one round), then
+// the affine and SiLU in bf16x2, stored from the same registers
+template <int V, int NV, class Grp>
+__device__ __forceinline__ void fwd_bf16_body(
+    Grp& grp, const Part& p, const bf16* __restrict__ xs,
+    const float* __restrict__ gs, const float* __restrict__ bs,
+    bf16* __restrict__ os, int n, int S, bool act) {
+  BfRaw<V> xr[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = p.tid + p.stride * j;
+    if (k < p.cnt)
+      bf_load<V>(xr[j], xs + (size_t)(p.beg + k) * V);
+    else
+      bf_zero<V>(xr[j]);
+  }
+  auto valid = [&](int j) { return p.tid + p.stride * j < p.cnt; };
+  float sum = 0.f, cnt = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (valid(j)) {
+      float x[V];
+      widen<V>(xr[j], x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum += x[i];
+      cnt += (float)V;
+    }
+  }
+  float mean;
+  if constexpr (Grp::kTwoRounds) {
+    float t[1] = {sum};
+    grp.sums(t, 1, 0);
+    mean = t[0] / (float)n;
+  } else {
+    mean = cnt > 0.f ? sum / cnt : 0.f;  // this part's, until combined
+  }
+  float q[1] = {0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    launder<V>(xr[j]);
+    if (valid(j)) {
+      float x[V];
+      widen<V>(xr[j], x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = x[i] - mean;
+        q[0] = fmaf(d, d, q[0]);
+      }
+    }
+  }
+  if constexpr (Grp::kTwoRounds) {
+    grp.sums(q, 1, 0);
+  } else {
+    const Stats st = grp.stats({cnt, mean, q[0]});
+    mean = st.m, q[0] = st.q;
+  }
+  const float rstd = rsqrtf(q[0] / (float)n + kEps);
+  ChannelWalk walk((p.beg + p.tid) * V, p.stride * V, S);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (valid(j) && p.store) {
+      const BfAffine f(mean, rstd, __ldg(gs + walk.c), __ldg(bs + walk.c));
+      f.apply<V>(xr[j], act);
+      bf_store<V>(os + (size_t)(p.beg + p.tid + p.stride * j) * V, xr[j]);
+    }
+    walk.next();
+  }
+  grp.done();
+}
+
+template <int L, int V, int NV>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_kernel_bf16_small(const BfArgs a) {
+  const long long slab0 =
+      (long long)blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const bool ok = slab0 < a.slabs;
+  const long long slab = ok ? slab0 : 0;
+  const int n = a.cg * a.S, c0 = (int)(slab % a.G) * a.cg;
+  BfLanes<L> grp;
+  const Part p{0, n / V, (int)(threadIdx.x % L), L, ok};
+  fwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.gamma + c0, a.beta + c0,
+                       a.out + slab * n, n, a.S, a.act);
+}
+
+template <int V, int NV>
+__global__ void __launch_bounds__(kThreads, 4)
+gn_silu_kernel_bf16_cluster(const BfArgs a) {
+  __shared__ float red[(kWarps + 1) * 2 * kBfChannels];
+  __shared__ float slots[4 + 2 * kBfChannels];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const long long slab = blockIdx.x / cs;
+  const int n = a.cg * a.S, c0 = (int)(slab % a.G) * a.cg;
+  const int nvec = n / V, chunk = (nvec + cs - 1) / cs;
+  const int beg = min(rank * chunk, nvec);
+  const Part p{beg, min(chunk, nvec - beg), (int)threadIdx.x, kThreads, true};
+  BfCluster grp{cluster, red, slots, cs};
+  fwd_bf16_body<V, NV>(grp, p, a.x + slab * n, a.gamma + c0, a.beta + c0,
+                       a.out + slab * n, n, a.S, a.act);
+}
+
+// The bf16 plans (K5b's and K5's, each with its block's elements): 8, 16 or
+// 32 lanes of a warp a slab up to kBfSmallMax elements, then one block
+// holding block_elems of them (kBfScalarElems without 16-byte loads), a
+// cluster only past one block, streaming past kMaxCluster blocks;
+// ops/kernels/groupnorm.py bf16_plan is this function in Python
+Plan choose_bf16(long long n, int S, bool aligned, int block_elems) {
   const int vec = (S % 8 == 0 && aligned) ? 8 : 1;
   const long long nvec = n / vec;
   if (n <= kBfSmallMax) {
@@ -1312,7 +1533,7 @@ Plan choose_bwd_bf16(long long n, int S, bool aligned) {
     const int lanes = nvec <= 8 ? 8 : nvec <= 16 ? 16 : 32;
     return {kSmall, lanes, 1, pow2_at_least(cdiv(nvec, lanes)), 8};
   }
-  const int cap = vec == 8 ? kBfBlockElems / kThreads / 8
+  const int cap = vec == 8 ? block_elems / kThreads / 8
                            : kBfScalarElems / kThreads;  // vectors a thread
   int cs = pow2_at_least(cdiv(nvec, (long long)kThreads * cap));
   if (cs > kMaxCluster) cs = kMaxCluster;
@@ -1321,29 +1542,54 @@ Plan choose_bwd_bf16(long long n, int S, bool aligned) {
   return {kStream, kThreads, kMaxCluster, 0, vec};
 }
 
+Plan choose_bwd_bf16(long long n, int S, bool aligned) {
+  return choose_bf16(n, S, aligned, kBfBlockElems);
+}
+
+Plan choose_fwd_bf16(long long n, int S, bool aligned) {
+  return choose_bf16(n, S, aligned, kBfFwdBlockElems);
+}
+
 using BfKernel = void (*)(const BfArgs);
 
+// the bf16 kernels of a plan: K5b's (BWD) or K5's
+template <bool BWD, int L, int V, int NV>
+BfKernel bf_small() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_bf16_small<L, V, NV>;
+  else return gn_silu_kernel_bf16_small<L, V, NV>;
+}
+
+template <bool BWD, int V, int NV>
+BfKernel bf_cluster() {
+  if constexpr (BWD) return gn_silu_bwd_kernel_bf16_cluster<V, NV>;
+  else return gn_silu_kernel_bf16_cluster<V, NV>;
+}
+
+template <bool BWD>
 BfKernel bf_small_kernel(const Plan& p) {
   if (p.vec == 1)
-    return p.nv == 1   ? gn_silu_bwd_kernel_bf16_small<32, 1, 1>
-           : p.nv == 4 ? gn_silu_bwd_kernel_bf16_small<32, 1, 4>
-                       : gn_silu_bwd_kernel_bf16_small<32, 1, 32>;
-  if (p.lanes == 8) return gn_silu_bwd_kernel_bf16_small<8, 8, 1>;
-  if (p.lanes == 16) return gn_silu_bwd_kernel_bf16_small<16, 8, 1>;
+    return p.nv == 1   ? bf_small<BWD, 32, 1, 1>()
+           : p.nv == 4 ? bf_small<BWD, 32, 1, 4>()
+                       : bf_small<BWD, 32, 1, 32>();
+  if (p.lanes == 8) return bf_small<BWD, 8, 8, 1>();
+  if (p.lanes == 16) return bf_small<BWD, 16, 8, 1>();
   switch (p.nv) {
-    case 1: return gn_silu_bwd_kernel_bf16_small<32, 8, 1>;
-    case 2: return gn_silu_bwd_kernel_bf16_small<32, 8, 2>;
-    case 4: return gn_silu_bwd_kernel_bf16_small<32, 8, 4>;
+    case 1: return bf_small<BWD, 32, 8, 1>();
+    case 2: return bf_small<BWD, 32, 8, 2>();
+    case 4: return bf_small<BWD, 32, 8, 4>();
   }
   return nullptr;
 }
 
+template <bool BWD>
 BfKernel bf_cluster_kernel(const Plan& p) {
-  if (p.vec == 1) return gn_silu_bwd_kernel_bf16_cluster<1, 16>;
+  if (p.vec == 1) return bf_cluster<BWD, 1, 16>();
   switch (p.nv) {
-    case 1: return gn_silu_bwd_kernel_bf16_cluster<8, 1>;
-    case 2: return gn_silu_bwd_kernel_bf16_cluster<8, 2>;
-    case 4: return gn_silu_bwd_kernel_bf16_cluster<8, 4>;
+    case 1: return bf_cluster<BWD, 8, 1>();
+    case 2: return bf_cluster<BWD, 8, 2>();
+    case 4: return bf_cluster<BWD, 8, 4>();
+    case 8:  // K5's block alone holds 8 vectors a thread
+      if constexpr (!BWD) return bf_cluster<BWD, 8, 8>();
   }
   return nullptr;
 }
@@ -1375,19 +1621,48 @@ int backward_bf16(const bf16* x, const float* gamma, const float* beta,
                  silu};
   cudaError_t err;
   if (plan.kind == kSmall) {
-    const BfKernel k = bf_small_kernel(plan);
+    const BfKernel k = bf_small_kernel<true>(plan);
     if (k == nullptr) return (int)cudaErrorInvalidConfiguration;
     k<<<(unsigned int)cdiv(a.slabs, kThreads / plan.lanes), kThreads, 0,
         st>>>(a);
     err = cudaGetLastError();
   } else {
-    err = launch_clusters(bf_cluster_kernel(plan), a.slabs * plan.cluster,
-                          plan.cluster, a, st);
+    err = launch_clusters(bf_cluster_kernel<true>(plan),
+                          a.slabs * plan.cluster, plan.cluster, a, st);
   }
   if (err != cudaSuccess) return (int)err;
   gn_silu_bwd_params<<<dim3(C, 2), kThreads, 0, st>>>(scratch, dgamma, dbeta,
                                                       C, B);
   return (int)cudaGetLastError();
+}
+
+int forward_bf16(const bf16* x, const float* gamma, const float* beta,
+                 bf16* out, long long B, int C, int G, int S, int silu,
+                 cudaStream_t st) {
+  const long long slabs = B * G;
+  if (slabs == 0 || S == 0) return 0;
+  const long long n = (long long)(C / G) * S;
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Plan plan = choose_fwd_bf16(n, S, aligned16(x) && aligned16(out));
+  if (plan.kind == kStream) {  // the fp32 plan's stream kernel, in bf16
+    const Args<bf16> a{x, gamma, beta, nullptr, out, nullptr, slabs, G,
+                       C / G, S, silu};
+    return (int)launch_clusters(plan.vec == 1
+                                    ? cluster_kernel<1, 0, false, bf16>()
+                                    : cluster_kernel<8, 0, false, bf16>(),
+                                slabs * plan.cluster, plan.cluster, a, st);
+  }
+  const BfArgs a{x, gamma, beta, nullptr, out, nullptr, slabs, B, G, C / G,
+                 S, silu};
+  if (plan.kind == kSmall) {
+    const BfKernel k = bf_small_kernel<false>(plan);
+    if (k == nullptr) return (int)cudaErrorInvalidConfiguration;
+    k<<<(unsigned int)cdiv(slabs, kThreads / plan.lanes), kThreads, 0, st>>>(
+        a);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_clusters(bf_cluster_kernel<false>(plan),
+                              slabs * plan.cluster, plan.cluster, a, st);
 }
 
 }  // namespace
@@ -1404,7 +1679,21 @@ extern "C" int group_norm_silu_bf16(const bf16* x, const float* gamma,
                                     const float* beta, bf16* out, long long B,
                                     int C, int G, int S, int silu,
                                     void* stream) {
-  return forward(x, gamma, beta, out, B, C, G, S, silu, stream);
+  return forward_bf16(x, gamma, beta, out, B, C, G, S, silu,
+                      (cudaStream_t)stream);
+}
+
+// K5 bf16's plan for slabs of n elements (as group_norm_silu_plan), for the
+// card tests to hold groupnorm.py fwd_bf16_plan to
+extern "C" int group_norm_silu_bf16_plan(long long n, int S, int aligned,
+                                         int* plan) {
+  const Plan p = choose_fwd_bf16(n, S, aligned != 0);
+  plan[0] = p.kind;
+  plan[1] = p.lanes;
+  plan[2] = p.cluster;
+  plan[3] = p.nv;
+  plan[4] = p.vec;
+  return 0;
 }
 
 // The plan for slabs of n elements (kind: 0 small, 1 cluster, 2 stream;

@@ -30,8 +30,9 @@ kernels' bf16 symbols (``group_norm_silu_bf16``,
 ``group_norm_silu_bwd_bf16``) round where that plain version rounds. The
 tangent and the vjp of the bf16 branch are the fp32 closed forms evaluated
 on the widened inputs, their result rounded to x's dtype (dγ and dβ fp32).
-K5b in bf16 runs on a plan of its own (``bwd_bf16_plan``, sized in
-bytes), one part a slab, so its dγ/dβ scratch is (2, C, B).
+K5 and K5b in bf16 run on plans of their own (``fwd_bf16_plan``,
+``bwd_bf16_plan``: ``bf16_plan`` with a block of 32 KB and of 16 KB of
+x); K5b's takes one part a slab, so its dγ/dβ scratch is (2, C, B).
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ K5 = common.register(common.Kernel(
     "group_norm_silu", "groupnorm.cu",
     {"group_norm_silu_f32": _FWD_ARGS, "group_norm_silu_bf16": _FWD_ARGS,
      "group_norm_silu_plan": [ctypes.c_longlong] + [ctypes.c_int] * 3
+     + [ctypes.c_void_p],
+     "group_norm_silu_bf16_plan": [ctypes.c_longlong] + [ctypes.c_int] * 2
      + [ctypes.c_void_p]},
 ))
 K5B = common.register(common.Kernel(
@@ -69,10 +72,12 @@ THREADS = 256       # threads per block
 SMALL_MAX = 1024    # floats: the largest slab of the small plan
 BLOCK_FLOATS = 4096  # floats per block that the cluster size aims at
 MAX_CLUSTER = 8     # blocks per cluster
-# K5b bf16's plan (choose_bwd_bf16), in elements: the small plan's largest
-# slab, and what a cluster block holds with 16-byte loads (4 vectors of 8 a
-# thread: 16 KB of x, an fp32 block's bytes) and without (16 a thread)
+# the bf16 plans (choose_bf16), in elements: the small plan's largest slab,
+# what a block of K5b holds with 16-byte loads (4 vectors of 8 a thread:
+# 16 KB of x, an fp32 block's bytes) and without (16 a thread), and what a
+# block of K5 holds (8 vectors of 8 a thread: 32 KB of x)
 BF16_SMALL_MAX, BF16_BLOCK_ELEMS, BF16_SCALAR_ELEMS = 1024, 8192, 4096
+BF16_FWD_BLOCK_ELEMS = 16384
 
 
 class Plan(NamedTuple):
@@ -121,17 +126,14 @@ def launch_plan(n, s, aligned=True, width=4):
     return Plan("stream", THREADS, MAX_CLUSTER, 0, vec)
 
 
-def bwd_bf16_plan(n, s, aligned=True):
-    """K5b bf16's own plan (the C function ``choose_bwd_bf16``), sized in
-    bytes: a cluster block of 256 threads holds 8,192 elements (16 KB of
-    x, the bytes of an fp32 block's 4,096 floats; 4 vectors of 8 a thread,
-    which also keeps g = dL/dh in fp32 registers), so a slab takes one
-    block up to 8,192 elements and a cluster only above (2 blocks at
-    16,384, 8 at 49,152), and the fp32 plan's stream kernel beyond 8
-    blocks' registers; up to 1,024 elements 8, 16 or 32 lanes of a warp.
-    Without 16-byte loads (S % 8 ≠ 0 or a misaligned tensor) one element a
-    vector: 32 lanes up to 1,024, 16 elements a thread of a cluster block
-    above, streaming beyond."""
+def bf16_plan(n, s, aligned, block_elems):
+    """The bf16 kernels' plan (the C function ``choose_bf16``), sized in
+    bytes: up to 1,024 elements 8, 16 or 32 lanes of a warp a slab; above,
+    one block of 256 threads holding `block_elems` elements in registers,
+    a cluster of blocks only past that, and the fp32 plan's stream kernel
+    beyond 8 blocks. Without 16-byte loads (S % 8 ≠ 0 or a misaligned
+    tensor) one element a vector: 32 lanes up to 1,024, 16 elements a
+    thread of a cluster block above, streaming beyond."""
     vec = 8 if s % 8 == 0 and aligned else 1
     nvec = n // vec
     if n <= BF16_SMALL_MAX:
@@ -141,13 +143,30 @@ def bwd_bf16_plan(n, s, aligned=True):
                         else 32, 1)
         lanes = 8 if nvec <= 8 else 16 if nvec <= 16 else 32
         return Plan("small", lanes, 1, _pow2_at_least(-(-nvec // lanes)), 8)
-    cap = (BF16_BLOCK_ELEMS // THREADS // 8 if vec == 8
+    cap = (block_elems // THREADS // 8 if vec == 8
            else BF16_SCALAR_ELEMS // THREADS)  # vectors a thread
     cs = min(MAX_CLUSTER, _pow2_at_least(-(-nvec // (THREADS * cap))))
     nv = _pow2_at_least(-(-nvec // (cs * THREADS)))
     if nv <= cap:
         return Plan("cluster", THREADS, cs, nv if vec == 8 else cap, vec)
     return Plan("stream", THREADS, MAX_CLUSTER, 0, vec)
+
+
+def bwd_bf16_plan(n, s, aligned=True):
+    """K5b bf16's plan (``choose_bwd_bf16``): a block holds 8,192 elements
+    (16 KB of x, the bytes of an fp32 block's 4,096 floats; 4 vectors of 8
+    a thread, which also keeps g = dL/dh in fp32 registers), so a slab takes
+    one block up to 8,192 elements and a cluster only above (2 blocks at
+    16,384, 8 at 49,152)."""
+    return bf16_plan(n, s, aligned, BF16_BLOCK_ELEMS)
+
+
+def fwd_bf16_plan(n, s, aligned=True):
+    """K5 bf16's plan (``choose_fwd_bf16``): a block holds 16,384 elements
+    (32 KB of x as its bits, 8 vectors of 8 a thread), so a slab takes one
+    block up to 16,384 elements and a cluster only above (2 blocks at
+    32,768, 4 at 49,152)."""
+    return bf16_plan(n, s, aligned, BF16_FWD_BLOCK_ELEMS)
 
 
 def _plan_of(out):
@@ -160,6 +179,14 @@ def kernel_plan(n, s, aligned=True, width=4):
     hold ``launch_plan`` to on a card."""
     out = (ctypes.c_int * 5)()
     K5.lib().group_norm_silu_plan(n, s, int(aligned), width, out)
+    return _plan_of(out)
+
+
+def kernel_fwd_bf16_plan(n, s, aligned=True):
+    """K5 bf16's compiled plan (``choose_fwd_bf16``), to hold
+    ``fwd_bf16_plan`` to on a card."""
+    out = (ctypes.c_int * 5)()
+    K5.lib().group_norm_silu_bf16_plan(n, s, int(aligned), out)
     return _plan_of(out)
 
 

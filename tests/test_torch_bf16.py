@@ -285,18 +285,19 @@ def test_production_presets_match_jax(name):
 
 
 def test_bf16_launch_plans():
-    """K5's plan in bf16 takes 16-byte vectors of 8 elements where S is a
-    multiple of 8; K3's bf16 plan holds grf16's blocks with the weights
+    """K5's plan in bf16 (``fwd_bf16_plan``) takes 16-byte vectors of 8
+    elements where S is a multiple of 8, one block for a slab of 1,536;
+    K3's bf16 plan holds grf16's blocks with the weights
     resident and two x buffers a warpgroup (two warpgroups at T = 64, one
     unit of 4 samples at T = 16), its shared memory as attnblock.cu lays
     it out (tests/test_torch_attn_bf16_plan.py holds the mirror to the
     source); the fp32 plan keeps its own."""
     assert gnk.vector_width(BF) == 8 and gnk.vector_width(torch.float32) == 4
-    assert tuple(gnk.launch_plan(6 * 256, 256, True, 8)) == (
-        "cluster", 256, 2, 1, 8)
-    assert tuple(gnk.launch_plan(2 * 64, 64, True, 8)) == (
+    assert tuple(gnk.fwd_bf16_plan(6 * 256, 256, True)) == (
+        "cluster", 256, 1, 1, 8)
+    assert tuple(gnk.fwd_bf16_plan(2 * 64, 64, True)) == (
         "small", 16, 1, 1, 8)
-    assert tuple(gnk.launch_plan(2 * 64, 60, True, 8)) == (
+    assert tuple(gnk.fwd_bf16_plan(2 * 64, 60, True)) == (
         "small", 32, 1, 4, 1)
     plan64 = ab.block_plan(64, 64, 32, 1, BF)
     plan16 = ab.block_plan(16, 128, 32, 1, BF)

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from sdeflow_tpu_torch.ops.kernels.groupnorm import (
-    K5, K5B, gn_math, gn_math_vjp, group_norm_silu, kernel_plan,
-    launch_plan)
+    K5, K5B, fwd_bf16_plan, gn_math, gn_math_vjp, group_norm_silu,
+    kernel_fwd_bf16_plan)
 from sdeflow_tpu_torch.ops.kernels.groupnorm import _launch_vjp as launch_k5b
 from test_torch_kernels_cuda import _rand, dev  # noqa: F401
 
@@ -28,8 +28,9 @@ def _rel(a, ref):
     return ((a.to(ref.dtype) - ref).abs().max() / ref.abs().max()).item()
 
 
-# a small plan without 16-byte loads (S % 8 != 0), a cluster of 2 with
-# them (8,192 elements a slab), the stream plan with them (70,000)
+# a small plan without 16-byte loads (S % 8 != 0), one block with them
+# (8,192 elements a slab), K5b's stream plan and K5's cluster of 8 with
+# them (70,000)
 GN_CASES = [(3, 5, 7, 5), (2, 64, 4096, 32), (2, 32, 70_000, 32)]
 
 
@@ -67,7 +68,7 @@ def test_groupnorm_bf16_kernels_take_misaligned_tensors(dev):
     x, dy = (buf[i, 1:].view(b, c, s) for i in range(2))
     gamma = (1.0 + 0.5 * _rand(rng, c)).to(dev)
     beta = (0.5 * _rand(rng, c)).to(dev)
-    assert launch_plan(c // groups * s, s, False, 8).vec == 1
+    assert fwd_bf16_plan(c // groups * s, s, False).vec == 1
     with torch.no_grad():
         out = group_norm_silu(x, gamma, beta, groups, True)
         dx = launch_k5b(x, gamma, beta, groups, True, dy)[0]
@@ -83,5 +84,5 @@ def test_groupnorm_bf16_plan_mirror_matches_the_kernels(dev):
                           (8192, 8192, True), (65536, 65536, True),
                           (70_000, 70_000, True), (1028, 1028, True),
                           (7, 7, True), (256, 64, False)]:
-        assert kernel_plan(n, s, aligned, 8) == launch_plan(n, s, aligned,
-                                                            8), (n, s)
+        assert kernel_fwd_bf16_plan(n, s, aligned) == fwd_bf16_plan(
+            n, s, aligned), (n, s)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The kernels whose code a change leaves alone, from this tree against the
 same kernels built from another tree of the package, bit for bit, on one
-NVIDIA GPU; and K6 bf16's short path and K5b bf16 of both trees timed in
-turns.
+NVIDIA GPU; and K6 bf16's short path, K5 bf16 and K5b bf16 of both trees
+timed in turns.
 
     python3 tools/torch_bf16_parent.py PARENT_DIR
 
@@ -24,22 +24,26 @@ this tree's wrapper on both libraries:
   this tree's K7a lse;
 - K4 and K7a in float32 (out, and K7a's lse) at (4, 4096, 64) with one and
   two heads and (2, 2048, 128);
-- K5 in float32 and bf16 and K5b in float32 (dx, dγ, dβ), SiLU on and off,
-  at GN_SHAPES: grf16's slabs at B = 1024 and the DSM step's at B = 128.
+- K5 and K5b in float32 (out; dx, dγ, dβ), SiLU on and off, at
+  GN_SHAPES: grf16's slabs at B = 1024 and the DSM step's at B = 128;
+- K5 in bf16 at every (C, S) of grf16's GroupNorm mix at B = 1024, SiLU
+  on and off: slabs of its small plan, whose sums keep their order.
 
-Then K6 bf16's short path and K5b bf16 (which sum in another order than
-the parent's, so they are not held bit for bit), through each tree's own
-wrapper, in turns (parent, this tree, this tree, parent): K6 at the
+Then K6 bf16's short path, K5 bf16 and K5b bf16 (K5 bf16 on its cluster
+plan and K5b bf16 sum in another order than the parent's, so they are not
+held bit for bit there), through each tree's own wrapper, in turns
+(parent, this tree, this tree, parent): K6 at the
 production request's two shapes (B = 1024) and the bf16 SSM step's
 (B = 128), one head: the kernel's device time alone (a trace), warm (the
 same inputs every launch) and cold (launches rotating through inputs of
 more than 100 MB, twice the 50 MB L2), a direct launch (``_launch``) warm
-and cold, and a call through the Function, by CUDA events; K5b bf16 at
-every (C, S, SiLU) of the bf16 DSM step's GroupNorm mix (B = 128) and of
-grf16's (the bf16 SSM step, B = 128): device time per call (a trace: the
-parent's kernel and its dγ/dβ launch) and a direct launch (``_launch_vjp``),
-averaged over each mix by its calls. Prints the card's name and power
-limit and one JSON line of the times.
+and cold, and a call through the Function, by CUDA events; K5 bf16 at
+every (C, S, SiLU) of the bf16 DSM step's GroupNorm mix (B = 128), of
+grf16's production request (B = 1024) and of its bf16 SSM step (B = 128),
+and K5b bf16 at the DSM step's and the SSM step's: device time per call (a
+trace: for K5b the kernel and its dγ/dβ launch) and a direct launch
+(``_launch``, ``_launch_vjp``), averaged over each mix by its calls.
+Prints the card's name and power limit and one JSON line of the times.
 
 Exits non-zero unless every output of the bit-for-bit check is equal.
 """
@@ -146,8 +150,11 @@ def gn_args(rnd, b, c, s, dtype):
             0.1 * rnd(c), rnd(b, c, s).to(dtype))
 
 
-def bit_for_bit(mods, rnd):
-    """Every kernel this change leaves alone, on both libraries."""
+def bit_for_bit(mods, rnd, grf16):
+    """Every kernel this change leaves alone, on both libraries; K5 bf16 at
+    grf16's GroupNorm mix."""
+    from chip_smoke import N_SAMPLES
+
     equal = True
     libs = {"this tree": ab.K3.lib(), "parent": mods["attnblock"].K3._lib}
     for b, t, c, heads in K3_SHAPES:
@@ -198,22 +205,29 @@ def bit_for_bit(mods, rnd):
     pg = mods["groupnorm"]
     for b, c, s in GN_SHAPES:
         groups = group_count(c)
-        for dtype in (torch.float32, torch.bfloat16):
-            x, gamma, beta, dy = gn_args(rnd, b, c, s, dtype)
-            for silu in (False, True):
-                with torch.no_grad():
-                    equal &= compare(
-                        f"K5 {dtype} at {(b, c, s)} silu={silu}", gk.K5,
-                        {"this tree": gk.K5.lib(), "parent": pg.K5._lib},
-                        lambda: [gk._launch(x, gamma, beta, groups, silu)])
-                    if dtype == torch.float32:
-                        equal &= compare(
-                            f"K5b float32 at {(b, c, s)} silu={silu}",
-                            gk.K5B, {"this tree": gk.K5B.lib(),
-                                     "parent": pg.K5B._lib},
-                            lambda: list(gk._launch_vjp(
-                                x, gamma, beta, groups, silu, dy)))
-            del x, gamma, beta, dy
+        x, gamma, beta, dy = gn_args(rnd, b, c, s, torch.float32)
+        for silu in (False, True):
+            with torch.no_grad():
+                equal &= compare(
+                    f"K5 float32 at {(b, c, s)} silu={silu}", gk.K5,
+                    {"this tree": gk.K5.lib(), "parent": pg.K5._lib},
+                    lambda: [gk._launch(x, gamma, beta, groups, silu)])
+                equal &= compare(
+                    f"K5b float32 at {(b, c, s)} silu={silu}", gk.K5B,
+                    {"this tree": gk.K5B.lib(), "parent": pg.K5B._lib},
+                    lambda: list(gk._launch_vjp(
+                        x, gamma, beta, groups, silu, dy)))
+        del x, gamma, beta, dy
+    for c, s in sorted({(c, s) for c, s, _ in grf16}):
+        groups = group_count(c)
+        x, gamma, beta, _ = gn_args(rnd, N_SAMPLES, c, s, torch.bfloat16)
+        for silu in (False, True):
+            with torch.no_grad():
+                equal &= compare(
+                    f"K5 bf16 at {(N_SAMPLES, c, s)} silu={silu}", gk.K5,
+                    {"this tree": gk.K5.lib(), "parent": pg.K5._lib},
+                    lambda: [gk._launch(x, gamma, beta, groups, silu)])
+        del x, gamma, beta
     return equal
 
 
@@ -266,9 +280,10 @@ def time_k6_short(mods, rnd):
     return rows
 
 
-def time_k5b(mods, rnd, mix, b):
-    """K5b bf16 of both trees in turns at every (C, S, SiLU) of a
-    GroupNorm mix at batch b; the mix's means per launch."""
+def time_gn(mods, rnd, mix, b, what):
+    """K5 bf16 (what = "K5") or K5b bf16 ("K5b") of both trees in turns at
+    every (C, S, SiLU) of a GroupNorm mix at batch b; the mix's means per
+    launch."""
     from chip_smoke import cuda_ms, device_per_call
 
     trees = {"parent": mods["groupnorm"], "this tree": gk}
@@ -280,8 +295,12 @@ def time_k5b(mods, rnd, mix, b):
         row = {"shape": [b, c, s], "silu": silu, "calls": calls}
         for name in TURNS:
             mod = trees[name]
-            fn = lambda: mod._launch_vjp(  # noqa: E731
-                x, gamma, beta, groups, silu, dy)
+            if what == "K5":
+                fn = lambda: mod._launch(  # noqa: E731
+                    x, gamma, beta, groups, silu)
+            else:
+                fn = lambda: mod._launch_vjp(  # noqa: E731
+                    x, gamma, beta, groups, silu, dy)
             with torch.no_grad():
                 dev, kernels = device_per_call(fn, 10)
                 times = {"device_ms": dev, "kernels_per_call": kernels,
@@ -289,7 +308,7 @@ def time_k5b(mods, rnd, mix, b):
             for k, v in times.items():
                 row.setdefault(f"{name} {k}", []).append(v)
         rows.append(row)
-        print(f"K5b bf16 at {(b, c, s)} silu={silu} x{calls}: " + "; ".join(
+        print(f"{what} bf16 at {(b, c, s)} silu={silu} x{calls}: " + "; ".join(
             f"{k} " + ", ".join(f"{v:.5f}" for v in vs)
             for k, vs in row.items() if k.startswith(TURNS)))
         del x, gamma, beta, dy
@@ -297,7 +316,7 @@ def time_k5b(mods, rnd, mix, b):
     mean = {k: [sum(r[k][i] * r["calls"] for r in rows) / n
                 for i in range(2)]
             for k in rows[0] if k.startswith(TURNS)}
-    print(f"K5b bf16 mix at B = {b}, per launch: " + "; ".join(
+    print(f"{what} bf16 mix at B = {b}, per launch: " + "; ".join(
         f"{k} " + ", ".join(f"{v:.5f}" for v in vs)
         for k, vs in mean.items()))
     return {"per_shape": rows, "mean_per_launch": mean}
@@ -307,7 +326,8 @@ def main(parent):
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import DIM, SGM_BATCH, SGM_GN_MIX, TRAIN_BATCH, gn_mix
+    from chip_smoke import (DIM, N_SAMPLES, SGM_BATCH, SGM_GN_MIX,
+                            TRAIN_BATCH, gn_mix)
     from sdeflow_tpu_torch import get_preset
     from sdeflow_tpu_torch.experiments.driver import make_model
 
@@ -323,13 +343,17 @@ def main(parent):
 
     mods = {name: parent_module(name, parent)
             for name in ("attnblock", "attention", "groupnorm")}
-    equal = bit_for_bit(mods, rnd)
     grf16 = gn_mix(make_model(get_preset("grf16"), DIM, "NormalizeLogRadius",
                               device="cuda"), "cuda")
+    equal = bit_for_bit(mods, rnd, grf16)
     record = {"card": card, "bit_for_bit": equal,
               "k6_bf16_short": time_k6_short(mods, rnd),
-              "k5b_bf16_dsm": time_k5b(mods, rnd, SGM_GN_MIX, SGM_BATCH),
-              "k5b_bf16_ssm": time_k5b(mods, rnd, grf16, TRAIN_BATCH)}
+              "k5_bf16_dsm": time_gn(mods, rnd, SGM_GN_MIX, SGM_BATCH, "K5"),
+              "k5_bf16_grf16": time_gn(mods, rnd, grf16, N_SAMPLES, "K5"),
+              "k5_bf16_ssm": time_gn(mods, rnd, grf16, TRAIN_BATCH, "K5"),
+              "k5b_bf16_dsm": time_gn(mods, rnd, SGM_GN_MIX, SGM_BATCH,
+                                      "K5b"),
+              "k5b_bf16_ssm": time_gn(mods, rnd, grf16, TRAIN_BATCH, "K5b")}
     print(json.dumps(record))
     return 0 if equal else 1
 
