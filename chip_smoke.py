@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (sdeflow_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--record PATH]
-                          [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16]
+                          [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16|
+                                  samplers]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -20,8 +21,10 @@ through the same CLI (bf16 compute in the score net: the bf16 variants of
 K3, K5 and K5b; EM sampling with a Langevin corrector step: K1); and bf16
 on the unfused route: the grf U-Net at 128×128 in bf16 trained by DSM and
 served (the bf16 variants of K6, K4, K7a and K7b), and grf16_production
-through the CLI on ``--attention-impl unfused`` (bf16 K6). It holds every
-CUDA kernel of those paths against its plain PyTorch version:
+through the CLI on ``--attention-impl unfused`` (bf16 K6); and the CLI's
+probability-flow ODE and DPM-Solver samplers and exact NLL on grf16 (K1,
+K3 and K5 in every drift evaluation and every JVP of the likelihood). It
+holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
    sdeflow_tpu_torch/csrc with nvcc (one process per source, in parallel);
@@ -245,13 +248,31 @@ CUDA kernel of those paths against its plain PyTorch version:
    ``--attention-impl unfused`` (phase 22's run and checks without the
    replay): per bf16 SSM step 46 K5, 46 K5b and 11 K6 (MSGM: 5 K1, one K2
    solve), per request 92·32 K5 and 22·32 K6, no K3 and no float32 entry of
-   an attention kernel; finite losses and metrics, √MMD and SWD printed.
+   an attention kernel; finite losses and metrics, √MMD and SWD printed;
+26. the samplers and the likelihood through the CLI (phase 20's reduction,
+   fp32, the auto route), every kernel count set to 0 just before each run
+   and read just after: ``--sampler ode --eval-mmd --eval-nll`` (RK4-32,
+   MSGM norm-corrected): each arm's ODE request a finite (33, 1024, 256)
+   trajectory with exactly 4·32 K1 (MSGM; 0 SGM), 44·32 K3 and 140·32 K5
+   launches, MSGM's norms kept to rtol 1e-5, replayed on the plain path
+   from the same latents within 1e-3·max |x|; each arm's NLL (nll_summary:
+   512 test points, 64 RK4 steps, one Hutchinson probe) finite on every
+   point with exactly 11, 35 and (MSGM) 1 launches of K3, K5 and K1 a
+   stage, the same 512 points with the driver's own probes over 8 RK4
+   steps on the kernel and the plain path within 1e-3 of the largest
+   bits/dim; the MSGM arm's SDE request on the same trained arm timed
+   beside its ODE request; ``--sampler dpm --backward-method dpm2m --steps-backward 16``:
+   SGM's request with exactly 11·16 K3 and 35·16 K5 launches and no K1,
+   MSGM's logged fallback to the SDE with RK4; then a dopri solve
+   (rtol = atol = 1e-5) of 256 samples on each trained arm of the ODE run,
+   finite (MSGM's norms kept), its NFE, steps and time, with exactly
+   11·NFE K3 and 35·NFE K5 launches (and NFE K1 on MSGM).
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
 K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
 launches in the production run and those of K6, K4, K7a, K7b with their
 launches in phases 24 and 25, each with its launches in the driver's
-run: per
+run and in phase 26's two runs: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
@@ -272,7 +293,8 @@ steps at batch 128 (copied beside another tree of the package, it times
 that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
 (128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
 (128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
-24's batch-16 request with its trace (``attn_bf16_timing``).
+24's batch-16 request with its trace (``attn_bf16_timing``); samplers
+phase 26.
 """
 
 from __future__ import annotations
@@ -2089,19 +2111,23 @@ def gen_want(is_msgm):
 
 def timed_call(fn, *args, **kwargs):
     """fn(*args, **kwargs) with its kernel launches, wall time
-    (synchronized) and peak memory, and the states of its generator
-    arguments before the call; returns the record, the result under
-    "out"."""
+    (synchronized; and between CUDA events on the stream, ``event_ms``)
+    and peak memory, and the states of its generator arguments before the
+    call; returns the record, the result under "out"."""
     before = launch_counts()
     states = [a.get_state() for a in args if isinstance(a, torch.Generator)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    events[0].record()
     out = fn(*args, **kwargs)
+    events[1].record()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     after = launch_counts()
     return dict(args=args, kwargs=kwargs, out=out, ms=ms,
+                event_ms=events[0].elapsed_time(events[1]),
                 peak=torch.cuda.max_memory_allocated(),
                 generator_states=states,
                 launches={k: after[k] - before[k] for k in after})
@@ -3644,6 +3670,306 @@ def bf16_unfused_phases(card, fp32_peak=None):
              check_production_unfused(g, dev, card))]
 
 
+# phase 26: the PF-ODE and DPM-Solver samplers and the exact NLL through
+# the CLI on grf16 at full width, reduced as phase 20 is
+SAMPLER_ARGS = ["--preset", "grf16", "--iterations", str(DRIVER_ITERATIONS),
+                "--num-samples", str(N_SAMPLES), "--no-plots"]
+ODE_ARGS = [*SAMPLER_ARGS, "--steps-backward", str(STEPS), "--sampler",
+            "ode", "--eval-mmd", "--eval-nll"]
+DPM_STEPS = 16
+DPM_ARGS = [*SAMPLER_ARGS, "--steps-backward", str(DPM_STEPS), "--sampler",
+            "dpm", "--backward-method", "dpm2m"]
+NLL_POINTS, NLL_STEPS = 512, 64  # nll_summary's max_points, grf16's steps
+# the NLL's kernel-against-plain check: the driver's NLL_POINTS test points
+# and probes, at the batch the main path gives the kernels, on 8 RK4 steps
+# (a JVP stage takes ~0.15 s of host time: 64 steps would cost 40 s a path)
+NLL_CHECK_STEPS = 8
+DOPRI_SAMPLES = 256
+# the ODE's kernel path against its plain replay, as the SDE's (PERF.md
+# §2): max |kernel − plain| ≤ 1e-3·max |x|. The NLL is the same
+# deterministic solve's output (its latent's prior plus its divergence
+# integral, the tangents by the same plain rules on both paths), held by
+# the same rule: max |Δ bits/dim| ≤ 1e-3·max |bits/dim|
+ODE_REPLAY_TOL = NLL_REPLAY_TOL = 1e-3
+# the kernels of phase 26's ODE run: each must launch (K5b in its training)
+SAMPLER_KERNELS = ("circulant_apply", "fused_attention_block",
+                   "group_norm_silu", "group_norm_silu_bwd")
+
+
+def drift_want(is_msgm, evals):
+    """Launches of `evals` evaluations of a PF-ODE drift (or its JVP) on the
+    auto route: the U-Net's K3 and K5, and on MSGM one sigma_apply (K1) an
+    evaluation; the tangents run the plain rules."""
+    want = {k: n * evals for k, n in per_forward("auto").items()}
+    return dict(want, circulant_apply=evals if is_msgm else 0,
+                circulant_rk4_step=0, circulant_rk4_solve=0)
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def sampler_cli(args, gens, nlls):
+    """``sdeflow_tpu_torch.run.main(args)`` in a temporary cwd and results
+    directory, every kernel count set to 0 just before and read just after,
+    each generation and NLL call recorded (timed_call), the output kept;
+    returns (results, launches, seconds, output)."""
+    import tempfile
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    cwd = os.getcwd()
+    tee = _Tee(sys.stdout)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with spied(drv, "generate", gens), \
+                    spied(drv, "nll_summary", nlls), \
+                    contextlib.redirect_stdout(tee):
+                common.reset_launches()
+                t0 = time.perf_counter()
+                results = run_mod.main(
+                    [*args, "--results-dir", os.path.join(tmp, "results")])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = launch_counts()
+        finally:
+            os.chdir(cwd)
+    return results, launches, seconds, "".join(tee.parts)
+
+
+def replayed(rec, fn, *args, **kwargs):
+    """fn on rec's arguments with its generator argument put back in the
+    state it had before rec's call (the same latents and probes), on the
+    plain path: (out, launches, ms)."""
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    call = list(rec["args"])
+    i = next(i for i, a in enumerate(call) if isinstance(a, torch.Generator))
+    g = torch.Generator(device=call[i].device)
+    g.set_state(rec["generator_states"][0])
+    call[i] = g
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_path():
+        out = fn(*call, *args, **{**rec["kwargs"], **kwargs})
+    torch.cuda.synchronize()
+    return out, launch_counts(), (time.perf_counter() - t0) * 1e3
+
+
+def check_samplers(g, dev, card, sde_request_ms=None):
+    """Phase 26: ``run.main`` with --sampler ode (RK4-32, --eval-mmd,
+    --eval-nll) and with --sampler dpm (dpm2m on 16 steps; the MSGM arm's
+    logged fallback), both arms, their launches, finiteness, norms and
+    times; each ODE request and NLL replayed on the plain path; then a
+    dopri solve of DOPRI_SAMPLES samples on each trained arm."""
+    import numpy as np
+
+    from sdeflow_tpu_torch.eval.nll import nll_bits_per_dim
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.hutchinson import sample_v
+    from sdeflow_tpu_torch.ops.kernels import common
+    from sdeflow_tpu_torch.ops.ode import integrate_ode
+
+    rec = {"card": card, "ode_args": ODE_ARGS, "dpm_args": DPM_ARGS}
+    arms = (("SGM", False), ("MSGM", True))
+
+    # (a) the PF-ODE: sampling, metrics and the NLL, both arms
+    gens, nlls = [], []
+    results, launches, seconds, _ = sampler_cli(ODE_ARGS, gens, nlls)
+    rec["ode_run"] = dict(seconds=seconds, launches=launches)
+    log(f"{card}: --sampler ode --eval-mmd --eval-nll: {seconds:.1f} s, "
+        f"launches {launches}")
+    missing = [k for k in SAMPLER_KERNELS if not launches[k]]
+    if missing or len(gens) != 2 or len(nlls) != 2:
+        raise AssertionError(f"the ODE run: never launched {missing}; "
+                             f"{len(gens)} generations, {len(nlls)} NLLs")
+    rec["ode"], rec["nll"] = {}, {}
+    for (arm, is_msgm), r, n in zip(arms, gens, nlls):
+        xs = r["out"]
+        if tuple(xs.shape) != (STEPS + 1, N_SAMPLES, DIM) or \
+                not torch.isfinite(xs).all():
+            raise AssertionError(f"{arm}: ODE trajectory {tuple(xs.shape)}")
+        want = drift_want(is_msgm, FORWARDS_PER_STEP * STEPS)
+        if r["launches"] != want:
+            raise AssertionError(f"{arm} ODE launches {r['launches']} != "
+                                 f"{want}")
+        norms = xs.norm(dim=2)
+        kept = bool(torch.allclose(norms, norms[0].expand_as(norms),
+                                   rtol=1e-5, atol=0))
+        if kept is not is_msgm:
+            raise AssertionError(f"{arm}: ODE norms kept = {kept}")
+        xp, plain_k, plain_ms = replayed(r, drv.generate)
+        if any(plain_k.values()):
+            raise AssertionError(f"plain ODE replay launched {plain_k}")
+        err = (xs - xp).abs().max().item()
+        big = xp.abs().max().item()
+        rec["ode"][arm] = dict(
+            ms=r["ms"], event_ms=r["event_ms"],
+            samples_per_s=N_SAMPLES / r["ms"] * 1e3,
+            launches=r["launches"], peak=r["peak"], norms_kept=kept,
+            plain_ms=plain_ms, max_abs_err=err, max_abs_x=big)
+        log(f"{card}: {arm} ODE request, {N_SAMPLES} samples x {STEPS} RK4 "
+            f"steps (trajectory kept): {r['ms']:.1f} ms (CUDA events "
+            f"{r['event_ms']:.1f}), {N_SAMPLES / r['ms'] * 1e3:.1f} "
+            f"samples/s (plain path "
+            f"{plain_ms:.1f} ms), launches {r['launches']}, norms kept "
+            f"{kept}; max |kernel - plain| {err:.3g} against max |x| "
+            f"{big:.3g} (tolerance {ODE_REPLAY_TOL:g}·max |x|)")
+        if not err <= ODE_REPLAY_TOL * big:
+            raise AssertionError(f"{arm}: ODE kernel and plain disagree")
+
+        # the NLL: all NLL_POINTS finite, its launches, and a replay of
+        # the same points with the driver's own probes
+        entry = n["out"]
+        want = drift_want(is_msgm, FORWARDS_PER_STEP * NLL_STEPS)
+        if entry["n"] != NLL_POINTS or entry["steps"] != NLL_STEPS or \
+                not math.isfinite(entry["mean"]):
+            raise AssertionError(f"{arm}: NLL {entry}")
+        if n["launches"] != want:
+            raise AssertionError(f"{arm} NLL launches {n['launches']} != "
+                                 f"{want}")
+        gen, xtest, _ = n["args"]
+        probe_g = torch.Generator(device=dev)
+        probe_g.set_state(n["generator_states"][0])
+        probes = sample_v(probe_g, (1, NLL_POINTS, DIM), "rademacher",
+                          device=dev)
+        x = xtest[:NLL_POINTS]
+        with torch.no_grad():
+            common.reset_launches()
+            kernel = timed_call(nll_bits_per_dim, gen, x, probes=probes,
+                                num_steps=NLL_CHECK_STEPS)
+            with plain_path():
+                plain = timed_call(nll_bits_per_dim, gen, x, probes=probes,
+                                   num_steps=NLL_CHECK_STEPS)
+        if any(plain["launches"].values()):
+            raise AssertionError(f"plain NLL launched {plain['launches']}")
+        want = drift_want(is_msgm, FORWARDS_PER_STEP * NLL_CHECK_STEPS)
+        if kernel["launches"] != want:
+            raise AssertionError(f"{arm} NLL check launches "
+                                 f"{kernel['launches']} != {want}")
+        bk, bp = kernel["out"], plain["out"]
+        if not (torch.isfinite(bk).all() and torch.isfinite(bp).all()):
+            raise AssertionError(f"{arm}: NLL not finite")
+        err = (bk - bp).abs().max().item()
+        big = bp.abs().max().item()
+        rec["nll"][arm] = dict(
+            entry=entry, s=n["ms"] / 1e3, event_s=n["event_ms"] / 1e3,
+            launches=n["launches"],
+            launches_per_stage=drift_want(is_msgm, 1),
+            check_points=NLL_POINTS, check_steps=NLL_CHECK_STEPS,
+            check_ms=kernel["ms"],
+            check_plain_ms=plain["ms"], max_abs_err=err, max_abs_bpd=big)
+        log(f"{card}: {arm} NLL {entry['mean']:.4f} ± {entry['stderr']:.4f} "
+            f"bits/dim on {entry['n']} points, {NLL_STEPS} RK4 steps: "
+            f"{n['ms'] / 1e3:.2f} s, launches {n['launches']} (a stage: "
+            f"{drift_want(is_msgm, 1)}); {NLL_POINTS} points, "
+            f"{NLL_CHECK_STEPS} steps: kernel {kernel['ms']:.1f} ms, plain "
+            f"{plain['ms']:.1f} ms, max |Δ| "
+            f"{err:.3g} bits/dim against max {big:.3g} (tolerance "
+            f"{NLL_REPLAY_TOL:g}·max)")
+        if not err <= NLL_REPLAY_TOL * big:
+            raise AssertionError(f"{arm}: NLL kernel and plain disagree")
+    for k in drv.METRICS:
+        if not np.isfinite(results[k]).all():
+            raise AssertionError(f"results[{k!r}] = {results[k]}")
+    rec["sqrt_mmd"] = {k: float(np.sqrt(max(results[k].mean(), 0.0)))
+                       for k in ("mmd_sgm", "mmd_msgm", "mmd_ref")}
+    log(f"ODE sqrt-MMD: {rec['sqrt_mmd']}")
+    trained = [r["args"][0] for r in gens]
+
+    # the SDE request of the same trained MSGM arm, for comparison
+    r = gens[1]
+    sde = timed_call(drv.generate, trained[1], torch.Generator(
+        device=dev).manual_seed(1), N_SAMPLES, DIM, STEPS, "rk4", True,
+        True, sampler="sde", device=dev)
+    rec["msgm_sde_request_ms"] = sde["ms"]
+    rec["msgm_sde_request_event_ms"] = sde["event_ms"]
+    log(f"{card}: MSGM SDE request (RK4-{STEPS}, trajectory kept) on the "
+        f"same trained arm: {sde['ms']:.1f} ms against the ODE's "
+        f"{r['ms']:.1f} ms" + ("" if sde_request_ms is None else
+                                f"; phase 7's request {sde_request_ms:.1f}"
+                                " ms"))
+
+    # (b) DPM-Solver: dpm2m on the SGM arm, MSGM's logged fallback
+    gens_dpm = []
+    _, launches, seconds, out = sampler_cli(DPM_ARGS, gens_dpm, [])
+    rec["dpm_run"] = dict(seconds=seconds, launches=launches)
+    fallback = ("sampler 'dpm' needs a closed-form forward kernel; "
+                "MSGM_sparseTenslogNorm arm falls back to sampler 'sde' / "
+                "method 'rk4'")
+    if out.count(fallback) != 1:
+        raise AssertionError("the MSGM arm's dpm fallback was not logged")
+    rec["dpm"] = {}
+    for (arm, is_msgm), r in zip(arms, gens_dpm):
+        xs = r["out"]
+        method = r["args"][5]
+        if is_msgm:  # the fallback: the SDE's RK4, 8 K1 a step
+            want = {k: n * FORWARDS_PER_STEP * DPM_STEPS for k, n in
+                    per_forward("auto").items()}
+            want.update(circulant_apply=K1_PER_STEP * DPM_STEPS,
+                        circulant_rk4_step=0, circulant_rk4_solve=0)
+        else:
+            want = drift_want(False, DPM_STEPS)
+        if (method, r["kwargs"]["sampler"]) != (
+                ("rk4", "sde") if is_msgm else ("dpm2m", "dpm")):
+            raise AssertionError(f"{arm}: {method}, {r['kwargs']}")
+        if tuple(xs.shape) != (DPM_STEPS + 1, N_SAMPLES, DIM) or \
+                not torch.isfinite(xs).all() or r["launches"] != want:
+            raise AssertionError(f"{arm} dpm run: {tuple(xs.shape)}, "
+                                 f"launches {r['launches']} != {want}")
+        rec["dpm"][arm] = dict(method=method, ms=r["ms"],
+                               event_ms=r["event_ms"],
+                               samples_per_s=N_SAMPLES / r["ms"] * 1e3,
+                               launches=r["launches"])
+        log(f"{card}: {arm} --sampler dpm request ({method}, {DPM_STEPS} "
+            f"steps, trajectory kept): {r['ms']:.1f} ms, launches "
+            f"{r['launches']}")
+
+    # (c) an adaptive dopri solve on each trained arm of (a)
+    rec["dopri"] = {}
+    for (arm, is_msgm), gen in zip(arms, trained):
+        x0 = gen.latent_sample(torch.Generator(device=dev).manual_seed(2),
+                               DOPRI_SAMPLES, DIM)
+        stats = {}
+        with torch.no_grad():
+            common.reset_launches()
+            r = timed_call(integrate_ode, gen, x0, 1, method="dopri",
+                           norm_correction=is_msgm, stats=stats)
+        x = r["out"]
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{arm}: dopri samples not finite")
+        if is_msgm:
+            torch.testing.assert_close(x.norm(dim=1), x0.norm(dim=1),
+                                       rtol=1e-5, atol=0)
+        if r["launches"] != drift_want(is_msgm, stats["nfe"]):
+            raise AssertionError(f"{arm} dopri launches {r['launches']} "
+                                 f"for {stats}")
+        rec["dopri"][arm] = dict(stats, ms=r["ms"], event_ms=r["event_ms"],
+                                 samples=DOPRI_SAMPLES)
+        log(f"{card}: {arm} dopri (rtol = atol = 1e-5) of {DOPRI_SAMPLES} "
+            f"samples: {r['ms']:.1f} ms, NFE {stats['nfe']}, "
+            f"{stats['accepted']} steps accepted, {stats['rejected']} "
+            f"rejected")
+    rec["launches"] = {k: rec["ode_run"]["launches"][k]
+                       + rec["dpm_run"]["launches"][k]
+                       for k in rec["ode_run"]["launches"]}
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -3656,7 +3982,8 @@ def main(argv=None):
     ap.add_argument("--record", metavar="PATH",
                     help="write the full record as JSON to PATH")
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
-                                       "unfused_bf16", "attn_bf16"),
+                                       "unfused_bf16", "attn_bf16",
+                                       "samplers"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -3668,7 +3995,9 @@ def main(argv=None):
                     "route; attn_bf16 times K6, K4, K7a and K7b bf16 at the "
                     "DSM step's and the request's shapes, the bf16 DSM step, "
                     "the bf16 request and grf16_production's unfused SSM "
-                    "step and request (attn_bf16_timing)")
+                    "step and request (attn_bf16_timing); samplers runs "
+                    "phase 26, the PF-ODE and DPM-Solver samplers and the "
+                    "exact NLL through the CLI on grf16")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3730,6 +4059,10 @@ def main(argv=None):
         for label, key, fn in bf16_unfused_phases(card):
             phase(label)
             record[key] = fn(g, dev)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "samplers":
+        record["samplers"] = check_samplers(g, dev, card)
         write_record(opts.record, record)
         return 0
 
@@ -3923,6 +4256,11 @@ def main(argv=None):
         record[key] = fn(g, dev)
     attn16, dsm16 = record["attention_bf16"], record["dsm_bf16"]
     prod_u = record["production_unfused"]
+
+    phase("26")
+    # -- 26. the PF-ODE and DPM-Solver samplers and the exact NLL (CLI) ------
+    samplers = check_samplers(g, dev, card, requests[-1]["ms"])
+    record["samplers"] = samplers
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
@@ -4176,6 +4514,9 @@ def main(argv=None):
                  unfused_production_launches=entries[k["name"]],
                  replaces=next(r["replaces"] for r in kernels
                                if r["id"] == k["id"].split()[0]))
+    for k in kernels:  # phase 26 runs fp32 only (grf16's compute dtype)
+        k["samplers_launches"] = (0 if "counter" in k
+                                  else samplers["launches"][k["name"]])
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4189,7 +4530,7 @@ def main(argv=None):
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
             f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
             f"{k['launches_per']}; {k['driver_launches']} in the driver's "
-            "run")
+            f"run, {k['samplers_launches']} in phase 26's")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

@@ -8,7 +8,10 @@ MSGM SDE and the VP SGM SDE, the VorticityUNet score net, the plug-in
 reverse SDE with the SSM loss (its forward RK4 perturbation and Hutchinson
 JVP), the DSM loss with the eps parameterization and the debiased time
 sampler, the ELBO, Adam, the Trainer with EMA and on-disk checkpoints, the
-EM/Heun/RK4 generation solve, and scoring by √MMD and sliced Wasserstein;
+EM/Heun/RK4 generation solve with its Langevin corrector, the
+probability-flow ODE (fixed steps and Dormand–Prince) and DPM-Solver
+samplers, the exact PF-ODE likelihood, and scoring by √MMD and sliced
+Wasserstein;
 with hand-written CUDA kernels for every Pallas kernel of the JAX package:
 the circulant stencil (K1), the fused forward RK4 step and solve (K2), the
 fused AttentionBlock (K3), GroupNorm and its backward (K5, K5b), the

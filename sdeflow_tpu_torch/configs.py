@@ -68,13 +68,13 @@ class SweepConfig:
     fair_comparison: bool = True
     ssm_intT_ref: bool = False
     eval_mmd: bool = False
-    eval_nll: bool = False  # exact NLL: ROADMAP Queue 1 item 10
+    eval_nll: bool = False  # exact PF-ODE NLL of each trained arm
     nll_steps: int = 64
     num_samples: int = 10_000
     include_t0_reverse: bool = True
     Res: Tuple[int, ...] = (300, 3900)  # POD Reynolds numbers
     backward_method: str = "rk4"
-    sampler: str = "sde"  # "ode", "dpm": ROADMAP Queue 1 item 10
+    sampler: str = "sde"  # "sde" | "ode" | "dpm" (serving.py)
     corrector_steps: int = 0  # Langevin steps after each predictor step
     snr: float = 0.16
     dpm_grid: str = "logsnr"

@@ -1,5 +1,5 @@
-"""Evaluation: the ELBO, √MMD and sliced Wasserstein, and the blow-up
-filter."""
+"""Evaluation: the ELBO, √MMD and sliced Wasserstein, the blow-up filter,
+and the exact PF-ODE likelihood (``eval/nll.py``)."""
 
 from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
 from sdeflow_tpu_torch.eval.elbo import evaluate

@@ -11,9 +11,12 @@ sampled over the backward step counts and repeat runs with its base SDE's
 own ``norm_correction``, and scored by the metric block of the JAX package's
 ``postprocessing`` (sdeflow_tpu/plotting/plots.py:480-545) without its
 plots (``score_samples``); the 5-D result arrays are saved under the JAX
-package's file names. The plots, the other datasets, the exact NLL and the
-samplers beyond the reverse SDE raise ``NotImplementedError`` naming their
-ROADMAP Queue 1 item.
+package's file names. Each run samples by the sweep's sampler (the reverse
+SDE, the PF-ODE or DPM-Solver; an MSGM arm under "dpm" falls back, logged,
+to the SDE with RK4, as in the JAX driver), and ``eval_nll`` reports each
+trained arm's exact PF-ODE NLL in bits/dim (``_eval_nll``,
+``nll_bits_per_dim.json``). The plots and the other datasets raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item.
 
 Random streams: the JAX driver reseeds each arm from ``PRNGKey(seed)``, so
 both arms see the same test set and the same train set for the MMD floor.
@@ -25,6 +28,7 @@ i_steps·1000 + i_run off the sample stream, the MMD train set 777.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import time
@@ -36,6 +40,7 @@ from sdeflow_tpu_torch.configs import ExperimentConfig
 from sdeflow_tpu_torch.data.synthetic import SmoothedGRF
 from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
 from sdeflow_tpu_torch.eval.mmd import compute_mmd, sliced_wasserstein
+from sdeflow_tpu_torch.eval.nll import nll_summary
 from sdeflow_tpu_torch.experiments.naming import run_name_root, simulation_name
 from sdeflow_tpu_torch.models.vorticity import VorticityUNet
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
@@ -105,16 +110,18 @@ def resolve_std_norm(sampler, normalized, real_dim, device="cuda"):
 
 def generate(gen, generator, num_samples, dim, num_steps, method,
              include_t0, norm_correction, sampler="sde", corrector_steps=0,
-             snr=0.16, device="cuda"):
+             snr=0.16, dpm_grid="logsnr", device="cuda"):
     """The whole generation of one sampling run: the serving module's
-    sampler program (predictor `method`, then corrector_steps Langevin
-    steps with snr after each step) with the trajectory kept,
-    (S, num_samples, dim), S = num_steps (+1 with include_t0)."""
+    sampler program (`sampler` with `method`; under "sde" corrector_steps
+    Langevin steps with snr after each step, under "dpm" the dpm_grid) with
+    the trajectory kept, (S, num_samples, dim), S = num_steps (+1 with
+    include_t0)."""
     fn = make_sampler_fn(
         gen, num_samples, dim, num_steps, method=method,
         norm_correction=norm_correction, keep_all=True,
         include_t0=include_t0, sampler=sampler,
-        corrector_steps=corrector_steps, snr=snr, device=device)
+        corrector_steps=corrector_steps, snr=snr, dpm_grid=dpm_grid,
+        device=device)
     return fn(generator)
 
 
@@ -295,17 +302,11 @@ def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
 
 def _check_ported(cfg: ExperimentConfig, make_plots):
     """Raise for what the driver does not run yet, before any training."""
-    sw = cfg.sweep
     if make_plots:
         raise NotImplementedError(
             "plots (the noising diagnostics, pairplots and convergence "
             "plots): ROADMAP Queue 1 item 13; run with make_plots=False "
             "(--no-plots)")
-    if sw.eval_nll:
-        raise NotImplementedError("eval_nll: ROADMAP Queue 1 item 10")
-    if sw.sampler != "sde":
-        raise NotImplementedError(
-            f"sampler={sw.sampler!r}: ROADMAP Queue 1 item 10 (samplers)")
     if cfg.data.datatype != "grf":
         raise NotImplementedError(
             f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 items 6, 13")
@@ -438,16 +439,22 @@ class ExperimentDriver:
                 os.path.join(folder_results,
                              name_root + "_checkpoint_final"),
                 state, key_train, iterations - 1, trainer.optimizer)
+            if sw.eval_nll:
+                self._eval_nll(gen, xtest, key_train, name_root)
+        elif sw.eval_nll:
+            self.log("eval_nll skipped: --just-load restores saved samples, "
+                     "not a trained model")
 
         # reverse-sampling sweep (reference MSGM_higherDim.py:852-916)
         x_train_for_mmd = sampler.sample(fold_in(key_sample, 777),
                                          sw.num_samples)
+        eff_sampler, eff_method = self._effective_sampler(gen)
         for i_steps, num_steps_backward in enumerate(sw.num_stepss_backward):
             self.log(f"Generation : num_steps_backward = {num_steps_backward}")
             for i_run in range(sw.nruns_mmd):
                 name_simu = simulation_name(
                     folder_results, name_root, tc.t_eps, num_steps_backward,
-                    sw.include_t0_reverse, i_run, method=sw.backward_method)
+                    sw.include_t0_reverse, i_run, method=eff_method)
                 if i_run > 0:  # runs/<sampler>/ under the cwd, as in JAX
                     os.makedirs(os.path.join("runs", sampler.name),
                                 exist_ok=True)
@@ -458,11 +465,11 @@ class ExperimentDriver:
                     t0 = time.perf_counter()
                     xs = generate(
                         gen, k_run, sw.num_samples, dim, num_steps_backward,
-                        sw.backward_method, sw.include_t0_reverse,
+                        eff_method, sw.include_t0_reverse,
                         bool(gen.base_sde.norm_correction),
-                        sampler=sw.sampler,
+                        sampler=eff_sampler,
                         corrector_steps=sw.corrector_steps, snr=sw.snr,
-                        device=self.device)
+                        dpm_grid=sw.dpm_grid, device=self.device)
                     _sync(self.device)
                     self.log(f"generated {tuple(xs.shape)} in "
                              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
@@ -481,6 +488,43 @@ class ExperimentDriver:
                     arrays["swd_ref"][idx] = out["swd_ref"]
                     arrays[f"mmd_{arm}"][idx] = out["mmd"]
                     arrays[f"swd_{arm}"][idx] = out["swd"]
+
+    def _effective_sampler(self, gen):
+        """(sampler, method) that an arm's runs take: under "dpm" a method
+        name that is not a dpm one becomes dpm2m, and an arm without a
+        closed-form kernel (MSGM) falls back, logged, to the SDE with RK4
+        (sdeflow_tpu/experiments/driver.py:547-560), so that names and
+        logs carry the method that runs."""
+        sw = self.cfg.sweep
+        eff_sampler, eff_method = sw.sampler, sw.backward_method
+        if eff_sampler == "dpm":
+            if not eff_method.startswith(("dpm", "sdpm")):
+                eff_method = "dpm2m"
+            if not hasattr(gen.base_sde, "mean_weight"):
+                eff_sampler, eff_method = "sde", "rk4"
+                self.log(f"sampler 'dpm' needs a closed-form forward kernel; "
+                         f"{gen.base_sde.name} arm falls back to sampler "
+                         f"'{eff_sampler}' / method '{eff_method}'")
+        return eff_sampler, eff_method
+
+    def _eval_nll(self, gen, xtest, generator, name_root):
+        """The exact NLL (bits/dim) of a trained arm by the PF-ODE
+        likelihood with the normalized latent prior (``nll_summary``), its
+        probes from ``fold_in(generator, 999)``; every arm's entry so far
+        written to ``nll_bits_per_dim.json``
+        (sdeflow_tpu/experiments/driver.py:629-653)."""
+        entry = nll_summary(gen, xtest, fold_in(generator, 999),
+                            num_steps=self.cfg.sweep.nll_steps)
+        self.nll_results[name_root] = entry
+        if entry["mean"] is None:
+            self.log("NLL: no finite log-density (diverged arm?)")
+        else:
+            self.log(f"NLL = {entry['mean']:.4f} ± {entry['stderr']:.4f} "
+                     f"bits/dim (exact PF-ODE likelihood, {entry['n']} test "
+                     "points)")
+        path = os.path.join(self.cfg.results_dir, "nll_bits_per_dim.json")
+        with open(path, "w") as f:
+            json.dump(self.nll_results, f, indent=1)
 
     def _mmd_path(self, folder, arm, metric="MMD"):
         """The metric result-array file names (reference:

@@ -76,6 +76,29 @@ def _norm_project(x, norm0):
     return x * (norm0 / torch.clamp(n, min=1e-12))
 
 
+class Trajectory:
+    """The states a solve keeps: with keep_all the (S, B, d) trajectory,
+    S = num_steps (+1 with include_t0, x0 first), written state by state
+    into one preallocated tensor (it is held once); else the last state."""
+
+    def __init__(self, x0, num_steps, keep_all, include_t0):
+        self.first = 1 if include_t0 else 0
+        self.last, self.traj = x0, None
+        if keep_all:
+            self.traj = x0.new_empty((num_steps + self.first, *x0.shape))
+            if include_t0:
+                self.traj[0] = x0
+
+    def keep(self, i, x):
+        """Record the state after step i."""
+        self.last = x
+        if self.traj is not None:
+            self.traj[self.first + i] = x
+
+    def result(self):
+        return self.last if self.traj is None else self.traj
+
+
 def langevin_corrector(flow, x, generator, t, num_corrector, *, snr=0.16,
                        norm0=None, noise=None):
     """`num_corrector` preconditioned Langevin steps at the frozen reverse
@@ -129,8 +152,7 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     drawn from ``fold_in(generator, num_steps + 1 + i)`` folded again by
     the corrector step (the JAX package's keys).
     keep_all returns the trajectory (S, B, d), S = num_steps (+1 with
-    include_t0), written state by state into one preallocated tensor (it
-    is held once). Times are Python numbers: t = i·δ.
+    include_t0; ``Trajectory``). Times are Python numbers: t = i·δ.
     """
     step_fn = _resolve_step_fn(flow, method)
     delta = float(flow.T) / num_steps
@@ -144,11 +166,7 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)
     x = x0
-    first = 1 if include_t0 else 0
-    if keep_all:
-        traj = x0.new_empty((num_steps + first, *x0.shape))
-        if include_t0:
-            traj[0] = x0
+    out = Trajectory(x0, num_steps, keep_all, include_t0)
     for i in range(num_steps):
         z = noise[i] if noise is not None else torch.randn(
             x.shape, generator=generator, device=x.device, dtype=x.dtype)
@@ -163,9 +181,8 @@ def integrate_sde(flow, x0, generator, num_steps, *, method="rk4", lmbd=0.0,
                 (i + 1) * delta, corrector_steps, snr=snr, norm0=norm0,
                 noise=(None if corrector_noise is None
                        else corrector_noise[i]))
-        if keep_all:
-            traj[first + i] = x
-    return traj if keep_all else x
+        out.keep(i, x)
+    return out.result()
 
 
 def integrate_select(flow, x0, generator, num_steps, select_idx, *,

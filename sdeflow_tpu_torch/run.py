@@ -3,6 +3,7 @@
     python -m sdeflow_tpu_torch.run --preset grf16 --eval-mmd --no-plots
     python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --no-plots --eval-mmd
     python -m sdeflow_tpu_torch.run --preset grf16_production --no-plots
+    python -m sdeflow_tpu_torch.run --preset grf16 --sampler ode --eval-nll --no-plots
 
 Port of sdeflow_tpu/run.py:15-252. It runs on CUDA unless given --cpu,
 and raises when no CUDA device is present instead of falling back to the
@@ -125,9 +126,6 @@ def _unported(args):
     """The first flag that needs an unported part, as (flag, Queue 1
     item), or None."""
     checks = [
-        (args.eval_nll, "--eval-nll", "10 (exact NLL)"),
-        (args.sampler in ("ode", "dpm"), f"--sampler {args.sampler}",
-         "10 (samplers)"),
         (args.dp > 1 or args.tp > 1, "--dp/--tp > 1", "14 (parallel)"),
         (args.attention_impl == "ring", "--attention-impl ring",
          "14 (parallel)"),
@@ -189,6 +187,8 @@ def main(argv=None):
         sweep = replace(sweep, snr=args.snr)
     if args.eval_mmd:
         sweep = replace(sweep, eval_mmd=True)
+    if args.eval_nll:
+        sweep = replace(sweep, eval_nll=True)
     train = cfg.train
     for flag, field in (("grad_clip", "grad_clip"),
                         ("weight_decay", "weight_decay"),
@@ -220,6 +220,13 @@ def main(argv=None):
               np.sqrt(np.maximum(results["mmd_msgm"], 0)).mean())
         print("sqrt-MMD floor:",
               np.sqrt(np.maximum(results["mmd_ref"], 0)).mean())
+    if args.eval_nll and results.get("nll_bits_per_dim"):
+        for arm, v in results["nll_bits_per_dim"].items():
+            if v["mean"] is None:
+                print(f"NLL bits/dim [{arm}]: no finite value")
+            else:
+                print(f"NLL bits/dim [{arm}]: {v['mean']:.4f} ± "
+                      f"{v['stderr']:.4f}")
     return results
 
 

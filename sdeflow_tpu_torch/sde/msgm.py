@@ -4,9 +4,10 @@ Port of sdeflow_tpu/sde/msgm.py: the circulant G (its action is kernel
 K1, one whole forward RK4 step kernel K2, the whole forward solve of the
 training loss one launch of K2's solve, ops/kernels/circulant.py), the
 forward perturbation of the training loss (sde/base.py), the ecdf radial
-latent prior with the optional log map of the radii, the conditional latent
-and the KDE log density of the ELBO. The dense G and the KDE radius sampler
-come with ROADMAP Queue 1 item 2.
+latent prior with the optional log map of the radii, the conditional latent,
+the KDE log density of the ELBO and the normalized latent density of the
+exact likelihood (``log_latent_pdf_exact``). The dense G and the KDE radius
+sampler come with ROADMAP Queue 1 item 2.
 
 Sign convention (as in the JAX package): the Itô drift is f = β(t)·L_G·y with
 L_G = −½I for the circulant G, so f = −½β(t)y.
@@ -190,3 +191,23 @@ class MSGMSde(SDEBehavior):
         r = torch.linalg.vector_norm(yT, dim=1)
         return (gaussian_kde_logpdf(r, self.r_T, self.kde_bandwidth)
                 - self.cst_log_dens)
+
+    def log_latent_pdf_exact(self, yT):
+        """The normalized log density of the latent law x = r·s
+        (sdeflow_tpu/sde/msgm.py:277-314): p(x) = p_r(‖x‖) /
+        (S_{d−1}·‖x‖^{d−1}), S_{d−1} = 2π^{d/2}/Γ(d/2), with, under the log
+        map (u = log(r + ε) KDE-distributed), p_r(r) = p_u(log(r + ε))/(r +
+        ε). It integrates to 1 over R^d, so ``eval/nll.exact_logp`` gives a
+        true likelihood; with norm_map None it ignores the KDE's mass below
+        radius 0. Returns (B,)."""
+        d = float(self.dim)
+        r = torch.linalg.vector_norm(yT, dim=1)
+        if self.norm_map == "log":
+            u = torch.log(r + _LOG_EPS)
+            log_pr = gaussian_kde_logpdf(u, self.r_T, self.kde_bandwidth) - u
+        else:
+            log_pr = gaussian_kde_logpdf(r, self.r_T, self.kde_bandwidth)
+        half_d = torch.tensor(0.5 * d, dtype=r.dtype, device=r.device)
+        log_sphere_area = (math.log(2.0) + half_d * math.log(math.pi)
+                           - torch.lgamma(half_d))
+        return log_pr - log_sphere_area - (d - 1.0) * torch.log(r)

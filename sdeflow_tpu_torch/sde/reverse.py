@@ -11,8 +11,8 @@ matching (``dsm``, SGM) is reverse mode only. Every draw (t, the forward
 solve's normals or the closed-form kernel's ε, the probe v, the
 conditional latent's normal) can be injected, so that a test can replay the
 JAX package's keys. ``mu_ode`` is the probability-flow ODE's drift (its
-integrators come with ROADMAP Queue 1 item 10); ``corrector_drift`` and
-``corrector_noise`` serve the Langevin corrector of
+integrators: ops/ode.py; its likelihood: eval/nll.py); ``corrector_drift``
+and ``corrector_noise`` serve the Langevin corrector of
 ``ops/integrators.langevin_corrector``.
 
 Under a bf16 compute dtype the score net takes the fp32 state and returns

@@ -8,9 +8,6 @@ from sdeflow_tpu_torch import run
 
 
 UNPORTED = [
-    (["--eval-nll"], "item 10"),
-    (["--sampler", "ode"], "item 10"),
-    (["--sampler", "dpm"], "item 10"),
     (["--dp", "2"], "item 14"),
     (["--tp", "2"], "item 14"),
     (["--attention-impl", "ring"], "item 14"),

@@ -216,8 +216,16 @@ def test_sampler_draws_its_own_latents_and_noise(pair):
     assert traj.shape == (3, 3, D) and torch.isfinite(traj).all()
     torch.testing.assert_close(traj[-1].norm(dim=1), traj[0].norm(dim=1),
                                rtol=1e-5, atol=0)
-    with pytest.raises(NotImplementedError):
-        make_sampler_fn(tgen, 3, D, 2, sampler="ode", device="cpu")
+    # the PF-ODE sampler draws only its latents (ported since it raised)
+    ode = make_sampler_fn(tgen, 3, D, 2, sampler="ode",
+                          norm_correction=True, device="cpu")
+    x = ode(torch.Generator().manual_seed(0))
+    torch.testing.assert_close(x, ode(torch.Generator().manual_seed(0)),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(x.norm(dim=1), traj[0].norm(dim=1),
+                               rtol=1e-5, atol=0)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        make_sampler_fn(tgen, 3, D, 2, sampler="pf", device="cpu")
 
 
 def test_grf16_preset_and_arm_match_jax():
