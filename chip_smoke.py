@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--record PATH]
                           [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16|
-                                  samplers]
+                                  samplers|core_dit]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -23,7 +23,11 @@ on the unfused route: the grf U-Net at 128×128 in bf16 trained by DSM and
 served (the bf16 variants of K6, K4, K7a and K7b), and grf16_production
 through the CLI on ``--attention-impl unfused`` (bf16 K6); and the CLI's
 probability-flow ODE and DPM-Solver samplers and exact NLL on grf16 (K1,
-K3 and K5 in every drift evaluation and every JVP of the likelihood). It
+K3 and K5 in every drift evaluation and every JVP of the likelihood); and
+the DiT score nets on grf16 through the CLI (grf16_dit in fp32,
+grf16_production_dit in bf16: K1 and K2's solve on the MSGM arm, the DiT
+itself plain products) and the core MLP path (swissroll, gaussian,
+gaussianCauchy and cauchy with a dense G: no kernel). It
 holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
@@ -266,13 +270,35 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    MSGM's logged fallback to the SDE with RK4; then a dopri solve
    (rtol = atol = 1e-5) of 256 samples on each trained arm of the ODE run,
    finite (MSGM's norms kept), its NFE, steps and time, with exactly
-   11·NFE K3 and 35·NFE K5 launches (and NFE K1 on MSGM).
+   11·NFE K3 and 35·NFE K5 launches (and NFE K1 on MSGM);
+27. the DiT score nets and the core MLP path (``--only core_dit``), every
+   kernel count set to 0 just before each CLI run and read just after:
+   ``run.main`` on grf16_dit (phase 20's reduction, fp32, RK4-32) and on
+   grf16_production_dit (phase 22's, bf16, EMA, eps on SGM, EM-32 plus one
+   corrector step): the runs launch K1 and K2's solve and nothing else;
+   each arm's 8 bare SSM steps timed with their peak memory, exactly 5 K1
+   and 1 K2 solve (MSGM) or none (SGM) each, finite losses, moving
+   parameters (bf16: the DiT computing in bf16, parameters, Adam moments
+   and EMA fp32); each arm's request a finite (33, 1024, 256) trajectory
+   timed (ms, samples/s, peak), exactly 8·32 K1 (RK4) or 4·32 (PC) on
+   MSGM and none on SGM, MSGM's norms kept to rtol 1e-5, the corrector's
+   step size ε > 0 on a step of each arm; the MSGM request replayed on
+   the plain path from the same generator state (fp32 within 1e-3·max
+   |x|; bf16 by phase 22's gates, with the same request in fp32); finite
+   metrics; a traced MSGM SSM step at batch 128 and a traced 2-step
+   request per preset. Then the core path: swissroll SGM by the Trainer
+   at the JAX package's end-to-end budget (MLP, 3,000 steps at batch 256,
+   EM-100 on 4,000 samples, √MMD < 0.15 beside the floor), its MSGM
+   GaussianCauchy run with a dense G (300 steps at batch 64, RK4-32
+   norm-corrected, norms to rtol 1e-4), and the CLI on swissroll,
+   gaussian (d = 2 … 32, a dense G of 32³) and cauchy at 300 iterations
+   with --eval-mmd, each launching no kernel.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
 K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
 launches in the production run and those of K6, K4, K7a, K7b with their
 launches in phases 24 and 25, each with its launches in the driver's
-run and in phase 26's two runs: per
+run, in phase 26's two runs and in phase 27's two DiT runs: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
@@ -294,7 +320,7 @@ that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
 (128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
 (128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
 24's batch-16 request with its trace (``attn_bf16_timing``); samplers
-phase 26.
+phase 26; core_dit phase 27.
 """
 
 from __future__ import annotations
@@ -3970,6 +3996,415 @@ def check_samplers(g, dev, card, sde_request_ms=None):
     return rec
 
 
+# phase 27: the core MLP path and the DiT score nets. (a) grf16_dit through
+# the CLI at phase 20's reduction (fp32, RK4-32), (b) grf16_production_dit
+# at phase 22's (bf16, EMA 0.999, eps on SGM, EM-32 plus one corrector
+# step); the DiT reaches no kernel, so the MSGM arm's K1 and K2's solve are
+# the path's only launches
+DIT_ARGS = ["--preset", "grf16_dit", "--iterations", str(DRIVER_ITERATIONS),
+            "--num-samples", str(N_SAMPLES), "--steps-backward", str(STEPS),
+            "--eval-mmd", "--no-plots"]
+DIT_PROD_ARGS = ["--preset", "grf16_production_dit", "--iterations",
+                 str(DRIVER_ITERATIONS), "--num-samples", str(N_SAMPLES),
+                 "--eval-mmd", "--no-plots"]
+DIT_KERNELS = ("circulant_apply", "circulant_rk4_solve")
+# K1 per step of a request: RK4 8 (four stages, the drift's g·a and the
+# noise each), a PC step 4 (EM's drift and noise, the corrector's)
+DIT_K1_PER_RK4, DIT_K1_PER_PC = K1_PER_STEP, 4
+# (c) the JAX package's end-to-end runs (tests/test_train_e2e.py:29-89):
+# swissroll SGM, MLP, 3,000 steps at batch 256, EM-100 on 4,000 samples,
+# √MMD < 0.15; MSGM on GaussianCauchy with a dense G, 300 steps at batch
+# 64, 8 forward steps, RK4-32 norm-corrected on 512 samples
+E2E_STEPS, E2E_BATCH, E2E_EM, E2E_N, E2E_SQRT_MMD = 3000, 256, 100, 4000, 0.15
+GC_STEPS, GC_BATCH, GC_FORWARD, GC_RK4, GC_N = 300, 64, 8, 32, 512
+# the CLI on the toy presets, reduced to a few hundred iterations
+CORE_CLI_PRESETS, CORE_CLI_ITERATIONS = ("swissroll", "gaussian",
+                                         "cauchy"), 300
+
+
+def dit_step_want(is_msgm):
+    """Launches per bare SSM step of a DiT arm: MSGM's forward solve (K2's
+    solve) and its K1 (the one-step fallback's four, the loss field's
+    one); nothing on SGM."""
+    want = {k: 0 for k in launch_counts()}
+    if is_msgm:
+        want.update(circulant_apply=K1_PER_TRAIN,
+                    circulant_rk4_solve=K2_SOLVE_PER_TRAIN)
+    return want
+
+
+def dit_cli_run(g, dev, card, args, bf16):
+    """``sdeflow_tpu_torch.run.main`` with args (grf16_dit or
+    grf16_production_dit) in a temporary cwd and results directory, every
+    kernel count set to 0 just before and read just after: each arm's
+    bare SSM steps with their launches (dit_step_want), finite losses,
+    moving parameters (bf16: the net computing in bf16, parameters, Adam
+    moments and EMA fp32), each arm's request with its K1 launches and
+    norms (bf16: the corrector's step sizes), the MSGM request replayed on
+    the plain path (fp32: within 1e-3·max |x|; bf16: phase 22's gates),
+    and the metrics."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops import integrators
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    rec = {"card": card, "args": args}
+    steps, gens, scores, corr = [], [], [], []
+    orig_corrector = integrators.langevin_corrector
+
+    def corrector(*a, **k):
+        out = orig_corrector(*a, **k)
+        corr.append(out[1])
+        return out
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with counted_steps(steps), spied(drv, "generate", gens), \
+                    spied(drv, "score_samples", scores), \
+                    swapped([(integrators, "langevin_corrector",
+                              corrector)]):
+                common.reset_launches()
+                t0 = time.perf_counter()
+                results = run_mod.main(
+                    [*args, "--results-dir", os.path.join(tmp, "results")])
+                torch.cuda.synchronize()
+                rec["driver_s"] = time.perf_counter() - t0
+                rec["launches"] = launch_counts()
+        finally:
+            os.chdir(cwd)
+    what = "grf16_production_dit" if bf16 else "grf16_dit"
+    log(f"{what} run: {rec['driver_s']:.1f} s, launches {rec['launches']}")
+    others = {k: n for k, n in rec["launches"].items()
+              if n and k not in DIT_KERNELS}
+    missing = [k for k in DIT_KERNELS if not rec["launches"][k]]
+    if missing or others:
+        raise AssertionError(f"{what}: never launched {missing}; launched "
+                             f"{others} (the DiT reaches no kernel)")
+
+    # training: both arms, their bare steps and launches
+    arms = {"SGM": "SGM", "MSGM": "MSGM_sparseTenslogNorm"}
+    rec["train"] = {}
+    for arm, sde_name in arms.items():
+        mine = [r for r in steps if r["arm"] == sde_name]
+        want = dit_step_want(arm == "MSGM")
+        if len(mine) != DRIVER_ITERATIONS:
+            raise AssertionError(f"{arm}: {len(mine)} train steps")
+        bad = [r["launches"] for r in mine if r["launches"] != want]
+        if bad:
+            raise AssertionError(f"{arm} step launches {bad[0]} != {want}")
+        losses = torch.stack([r["loss"] for r in mine])
+        state, opt = mine[-1]["state"], mine[-1]["optimizer"]
+        moved = max((p.detach() - q).abs().max().item() for p, q in zip(
+            state.params.values(), mine[0]["params_before"]))
+        net = state.gen_sde.score_net
+        dtypes = {str(t.dtype) for t in (
+            *state.params.values(),
+            *(state.ema_params.values() if bf16 else ()),
+            *(v for st in opt.state.values() for v in st.values()
+              if isinstance(v, torch.Tensor) and v.ndim))}
+        want_dt = torch.bfloat16 if bf16 else torch.float32
+        if not (torch.isfinite(losses).all() and moved > 0
+                and dtypes == {"torch.float32"}
+                and type(net).__name__ == "DiT2D"
+                and net.block0.qkv.compute_dtype == want_dt):
+            raise AssertionError(f"{arm}: losses {losses}, moved {moved}, "
+                                 f"dtypes {dtypes}, net {type(net)}")
+        ms = [r["ms"] for r in mine]
+        rec["train"][arm] = dict(
+            ms_per_step=ms, ms_per_step_after_first=sum(ms[1:]) / len(ms[1:]),
+            max_memory_allocated=max(r["peak"] for r in mine),
+            launches_per_step=mine[-1]["launches"], losses=losses.tolist(),
+            param_moved=moved, state_dtypes=sorted(dtypes))
+        log(f"{card}: {what} {arm} bare SSM steps at batch {TRAIN_BATCH}: "
+            f"{rec['train'][arm]['ms_per_step_after_first']:.1f} ms/step "
+            f"(steps 2-{DRIVER_ITERATIONS}; the first {ms[0]:.1f} ms), peak "
+            f"{rec['train'][arm]['max_memory_allocated'] / 2**20:.1f} MiB, "
+            f"launches {dict((k, v) for k, v in want.items() if v)}")
+
+    # generation: one request per arm
+    n_steps = PROD_STEPS if bf16 else STEPS
+    k1_per = DIT_K1_PER_PC if bf16 else DIT_K1_PER_RK4
+    if len(gens) != 2 or (bf16 and len(corr) != 2 * PROD_STEPS):
+        raise AssertionError(f"{len(gens)} generation runs, {len(corr)} "
+                             "corrector calls")
+    rec["generate"] = {}
+    for i, ((arm, is_msgm), r) in enumerate(zip(
+            (("SGM", False), ("MSGM", True)), gens)):
+        xs = r["out"]
+        if tuple(xs.shape) != (n_steps + 1, N_SAMPLES, DIM) or \
+                not torch.isfinite(xs).all():
+            raise AssertionError(f"{arm}: trajectory {tuple(xs.shape)}")
+        want = dict(dit_step_want(False),
+                    circulant_apply=k1_per * n_steps if is_msgm else 0)
+        if r["launches"] != want:
+            raise AssertionError(f"{arm} request launches {r['launches']} "
+                                 f"!= {want}")
+        norms = xs.norm(dim=2)
+        kept = bool(torch.allclose(norms, norms[0].expand_as(norms),
+                                   rtol=1e-5, atol=0))
+        if kept is not is_msgm:
+            raise AssertionError(f"{arm}: norms kept = {kept}")
+        out = dict(ms=r["ms"], event_ms=r["event_ms"],
+                   samples_per_s=N_SAMPLES / r["ms"] * 1e3,
+                   launches=r["launches"], peak=r["peak"], norms_kept=kept)
+        if bf16:
+            eps = torch.cat(corr[i * PROD_STEPS:(i + 1) * PROD_STEPS]).tolist()
+            stepped = sum(e > 0 for e in eps)
+            if not (stepped and all(math.isfinite(e) for e in eps)):
+                raise AssertionError(f"{arm}: corrector step sizes {eps}")
+            out.update(corrector_eps=eps, corrector_steps_taken=stepped)
+        rec["generate"][arm] = out
+        log(f"{card}: {what} {arm} request of {N_SAMPLES} samples x "
+            f"{n_steps} {'EM + 1 corrector' if bf16 else 'RK4'} steps "
+            f"(trajectory kept): {r['ms']:.1f} ms (CUDA events "
+            f"{r['event_ms']:.1f}), {out['samples_per_s']:.1f} samples/s, "
+            f"peak {r['peak'] / 2**20:.1f} MiB, K1 "
+            f"{r['launches']['circulant_apply']}, norms kept {kept}")
+
+    # the MSGM request replayed on the plain path (K1's plain version)
+    r = gens[1]
+
+    def rerun(fp32=False):
+        net = r["args"][0].score_net
+        saved = {m: m.compute_dtype for m in net.modules()
+                 if hasattr(m, "compute_dtype")}
+        try:
+            for m in saved:
+                m.compute_dtype = torch.float32 if fp32 else saved[m]
+            out, launches, ms = replayed(r, drv.generate)
+        finally:
+            for m, dt in saved.items():
+                m.compute_dtype = dt
+        if any(launches.values()):
+            raise AssertionError(f"plain replay launched {launches}")
+        return out, ms
+
+    xp, plain_ms = rerun()
+    rep = replay_errs(r["out"], xp, filter_blowups)
+    rec["generate"]["MSGM"].update(plain_replay=rep, plain_ms=plain_ms)
+    if bf16:
+        x32, _ = rerun(fp32=True)
+        own = replay_errs(xp, x32, filter_blowups)
+        kf = replay_errs(r["out"], x32, filter_blowups)
+        rec["generate"]["MSGM"].update(bf16_against_fp32=own,
+                                       kernel_against_fp32=kf)
+        replay_gates(f"MSGM {what} request", rep, own, kf)
+    else:
+        log(f"MSGM {what} request replayed plain ({plain_ms:.1f} ms): max "
+            f"|kernel - plain| {rep['max_abs_err_all']:.3g} against max |x| "
+            f"{rep['max_abs_x']:.3g} (tolerance 1e-3·max |x|)")
+        if not rep["max_abs_err_all"] <= 1e-3 * rep["max_abs_x"]:
+            raise AssertionError(f"{what}: kernel and plain disagree")
+
+    # the metrics
+    for k in drv.METRICS:
+        if results[k].shape != (1, 1, 1, 1, 1) or \
+                not np.isfinite(results[k]).all():
+            raise AssertionError(f"results[{k!r}] = {results[k]}")
+    rec["metrics"] = {}
+    for arm, c in zip(("SGM", "MSGM"), scores):
+        o = c["out"]
+        rec["metrics"][arm] = dict(sqrt_mmd=o["mmd"] ** 0.5, swd=o["swd"],
+                                   sqrt_mmd_floor=o["mmd_ref"] ** 0.5,
+                                   nan_count=o["nan_count"])
+        log(f"{card}: {what} {arm}: sqrt-MMD {o['mmd'] ** 0.5:.5f}, SWD "
+            f"{o['swd']:.5f} (floor {o['mmd_ref'] ** 0.5:.5f}, "
+            f"{o['nan_count']} rows dropped)")
+    return rec
+
+
+def dit_traces(preset, g, dev):
+    """Where a DiT MSGM arm's time goes (random weights): a traced bare SSM
+    step at batch 128 (the driver's Trainer) and a traced 2-step request of
+    1,024 samples with the preset's sampler."""
+    from sdeflow_tpu_torch import build_msgm_arm, get_preset, make_sampler_fn
+    from sdeflow_tpu_torch.experiments import driver as drv
+
+    cfg = get_preset(preset)
+    sw = cfg.sweep
+    model, gen = build_msgm_arm(cfg, g, device=dev)
+    randomize_(model, g)
+    sampler = drv.make_sampler(cfg, DIM, device=dev)
+    trainer = drv.make_trainer(cfg, gen, sampler, TRAIN_BATCH, log_fn=log)
+    rec = {"ssm_step": trace(lambda: trainer.train_step(
+        trainer.state, g, sampler.sample(g, TRAIN_BATCH)))}
+    log_trace(f"one {preset} MSGM SSM step at batch {TRAIN_BATCH}",
+              rec["ssm_step"])
+    fn = make_sampler_fn(gen, N_SAMPLES, DIM, PROFILED_STEPS,
+                         method=sw.backward_method, norm_correction=True,
+                         corrector_steps=sw.corrector_steps, snr=sw.snr,
+                         device=dev)
+    rec["request"] = dict(trace(lambda: fn(g)), steps=PROFILED_STEPS)
+    log_trace(f"{PROFILED_STEPS} {sw.backward_method} steps of a {preset} "
+              f"MSGM request of {N_SAMPLES} samples", rec["request"])
+    return rec
+
+
+def core_path(g, dev, card):
+    """(c) The core MLP path: the JAX package's swissroll SGM run and its
+    MSGM GaussianCauchy run with a dense G through the Trainer, and the CLI
+    on swissroll, gaussian (d = 2 … 32) and cauchy; none launches a kernel
+    (K1 and K2 never see a dense G)."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.data import GaussianCauchy, SwissRoll
+    from sdeflow_tpu_torch.eval import compute_mmd
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.models import MLP
+    from sdeflow_tpu_torch.ops.integrators import integrate_sde
+    from sdeflow_tpu_torch.ops.kernels import common
+    from sdeflow_tpu_torch.ops.rng import fold_in
+    from sdeflow_tpu_torch.sde import MSGMSde, PluginReverseSDE, SGMSde
+    from sdeflow_tpu_torch.training import Trainer
+
+    rec = {}
+
+    def no_launch(what):
+        if any(launch_counts().values()):
+            raise AssertionError(f"{what} launched {launch_counts()}")
+
+    def timed_run(trainer, gen_, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.run(gen_, steps)
+        torch.cuda.synchronize()
+        return state, loss, (time.perf_counter() - t0) * 1e3 / steps
+
+    # swissroll SGM: the JAX e2e budget and gate
+    common.reset_launches()
+    sampler = SwissRoll(device=dev)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = MLP(input_dim=2).to(dev)
+    gen = PluginReverseSDE.create(SGMSde.create(num_steps_forward=16,
+                                                device=dev), net)
+    trainer = Trainer(gen, sampler, lr=1e-3, batch_size=E2E_BATCH,
+                      print_every=10_000, log_fn=log)
+    state, loss, ms = timed_run(trainer, fold_in(g, 1), E2E_STEPS)
+    with torch.no_grad():
+        x0 = state.gen_sde.latent_sample(fold_in(g, 2), E2E_N, 2)
+        t0 = time.perf_counter()
+        xgen = integrate_sde(state.gen_sde, x0, fold_in(g, 3), E2E_EM,
+                             method="em")
+        torch.cuda.synchronize()
+        em_ms = (time.perf_counter() - t0) * 1e3
+    xtest = sampler.sampletest(fold_in(g, 4), E2E_N)
+    xtrain = sampler.sample(fold_in(g, 5), E2E_N)
+    sq = float(compute_mmd(xgen, xtest)) ** 0.5
+    floor = float(compute_mmd(xtrain, xtest)) ** 0.5
+    no_launch("the swissroll SGM run")
+    first = trainer.history[0]["loss"]
+    rec["swissroll_sgm"] = dict(ms_per_step=ms, em_ms=em_ms, sqrt_mmd=sq,
+                                sqrt_mmd_floor=floor, first_loss=first,
+                                last_loss=loss)
+    log(f"{card}: swissroll SGM (MLP) {E2E_STEPS} steps at batch "
+        f"{E2E_BATCH}: {ms:.2f} ms/step, loss {first:.3f} -> {loss:.3f}; "
+        f"EM-{E2E_EM} of {E2E_N} samples {em_ms:.1f} ms; sqrt-MMD {sq:.4f} "
+        f"(gate < {E2E_SQRT_MMD}), floor {floor:.4f}")
+    if not (np.isfinite(sq) and sq < E2E_SQRT_MMD
+            and (first > loss + 1.0 or loss < 2.0)):
+        raise AssertionError(f"swissroll SGM: sqrt-MMD {sq}, loss {first} "
+                             f"-> {loss}")
+
+    # MSGM on GaussianCauchy with a dense G
+    common.reset_launches()
+    sampler = GaussianCauchy(fold_in(g, 10), dim=2)
+    x_init = sampler.sample(fold_in(g, 11), 2048)
+    sde = MSGMSde.create(x_init, generator=fold_in(g, 12), beta_max=2.0,
+                         num_steps_forward=GC_FORWARD, norm_map="log")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        net = MLP(input_dim=2, premodule="NormalizeLogRadius").to(dev)
+    trainer = Trainer(PluginReverseSDE.create(sde, net), sampler, lr=1e-3,
+                      batch_size=GC_BATCH, print_every=10_000, log_fn=log)
+    state, loss, ms = timed_run(trainer, fold_in(g, 13), GC_STEPS)
+    with torch.no_grad():
+        x0 = state.gen_sde.latent_sample(fold_in(g, 14), GC_N, 2)
+        xgen = integrate_sde(state.gen_sde, x0, fold_in(g, 15), GC_RK4,
+                             method="rk4", norm_correction=True)
+    no_launch("the GaussianCauchy MSGM run")
+    rel = ((xgen.norm(dim=1) - x0.norm(dim=1)).abs()
+           / x0.norm(dim=1)).max().item()
+    rec["gaussian_cauchy_msgm"] = dict(ms_per_step=ms, last_loss=loss,
+                                       max_norm_rel_err=rel,
+                                       G_shape=list(sde.G.shape))
+    log(f"{card}: GaussianCauchy MSGM (dense G {tuple(sde.G.shape)}, MLP) "
+        f"{GC_STEPS} steps at batch {GC_BATCH}: {ms:.2f} ms/step, last loss "
+        f"{loss:.3f}; RK4-{GC_RK4} norm-corrected: max relative norm error "
+        f"{rel:.3g} (rtol 1e-4)")
+    if not (math.isfinite(loss) and torch.isfinite(xgen).all()
+            and rel <= 1e-4 and sde.G is not None):
+        raise AssertionError(f"GaussianCauchy MSGM: loss {loss}, norm error "
+                             f"{rel}")
+
+    # the CLI on the toy presets
+    rec["cli"] = {}
+    for preset in CORE_CLI_PRESETS:
+        builds = []
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                with spied(drv, "build_msgm_arm", builds):
+                    common.reset_launches()
+                    t0 = time.perf_counter()
+                    res = run_mod.main([
+                        "--preset", preset, "--iterations",
+                        str(CORE_CLI_ITERATIONS), "--eval-mmd", "--no-plots",
+                        "--results-dir", os.path.join(tmp, "results")])
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+        no_launch(f"the {preset} CLI run")
+        dims = res["dims"]
+        G = [list(b["out"][1].base_sde.G.shape) for b in builds]
+        if G != [[d] * 3 for d in dims]:
+            raise AssertionError(f"{preset}: dense G {G} for dims {dims}")
+        sq = {k: np.sqrt(np.maximum(res[k], 0)).ravel().tolist()
+              for k in ("mmd_sgm", "mmd_msgm", "mmd_ref")}
+        if not all(np.isfinite(v).all() for v in sq.values()):
+            raise AssertionError(f"{preset}: sqrt-MMD {sq}")
+        rec["cli"][preset] = dict(seconds=seconds, dims=dims, G=G,
+                                  sqrt_mmd=sq)
+        log(f"{card}: CLI {preset} --iterations {CORE_CLI_ITERATIONS}: "
+            f"{seconds:.1f} s, dims {dims}, dense G {G}; sqrt-MMD SGM "
+            f"{[round(v, 4) for v in sq['mmd_sgm']]}, MSGM "
+            f"{[round(v, 4) for v in sq['mmd_msgm']]}, floor "
+            f"{[round(v, 4) for v in sq['mmd_ref']]}")
+    return rec
+
+
+def check_core_dit(g, dev, card):
+    """Phase 27: grf16_dit (fp32) and grf16_production_dit (bf16) through
+    the CLI with their checks and traces; then the core MLP path."""
+    t0 = time.perf_counter()
+    rec = {"card": card}
+    rec["dit"] = dit_cli_run(g, dev, card, DIT_ARGS, bf16=False)
+    rec["dit_traces"] = dit_traces("grf16_dit", g, dev)
+    rec["dit_production"] = dit_cli_run(g, dev, card, DIT_PROD_ARGS,
+                                        bf16=True)
+    rec["dit_production_traces"] = dit_traces("grf16_production_dit", g, dev)
+    rec["launches"] = {k: rec["dit"]["launches"][k]
+                       + rec["dit_production"]["launches"][k]
+                       for k in rec["dit"]["launches"]}
+    rec["core"] = core_path(g, dev, card)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 27: {rec['seconds']:.1f} s, launches in the two DiT runs "
+        f"{dict((k, v) for k, v in rec['launches'].items() if v)}")
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -3983,7 +4418,7 @@ def main(argv=None):
                     help="write the full record as JSON to PATH")
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
                                        "unfused_bf16", "attn_bf16",
-                                       "samplers"),
+                                       "samplers", "core_dit"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -3997,7 +4432,8 @@ def main(argv=None):
                     "the bf16 request and grf16_production's unfused SSM "
                     "step and request (attn_bf16_timing); samplers runs "
                     "phase 26, the PF-ODE and DPM-Solver samplers and the "
-                    "exact NLL through the CLI on grf16")
+                    "exact NLL through the CLI on grf16; core_dit runs "
+                    "phase 27, the DiT presets and the core MLP path")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4063,6 +4499,10 @@ def main(argv=None):
         return 0
     if opts.only == "samplers":
         record["samplers"] = check_samplers(g, dev, card)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "core_dit":
+        record["core_dit"] = check_core_dit(g, dev, card)
         write_record(opts.record, record)
         return 0
 
@@ -4261,6 +4701,11 @@ def main(argv=None):
     # -- 26. the PF-ODE and DPM-Solver samplers and the exact NLL (CLI) ------
     samplers = check_samplers(g, dev, card, requests[-1]["ms"])
     record["samplers"] = samplers
+
+    phase("27")
+    # -- 27. the DiT score nets and the core MLP path ------------------------
+    core = check_core_dit(g, dev, card)
+    record["core_dit"] = core
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
@@ -4517,6 +4962,9 @@ def main(argv=None):
     for k in kernels:  # phase 26 runs fp32 only (grf16's compute dtype)
         k["samplers_launches"] = (0 if "counter" in k
                                   else samplers["launches"][k["name"]])
+        # phase 27's two DiT runs launch K1 and K2's solve, fp32 entries
+        k["core_dit_launches"] = (0 if "counter" in k
+                                  else core["launches"][k["name"]])
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4530,7 +4978,8 @@ def main(argv=None):
             f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain version "
             f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
             f"{k['launches_per']}; {k['driver_launches']} in the driver's "
-            f"run, {k['samplers_launches']} in phase 26's")
+            f"run, {k['samplers_launches']} in phase 26's, "
+            f"{k['core_dit_launches']} in phase 27's")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

@@ -2,9 +2,12 @@
 
 The JAX package ``sdeflow_tpu`` is the reference; this package imports
 nothing of it and no JAX. Ported so far: the system's main path on the
-grf presets, end to end through the experiment driver and its CLI
-(``python -m sdeflow_tpu_torch.run``): SmoothedGRF data, the circulant
-MSGM SDE and the VP SGM SDE, the VorticityUNet score net, the plug-in
+toy presets (swissroll, gaussian, gaussianCauchy, cauchy) and the grf
+presets, end to end through the experiment driver and its CLI
+(``python -m sdeflow_tpu_torch.run``): the synthetic data (SwissRoll,
+Gaussian, Cauchy, GaussianCauchy, SmoothedGRF), the MSGM SDE with a dense
+or circulant G and an ecdf or KDE radial prior, the VP SGM SDE, the MLP,
+VorticityUNet and DiT (DiT1D, DiT2D) score nets, the plug-in
 reverse SDE with the SSM loss (its forward RK4 perturbation and Hutchinson
 JVP), the DSM loss with the eps parameterization and the debiased time
 sampler, the ELBO, Adam, the Trainer with EMA and on-disk checkpoints, the
@@ -25,7 +28,8 @@ from sdeflow_tpu_torch.eval import (
 from sdeflow_tpu_torch.experiments.driver import (
     ExperimentDriver, build_msgm_arm, build_sgm_arm, fair_budgets, generate,
     make_model, make_trainer, train_arm, train_msgm_arm)
-from sdeflow_tpu_torch.models import UNetModel, VorticityUNet
+from sdeflow_tpu_torch.models import (
+    MLP, DiT1D, DiT2D, UNetModel, VorticityUNet)
 from sdeflow_tpu_torch.ops.integrators import integrate_sde, integrate_select
 from sdeflow_tpu_torch.sde import (
     ForwardFlow, MSGMSde, PluginReverseSDE, SGMSde)
@@ -35,7 +39,7 @@ from sdeflow_tpu_torch.training import (
     make_train_step, save_checkpoint)
 
 __all__ = [
-    "ExperimentDriver", "ForwardFlow", "MSGMSde", "PluginReverseSDE",
+    "DiT1D", "DiT2D", "MLP", "ExperimentDriver", "ForwardFlow", "MSGMSde", "PluginReverseSDE",
     "SGMSde", "Trainer", "UNetModel", "VorticityUNet", "build_msgm_arm",
     "build_optimizer", "build_sgm_arm", "compute_mmd", "evaluate",
     "fair_budgets", "filter_blowups", "generate", "get_preset",

@@ -1,19 +1,21 @@
 """Typed experiment configuration and the grf preset chain.
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
-PlotConfig, ExperimentConfig with its ``debug`` shrink, and the
-``_piv_large`` → ``_grf`` → ``_grf_production`` chain, :95-205,
-318-359, 375-416, 558-565), with the fields that chain sets and the
-driver, the serve and the training paths of the MSGM and SGM arms read;
-each keeps the JAX default. ``_grf(npixel)`` takes any square image, as the
-JAX one does (``_grf(128)`` is the SGM DSM slice's configuration); grf16,
-grf32 and grf16_production are the registered presets, each also with the
-``_dbg`` suffix. The JAX package's ``steps_per_dispatch`` (its ``lax.scan``
-dispatch of several train steps) has no counterpart: the Trainer takes one
-step at a time (a CUDA graph of the step is ROADMAP Queue 1 item 17).
-grf16_production_dit waits for the DiT score net (item 11); the other
-presets come with item 13; the plot options are carried as data, and only
-``save_results`` is read (the plots come with item 13).
+PlotConfig, ExperimentConfig with its ``debug`` shrink, the toy presets
+and the ``_piv_large`` → ``_grf`` → ``_grf_dit`` / ``_grf_production`` →
+``_grf_production_dit`` chain, :95-250, 318-372, 375-428, 558-565), with
+the fields those presets set and the driver, the serve and the training
+paths of the MSGM and SGM arms read; each keeps the JAX default.
+``_grf(npixel)`` takes any square image, as the JAX one does
+(``_grf(128)`` is the SGM DSM slice's configuration). The registered
+presets, each also with the ``_dbg`` suffix: swissroll, gaussian,
+gaussianCauchy, cauchy, grf16, grf32, grf16_dit, grf16_production and
+grf16_production_dit. The JAX package's ``steps_per_dispatch`` (its
+``lax.scan`` dispatch of several train steps) has no counterpart: the
+Trainer takes one step at a time (a CUDA graph of the step is ROADMAP
+Queue 1 item 17). The other presets come with item 13; the plot options
+are carried as data, and only ``save_results`` is read (the plots come
+with item 13).
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ class TrainConfig:
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (2, 4)
     attention_impl: str = "auto"
+    # the DiT score nets (nn_archi "DiT" and "DiT2D", models/dit.py)
+    dit_patch: int = 16
+    dit_width: int = 512
+    dit_depth: int = 6
+    dit_heads: int = 4
 
 
 @dataclass(frozen=True)
@@ -85,6 +92,7 @@ class DataConfig:
     datatype: str = "swissroll"
     dims: Tuple[int, ...] = (2,)
     normalized: bool = True
+    correlation: bool = True  # gaussian, gaussianCauchy, cauchy
     large_image: bool = False
     smoothing: int = 0
 
@@ -138,6 +146,45 @@ class ExperimentConfig:
         )
 
 
+def _swissroll():
+    return ExperimentConfig(
+        name="swissroll",
+        data=DataConfig(datatype="swissroll", dims=(2,), normalized=False),
+    )
+
+
+def _gaussian():
+    return ExperimentConfig(
+        name="gaussian",
+        data=DataConfig(datatype="gaussian", dims=(2, 4, 8, 16, 32)),
+        plots=PlotConfig(plot_xlim=4.0, val_hist=8.0),
+    )
+
+
+def _gaussian_cauchy():
+    return ExperimentConfig(
+        name="gaussianCauchy",
+        train=TrainConfig(beta_max=2.0),
+        data=DataConfig(datatype="gaussianCauchy", dims=(2,)),
+        plots=PlotConfig(
+            crop_data_plot=True, plot_xlim=5.0, plot_crop=15.0, val_hist=0.4
+        ),
+    )
+
+
+def _cauchy():
+    return ExperimentConfig(
+        name="cauchy",
+        train=TrainConfig(
+            beta_max=1.0, beta_min=0.01, t_eps=1e-4, num_steps_forward=128
+        ),
+        data=DataConfig(datatype="cauchy", dims=(4,), correlation=True),
+        plots=PlotConfig(
+            crop_data_plot=True, plot_xlim=10.0, plot_crop=30.0, val_hist=10.0
+        ),
+    )
+
+
 def _piv_large(npixel=32):
     ratio = 1 / 4 if npixel == 16 else 1 / 8
     return ExperimentConfig(
@@ -176,6 +223,15 @@ def _grf(npixel=16):
     )
 
 
+def _grf_dit(npixel=16):
+    """grf on the DiT2D score net: 4×4 patches, 16 tokens at 16×16."""
+    cfg = _grf(npixel)
+    return replace(
+        cfg, name=f"grf{npixel}_dit",
+        train=replace(cfg.train, nn_archi="DiT2D", dit_patch=4),
+    )
+
+
 def _grf_production(npixel=16):
     """The production image preset (sdeflow_tpu/configs.py:375-416): bf16
     compute in the score net (fp32 parameters, Adam state and loss),
@@ -194,14 +250,23 @@ def _grf_production(npixel=16):
 
 
 def _grf_production_dit(npixel=16):
-    raise NotImplementedError(
-        f"grf{npixel}_production_dit: the DiT2D score net, ROADMAP Queue 1 "
-        "item 11")
+    """grf_production on the DiT2D score net (4×4 patches)."""
+    cfg = _grf_production(npixel)
+    return replace(
+        cfg,
+        name=f"grf{npixel}_production_dit",
+        train=replace(cfg.train, nn_archi="DiT2D", dit_patch=4),
+    )
 
 
 PRESETS = {
+    "swissroll": _swissroll,
+    "gaussian": _gaussian,
+    "gaussianCauchy": _gaussian_cauchy,
+    "cauchy": _cauchy,
     "grf16": lambda: _grf(16),
     "grf32": lambda: _grf(32),
+    "grf16_dit": lambda: _grf_dit(16),
     "grf16_production": lambda: _grf_production(16),
     "grf16_production_dit": lambda: _grf_production_dit(16),
 }

@@ -1,12 +1,18 @@
-"""Synthetic data: the smoothed Gaussian random field of the grf presets.
+"""Synthetic data samplers with explicit ``torch.Generator``s.
 
-Port of ``SmoothedGRF`` (with its test set and std) and
-``grf_spectral_filter`` (sdeflow_tpu/data/synthetic.py:96-153) with
-``torch.fft`` and explicit ``torch.Generator``s. The other synthetic
-samplers come with ROADMAP Queue 1 item 6.
+Port of sdeflow_tpu/data/synthetic.py:18-181: ``SwissRoll``, ``Gaussian``,
+``Cauchy`` and ``GaussianCauchy`` (the toy presets' data), and the smoothed
+Gaussian random field of the grf presets (``SmoothedGRF`` with its test
+set and std, and ``grf_spectral_filter``, with ``torch.fft``). Each has
+``.sample(generator, n)`` and ``.sampletest(generator, n)`` -> (n, d)
+float32 on its device, ``.dim``, ``.name`` and, but for SwissRoll,
+``.get_std()``; the matrices of Gaussian, Cauchy and GaussianCauchy are
+drawn at construction from the generator passed in, on its device.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -15,6 +21,110 @@ from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.ops.rng import fold_in
 
 _TEST_STREAM = 0x7E57  # sampletest's fold, as in the JAX package
+
+
+class SwissRoll:
+    """The 2D swiss roll [x, z]/5 with thickness noise: t = 1.5π(1 + 2u),
+    (x, z) = (t·cos t, t·sin t) plus noise·ε."""
+
+    def __init__(self, device="cuda"):
+        self.dim = 2
+        self.name = "swiss"
+        self.device = resolve_device(device)
+
+    def sample(self, generator, n, noise=0.5):
+        u = torch.rand((n,), generator=generator, device=self.device)
+        t = 1.5 * math.pi * (1 + 2 * u)
+        x = torch.stack([t * torch.cos(t), t * torch.sin(t)], dim=1)
+        x = x + noise * torch.randn((n, 2), generator=generator,
+                                    device=self.device)
+        return (x / 5.0).to(torch.float32)
+
+    def sampletest(self, generator, n, noise=0.5):
+        return self.sample(generator, n, noise)
+
+
+def _mixing(generator, dim, correlation, normalized):
+    """(A, std): A a standard normal (dim, dim) matrix drawn from
+    `generator` (the identity without correlation), std = √diag(A·Aᵀ);
+    normalized, A's rows divided by std."""
+    device = generator.device
+    if correlation:
+        A = torch.randn((dim, dim), generator=generator, device=device)
+    else:
+        A = torch.eye(dim, device=device)
+    std = torch.sqrt(torch.diag(A @ A.T))
+    if normalized:
+        A = A / std[:, None]
+    return A, std
+
+
+def _suffix(correlation, normalized):
+    return ("cor" if correlation else "") + ("_norm" if normalized else "")
+
+
+class Gaussian:
+    """Correlated multi-dimensional Gaussian x = ε·Aᵀ."""
+
+    def __init__(self, generator, dim=2, correlation=True, normalized=False):
+        self.dim = dim
+        self.name = f"gaussian{dim}" + _suffix(correlation, normalized)
+        self.A, self.std = _mixing(generator, dim, correlation, normalized)
+
+    def sample(self, generator, n):
+        eps = torch.randn((n, self.dim), generator=generator,
+                          device=self.A.device)
+        return (eps @ self.A.T).to(torch.float32)
+
+    def sampletest(self, generator, n):
+        return self.sample(generator, n)
+
+    def get_std(self):
+        return self.std
+
+
+class Cauchy:
+    """Heavy-tailed multi-dimensional Cauchy of scale 1/50, optionally
+    correlated: x = c·Aᵀ."""
+
+    def __init__(self, generator, dim=2, correlation=False, normalized=False):
+        self.dim = dim
+        self.name = f"cauchy{dim}" + _suffix(correlation, normalized)
+        self.A, self.std = _mixing(generator, dim, correlation, normalized)
+        self.scale = 1.0 / 50
+
+    def sample(self, generator, n):
+        c = torch.empty((n, self.dim), device=self.A.device).cauchy_(
+            generator=generator) * self.scale
+        return (c @ self.A.T).to(torch.float32)
+
+    def sampletest(self, generator, n):
+        return self.sample(generator, n)
+
+    def get_std(self):
+        return self.std
+
+
+class GaussianCauchy:
+    """A correlated Gaussian scaled by one scalar Cauchy draw shared by the
+    whole batch, times 1/50."""
+
+    def __init__(self, generator, dim=2, correlation=True, normalized=False):
+        self.gaussian = Gaussian(generator, dim, correlation, normalized)
+        self.dim = dim
+        self.name = f"gaussianCauchy{dim}" + _suffix(correlation, normalized)
+
+    def get_std(self):
+        return self.gaussian.std
+
+    def sample(self, generator, n):
+        x = self.gaussian.sample(generator, n)
+        scalar = torch.empty((1, 1), device=x.device).cauchy_(
+            generator=generator)
+        return ((1.0 / 50) * x * scalar).to(torch.float32)
+
+    def sampletest(self, generator, n):
+        return self.sample(generator, n)
 
 
 def grf_spectral_filter(npixel: int, ell: float = 2.0):

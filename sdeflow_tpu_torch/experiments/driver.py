@@ -1,12 +1,15 @@
 """The experiment driver: both arms of a preset trained by SSM, sampled by
 the plug-in reverse SDE and scored by √MMD and SWD.
 
-Port of sdeflow_tpu/experiments/driver.py:40-85, 224-700: ``make_model``'s
-Unet branch, the data sampler of ``datatype="grf"``, ``resolve_std_norm``,
-the generation program ``generate`` (``_jit_generate``), and
-``ExperimentDriver``: the sweep over complexity × dimension × {SGM, MSGM}
-× iterations × batch size, each arm built (``_build_arm``), trained by
-``train_arm`` with its fair budget (``fair_budgets``), checkpointed,
+Port of sdeflow_tpu/experiments/driver.py:40-222, 224-700: ``make_model``
+(the MLP, the U-Net and the DiT score nets; UNet1D raises), the data
+samplers of the toy presets (swissroll, gaussian, gaussianCauchy, cauchy)
+and of ``datatype="grf"``, ``resolve_std_norm``, the generation program
+``generate`` (``_jit_generate``), and ``ExperimentDriver``: the sweep over
+complexity × dimension × {SGM, MSGM} × iterations × batch size, each arm
+built (``_build_arm``; the MSGM arm on unnormalized data, as every arm of
+swissroll), trained by ``train_arm`` with its fair budget
+(``fair_budgets``), checkpointed,
 sampled over the backward step counts and repeat runs with its base SDE's
 own ``norm_correction``, and scored by the metric block of the JAX package's
 ``postprocessing`` (sdeflow_tpu/plotting/plots.py:480-545) without its
@@ -15,14 +18,15 @@ package's file names. Each run samples by the sweep's sampler (the reverse
 SDE, the PF-ODE or DPM-Solver; an MSGM arm under "dpm" falls back, logged,
 to the SDE with RK4, as in the JAX driver), and ``eval_nll`` reports each
 trained arm's exact PF-ODE NLL in bits/dim (``_eval_nll``,
-``nll_bits_per_dim.json``). The plots and the other datasets raise
+``nll_bits_per_dim.json``). The plots and the file-backed datasets raise
 ``NotImplementedError`` naming their ROADMAP Queue 1 item.
 
 Random streams: the JAX driver reseeds each arm from ``PRNGKey(seed)``, so
 both arms see the same test set and the same train set for the MMD floor.
 Here each arm starts a ``torch.Generator`` from ``cfg.seed`` and folds one
 stream per purpose off it (ops/rng.py): the test set's, and the arm's own
-build, train and sample streams; each sampling run folds
+build, train and sample streams, and the data sampler's (the matrix of
+gaussian, gaussianCauchy and cauchy); each sampling run folds
 i_steps·1000 + i_run off the sample stream, the MMD train set 777.
 """
 
@@ -32,16 +36,19 @@ import json
 import math
 import os
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from sdeflow_tpu_torch.configs import ExperimentConfig
-from sdeflow_tpu_torch.data.synthetic import SmoothedGRF
+from sdeflow_tpu_torch.data import synthetic
 from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
 from sdeflow_tpu_torch.eval.mmd import compute_mmd, sliced_wasserstein
 from sdeflow_tpu_torch.eval.nll import nll_summary
 from sdeflow_tpu_torch.experiments.naming import run_name_root, simulation_name
+from sdeflow_tpu_torch.models.dit import DiT1D, DiT2D
+from sdeflow_tpu_torch.models.mlp import MLP
 from sdeflow_tpu_torch.models.vorticity import VorticityUNet
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.ops.rng import fold_in, fold_seed
@@ -62,47 +69,93 @@ COMPUTE_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 
 
 def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
-    """The score net of `cfg` on `device` (random weights, fp32), computing
-    in ``cfg.train.compute_dtype`` (float32 or bfloat16); its
+    """The score net of `cfg` (``cfg.train.nn_archi``: MLP, Unet, DiT or
+    DiT2D) on `device` (random weights, fp32), computing in
+    ``cfg.train.compute_dtype`` (float32 or bfloat16); the U-Net's
     AttentionBlocks take ``cfg.train.attention_impl`` ("auto" or
     "unfused"; "ring" raises)."""
     tc = cfg.train
-    if tc.nn_archi != "Unet":
-        raise NotImplementedError(
-            f"nn_archi={tc.nn_archi!r}: ROADMAP Queue 1 items 5 and 11")
     if tc.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"Unknown compute_dtype: {tc.compute_dtype}")
-    npixel = int(round(dim**0.5))
-    if dim != npixel**2:
-        raise ValueError(f"Incorrect dim to define square image: {dim}")
-    return VorticityUNet(
-        base_channels=tc.base_channels,
-        channel_mults=tc.channel_mults,
-        num_res_blocks=tc.num_res_blocks,
-        premodule=premodule,
-        in_space=npixel,
-        attention_resolutions=tc.attention_resolutions,
-        flatten_order="F",
-        attention_impl=tc.attention_impl,
-        dtype=COMPUTE_DTYPES[tc.compute_dtype],
-    ).to(resolve_device(device))
-
-
-def make_sampler(cfg: ExperimentConfig, dim, device="cuda"):
-    """The dataset of `cfg` (grf: no draws at build time, no train-set
-    size)."""
-    if cfg.data.datatype != "grf":
+    dtype = COMPUTE_DTYPES[tc.compute_dtype]
+    if tc.nn_archi == "MLP":
+        model = MLP(input_dim=dim, hidden_dim=128,
+                    premodule=premodule, dtype=dtype)
+    elif tc.nn_archi == "Unet1D":
         raise NotImplementedError(
-            f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 items 6, 13")
-    return SmoothedGRF(npixel=int(round(dim**0.5)),
-                       ell=float(cfg.data.smoothing or 2), device=device)
+            "nn_archi='Unet1D': ROADMAP Queue 1 item 11 (UNet1D)")
+    elif tc.nn_archi == "DiT":
+        model = DiT1D(input_dim=dim, patch=tc.dit_patch, width=tc.dit_width,
+                      depth=tc.dit_depth, heads=tc.dit_heads,
+                      premodule=premodule, dtype=dtype)
+    elif tc.nn_archi in ("Unet", "DiT2D"):
+        npixel = int(round(dim**0.5))
+        if dim != npixel**2:
+            raise ValueError(f"Incorrect dim to define square image: {dim}")
+        if tc.nn_archi == "DiT2D":
+            model = DiT2D(in_space=npixel, patch=tc.dit_patch,
+                          width=tc.dit_width, depth=tc.dit_depth,
+                          heads=tc.dit_heads, premodule=premodule,
+                          flatten_order="F", dtype=dtype)
+        else:
+            model = VorticityUNet(
+                base_channels=tc.base_channels,
+                channel_mults=tc.channel_mults,
+                num_res_blocks=tc.num_res_blocks,
+                premodule=premodule,
+                in_space=npixel,
+                attention_resolutions=tc.attention_resolutions,
+                flatten_order="F",
+                attention_impl=tc.attention_impl,
+                dtype=dtype)
+    else:
+        raise ValueError(f"Unknown NN archi: {tc.nn_archi}")
+    return model.to(resolve_device(device))
+
+
+SYNTHETIC = {"gaussian": synthetic.Gaussian,
+             "gaussianCauchy": synthetic.GaussianCauchy,
+             "cauchy": synthetic.Cauchy}
+
+
+def make_sampler(cfg: ExperimentConfig, dim, device="cuda", generator=None):
+    """The dataset of `cfg` at dimension `dim` on `device`: swissroll and
+    grf draw nothing at build time; gaussian, gaussianCauchy and cauchy
+    draw their matrix from `generator` (on `device`), with the config's
+    correlation and normalized flags."""
+    dc = cfg.data
+    dt = dc.datatype
+    if dt == "swissroll":
+        return synthetic.SwissRoll(device=device)
+    if dt in SYNTHETIC:
+        if generator is None:
+            raise ValueError(f"datatype={dt!r} draws its matrix from a "
+                             "generator")
+        return SYNTHETIC[dt](generator, dim, correlation=dc.correlation,
+                             normalized=dc.normalized)
+    if dt == "grf":
+        return synthetic.SmoothedGRF(npixel=int(round(dim**0.5)),
+                                     ell=float(dc.smoothing or 2),
+                                     device=device)
+    raise NotImplementedError(
+        f"datatype={dt!r}: ROADMAP Queue 1 item 13 (file-backed data)")
+
+
+def arm_config(cfg: ExperimentConfig, is_msgm):
+    """`cfg` with the arm's data normalization: the config's for the SGM
+    arm, none for the MSGM arm and for swissroll (sdeflow_tpu/experiments/
+    driver.py:362-373)."""
+    dc = cfg.data
+    normalized = (dc.normalized and not is_msgm
+                  and dc.datatype != "swissroll")
+    return replace(cfg, data=replace(dc, normalized=normalized))
 
 
 def resolve_std_norm(sampler, normalized, real_dim, device="cuda"):
     """Per-dimension std that de-normalizes samples before the metrics:
-    the sampler's ``get_std`` when the arm is normalized and it has one,
-    else ones (the file-backed samplers' capability check comes with
-    ROADMAP Queue 1 item 13)."""
+    the sampler's ``get_std`` when the arm is normalized and it has one
+    (every synthetic sampler but SwissRoll), else ones (the file-backed
+    samplers' capability check comes with ROADMAP Queue 1 item 13)."""
     if normalized and hasattr(sampler, "get_std"):
         return sampler.get_std()
     return torch.ones((real_dim,), device=resolve_device(device))
@@ -173,22 +226,29 @@ def _sync(device):
 
 
 def build_msgm_arm(cfg: ExperimentConfig, generator, dim=None,
-                   num_samples_init=None, device="cuda"):
+                   num_samples_init=None, device="cuda", sampler=None):
     """Score net (random weights from the caller's seed) and the reverse
     SDE of the MSGM arm (ssm_intT from the sweep's ssm_intT_ref): the
-    radial prior comes from `num_samples_init` data samples (default: the
-    JAX driver's min(num_samples_init_max, iterations·batch))."""
+    radial prior comes from `num_samples_init` samples of `sampler` (by
+    default the arm's data sampler, its matrix drawn from
+    ``fold_in(generator, 0)`` as ``train_msgm_arm`` draws it;
+    `num_samples_init` by default the JAX driver's
+    min(num_samples_init_max, iterations·batch)), the dense G of
+    ``cfg.train.dense_tensor`` from `generator` after them."""
     tc, sw = cfg.train, cfg.sweep
     dim = cfg.data.dims[0] if dim is None else dim
     if num_samples_init is None:
         num_samples_init = init_samples(cfg, sw.iterationss[0],
                                         sw.batch_sizes[0])
     model = make_model(cfg, dim, "NormalizeLogRadius", device=device)
-    x_init = make_sampler(cfg, dim, device).sample(generator,
-                                                   num_samples_init)
+    if sampler is None:
+        sampler = make_sampler(arm_config(cfg, True), dim, device,
+                               fold_in(generator, 0))
+    x_init = sampler.sample(generator, num_samples_init)
     sde = MSGMSde.create(
-        x_init, beta_min=tc.beta_min, beta_max=tc.beta_max, T=tc.T0,
-        t_epsilon=tc.t_eps, num_steps_forward=tc.num_steps_forward,
+        x_init, generator=generator, beta_min=tc.beta_min,
+        beta_max=tc.beta_max, T=tc.T0, t_epsilon=tc.t_eps,
+        num_steps_forward=tc.num_steps_forward,
         dense_tensor=tc.dense_tensor, norm_sampler=tc.norm_sampler,
         norm_map=tc.norm_map, estimate_norm_constant=False)
     return model, PluginReverseSDE.create(sde, model, vtype=tc.vtype,
@@ -284,11 +344,13 @@ def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
         cfg, True, sw.ssm_intT_ref, dim, sw.batch_sizes[0],
         sw.iterationss[0], log_fn)
     iterations = fair_iterations if iterations is None else int(iterations)
-    sampler = make_sampler(cfg, dim, device)
+    sampler = make_sampler(arm_config(cfg, True), dim, device,
+                           fold_in(generator, 0))
     if arm is None:
         arm = build_msgm_arm(
             cfg, generator, dim, device=device,
-            num_samples_init=init_samples(cfg, fair_iterations, batch_size))
+            num_samples_init=init_samples(cfg, fair_iterations, batch_size),
+            sampler=sampler)
     _, gen = arm
     if x_test is None:
         x_test = sampler.sample(generator, 1000)
@@ -307,9 +369,10 @@ def _check_ported(cfg: ExperimentConfig, make_plots):
             "plots (the noising diagnostics, pairplots and convergence "
             "plots): ROADMAP Queue 1 item 13; run with make_plots=False "
             "(--no-plots)")
-    if cfg.data.datatype != "grf":
+    if cfg.data.datatype not in ("swissroll", "grf", *SYNTHETIC):
         raise NotImplementedError(
-            f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 items 6, 13")
+            f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 item 13 "
+            "(file-backed data)")
 
 
 class ExperimentDriver:
@@ -325,18 +388,21 @@ class ExperimentDriver:
         self.nll_results = {}
 
     # -- per-arm helpers ----------------------------------------------------
-    def _build_arm(self, generator, dim, is_msgm, num_samples_init):
+    def _build_arm(self, generator, dim, is_msgm, num_samples_init,
+                   sampler=None):
         """Score net (random weights from a seed folded off `generator`)
         and reverse SDE of one arm: MSGM with its radial prior from
-        num_samples_init data samples and the "direct" parameterization,
-        or SGM with the config's."""
+        num_samples_init samples of `sampler` (default: the arm's data
+        sampler) and the "direct" parameterization, or SGM with the
+        config's."""
         init = torch.random.default_generator
         with torch.random.fork_rng(devices=[]):  # the CPU stream only
             init.manual_seed(fold_seed(generator, 0))
             if is_msgm:
                 return build_msgm_arm(
                     self.cfg, fold_in(generator, 1), dim,
-                    num_samples_init=num_samples_init, device=self.device)
+                    num_samples_init=num_samples_init, device=self.device,
+                    sampler=sampler)
             return build_sgm_arm(self.cfg, None, dim, device=self.device)
 
     # -- the sweep ------------------------------------------------------------
@@ -361,13 +427,15 @@ class ExperimentDriver:
                 for is_msgm in sw.msgms:
                     # arm-specific defaults (reference MSGM_higherDim.py:
                     # 473-483)
-                    normalized = dc.normalized and not is_msgm
+                    arm_cfg = arm_config(cfg, is_msgm)
+                    normalized = arm_cfg.data.normalized
                     ssm_intT = sw.ssm_intT_ref if is_msgm else False
                     arm_gen = torch.Generator(device=self.device)
                     arm_gen.manual_seed(cfg.seed)  # the same for each arm
-                    key_test, key_arm = (fold_in(arm_gen, i)
-                                         for i in (1, 2))
-                    sampler = make_sampler(cfg, dim, self.device)
+                    key_sampler, key_test, key_arm = (fold_in(arm_gen, i)
+                                                      for i in (0, 1, 2))
+                    sampler = make_sampler(arm_cfg, dim, self.device,
+                                           key_sampler)
                     os.makedirs(os.path.join(folder_results, sampler.name),
                                 exist_ok=True)
                     xtest = sampler.sampletest(key_test, sw.num_samples)
@@ -408,7 +476,8 @@ class ExperimentDriver:
 
         key_build, key_train, key_sample = (
             fold_in(key, i) for i in (0, 2, 3))  # 1: the noising plots
-        _, gen = self._build_arm(key_build, dim, is_msgm, num_samples_init)
+        _, gen = self._build_arm(key_build, dim, is_msgm, num_samples_init,
+                                 sampler)
 
         self.log(f"data = {sampler.name}")
         self.log(f"name_SDE = {gen.base_sde.name}")

@@ -33,28 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdeflow_tpu_torch.models.common import (
-    GroupNorm32, timestep_embedding)
+    GroupNorm32, _lecun_normal_, dense, flax_init_, timestep_embedding,
+    zero_init_)
 from sdeflow_tpu_torch.ops.kernels.attention import attention_core
 from sdeflow_tpu_torch.ops.kernels.attnblock import (
     MAX_HEADS, block_plan, fused_attention_block)
-
-
-def _lecun_normal_(weight, fan_in):
-    """flax's default kernel init, lecun_normal: a normal truncated at ±2σ,
-    scaled to variance 1/fan_in."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
-
-
-def flax_init_(module):
-    """A Conv2d or Linear initialized as flax's nn.Conv and nn.Dense are:
-    lecun_normal over the weight's fan-in (input channels × kernel size)
-    and zero bias; returns the module."""
-    with torch.no_grad():
-        _lecun_normal_(module.weight, module.weight[0].numel())
-        if module.bias is not None:
-            nn.init.zeros_(module.bias)
-    return module
 
 
 class Conv2d(nn.Conv2d):
@@ -73,28 +56,9 @@ class Conv2d(nn.Conv2d):
             None if self.bias is None else self.bias.to(dt))
 
 
-class Linear(nn.Linear):
-    """nn.Linear computing in ``compute_dtype`` (flax's ``nn.Dense`` with
-    ``dtype=``)."""
-
-    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
 def _conv3(cin, cout, stride=1, bias=True, dtype=torch.float32):
     return flax_init_(Conv2d(cin, cout, 3, stride=stride, padding=1,
                              bias=bias, compute_dtype=dtype))
-
-
-def _zero_(module):
-    for p in module.parameters():
-        nn.init.zeros_(p)
-    return module
 
 
 class Upsample(nn.Module):
@@ -141,10 +105,9 @@ class ResBlock(nn.Module):
         out_ch = out_channels or channels
         self.in_norm = GroupNorm32(channels, silu=True)
         self.in_conv = _conv3(channels, out_ch, dtype=dtype)
-        self.emb_dense = flax_init_(Linear(emb_channels, out_ch,
-                                           compute_dtype=dtype))
+        self.emb_dense = dense(emb_channels, out_ch, dtype)
         self.out_norm = GroupNorm32(out_ch, silu=True)
-        self.out_conv = _zero_(_conv3(out_ch, out_ch,
+        self.out_conv = zero_init_(_conv3(out_ch, out_ch,
                                       bias=not no_bias_last_layer,
                                       dtype=dtype))
         if out_ch != channels:
@@ -253,10 +216,8 @@ class UNetModel(nn.Module):
         self.model_channels = model_channels
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
         temb = model_channels * 4
-        self.time_embed_0 = flax_init_(Linear(model_channels, temb,
-                                              compute_dtype=dtype))
-        self.time_embed_1 = flax_init_(Linear(temb, temb,
-                                              compute_dtype=dtype))
+        self.time_embed_0 = dense(model_channels, temb, dtype)
+        self.time_embed_1 = dense(temb, temb, dtype)
         # forward plan after conv_in: ("res", name) | ("mod", name) |
         # ("push", None) saves a skip | ("cat", None) concatenates one back
         plan = []
@@ -316,7 +277,7 @@ class UNetModel(nn.Module):
                 block_id += 1
 
         self.out_norm = GroupNorm32(ch, silu=True)
-        self.conv_out = _zero_(_conv3(ch, out_channels))
+        self.conv_out = zero_init_(_conv3(ch, out_channels))
         self._plan = tuple(plan)
 
     def forward(self, x, timesteps, extra_emb=None):

@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdeflow_tpu_torch.models.common import (
-    normalize_log_radius, timestep_embedding)
-from sdeflow_tpu_torch.models.unet2d import UNetModel, flax_init_
+    flax_init_, normalize_log_radius, timestep_embedding)
+from sdeflow_tpu_torch.models.unet2d import UNetModel
 
 SCALE_IMAGE = 5.0
 

@@ -195,9 +195,10 @@ def integrate_select(flow, x0, generator, num_steps, select_idx, *,
     (num_steps, B, d) standard normal draws, as for integrate_sde.
 
     The flow's whole-solve override ``<method>_solve_select`` takes the
-    solve where it has one and lmbd == 0 without norm correction; it draws
-    the normals of all steps at once when none are given (on the CPU the
-    same numbers as one draw per step)."""
+    solve where it has one and lmbd == 0 without norm correction, unless
+    it returns None (a dense-G MSGM: the loop below); it draws the normals
+    of all steps at once when none are given (on the CPU the same numbers
+    as one draw per step)."""
     delta = float(flow.T) / num_steps
     sqrt_delta = delta ** 0.5
     _check_noise(noise, num_steps, x0)
@@ -206,7 +207,9 @@ def integrate_select(flow, x0, generator, num_steps, select_idx, *,
         if noise is None:
             noise = torch.randn((num_steps, *x0.shape), generator=generator,
                                 device=x0.device, dtype=x0.dtype)
-        return solve(x0, noise, delta, select_idx)
+        out = solve(x0, noise, delta, select_idx)
+        if out is not None:
+            return out
     step_fn = _resolve_step_fn(flow, method)
     norm0 = (torch.linalg.vector_norm(x0, dim=-1, keepdim=True)
              if norm_correction else None)

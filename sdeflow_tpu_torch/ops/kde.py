@@ -2,8 +2,8 @@
 
 Port of sdeflow_tpu/ops/kde.py:20-54: a Gaussian KDE is a uniform mixture
 of N Gaussians centred on the data points, so its log density is a
-logsumexp over the centres. The KDE sampler (``norm_sampler="kde"``) comes
-with ROADMAP Queue 1 item 2.
+logsumexp over the centres and a draw is a centre picked uniformly plus
+bandwidth·ε (the ``norm_sampler="kde"`` radial prior).
 """
 
 from __future__ import annotations
@@ -22,6 +22,16 @@ def gaussian_kde_logpdf(x, centers, bandwidth):
     z = (x[:, None] - centers[None, :]) / bw
     log_kernel = -0.5 * z**2 - LOG_SQRT_2PI - torch.log(bw)
     return torch.logsumexp(log_kernel, dim=1) - math.log(centers.shape[0])
+
+
+def gaussian_kde_sample(generator, centers, bandwidth, num_samples):
+    """(num_samples,) draws of the KDE mixture: a centre by
+    ``torch.randint``, plus bandwidth·ε, both from `generator`."""
+    idx = torch.randint(0, centers.shape[0], (num_samples,),
+                        generator=generator, device=centers.device)
+    eps = torch.randn((num_samples,), generator=generator,
+                      dtype=centers.dtype, device=centers.device)
+    return centers[idx] + bandwidth * eps
 
 
 def kde_normalization_log_constant(centers, bandwidth, num_grid=1000):

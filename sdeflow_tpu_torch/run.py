@@ -1,5 +1,8 @@
 """Command-line entry point of the port, with the JAX package's flags:
 
+    python -m sdeflow_tpu_torch.run --no-plots --eval-mmd   # swissroll
+    python -m sdeflow_tpu_torch.run --preset swissroll_dbg --cpu --no-plots
+    python -m sdeflow_tpu_torch.run --preset grf16_dit_dbg --cpu --no-plots
     python -m sdeflow_tpu_torch.run --preset grf16 --eval-mmd --no-plots
     python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --no-plots --eval-mmd
     python -m sdeflow_tpu_torch.run --preset grf16_production --no-plots

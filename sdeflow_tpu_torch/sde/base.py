@@ -5,7 +5,9 @@ Port of sdeflow_tpu/sde/base.py:27-156. Times are Python numbers or
 tensors of shape (), (B,) or (B, 1). The forward perturbation runs under
 ``torch.no_grad()``, like the reference's ``@torch.no_grad()`` sampler, and
 takes its normal draws from a ``torch.Generator`` unless the caller injects
-them.
+them. With ``project_training_norms`` (an SDE's opt-in, off by default as
+in the reference) each of its steps is re-projected to the state's
+starting norm.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import math
 import torch
 
 from sdeflow_tpu_torch.ops.integrators import (
-    integrate_sde, integrate_select, rk4_step)
+    _norm_project, integrate_sde, integrate_select, rk4_step)
 from sdeflow_tpu_torch.sde.forward import ForwardFlow
 
 
@@ -40,6 +42,13 @@ def _tcol(t, y):
     return t.reshape(t.shape[0], *([1] * (y.ndim - 1)))
 
 
+def _projects(sde):
+    """Whether the training-time forward solve re-projects each step to
+    the conserved norm: MSGMSde's ``project_training_norms`` field, False
+    for every other SDE."""
+    return getattr(sde, "project_training_norms", False)
+
+
 class SDEBehavior:
     """Mixin of the forward SDEs: needs ``beta_min, beta_max, T,
     num_steps_forward`` and the drift/diffusion methods."""
@@ -47,13 +56,19 @@ class SDEBehavior:
     def beta(self, t):
         return beta_linear(t, self.beta_min, self.beta_max)
 
+    def ijk(self):
+        """COO indices of the noise tensor: None unless the SDE uses the
+        circulant G."""
+        return None
+
     @torch.no_grad()
     def sample_scheme(self, generator, t, y0, *, noise=None, noise_one=None):
         """y_t | y_0 by integrating the forward SDE, for per-sample times t
         (B,) or (B, 1) in [0, T]: one RK4 solve over the whole forward grid
         for the batch, keeping the state after floor(num_steps·t/T) steps
         per sample, and for samples below one grid step a single RK4 step
-        of size t_b (the generic step, so kernel K1, four launches).
+        of size t_b (the generic step, so kernel K1, four launches); with
+        project_training_norms every state re-projected to ‖y0‖.
 
         noise: optional (num_steps, B, d) normals of the solve; noise_one:
         optional (B, d) normal of the one-step fallback. Returns (B, d)."""
@@ -63,14 +78,19 @@ class SDEBehavior:
                             num_steps)
         n_int = torch.where(t >= self.T, num_steps, n_int)
         flow = ForwardFlow(base_sde=self, T=self.T)
+        project = _projects(self)
         y_sel = integrate_select(flow, y0, generator, num_steps, n_int,
-                                 method="rk4", noise=noise)
+                                 method="rk4", noise=noise,
+                                 norm_correction=project)
         delta = _tcol(t, y0)
         if noise_one is None:
             noise_one = torch.randn(y0.shape, generator=generator,
                                     device=y0.device, dtype=y0.dtype)
         dW = torch.sqrt(torch.clamp(delta, min=0.0)) * noise_one
         y_one = rk4_step(flow, torch.zeros_like(delta), y0, delta, dW)
+        if project:
+            y_one = _norm_project(
+                y_one, torch.linalg.vector_norm(y0, dim=-1, keepdim=True))
         return torch.where((n_int > 0)[:, None], y_sel, y_one)
 
     @torch.no_grad()
@@ -81,4 +101,5 @@ class SDEBehavior:
         flow = ForwardFlow(base_sde=self, T=self.T)
         return integrate_sde(flow, y0, generator, self.num_steps_forward,
                              method="rk4", keep_all=True,
-                             include_t0=include_t0, noise=noise)
+                             include_t0=include_t0, noise=noise,
+                             norm_correction=_projects(self))

@@ -31,7 +31,8 @@ class ForwardFlow:
 
     def rk4_step(self, t, x, delta, dW, lmbd=0.0):
         """One RK4 step: the base SDE's fused whole step when it has one
-        (circulant MSGM: kernel K2), else the generic stages."""
+        (circulant MSGM: kernel K2), else (a dense G too) the generic
+        stages."""
         fused = getattr(self.base_sde, "fused_forward_rk4_step", None)
         if fused is not None:
             out = fused(t, x, delta, dW)
@@ -44,5 +45,6 @@ class ForwardFlow:
         """The whole-solve override of integrate_select: the base SDE's
         fused forward RK4 solve with the per-sample select (circulant MSGM:
         one launch of K2's solve), called as (x0, z, delta, select_idx);
-        None where the base SDE has none."""
+        None where the base SDE has none, and its result None where the
+        base SDE takes no fused solve (a dense G)."""
         return getattr(self.base_sde, "fused_forward_rk4_solve_select", None)

@@ -1,16 +1,18 @@
-"""Multiplicative SGM SDE dY = √β(t) G(Y) ∘ dB, circulant G.
+"""Multiplicative SGM SDE dY = √β(t) G(Y) ∘ dB, dense or circulant G.
 
 Port of sdeflow_tpu/sde/msgm.py: the circulant G (its action is kernel
 K1, one whole forward RK4 step kernel K2, the whole forward solve of the
-training loss one launch of K2's solve, ops/kernels/circulant.py), the
-forward perturbation of the training loss (sde/base.py), the ecdf radial
-latent prior with the optional log map of the radii, the conditional latent,
-the KDE log density of the ELBO and the normalized latent density of the
-exact likelihood (``log_latent_pdf_exact``). The dense G and the KDE radius
-sampler come with ROADMAP Queue 1 item 2.
+training loss one launch of K2's solve, ops/kernels/circulant.py) and the
+dense G of small d (ops/gapply.py: two matrix products, no kernel; its
+forward RK4 steps are the generic stages), the forward perturbation of the
+training loss (sde/base.py, optionally norm-projected), the ecdf and KDE
+radial latent priors with the optional log map of the radii, the
+conditional latent, the KDE log density of the ELBO and the normalized
+latent density of the exact likelihood (``log_latent_pdf_exact``).
 
 Sign convention (as in the JAX package): the Itô drift is f = β(t)·L_G·y with
-L_G = −½I for the circulant G, so f = −½β(t)y.
+L_G = ½Σ_k G_k G_k negative-definite; L_G = −½I for the circulant G, so
+f = −½β(t)y.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ from typing import Optional
 
 import torch
 
+from sdeflow_tpu_torch.ops.gapply import (
+    circulant_ijk, dense_sigma_apply, make_dense_G)
 from sdeflow_tpu_torch.ops.hutchinson import randu_on_sphere
 from sdeflow_tpu_torch.ops.kde import (
-    gaussian_kde_logpdf, kde_normalization_log_constant)
+    gaussian_kde_logpdf, gaussian_kde_sample, kde_normalization_log_constant)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
     circulant_apply, circulant_rk4_solve_select, circulant_rk4_step)
 from sdeflow_tpu_torch.sde.base import SDEBehavior, _sqrt, _tcol, beta_linear
@@ -57,29 +61,39 @@ class MSGMSde(SDEBehavior):
     cst_log_dens: torch.Tensor  # () log KDE normalizing constant, or 0
     dim: int
     num_steps_forward: int = 100
+    # the noise tensor: dense (G (d, d, d), L_G (d, d)) or circulant (None)
+    G: Optional[torch.Tensor] = None
+    L_G: Optional[torch.Tensor] = None
     circulant: bool = True
     norm_sampler: str = "ecdf"
     norm_map: Optional[str] = None
     # the generation solve re-projects each step to the latent's norm (the
     # SDE conserves it)
     norm_correction: bool = True
-    name: str = "MSGM_sparseTens"
+    # re-project each step of the training-time forward solve too (the
+    # JAX package's opt-in, off as in the reference; set it with
+    # dataclasses.replace)
+    project_training_norms: bool = False
+    name: str = "MSGM"
 
     @classmethod
-    def create(cls, y0, *, beta_min=0.1, beta_max=20.0, T=1.0,
-               t_epsilon=0.001, num_steps_forward=100, dense_tensor=True,
-               norm_sampler="ecdf", norm_map=None,
+    def create(cls, y0, *, generator=None, beta_min=0.1, beta_max=20.0,
+               T=1.0, t_epsilon=0.001, num_steps_forward=100,
+               dense_tensor=True, norm_sampler="ecdf", norm_map=None,
                estimate_norm_constant=True):
         """Build the SDE from data y0 (N, d) on y0's device: the sorted
         empirical norms, log-mapped when norm_map == "log", the KDE
-        bandwidth 0.1·std(r_T) and, with estimate_norm_constant, the KDE's
-        log normalizing constant (else 0)."""
-        if dense_tensor:
-            raise NotImplementedError(
-                "dense G: ROADMAP Queue 1 item 2 (SDE core)")
-        if norm_sampler != "ecdf":
-            raise NotImplementedError(
-                "KDE radial prior: ROADMAP Queue 1 item 2 (SDE core)")
+        bandwidth 0.1·std(r_T), with dense_tensor a random dense G drawn
+        from `generator` (``make_dense_G``), and with
+        estimate_norm_constant the KDE's log normalizing constant (else
+        0). The name follows the JAX package's rule: "MSGM", then
+        "_sparseTens" for the circulant G, norm_sampler + "gaussian" (the KDE
+        kernel) unless the sampler is "ecdf", "logNorm" under the log
+        map."""
+        if norm_sampler not in ("ecdf", "kde"):
+            raise ValueError(f"unknown norm_sampler {norm_sampler!r}")
+        if dense_tensor and generator is None:
+            raise ValueError("a dense G is drawn from a generator")
         y0 = y0.to(torch.float32)
         r_T = torch.linalg.vector_norm(y0, dim=1)
         if norm_map == "log":
@@ -88,13 +102,23 @@ class MSGMSde(SDEBehavior):
         r_T = torch.sort(r_T).values
         cst = (kde_normalization_log_constant(r_T, bandwidth)
                if estimate_norm_constant else torch.zeros_like(bandwidth))
-        name = "MSGM_sparseTens" + ("logNorm" if norm_map == "log" else "")
+        dim = int(y0.shape[1])
+        G = L_G = None
+        if dense_tensor:
+            G, L_G = (a.to(y0.device) for a in make_dense_G(generator, dim))
+        name = "MSGM"
+        if not dense_tensor:
+            name += "_sparseTens"
+        if norm_sampler != "ecdf":
+            name += norm_sampler + "gaussian"
+        if norm_map == "log":
+            name += "logNorm"
         return cls(beta_min=float(beta_min), beta_max=float(beta_max),
                    T=float(T), t_epsilon=float(t_epsilon), r_T=r_T,
-                   kde_bandwidth=bandwidth, cst_log_dens=cst,
-                   dim=int(y0.shape[1]),
-                   num_steps_forward=int(num_steps_forward),
-                   norm_sampler=norm_sampler, norm_map=norm_map, name=name)
+                   kde_bandwidth=bandwidth, cst_log_dens=cst, dim=dim,
+                   num_steps_forward=int(num_steps_forward), G=G, L_G=L_G,
+                   circulant=not dense_tensor, norm_sampler=norm_sampler,
+                   norm_map=norm_map, name=name)
 
     @property
     def device(self):
@@ -102,8 +126,11 @@ class MSGMSde(SDEBehavior):
 
     # -- drift / diffusion ---------------------------------------------------
     def f(self, t, y):
-        """Itô drift f = −½β(t)·y."""
-        return -0.5 * self.beta(_tcol(t, y)) * y
+        """Itô drift f = β(t)·L_G·y: −½β(t)·y for the circulant G."""
+        bt = self.beta(_tcol(t, y))
+        if self.circulant:
+            return -0.5 * bt * y
+        return (bt * y) @ self.L_G.T
 
     def f_strato(self, t, y):
         """Stratonovich drift ≡ 0."""
@@ -114,13 +141,20 @@ class MSGMSde(SDEBehavior):
         return 2.0 * self.f(t, y)
 
     def sigma_apply(self, t, y, w):
-        """g(t,y)·w through the circulant stencil kernel K1."""
-        return circulant_apply(_sqrt(self.beta(_tcol(t, y))), y, w)
+        """g(t,y)·w: the circulant stencil kernel K1, or the dense G's two
+        products."""
+        sqrt_bt = _sqrt(self.beta(_tcol(t, y)))
+        if self.circulant:
+            return circulant_apply(sqrt_bt, y, w)
+        return dense_sigma_apply(self.G, sqrt_bt, y, w)
 
     def fused_forward_rk4_step(self, t, x, delta, dW):
         """One whole RK4 forward step (Stratonovich drift ≡ 0) as kernel
         K2: √β at t, t+δ/2 and t+δ as sb3 (B, 3). A number t is written
-        by three fills, not copied from the host."""
+        by three fills, not copied from the host. None for the dense G:
+        the caller takes the generic stages."""
+        if not self.circulant:
+            return None
         b = x.shape[0]
         if isinstance(t, torch.Tensor):
             tc = _tcol(t, x)
@@ -136,7 +170,10 @@ class MSGMSde(SDEBehavior):
         """The whole forward RK4 solve with the per-sample select
         (integrate_select with ``fused_forward_rk4_step`` as its step) as
         one launch of K2's solve: z (n, B, d) the normals, step i at
-        t = i·δ with increment √δ·z[i]."""
+        t = i·δ with increment √δ·z[i]. None for the dense G: the caller
+        takes the per-step loop."""
+        if not self.circulant:
+            return None
         sb = sqrt_beta_table(self.beta_min, self.beta_max, delta, z.shape[0],
                              x0.device, x0.dtype)
         return circulant_rk4_solve_select(x0, z, sb, select_idx, delta ** 0.5)
@@ -163,9 +200,20 @@ class MSGMSde(SDEBehavior):
         return r[:, None]
 
     def gen_radial_distribution(self, generator, num_samples):
-        u = torch.rand((num_samples,), generator=generator,
-                       device=self.r_T.device, dtype=self.r_T.dtype)
-        return self.radii_from_uniform(u)
+        """(num_samples, 1) radii: the inverse empirical cdf of a uniform
+        draw ("ecdf"), or a draw of the KDE mixture ("kde", negative radii
+        clamped to 0 without the log map), then the inverse log map."""
+        if self.norm_sampler == "ecdf":
+            u = torch.rand((num_samples,), generator=generator,
+                           device=self.r_T.device, dtype=self.r_T.dtype)
+            return self.radii_from_uniform(u)
+        r = gaussian_kde_sample(generator, self.r_T, self.kde_bandwidth,
+                                num_samples)
+        if self.norm_map == "log":
+            r = torch.exp(r) - _LOG_EPS
+        else:
+            r = torch.clamp(r, min=0.0)
+        return r[:, None]
 
     def latent_sample(self, generator, num_samples, n=None):
         """x_0 = r·s with r from the radial prior and s uniform on the
@@ -211,3 +259,17 @@ class MSGMSde(SDEBehavior):
         log_sphere_area = (math.log(2.0) + half_d * math.log(math.pi)
                            - torch.lgamma(half_d))
         return log_pr - log_sphere_area - (d - 1.0) * torch.log(r)
+
+    # -- diagnostics -------------------------------------------------------------
+    def ijk(self):
+        """COO (I, J, K, V) of the circulant G; None for the dense G."""
+        if self.circulant:
+            return circulant_ijk(self.dim, device=self.device)
+        return None
+
+    def beta_G(self):
+        """The normalization invariant β_G = −2·tr(L_G)/d: 1 for the
+        circulant G and, after ``make_dense_G``'s scaling, the dense one."""
+        if self.circulant:
+            return torch.ones((), device=self.device)
+        return -2.0 * torch.trace(self.L_G) / self.dim

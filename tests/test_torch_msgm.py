@@ -135,5 +135,13 @@ def test_schedule_helpers():
     assert _tcol(0.5, y) == 0.5
     assert _tcol(torch.tensor([1.0, 2.0, 3.0]), y).shape == (3, 1)
     assert _tcol(torch.tensor(2.0), y).ndim == 0
-    with pytest.raises(NotImplementedError):
+    # a dense G builds (from a generator), with its invariants
+    dense = MSGMSde.create(torch.randn(3, 4), dense_tensor=True,
+                           generator=torch.Generator().manual_seed(0))
+    assert not dense.circulant and dense.G.shape == (4, 4, 4)
+    torch.testing.assert_close(dense.G, -dense.G.permute(1, 0, 2))
+    torch.testing.assert_close(torch.trace(dense.L_G), torch.tensor(-2.0))
+    torch.testing.assert_close(dense.beta_G(), torch.tensor(1.0))
+    assert dense.fused_forward_rk4_step(0.0, y, 0.1, y) is None
+    with pytest.raises(ValueError, match="generator"):
         MSGMSde.create(torch.ones(3, 4), dense_tensor=True)

@@ -248,6 +248,11 @@ def test_grf16_preset_and_arm_match_jax():
     assert sde.circulant and sde.norm_map == "log" and sde.r_T.shape == (256,)
     assert model.premodule == "NormalizeLogRadius"
     assert model.flatten_order == "F"
-    with pytest.raises(NotImplementedError):
-        make_model(replace(ours, train=replace(ours.train, nn_archi="DiT2D")),
+    dit = make_model(replace(ours, train=replace(
+        ours.train, nn_archi="DiT2D", dit_patch=4, dit_width=32,
+        dit_depth=1)), 256, None, device="cpu")
+    assert type(dit).__name__ == "DiT2D" and dit.flatten_order == "F"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_model(replace(ours, train=replace(ours.train,
+                                               nn_archi="Unet1D")),
                    256, None, device="cpu")
