@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--record PATH]
                           [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16|
-                                  samplers|core_dit]
+                                  samplers|core_dit|unet_export]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -27,7 +27,10 @@ K3 and K5 in every drift evaluation and every JVP of the likelihood); and
 the DiT score nets on grf16 through the CLI (grf16_dit in fp32,
 grf16_production_dit in bf16: K1 and K2's solve on the MSGM arm, the DiT
 itself plain products) and the core MLP path (swissroll, gaussian,
-gaussianCauchy and cauchy with a dense G: no kernel). It
+gaussianCauchy and cauchy with a dense G: no kernel); and the U-Net's
+other options with serving export (the learned potential, whose score's
+reverse pass runs K5b; remat; dims 1 and 3; labels; exported programs,
+whose kernels are the registered sdeflow operators). It
 holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
@@ -292,13 +295,44 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    GaussianCauchy run with a dense G (300 steps at batch 64, RK4-32
    norm-corrected, norms to rtol 1e-4), and the CLI on swissroll,
    gaussian (d = 2 … 32, a dense G of 32³) and cauchy at 300 iterations
-   with --eval-mmd, each launching no kernel.
+   with --eval-mmd, each launching no kernel;
+28. the rest of the U-Net and serving export (``--only unet_export``),
+   every kernel count set to 0 just before each run and read just after:
+   grf16's VorticityUNet with learn_potential (random weights, a gentler
+   potential head): its score on 1,024 points against the plain path
+   within 1e-4 of the largest; the RK4-32 norm-corrected request of 1,024
+   samples with exactly 8·32 K1 and, per score evaluation (4·32), one K3
+   per AttentionBlock and two K5 and two K5b per ResBlock of the potential
+   (its reverse pass with grad mode off), norms to rtol 1e-5, replayed on
+   the plain path within 1e-3·max |x|, timed; 8 SSM steps at batch 128
+   (exactly 5 K1, 1 K2 solve and the potential's K3, K5, K5b a step,
+   finite losses, moving parameters, ms, peak memory); one DSM step of the
+   grf U-Net at 128×128 (batch 128) in fp32 and in bf16 with and without
+   use_checkpoint on the same draws, with cuDNN's deterministic
+   algorithms, in turns (plain, remat, remat, plain): the loss equal, the
+   gradients within 1e-4 (fp32: K7b's atomic sums) or 1e-3 (bf16) of the
+   largest, peak memory, ms and launches both ways (remat reruns each
+   block's K5, K6 and K7a); a dims=3 and a dims=1 U-Net and a
+   class-conditional grf16 U-Net against the plain path within 1e-4 of
+   the largest output; then three exports, made by a worker process
+   started after phase 6 so that its tracing overlaps the other phases
+   (the arms built from a seed of their own, here and there alike, held
+   by a digest of their weights, latent tables and data):
+   grf16_production's PC request (bf16, EM-32 plus one corrector step)
+   with a symbolic batch, served at 1,024 and 256, the fp32 MSGM request
+   (RK4-16, norm-corrected) and the PF-ODE encoder (RK4-4,
+   norm-corrected), each with its export seconds and artifact bytes,
+   loaded by a fresh process that imports no sdeflow_tpu_torch.models or
+   .sde module (its load seconds) and served there against the eager
+   program on the same draws: max |Δ| within 1e-6 of the largest value
+   (expected 0), equal launches, ms both ways.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
 K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
 launches in the production run and those of K6, K4, K7a, K7b with their
 launches in phases 24 and 25, each with its launches in the driver's
-run, in phase 26's two runs and in phase 27's two DiT runs: per
+run, in phase 26's two runs, in phase 27's two DiT runs and in phase
+28's runs (by entry point, fp32 and bf16 apart): per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
@@ -320,21 +354,26 @@ that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
 (128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
 (128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
 24's batch-16 request with its trace (``attn_bf16_timing``); samplers
-phase 26; core_dit phase 27.
+phase 26; core_dit phase 27; unet_export phase 28.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import dataclasses
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import torch
 from torch.autograd import DeviceType
@@ -4405,6 +4444,625 @@ def check_core_dit(g, dev, card):
     return rec
 
 
+# -- phase 28: the rest of the U-Net and serving export ----------------------
+# the potential arm's SSM steps; the fp32 export's RK4 steps (RK4-32 took
+# 231 s to export on an H100 80GB HBM3 host, past the 60 s that RK4-32 is
+# given, so RK4-16); the encoder's RK4 steps; the symbolic batch's served
+# sizes; the draws' seed
+POT_SSM_STEPS, EXPORT_STEPS, ENCODER_STEPS = 8, 16, 4
+SERVED_BATCHES = (N_SAMPLES, 256)
+DRAW_SEED = 28
+# the exported arms' weights: the worker and this process build them alike
+EXPORT_SEED = 281
+# seconds to wait for the worker's exports and for each served run
+EXPORT_WAIT_S, SERVE_WAIT_S = 1200, 600
+# a served program against eager on the same draws: expected equal
+SERVED_TOL = 1e-6
+# the checkpointed DSM step's gradients against the plain step's, as a share
+# of the largest (fp32: K7b adds dQ by atomics, in an order that varies)
+REMAT_GRAD_TOL = {"fp32": 1e-4, "bf16": 1e-3}
+# the entry point of each kernel (common.Kernel.entry_launches keys)
+ENTRY = {"circulant_apply": "circulant_apply",
+         "circulant_rk4_step": "circulant_rk4_step",
+         "circulant_rk4_solve": "circulant_rk4_solve_select",
+         "fused_attention_block": "attn_block",
+         "group_norm_silu": "group_norm_silu",
+         "group_norm_silu_bwd": "group_norm_silu_bwd",
+         "qkv_attention": "qkv_attention",
+         "qkv_attention_flash": "qkv_attention_flash",
+         "qkv_attention_stats": "qkv_attention_stats",
+         "qkv_attention_bwd": "qkv_attention_bwd"}
+
+# a served artifact loaded in a fresh process (the serving module alone: no
+# sdeflow_tpu_torch.models or .sde; this script's float32 settings), then,
+# once the file "go" appears in its directory, run twice on each input set
+# in the files in<i>.pt there: its load seconds, each run's ms and the last
+# run's launches, per kernel and per entry point, to result.json; the
+# outputs to out<i>.pt
+FRESH_RELOAD = r"""
+import json, os, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from sdeflow_tpu_torch.ops.kernels import common
+from sdeflow_tpu_torch.serving import Encoder, Sampler
+path, tmp, sets = sys.argv[1], sys.argv[2], int(sys.argv[3])
+t0 = time.perf_counter()
+kind = json.load(open(path + ".json"))["kind"]
+handle = (Sampler if kind == "sampler" else Encoder)(path)
+load_s = time.perf_counter() - t0
+while not os.path.exists(os.path.join(tmp, "go")):
+    if time.perf_counter() - t0 > 900:
+        sys.exit("no go after 900 s")
+    time.sleep(0.05)
+runs = []
+for i in range(sets):
+    args = [a.cuda() for a in torch.load(f"{tmp}/in{i}.pt")]
+    ms = []
+    for _ in range(2):
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = handle.program(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save(out.cpu(), f"{tmp}/out{i}.pt")
+    runs.append({"ms": ms, "launches": {
+        k.name: k.launches for k in common.KERNELS.values()},
+        "entries": {e: n for k in common.KERNELS.values()
+                    for e, n in k.entry_launches.items()}})
+bad = sorted(m for m in sys.modules if m.startswith(
+    ("sdeflow_tpu_torch.models", "sdeflow_tpu_torch.sde")))
+with open(os.path.join(tmp, "result.tmp"), "w") as f:
+    json.dump({"modules": bad, "load_s": load_s, "runs": runs}, f)
+os.replace(os.path.join(tmp, "result.tmp"), os.path.join(tmp, "result.json"))
+"""
+
+# the exporting worker: a process of its own (export_worker), started while
+# the earlier phases run, so that its tracing (minutes of host time on one
+# core) overlaps them
+EXPORT_WORKER = r"""
+import sys
+import chip_smoke
+chip_smoke.export_worker(sys.argv[1], int(sys.argv[2]))
+"""
+
+
+class PhaseLaunches:
+    """The launches of a phase's main-path runs, per kernel entry point:
+    ``run(fn)`` sets every count to 0 just before fn() and adds the counts
+    just after."""
+
+    def __init__(self):
+        self.entries = collections.Counter()
+
+    def run(self, fn, *args, **kwargs):
+        from sdeflow_tpu_torch.ops.kernels import common
+
+        common.reset_launches()
+        rec = timed_call(fn, *args, **kwargs)
+        self.entries.update(entry_counts())
+        return rec
+
+
+def potential_net(cfg, dev, **kw):
+    """grf16's VorticityUNet (the driver's make_model knobs) with
+    learn_potential, on dev."""
+    from sdeflow_tpu_torch.models.vorticity import VorticityUNet
+
+    tc = cfg.train
+    return VorticityUNet(
+        base_channels=tc.base_channels, channel_mults=tc.channel_mults,
+        num_res_blocks=tc.num_res_blocks, premodule="NormalizeLogRadius",
+        in_space=int(round(DIM**0.5)),
+        attention_resolutions=tc.attention_resolutions, flatten_order="F",
+        learn_potential=True, **kw).to(dev)
+
+
+def potential_want(net, evals, k1=0, k2_solve=0):
+    """Launches of `evals` score evaluations of a potential net (each the
+    potential's forward, every block of it K3 or two K5, and its reverse
+    pass with grad mode off: K5b for each K5) and of the SDE's K1 and K2
+    solve."""
+    from sdeflow_tpu_torch.models.unet2d import AttentionBlock, ResBlock
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    res = sum(isinstance(m, ResBlock) for m in net.modules())
+    attn = sum(isinstance(m, AttentionBlock) for m in net.modules())
+    want = dict.fromkeys(common.KERNELS, 0)
+    want.update(fused_attention_block=attn * evals,
+                group_norm_silu=2 * res * evals,
+                group_norm_silu_bwd=2 * res * evals, circulant_apply=k1,
+                circulant_rk4_solve=k2_solve)
+    return want
+
+
+def held(what, got, want):
+    got = {k: got[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return got
+
+
+def check_potential(cfg, gen, g, dev, runs):
+    """Phase 28 (a): grf16's learned potential at full width: the score on
+    N_SAMPLES points against the plain path, the RK4-32 norm-corrected
+    request (exact launches, norms, the plain replay) and POT_SSM_STEPS
+    SSM steps at batch 128."""
+    from sdeflow_tpu_torch import Trainer, make_sampler_fn
+    from sdeflow_tpu_torch.experiments.driver import make_sampler
+
+    net = potential_net(cfg, dev)
+    randomize_(net, g)
+    with torch.no_grad():
+        # a gentle potential (|score| ~ 0.1): the gradient of a random net
+        # makes the request's dynamics sensitive enough that at |score| ~ 1
+        # a score 5e-6 off the plain path's ended 3.6 % off after 32 RK4
+        # steps on an H100
+        for conv in (net.core.mid_res1.out_conv, net.core.mid_res1.skip_conv):
+            conv.weight.mul_(0.01)
+    gen_p = dataclasses.replace(gen, score_net=net)
+    rec = {}
+    x = gen_p.latent_sample(g, N_SAMPLES, DIM)
+    t = torch.rand(N_SAMPLES, generator=g, device=dev)
+    with torch.no_grad():
+        r = runs.run(net, x, t)
+        with plain_path():
+            ref = net(x, t)
+    held("potential score", r["launches"], potential_want(net, 1))
+    err = (r["out"] - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not (torch.isfinite(r["out"]).all() and err <= 1e-4 * scale):
+        raise AssertionError(f"potential score: |kernel - plain| {err} of "
+                             f"max {scale}")
+    rec["score"] = dict(points=N_SAMPLES, max_abs_err=err, max_abs=scale,
+                        ms=r["ms"])
+    log(f"potential score on {N_SAMPLES} points: {r['ms']:.1f} ms, "
+        f"|kernel - plain| {err:.3g} of max {scale:.3g} (gate 1e-4)")
+
+    sample = make_sampler_fn(gen_p, N_SAMPLES, DIM, STEPS, method="rk4",
+                             norm_correction=True, device=dev)
+    x0 = gen_p.latent_sample(g, N_SAMPLES, DIM)
+    noise = torch.randn(STEPS, N_SAMPLES, DIM, generator=g, device=dev)
+    # cuDNN's deterministic algorithms for the request and its replay
+    # (its default backward sums in an order that varies, phase 22)
+    with swapped([(torch.backends.cudnn, "deterministic", True)]):
+        r = runs.run(sample, g, x0=x0, noise=noise)
+    want = potential_want(net, FORWARDS_PER_STEP * STEPS, K1_PER_STEP * STEPS)
+    held("potential request", r["launches"], want)
+    xs = r["out"]
+    if not torch.isfinite(xs).all() or (xs - x0).abs().max().item() < 0.1:
+        raise AssertionError("potential request: non-finite or unmoved")
+    torch.testing.assert_close(xs.norm(dim=1), x0.norm(dim=1), rtol=1e-5,
+                               atol=0)
+    with plain_path(), swapped([(torch.backends.cudnn, "deterministic",
+                                 True)]):
+        p = timed_call(sample, g, x0=x0, noise=noise)
+    rep = (xs - p["out"]).abs().max().item()
+    top = p["out"].abs().max().item()
+    if rep > 1e-3 * top:
+        raise AssertionError(f"potential request replay {rep} of {top}")
+    rec["request"] = dict(ms=r["ms"], samples_per_s=N_SAMPLES / r["ms"] * 1e3,
+                          peak=r["peak"], launches=r["launches"],
+                          plain_ms=p["ms"], replay_max_abs_err=rep,
+                          max_abs=top)
+    log(f"potential request, RK4-{STEPS} on {N_SAMPLES}: {r['ms']:.1f} ms "
+        f"(plain {p['ms']:.1f}), peak {r['peak'] / 2**20:.0f} MiB, launches "
+        f"{held('potential request', r['launches'], want)}, replay "
+        f"{rep:.3g} of {top:.3g} (gate 1e-3)")
+
+    sampler = make_sampler(cfg, DIM, dev)
+    trainer = Trainer(gen_p, sampler, lr=cfg.train.lr,
+                      batch_size=TRAIN_BATCH, loss="ssm", log_fn=log)
+
+    def step():
+        return trainer.train_step(trainer.state, g,
+                                  sampler.sample(g, TRAIN_BATCH))[1]
+
+    step_want = potential_want(net, 1, K1_PER_TRAIN, K2_SOLVE_PER_TRAIN)
+    rec["ssm"] = runs.run(timed_train_steps, step, net, POT_SSM_STEPS,
+                          step_want)["out"]
+    return rec
+
+
+def dsm_remat(make_arm, what, g, dev, runs):
+    """Phase 28 (b): one DSM step of the grf U-Net at 128×128 (batch 128)
+    with and without use_checkpoint, on the same draws, with cuDNN's
+    deterministic algorithms: the loss equal, the gradients within
+    REMAT_GRAD_TOL of the largest, peak memory, ms and launches both
+    ways (the remat step reruns each block's K5, K6 and K7a)."""
+    import copy
+
+    _, model, gen, sampler = make_arm(g, dev)
+    remat = copy.deepcopy(model)
+    remat.core.use_checkpoint = True
+    dim = SGM_NPIXEL**2
+    x = sampler.sample(g, SGM_BATCH)
+    t = gen.sample_t(g, SGM_BATCH)
+    noise = torch.randn(SGM_BATCH, dim, generator=g, device=dev)
+    inside = SGM_WANT["group_norm_silu"] - 1  # all but the head's
+    want = {"plain": dict(SGM_WANT), "remat": dict(
+        SGM_WANT, group_norm_silu=SGM_WANT["group_norm_silu"] + inside,
+        qkv_attention=2 * SGM_WANT["qkv_attention"],
+        qkv_attention_stats=2 * SGM_WANT["qkv_attention_stats"])}
+    out = {}
+    with swapped([(torch.backends.cudnn, "deterministic", True)]):
+        for mode, net in (("plain", model), ("remat", remat), ("remat", remat),
+                          ("plain", model)):
+            gen_n = dataclasses.replace(gen, score_net=net)
+
+            def dsm_step():
+                net.zero_grad(set_to_none=True)
+                loss = gen_n.dsm(None, x, t=t, noise=noise).mean()
+                loss.backward()
+                return loss.detach()
+
+            r = runs.run(dsm_step)
+            held(f"{what} DSM step ({mode})", r["launches"], want[mode])
+            first = mode not in out
+            out.setdefault(mode, dict(ms=[], peak=r["peak"], loss=r["out"],
+                                      launches=r["launches"],
+                                      grads=[p.grad.clone() for p in
+                                             net.parameters()]))
+            if not first:
+                out[mode]["ms"].append(r["ms"])
+    if not torch.equal(out["plain"]["loss"], out["remat"]["loss"]):
+        raise AssertionError(f"{what}: remat loss {out['remat']['loss']} != "
+                             f"{out['plain']['loss']}")
+    gmax = max(a.abs().max().item() for a in out["plain"]["grads"])
+    gerr = max((a - b).abs().max().item() for a, b in zip(
+        out["plain"]["grads"], out["remat"]["grads"]))
+    if gerr > REMAT_GRAD_TOL[what] * gmax:
+        raise AssertionError(f"{what}: remat gradients {gerr} of {gmax}")
+    rec = {m: {k: v for k, v in o.items() if k != "grads"} | dict(
+        loss=o["loss"].item()) for m, o in out.items()}
+    rec.update(grad_max_abs_err=gerr, grad_max_abs=gmax)
+    log(f"{what} DSM step at batch {SGM_BATCH}, 128x128: plain "
+        f"{rec['plain']['ms'][0]:.1f} ms, peak "
+        f"{rec['plain']['peak'] / 2**20:.0f} MiB; use_checkpoint "
+        f"{rec['remat']['ms'][0]:.1f} ms, peak "
+        f"{rec['remat']['peak'] / 2**20:.0f} MiB; loss equal, gradients "
+        f"{gerr:.3g} of {gmax:.3g}; launches {rec['remat']['launches']}")
+    return rec
+
+
+def forward_checks(g, dev, runs):
+    """Phase 28 (c): a dims=3 and a dims=1 U-Net and a class-conditional
+    grf16 U-Net (random weights), kernel path against the plain path
+    within 1e-4 of the largest output."""
+    from sdeflow_tpu_torch import get_preset
+    from sdeflow_tpu_torch.models.unet2d import UNetModel
+
+    tc = get_preset("grf16").train
+    grf16 = dict(in_channels=1, model_channels=tc.base_channels,
+                 out_channels=1, num_res_blocks=tc.num_res_blocks,
+                 attention_resolutions=tc.attention_resolutions,
+                 channel_mult=tc.channel_mults)
+    cases = {
+        # attention at 8³ (T = 512: K5 and K6) and 4³ (T = 64: K3)
+        "dims3": (dict(grf16, in_space=16, num_res_blocks=1, dims=3),
+                  (8, 1, 16, 16, 16), None),
+        "dims1": (dict(grf16, in_space=256, dims=1), (64, 1, 256), None),
+        "labels": (dict(grf16, in_space=16, num_classes=10),
+                   (N_SAMPLES, 1, 16, 16), 10)}
+    rec = {}
+    for name, (kw, shape, classes) in cases.items():
+        net = UNetModel(**kw).to(dev)
+        randomize_(net, g)
+        x = torch.randn(shape, generator=g, device=dev)
+        t = torch.rand(shape[0], generator=g, device=dev)
+        y = (None if classes is None else torch.randint(
+            0, classes, (shape[0],), generator=g, device=dev))
+        with torch.no_grad():
+            r = runs.run(net, x, t, y=y)
+            with plain_path():
+                ref = net(x, t, y=y)
+        err = (r["out"] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        launched = {k: v for k, v in r["launches"].items() if v}
+        if not launched or err > 1e-4 * scale:
+            raise AssertionError(f"{name}: launches {launched}, |kernel - "
+                                 f"plain| {err} of {scale}")
+        rec[name] = dict(shape=list(shape), max_abs_err=err, max_abs=scale,
+                         launches=launched, ms=r["ms"])
+        log(f"U-Net {name} {tuple(shape)}: |kernel - plain| {err:.3g} of "
+            f"{scale:.3g}, launches {launched}")
+    return rec
+
+
+def exported(fn, path, *args, **kwargs):
+    """fn (export_sampler or export_encoder) timed: its sidecar, seconds
+    and artifact bytes."""
+    t0 = time.perf_counter()
+    meta = fn(*args, path=path, **kwargs)
+    rec = dict(export_s=time.perf_counter() - t0, bytes=os.path.getsize(path))
+    log(f"exported {os.path.basename(path)}: {rec['export_s']:.1f} s, "
+        f"{rec['bytes']} bytes")
+    return meta, rec
+
+
+def export_arms(dev):
+    """The arms phase 28 exports, with random weights from EXPORT_SEED:
+    grf16's MSGM arm, grf16_production's MSGM arm and N_SAMPLES data points
+    (the encoder's input). The worker and this process build them alike."""
+    from sdeflow_tpu_torch import build_msgm_arm, get_preset
+    from sdeflow_tpu_torch.experiments.driver import make_sampler
+
+    g = torch.Generator(device=dev).manual_seed(EXPORT_SEED)
+    arms = []
+    for preset in ("grf16", "grf16_production"):
+        cfg = get_preset(preset)
+        _, gen = build_msgm_arm(cfg, g, device=dev)
+        randomize_(gen.score_net, g)
+        with torch.no_grad():
+            gen.score_net.core.conv_out.weight.mul_(0.1)
+        arms += [cfg, gen]
+    return (*arms, make_sampler(arms[0], DIM, dev).sample(g, N_SAMPLES))
+
+
+def arms_digest(gen, gen_p, x):
+    """A float64 sum of every parameter, latent prior table and data point
+    of export_arms, to hold the two builds to each other."""
+    ts = [*gen.score_net.parameters(), *gen_p.score_net.parameters(),
+          gen.base_sde.r_T, gen_p.base_sde.r_T, x]
+    return [float(t.detach().double().abs().sum()) for t in ts]
+
+
+def pc_knobs(sw):
+    """The production preset's sampler knobs (norm-corrected)."""
+    return dict(method=sw.backward_method, norm_correction=True,
+                corrector_steps=sw.corrector_steps, snr=sw.snr)
+
+
+def export_worker(tmp, main_pid, device="cuda"):
+    """Phase 28's exports, in a process of their own: export_arms, then
+    grf16_production's PC request with a symbolic batch, the fp32 MSGM
+    request (RK4-EXPORT_STEPS, norm-corrected) and the PF-ODE encoder
+    (RK4-ENCODER_STEPS), each timed into tmp/<name>/ and loaded at once by
+    a fresh process (FRESH_RELOAD) that waits for its go; the records to
+    tmp/exports.json; then waits for those processes (killing them if
+    the main process is gone)."""
+    from sdeflow_tpu_torch.ops.kernels import common
+    from sdeflow_tpu_torch.serving import export_encoder, export_sampler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        common.build_all()
+    cfg, gen, cfg_p, gen_p, x = export_arms(dev)
+    sw = cfg_p.sweep
+    common_kw = dict(num_samples=N_SAMPLES, dim=DIM)
+    jobs = [("production", export_sampler, gen_p, dict(
+                num_steps=sw.num_stepss_backward[0], polymorphic_batch=True,
+                **pc_knobs(sw)), len(SERVED_BATCHES)),
+            ("msgm_fp32", export_sampler, gen, dict(
+                num_steps=EXPORT_STEPS, method="rk4", norm_correction=True),
+             1),
+            ("encoder", export_encoder, gen, dict(
+                num_steps=ENCODER_STEPS, method="rk4", norm_correction=True),
+             1)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, loaders = {"digest": arms_digest(gen, gen_p, x)}, []
+    try:
+        for name, fn, arm, kw, sets in jobs:
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            path = os.path.join(d, "artifact")
+            meta, ex = exported(fn, path, arm, **common_kw, **kw)
+            out[name] = dict(ex, path=path, dir=d, meta=meta)
+            with open(os.path.join(d, "log"), "w") as f:
+                loaders.append(subprocess.Popen(
+                    [sys.executable, "-c", FRESH_RELOAD, path, d, str(sets)],
+                    cwd=d, env=dict(os.environ, PYTHONPATH=root), stdout=f,
+                    stderr=subprocess.STDOUT))
+        with open(os.path.join(tmp, "exports.tmp"), "w") as f:
+            json.dump(out, f)
+        os.replace(os.path.join(tmp, "exports.tmp"),
+                   os.path.join(tmp, "exports.json"))
+        while any(p.poll() is None for p in loaders):
+            os.kill(main_pid, 0)  # raises once the main process is gone
+            time.sleep(0.5)
+    finally:
+        for p in loaders:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+class ExportJob:
+    """export_worker in a process of its own session (so that stop() ends
+    its loaders too), started with start() and stopped at exit."""
+
+    def __init__(self):
+        self.tmp = tempfile.mkdtemp()
+        self.proc = None
+        atexit.register(self.stop)
+
+    def start(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.log = open(os.path.join(self.tmp, "worker.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", EXPORT_WORKER, self.tmp,
+             str(os.getpid())], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), stdout=self.log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        self.started = time.perf_counter()
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        if self.proc is not None:
+            self.log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def _tail(self, path):
+        with open(path) as f:
+            return f.read()[-3000:]
+
+    def exports(self):
+        """The worker's export records, once it has written them."""
+        path = os.path.join(self.tmp, "exports.json")
+        while not os.path.exists(path):
+            if (self.proc.poll() is not None or time.perf_counter()
+                    - self.started > EXPORT_WAIT_S):
+                raise AssertionError("export worker: " + self._tail(
+                    os.path.join(self.tmp, "worker.log")))
+            time.sleep(0.5)
+        with open(path) as f:
+            return json.load(f)
+
+    def serve(self, what, rec, eager, input_sets, runs):
+        """The artifact of `rec` (loaded by its fresh process) served on
+        each of `input_sets` against its eager program on the same inputs
+        (each run twice, the last kept): max |Δ| within SERVED_TOL of the
+        largest value (expected 0), equal launches; raises if that process
+        imported the model or SDE modules. Returns the record and the
+        served outputs."""
+        d = rec["dir"]
+        eagers = []
+        for i, inputs in enumerate(input_sets):
+            torch.save([a.cpu() for a in inputs], os.path.join(d, f"in{i}.pt"))
+            with torch.no_grad():
+                eagers.append([runs.run(eager, *inputs)
+                               for _ in range(2)][-1])
+        open(os.path.join(d, "go"), "w").close()
+        path, t0 = os.path.join(d, "result.json"), time.perf_counter()
+        while not os.path.exists(path):
+            if time.perf_counter() - t0 > SERVE_WAIT_S:
+                raise AssertionError(f"{what}: fresh process: "
+                                     + self._tail(os.path.join(d, "log")))
+            time.sleep(0.1)
+        with open(path) as f:
+            got = json.load(f)
+        if got["modules"]:
+            raise AssertionError(f"{what}: the serving process imported "
+                                 f"{got['modules']}")
+        out_rec, outs = dict(load_s=got["load_s"], runs=[]), []
+        for i, (e, s) in enumerate(zip(eagers, got["runs"])):
+            out = torch.load(os.path.join(d, f"out{i}.pt")).to(
+                e["out"].device)
+            runs.entries.update(s["entries"])
+            top = e["out"].abs().max().item()
+            diff = (out - e["out"]).abs().max().item()
+            if (diff > SERVED_TOL * top or s["launches"] != e["launches"]
+                    or not torch.isfinite(out).all()):
+                raise AssertionError(f"{what}: served |Δ| {diff} of {top}, "
+                                     f"launches {s['launches']} != "
+                                     f"{e['launches']}")
+            out_rec["runs"].append(dict(
+                batch=out.shape[0], max_abs_diff=diff, max_abs=top,
+                served_ms=s["ms"], eager_ms=e["ms"], eager_peak=e["peak"],
+                launches={k: v for k, v in s["launches"].items() if v}))
+            outs.append(out)
+            log(f"{what}, batch {out.shape[0]}: served {s['ms'][-1]:.1f} ms "
+                f"(first {s['ms'][0]:.1f}), eager {e['ms']:.1f} ms, max |Δ| "
+                f"{diff:.3g} of {top:.3g}, launches "
+                f"{out_rec['runs'][-1]['launches']}")
+        log(f"{what}: exported in {rec['export_s']:.1f} s ({rec['bytes']} "
+            f"bytes), loaded in {got['load_s']:.1f} s by a process without "
+            "the model and SDE modules")
+        return dict(rec, **out_rec), outs
+
+    def finish(self):
+        rc = self.proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError("export worker: " + self._tail(
+                os.path.join(self.tmp, "worker.log")))
+
+
+def check_exports(job, dev, runs):
+    """Phase 28 (d): the worker's three exports (export_worker), each
+    served by its fresh process against the eager program of the same
+    arm, built here alike, on the same draws (ExportJob.serve)."""
+    from sdeflow_tpu_torch import make_sampler_fn
+    from sdeflow_tpu_torch.ops.ode import encode_ode
+    from sdeflow_tpu_torch.serving import make_draws
+
+    recs = job.exports()
+    cfg, gen, cfg_p, gen_p, x = export_arms(dev)
+    if arms_digest(gen, gen_p, x) != recs["digest"]:
+        raise AssertionError("the exported arms differ from this build")
+    draw_g = torch.Generator(device=dev).manual_seed(DRAW_SEED)
+    sw = cfg_p.sweep
+    steps = sw.num_stepss_backward[0]
+    rec = {}
+
+    samplers = {n: make_sampler_fn(gen_p, n, DIM, steps, device=dev,
+                                   **pc_knobs(sw)) for n in SERVED_BATCHES}
+
+    def eager_pc(*d):
+        return samplers[d[0].shape[0]](
+            None, x0=gen_p.base_sde.latent_from_draws(*d[:-2]), noise=d[-2],
+            corrector_noise=d[-1])
+
+    meta = recs["production"]["meta"]
+    rec["production"], _ = job.serve(
+        "production PC request (symbolic batch)", recs["production"],
+        eager_pc, [make_draws(meta["inputs"], draw_g, n)
+                   for n in SERVED_BATCHES], runs)
+    rec["production"].update(steps=steps, inputs=[
+        s["name"] for s in meta["inputs"]])
+
+    draws = make_draws(recs["msgm_fp32"]["meta"]["inputs"], draw_g)
+    sample = make_sampler_fn(gen, N_SAMPLES, DIM, EXPORT_STEPS, method="rk4",
+                             norm_correction=True, device=dev)
+    rec["msgm_fp32"], (xs,) = job.serve(
+        f"fp32 MSGM request RK4-{EXPORT_STEPS}", recs["msgm_fp32"],
+        lambda *d: sample(None, x0=gen.base_sde.latent_from_draws(*d[:-1]),
+                          noise=d[-1]), [draws], runs)
+    x0 = gen.base_sde.latent_from_draws(*draws[:-1])
+    torch.testing.assert_close(xs.norm(dim=1), x0.norm(dim=1), rtol=1e-5,
+                               atol=0)
+    rec["msgm_fp32"]["steps"] = EXPORT_STEPS
+
+    rec["encoder"], _ = job.serve(
+        f"encoder RK4-{ENCODER_STEPS}", recs["encoder"],
+        lambda xx: encode_ode(gen, xx, ENCODER_STEPS, method="rk4",
+                              norm_correction=True), [[x]], runs)
+    rec["encoder"]["steps"] = ENCODER_STEPS
+    job.finish()
+    for r in rec.values():
+        for k in ("path", "dir", "meta"):
+            r.pop(k, None)
+    return rec
+
+
+def check_unet_export(g, dev, card, job):
+    """Phase 28: the rest of the 2D U-Net and serving export (module
+    docstring); job is the ExportJob started before the earlier phases."""
+    from sdeflow_tpu_torch import build_msgm_arm, get_preset
+
+    t0 = time.perf_counter()
+    runs = PhaseLaunches()
+    cfg = get_preset("grf16")
+    _, gen = build_msgm_arm(cfg, g, device=dev)
+    randomize_(gen.score_net, g)
+    with torch.no_grad():
+        gen.score_net.core.conv_out.weight.mul_(0.1)
+    rec = {"card": card}
+    rec["potential"] = check_potential(cfg, gen, g, dev, runs)
+    log(f"phase 28 at {time.perf_counter() - t0:.1f} s: remat")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")  # remat needs no fallback here
+        rec["dsm_remat"] = {
+            "fp32": dsm_remat(sgm_arm, "fp32", g, dev, runs),
+            "bf16": dsm_remat(bf16_dsm_arm, "bf16", g, dev, runs)}
+    if any("without remat" in str(w.message) for w in caught):
+        raise AssertionError("the DSM step ran its blocks without remat")
+    log(f"phase 28 at {time.perf_counter() - t0:.1f} s: forward checks")
+    rec["forward"] = forward_checks(g, dev, runs)
+    log(f"phase 28 at {time.perf_counter() - t0:.1f} s: exports")
+    rec["exports"] = check_exports(job, dev, runs)
+    rec["entry_launches"] = dict(runs.entries)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 28: {rec['seconds']:.1f} s, launches by entry "
+        f"{dict((k, v) for k, v in runs.entries.items() if v)}")
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -4418,7 +5076,8 @@ def main(argv=None):
                     help="write the full record as JSON to PATH")
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
                                        "unfused_bf16", "attn_bf16",
-                                       "samplers", "core_dit"),
+                                       "samplers", "core_dit",
+                                       "unet_export"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -4433,7 +5092,9 @@ def main(argv=None):
                     "step and request (attn_bf16_timing); samplers runs "
                     "phase 26, the PF-ODE and DPM-Solver samplers and the "
                     "exact NLL through the CLI on grf16; core_dit runs "
-                    "phase 27, the DiT presets and the core MLP path")
+                    "phase 27, the DiT presets and the core MLP path; "
+                    "unet_export runs phase 28, the learned potential, "
+                    "remat, the U-Net's other options and serving export")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4505,6 +5166,12 @@ def main(argv=None):
         record["core_dit"] = check_core_dit(g, dev, card)
         write_record(opts.record, record)
         return 0
+    job = ExportJob()  # phase 28's exports, in a process of their own
+    if opts.only == "unet_export":
+        job.start()
+        record["unet_export"] = check_unet_export(g, dev, card, job)
+        write_record(opts.record, record)
+        return 0
 
     phase("2")
     # -- 2. K1 against its plain version ------------------------------------
@@ -4574,6 +5241,8 @@ def main(argv=None):
     # -- 6. K6 and K4 against their plain version ----------------------------
     k6 = check_k6(g, dev)
     record["k6"] = {f"{t}x{c}": v for (t, c), v in k6.items()}
+
+    job.start()  # after the kernels' timings, beside the paths
 
     phase("7")
     # -- 7. serve three requests on the main path ------------------------------
@@ -4706,6 +5375,12 @@ def main(argv=None):
     # -- 27. the DiT score nets and the core MLP path ------------------------
     core = check_core_dit(g, dev, card)
     record["core_dit"] = core
+
+    phase("28")
+    # -- 28. the rest of the U-Net (learned potential, remat, dims 1 and 3,
+    # labels) and serving export ------------------------------------------
+    unet_export = check_unet_export(g, dev, card, job)
+    record["unet_export"] = unet_export
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
@@ -4965,6 +5640,10 @@ def main(argv=None):
         # phase 27's two DiT runs launch K1 and K2's solve, fp32 entries
         k["core_dit_launches"] = (0 if "counter" in k
                                   else core["launches"][k["name"]])
+        # phase 28's runs, by entry point (fp32 and bf16 apart)
+        kernel = k.get("counter", k["name"])
+        k["unet_export_launches"] = unet_export["entry_launches"].get(
+            f"{ENTRY[kernel]}_{'bf16' if 'counter' in k else 'f32'}", 0)
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4979,7 +5658,8 @@ def main(argv=None):
             f"{k['plain_ms']:.4f} ms; {lib}; {k['launches']} launches per "
             f"{k['launches_per']}; {k['driver_launches']} in the driver's "
             f"run, {k['samplers_launches']} in phase 26's, "
-            f"{k['core_dit_launches']} in phase 27's")
+            f"{k['core_dit_launches']} in phase 27's, "
+            f"{k['unet_export_launches']} in phase 28's")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

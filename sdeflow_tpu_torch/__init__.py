@@ -20,30 +20,38 @@ the circulant stencil (K1), the fused forward RK4 step and solve (K2), the
 fused AttentionBlock (K3), GroupNorm and its backward (K5, K5b), the
 attention core (K6/K4) and the reverse-mode flash-attention pair
 (K7a/K7b). Entry points run on CUDA unless called with ``device="cpu"``.
+The names below are imported on first use, so that importing a submodule
+(``sdeflow_tpu_torch.serving`` on a serving host) loads only what it
+needs.
 """
 
-from sdeflow_tpu_torch.configs import get_preset
-from sdeflow_tpu_torch.eval import (
-    compute_mmd, evaluate, filter_blowups, sliced_wasserstein)
-from sdeflow_tpu_torch.experiments.driver import (
-    ExperimentDriver, build_msgm_arm, build_sgm_arm, fair_budgets, generate,
-    make_model, make_trainer, train_arm, train_msgm_arm)
-from sdeflow_tpu_torch.models import (
-    MLP, DiT1D, DiT2D, UNetModel, VorticityUNet)
-from sdeflow_tpu_torch.ops.integrators import integrate_sde, integrate_select
-from sdeflow_tpu_torch.sde import (
-    ForwardFlow, MSGMSde, PluginReverseSDE, SGMSde)
-from sdeflow_tpu_torch.serving import make_sampler_fn
-from sdeflow_tpu_torch.training import (
-    Trainer, build_optimizer, load_checkpoint, make_train_chunk,
-    make_train_step, save_checkpoint)
+import importlib
 
-__all__ = [
-    "DiT1D", "DiT2D", "MLP", "ExperimentDriver", "ForwardFlow", "MSGMSde", "PluginReverseSDE",
-    "SGMSde", "Trainer", "UNetModel", "VorticityUNet", "build_msgm_arm",
-    "build_optimizer", "build_sgm_arm", "compute_mmd", "evaluate",
-    "fair_budgets", "filter_blowups", "generate", "get_preset",
-    "integrate_sde", "integrate_select", "load_checkpoint", "make_model",
-    "make_sampler_fn", "make_train_chunk", "make_train_step", "make_trainer",
-    "save_checkpoint", "sliced_wasserstein", "train_arm", "train_msgm_arm",
-]
+_EXPORTS = {
+    "sdeflow_tpu_torch.configs": ["get_preset"],
+    "sdeflow_tpu_torch.eval": ["compute_mmd", "evaluate", "filter_blowups",
+                               "sliced_wasserstein"],
+    "sdeflow_tpu_torch.experiments.driver": [
+        "ExperimentDriver", "build_msgm_arm", "build_sgm_arm",
+        "fair_budgets", "generate", "make_model", "make_trainer",
+        "train_arm", "train_msgm_arm"],
+    "sdeflow_tpu_torch.models": ["MLP", "DiT1D", "DiT2D", "UNetModel",
+                                 "VorticityUNet"],
+    "sdeflow_tpu_torch.ops.integrators": ["integrate_sde",
+                                          "integrate_select"],
+    "sdeflow_tpu_torch.sde": ["ForwardFlow", "MSGMSde", "PluginReverseSDE",
+                              "SGMSde"],
+    "sdeflow_tpu_torch.serving": ["Encoder", "Sampler", "export_encoder",
+                                  "export_sampler", "make_sampler_fn"],
+    "sdeflow_tpu_torch.training": [
+        "Trainer", "build_optimizer", "load_checkpoint", "make_train_chunk",
+        "make_train_step", "save_checkpoint"],
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name):
+    if name not in _WHERE:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_WHERE[name]), name)

@@ -58,6 +58,12 @@ def zero_init_(module):
     return module
 
 
+def cast(t, dtype):
+    """t in `dtype`: t itself where it already is (no cast in a traced
+    program), else ``t.to(dtype)``."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in ``compute_dtype`` (flax's ``nn.Dense`` with
     ``dtype=``): its input and its fp32 parameters are cast at each call."""
@@ -68,7 +74,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(cast(x, dt), cast(self.weight, dt),
+                        cast(self.bias, dt))
 
 
 def dense(in_features, features, dtype=torch.float32, zero=False):

@@ -3,8 +3,10 @@
 The flax ``params`` tree arrives as nested dicts of numpy arrays. Each leaf
 maps by name onto the port's module of the same dotted path:
 
-- ``nn.Conv2d``: HWIO ``kernel`` -> OIHW ``weight``;
+- ``nn.Conv1d``, ``nn.Conv2d``, ``nn.Conv3d``: WIO, HWIO or DHWIO
+  ``kernel`` -> OIW, OIHW or OIDHW ``weight``;
 - ``nn.Linear``: Dense (in, out) ``kernel`` -> (out, in) ``weight``;
+- ``nn.Embedding``: Embed ``embedding`` -> ``weight``, the same layout;
 - anything else (GroupNorm32, and the DenseParams holders of the
   AttentionBlock, sdeflow_tpu/models/unet2d.py:157-195, 245-250) keeps
   flax's names and layout.
@@ -19,6 +21,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+_CONVS = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
+
+
+def _to_torch(mod, name, arr):
+    """(torch name, array) of the flax leaf `name` of `mod`."""
+    if isinstance(mod, (*_CONVS, nn.Linear)) and name == "kernel":
+        # (*spatial, I, O) -> (O, I, *spatial); Dense (in, out) -> (out, in)
+        n = arr.ndim
+        return "weight", arr.permute(n - 1, n - 2, *range(n - 2))
+    if isinstance(mod, nn.Embedding) and name == "embedding":
+        return "weight", arr
+    return name, arr
+
+
+def _to_flax(mod, name, arr):
+    """The inverse of ``_to_torch``."""
+    if isinstance(mod, (*_CONVS, nn.Linear)) and name == "weight":
+        n = arr.ndim
+        return "kernel", arr.permute(*range(2, n), 1, 0)
+    if isinstance(mod, nn.Embedding) and name == "weight":
+        return "embedding", arr
+    return name, arr
 
 
 def _leaves(tree, prefix=()):
@@ -42,9 +67,7 @@ def flax_to_state_dict(params, model: nn.Module) -> dict:
         where = "/".join(path)
         mod = modules.get(".".join(mod_path))
         arr = torch.from_numpy(np.array(leaf, dtype=np.float32))
-        if isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "kernel":
-            name = "weight"
-            arr = arr.permute(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        name, arr = _to_torch(mod, name, arr)
         key = ".".join((*mod_path, name))
         if mod is None or key not in expected:
             raise KeyError(f"flax parameter {where} has no torch counterpart")
@@ -74,10 +97,7 @@ def state_dict_to_flax(tensors, model: nn.Module) -> dict:
     for key, t in tensors.items():
         *mod_path, name = key.split(".")
         mod = modules[".".join(mod_path)]
-        arr = t.detach().to("cpu", torch.float32)
-        if isinstance(mod, (nn.Conv2d, nn.Linear)) and name == "weight":
-            name = "kernel"
-            arr = arr.permute(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        name, arr = _to_flax(mod, name, t.detach().to("cpu", torch.float32))
         node = tree
         for part in mod_path:
             node = node.setdefault(part, {})

@@ -31,6 +31,7 @@ them injected as ``noise`` (num_steps, B, d).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -122,6 +123,26 @@ def _coefs(base_sde, s):
             sigma / torch.sqrt(base_sde.beta(s)))
 
 
+@functools.lru_cache(maxsize=32)
+def dpm_schedule(base_sde, num_steps, method, grid, dtype):
+    """The solve's host-side schedule as Python numbers: the grid s and
+    its α, σ, λ and c_ε, and for dpm2 its midpoints (s, α, σ, c_ε), else
+    None. Kept per (SDE, steps, method, grid, dtype), so that a traced
+    solve (``serving.export_sampler`` computes it before tracing) reads
+    it without computing it."""
+    s_grid = _grid(base_sde, num_steps, dtype, grid=grid)
+    alpha, sigma, lam, c_eps = (v.tolist() for v in _coefs(base_sde, s_grid))
+    mid = None
+    if method == "dpm2":
+        lam_g = _lam(base_sde, s_grid)
+        s_mid = _s_of_lambda(0.5 * (lam_g[:-1] + lam_g[1:]),
+                             *_dense_table(base_sde, dtype))
+        a_mid, sg_mid, _, c_mid = (v.tolist() for v in _coefs(base_sde,
+                                                              s_mid))
+        mid = (s_mid.tolist(), a_mid, sg_mid, c_mid)
+    return s_grid.tolist(), alpha, sigma, lam, c_eps, mid
+
+
 def integrate_dpm(flow, x0, num_steps, *, method="dpm2m", grid="logsnr",
                   keep_all=False, include_t0=False, generator=None,
                   noise=None):
@@ -143,17 +164,10 @@ def integrate_dpm(flow, x0, num_steps, *, method="dpm2m", grid="logsnr",
                          f"{(num_steps, *x0.shape)}")
     base = flow.base_sde
     _check_kernel(base)
-    dtype = x0.dtype
-
-    s_grid = _grid(base, num_steps, dtype, grid=grid)
-    alpha, sigma, lam, c_eps = (v.tolist() for v in _coefs(base, s_grid))
-    s = s_grid.tolist()
+    s, alpha, sigma, lam, c_eps, mid = dpm_schedule(base, num_steps, method,
+                                                    grid, x0.dtype)
     if method == "dpm2":
-        lam_g = _lam(base, s_grid)
-        s_mid = _s_of_lambda(0.5 * (lam_g[:-1] + lam_g[1:]),
-                             *_dense_table(base, dtype))
-        a_mid, sg_mid, _, c_mid = (v.tolist() for v in _coefs(base, s_mid))
-        s_mid = s_mid.tolist()
+        s_mid, a_mid, sg_mid, c_mid = mid
 
     def eps_hat(y, sv, c):
         return -c * flow.score(y, sv)

@@ -6,7 +6,8 @@ channel slice [q_h k_h v_h] of width 3·ch of each row. Port of
 sdeflow_tpu/ops/pallas/attention.py.
 
 - ``qkv_attention`` (:258-288) goes through its ``torch.autograd.Function``
-  (ops/kernels/common.py): on CUDA tensors it launches ``csrc/attention.cu``
+  (ops/kernels/common.py), whose forward is the operator
+  ``sdeflow::qkv_attention``: on CUDA tensors it launches ``csrc/attention.cu``
   (K6, the single-block ``_attention_pallas`` :225-255, T ≤ 1024; opt-in
   there under ``SDEFLOW_PALLAS_NN=1``; on the tensor cores in 3xTF32, each
   (sample, head) whole in shared memory up to T = 64 and flash_fwd.cuh's
@@ -612,7 +613,11 @@ def _checkpointed(qkv, num_heads):
 
 QKVAttention = common.kernel_function(
     "QKVAttention", attention_reference, _launch, attention_tangent, 1,
-    _checkpointed)
+    _checkpointed, op=common.register_op(
+        "qkv_attention", "(Tensor qkv, int num_heads) -> Tensor",
+        attention_reference, _launch,
+        lambda qkv, num_heads: qkv.new_empty(
+            (*qkv.shape[:2], qkv.shape[2] // 3))))
 
 
 def qkv_attention(qkv, num_heads=1):

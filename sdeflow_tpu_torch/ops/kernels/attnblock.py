@@ -6,7 +6,8 @@ interleaved [q_h k_h v_h] channel slices) → output projection → residual.
 
 Replaces the Pallas kernel ``_attn_block_pallas`` (sdeflow_tpu/ops/pallas/
 attnblock.py:75-265). ``fused_attention_block`` goes through its
-``torch.autograd.Function``: it launches ``csrc/attnblock.cu`` on CUDA
+``torch.autograd.Function``, whose forward is the operator
+``sdeflow::attn_block``: it launches ``csrc/attnblock.cu`` on CUDA
 tensors and runs the plain version ``attn_block_math`` on CPU tensors, and
 differentiates the plain version in both cases (ops/kernels/common.py;
 forward mode through the closed form ``attn_block_jvp``). The kernel
@@ -335,8 +336,14 @@ def _bf16_scale(ch):
                               dtype=torch.bfloat16))
 
 
-AttnBlock = common.kernel_function("AttnBlock", attn_block_math, _launch,
-                                   attn_block_jvp, 7)
+AttnBlock = common.kernel_function(
+    "AttnBlock", attn_block_math, _launch, attn_block_jvp, 7,
+    op=common.register_op(
+        "attn_block",
+        "(Tensor x, Tensor gn_scale, Tensor gn_bias, Tensor wqkv, "
+        "Tensor bqkv, Tensor wproj, Tensor bproj, int groups, int heads) "
+        "-> Tensor", attn_block_math, _launch,
+        lambda x, *rest: x.new_empty(x.shape)))
 
 
 def fused_attention_block(x, gn_scale, gn_bias, wqkv, bqkv, wproj, bproj,

@@ -10,7 +10,8 @@ kernel, sdeflow_tpu/ops/integrators.py:203-243) go through their
 ``torch.autograd.Function``: the kernel (``csrc/circulant.cu``,
 ``csrc/rk4.cu``) on CUDA tensors, the plain versions ``circ_math``,
 ``rk4_math_fwd`` and ``rk4_solve_select_math`` on CPU tensors, and the
-plain versions' derivatives in every case (ops/kernels/common.py): their
+plain versions' derivatives in every case (ops/kernels/common.py; K1's
+forward through the operator ``sdeflow::circulant_apply``): their
 closed-form tangents ``circ_math_jvp``, ``rk4_math_jvp`` and
 ``rk4_solve_select_jvp`` for forward mode. Unlike the JAX entry points,
 which keep the Pallas kernels for d ≥ 128, the CUDA kernels take any B and
@@ -257,8 +258,11 @@ def _launch_solve(x0, z, sb, select_idx, sqrt_delta):
     return out
 
 
-CircApply = common.kernel_function("CircApply", circ_math, _launch_k1,
-                                   circ_math_jvp, 3)
+CircApply = common.kernel_function(
+    "CircApply", circ_math, _launch_k1, circ_math_jvp, 3,
+    op=common.register_op(
+        "circulant_apply", "(Tensor sb, Tensor y, Tensor w) -> Tensor",
+        circ_math, _launch_k1, lambda sb, y, w: y.new_empty(y.shape)))
 RK4Step = common.kernel_function("RK4Step", rk4_math_fwd, _launch_k2,
                                  rk4_math_jvp, 3)
 RK4SolveSelect = common.kernel_function(

@@ -32,6 +32,16 @@ every kernel wrapper in this package: the device alone decides.
 - Raw pointers are taken only inside ``forward``, which receives plain
   tensors even under ``torch.func`` transforms, and inside a backward with
   grad mode off, which runs outside them.
+- The forward entries that a served request or the encoder reaches (K1,
+  K3, K5, and K6/K4, each in float32 and bfloat16) are also registered
+  operators of the ``sdeflow`` namespace (``register_op``), and their
+  Functions' ``forward`` calls the operator: its CUDA impl is the
+  launcher (which counts the launch), its CPU impl the plain version, and
+  a fake impl gives the output's shape, so ``torch.export`` records one
+  operator node per call and a loaded program launches the same kernels.
+  Every launch-plan choice stays inside the launcher, where shapes are
+  concrete. The training entries (K2 and its solve, K5b, K7a, K7b) keep
+  their direct launch.
 
 There is no fallback from a failed build or launch to the plain version.
 
@@ -158,6 +168,22 @@ class Kernel:
 
 KERNELS: dict = {}
 
+# the sdeflow operators: one library fragment, kept alive with the module
+LIB = torch.library.Library("sdeflow", "FRAGMENT")
+
+
+def register_op(name, schema, plain, launch, fake):
+    """Define ``sdeflow::name`` with `schema` (its arguments and result,
+    e.g. ``"(Tensor x, int groups) -> Tensor"``): the CUDA impl
+    `launch`, the CPU impl `plain` (its result made contiguous, as every
+    launcher's is), and `fake` for the output's shape under tracing.
+    Returns the operator's overload."""
+    LIB.define(name + schema)
+    LIB.impl(name, launch, "CUDA")
+    LIB.impl(name, lambda *args: plain(*args).contiguous(), "CPU")
+    torch.library.register_fake(f"sdeflow::{name}", fake, lib=LIB)
+    return getattr(torch.ops.sdeflow, name).default
+
 
 def register(kernel: Kernel) -> Kernel:
     KERNELS[kernel.name] = kernel
@@ -226,7 +252,7 @@ def _differentiable_vjp(plain, ctx, grad, checkpointed):
 
 
 def kernel_function(name, plain, launch, tangent, n_tensors,
-                    checkpointed=lambda *args: False, vjp=None):
+                    checkpointed=lambda *args: False, vjp=None, op=None):
     """A ``torch.autograd.Function`` (setup_context style, so that
     ``torch.func`` transforms it) for one kernel.
 
@@ -240,13 +266,16 @@ def kernel_function(name, plain, launch, tangent, n_tensors,
     is a pair ``(plain_vjp, launch_vjp)``, each ``(*tensors, *static,
     grad) -> gradients of the tensors``: the backward with grad mode off
     picks between them by device as ``forward`` does (with grad mode on it
-    stays the differentiable vjp of ``plain``). Call it as
-    ``Fn.apply(*tensors, *static)``."""
+    stays the differentiable vjp of ``plain``). ``op``, if given, is the
+    registered operator (``register_op``) of ``plain`` and ``launch``,
+    which ``forward`` calls instead: the dispatcher then picks by device.
+    Call it as ``Fn.apply(*tensors, *static)``."""
 
     def forward(*args):
-        if use_kernel(*args[:n_tensors]):
-            return launch(*args)
-        return plain(*args)
+        kernel = use_kernel(*args[:n_tensors])  # raises for mixed devices
+        if op is not None:
+            return op(*args)
+        return launch(*args) if kernel else plain(*args)
 
     def setup_context(ctx, inputs, output):
         ctx.name = name

@@ -14,7 +14,9 @@ dx, dγ and dβ in one pass over x and dy; the JAX package has no kernel for
 it, XLA fuses the transpose of the ``custom_jvp`` rule :147-151). On CPU
 tensors they run the plain versions ``gn_math`` (the fp32 branch of
 ``_gn_math`` :36-75) and ``gn_math_vjp`` (its vector-Jacobian product in
-closed form). Forward mode goes through the closed form ``gn_math_jvp``,
+closed form). The forward goes through the operator
+``sdeflow::group_norm_silu`` (ops/kernels/common.py ``register_op``).
+Forward mode goes through the closed form ``gn_math_jvp``,
 and a backward with grad mode on (a second reverse pass) through
 ``torch.func.vjp`` of ``gn_math``. ``launch_plan`` is the Python mirror of
 the kernels' launch plan (the C function ``choose``). The JAX package runs
@@ -360,9 +362,14 @@ def _launch_vjp(x, gamma, beta, groups, silu, dy):
     return dx, dgamma, dbeta
 
 
-GroupNormSiLU = common.kernel_function("GroupNormSiLU", gn_math, _launch,
-                                       gn_math_jvp, 3,
-                                       vjp=(gn_math_vjp, _launch_vjp))
+GroupNormSiLU = common.kernel_function(
+    "GroupNormSiLU", gn_math, _launch, gn_math_jvp, 3,
+    vjp=(gn_math_vjp, _launch_vjp),
+    op=common.register_op(
+        "group_norm_silu",
+        "(Tensor x, Tensor gamma, Tensor beta, int groups, bool silu) "
+        "-> Tensor", gn_math, _launch,
+        lambda x, gamma, beta, groups, silu: x.new_empty(x.shape)))
 
 
 def group_norm_silu(x, gamma, beta, groups, silu):

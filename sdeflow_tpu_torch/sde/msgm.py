@@ -26,9 +26,8 @@ import torch
 
 from sdeflow_tpu_torch.ops.gapply import (
     circulant_ijk, dense_sigma_apply, make_dense_G)
-from sdeflow_tpu_torch.ops.hutchinson import randu_on_sphere
 from sdeflow_tpu_torch.ops.kde import (
-    gaussian_kde_logpdf, gaussian_kde_sample, kde_normalization_log_constant)
+    gaussian_kde_logpdf, kde_normalization_log_constant)
 from sdeflow_tpu_torch.ops.kernels.circulant import (
     circulant_apply, circulant_rk4_solve_select, circulant_rk4_step)
 from sdeflow_tpu_torch.sde.base import SDEBehavior, _sqrt, _tcol, beta_linear
@@ -203,25 +202,69 @@ class MSGMSde(SDEBehavior):
         """(num_samples, 1) radii: the inverse empirical cdf of a uniform
         draw ("ecdf"), or a draw of the KDE mixture ("kde", negative radii
         clamped to 0 without the log map), then the inverse log map."""
+        return self.radii_from_draws(
+            *self._radial_draws(generator, num_samples))
+
+    def radii_from_draws(self, *draws):
+        """The radii of ``gen_radial_distribution`` from its raw draws: a
+        uniform u (M,) ("ecdf"), or a centre index and a standard normal,
+        both (M,) ("kde"). Returns (M, 1)."""
         if self.norm_sampler == "ecdf":
-            u = torch.rand((num_samples,), generator=generator,
-                           device=self.r_T.device, dtype=self.r_T.dtype)
-            return self.radii_from_uniform(u)
-        r = gaussian_kde_sample(generator, self.r_T, self.kde_bandwidth,
-                                num_samples)
+            return self.radii_from_uniform(*draws)
+        idx, eps = draws
+        r = self.r_T[idx] + self.kde_bandwidth * eps
         if self.norm_map == "log":
             r = torch.exp(r) - _LOG_EPS
         else:
             r = torch.clamp(r, min=0.0)
         return r[:, None]
 
+    def latent_draw_specs(self, num_samples, n=None):
+        """Shape and law of each of ``latent_draws``' draws, in order (a
+        "randint" draws from [0, high))."""
+        m, d = num_samples, self.dim
+        if self.norm_sampler == "ecdf":
+            radial = [dict(name="u", law="uniform", shape=[m])]
+        else:
+            radial = [dict(name="idx", law="randint", shape=[m],
+                           high=int(self.r_T.shape[0])),
+                      dict(name="eps", law="normal", shape=[m])]
+        return radial + [dict(name="z", law="normal", shape=[m, d])]
+
+    def _radial_draws(self, generator, num_samples):
+        """The radial prior's raw draws (``radii_from_draws``)."""
+        dev, dt = self.r_T.device, self.r_T.dtype
+        if self.norm_sampler == "ecdf":
+            return (torch.rand((num_samples,), generator=generator,
+                               device=dev, dtype=dt),)
+        return (torch.randint(0, self.r_T.shape[0], (num_samples,),
+                              generator=generator, device=dev),
+                torch.randn((num_samples,), generator=generator, dtype=dt,
+                            device=dev))
+
+    def latent_draws(self, generator, num_samples, n=None):
+        """The latent's raw draws from `generator`, in the order
+        ``latent_sample`` has always drawn them (sde/msgm.py:202-224,
+        ops/kde.py:28-36, ops/hutchinson.py:24 of the JAX package): the
+        radial draws (``radii_from_draws``), then the sphere's standard
+        normal (num_samples, dim)."""
+        radial = self._radial_draws(generator, num_samples)
+        z = torch.randn((num_samples, self.dim), generator=generator,
+                        device=self.r_T.device, dtype=self.r_T.dtype)
+        return (*radial, z)
+
+    def latent_from_draws(self, *draws):
+        """x_0 = r·s from ``latent_draws``: the radii of the radial draws,
+        s the sphere's normal normalized."""
+        *radial, z = draws
+        s = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+        return self.radii_from_draws(*radial) * s
+
     def latent_sample(self, generator, num_samples, n=None):
         """x_0 = r·s with r from the radial prior and s uniform on the
         sphere (n is the JAX signature's unused dimension argument)."""
-        r = self.gen_radial_distribution(generator, num_samples)
-        s = randu_on_sphere(generator, (num_samples, self.dim),
-                            device=self.r_T.device, dtype=self.r_T.dtype)
-        return r * s
+        return self.latent_from_draws(
+            *self.latent_draws(generator, num_samples))
 
     def cond_latent_sample(self, generator, t, x, *, z=None):
         """y_T | x: the data point's own radius times a direction uniform

@@ -120,9 +120,23 @@ class SGMSde(SDEBehavior):
         return torch.clamp(t, self.t_epsilon, self.T)
 
     # -- latent prior -------------------------------------------------------
+    def latent_draws(self, generator, num_samples, n):
+        """The latent's raw draws: one standard normal (num_samples, n)."""
+        return (torch.randn((num_samples, n), generator=generator,
+                            device=self.device),)
+
+    def latent_draw_specs(self, num_samples, n):
+        """Shape and law of each of ``latent_draws``' draws, in order."""
+        return [dict(name="z", law="normal", shape=[num_samples, n])]
+
+    @staticmethod
+    def latent_from_draws(z):
+        """The latents from ``latent_draws``: N(0, I) itself."""
+        return z
+
     def latent_sample(self, generator, num_samples, n):
-        return torch.randn((num_samples, n), generator=generator,
-                           device=self.device)
+        return self.latent_from_draws(
+            *self.latent_draws(generator, num_samples, n))
 
     def cond_latent_sample(self, generator, t, x, *, z=None):
         """y_T | x by the forward kernel at T (z: its ε, if given)."""
