@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--record PATH]
                           [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16|
-                                  samplers|core_dit|unet_export]
+                                  samplers|core_dit|unet_export|signal]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -30,7 +30,10 @@ itself plain products) and the core MLP path (swissroll, gaussian,
 gaussianCauchy and cauchy with a dense G: no kernel); and the U-Net's
 other options with serving export (the learned potential, whose score's
 reverse pass runs K5b; remat; dims 1 and 3; labels; exported programs,
-whose kernels are the registered sdeflow operators). It
+whose kernels are the registered sdeflow operators); and the signal
+regime on file-backed Lorenz-63 data (lorenz63_unet1d, UNet1D at d = 1000,
+where K1, K2 and K2's solve take their general plans; lorenz63_dit;
+lorenz63 with a dense G). It
 holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
@@ -325,14 +328,33 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    loaded by a fresh process that imports no sdeflow_tpu_torch.models or
    .sde module (its load seconds) and served there against the eager
    program on the same draws: max |Δ| within 1e-6 of the largest value
-   (expected 0), equal launches, ms both ways.
+   (expected 0), equal launches, ms both ways;
+29. the signal regime (``--only signal``): a Lorenz-63 fixture of 1,536
+   windows of 1,000 steps written under a temporary root by
+   tools/l63_fixture.py, then, every kernel count set to 0 just before each
+   CLI run and read just after, ``run.main`` with ``--data-root`` on
+   lorenz63_unet1d at phase 20's reduction (UNet1D base 32, mults (1, 2,
+   4), emb 128 at d = 1000, the circulant MSGM SDE, batch 256): each arm's
+   8 bare SSM steps timed with their peak memory, exactly 5 K1 and 1 K2
+   solve (MSGM) or none (SGM) each, finite losses, moving parameters; each
+   arm's RK4-32 request of 1,024 samples timed, exactly 8·32 K1 on MSGM
+   and none on SGM, MSGM's norms kept to rtol 1e-5, the MSGM request
+   replayed on the plain path within 1e-3·max |x|; finite metrics. Then
+   K1 and K2 at (256, 1000) and (1024, 1000) and K2's 16-step solve at
+   (16, 256, 1000) (the arm's t draws, all 0, all 16), each on its general
+   plan, bit for bit against its plain version (the solve also against a
+   loop of K2 steps), timed beside its bound; a traced MSGM SSM step and
+   2-step request; lorenz63_dit (DiT1D, d = 1000 padded to 1,008) through
+   the CLI with the same checks, and lorenz63 (d = 16, dense G, MLP),
+   which launches no kernel.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
 K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
 launches in the production run and those of K6, K4, K7a, K7b with their
 launches in phases 24 and 25, each with its launches in the driver's
-run, in phase 26's two runs, in phase 27's two DiT runs and in phase
-28's runs (by entry point, fp32 and bf16 apart): per
+run, in phase 26's two runs, in phase 27's two DiT runs, in phase
+28's runs (by entry point, fp32 and bf16 apart) and in phase 29's runs,
+with K1's, K2's and the solve's d = 1000 times: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
 K1, K2 and the solve, and the library call where one computes the same
@@ -354,7 +376,7 @@ that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
 (128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
 (128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
 24's batch-16 request with its trace (``attn_bf16_timing``); samplers
-phase 26; core_dit phase 27; unet_export phase 28.
+phase 26; core_dit phase 27; unet_export phase 28; signal phase 29.
 """
 
 from __future__ import annotations
@@ -1090,6 +1112,22 @@ def check_k6(g, dev):
     return rows
 
 
+def timed_row(kern, plan, fn, direct, plain, args, cost):
+    """K1's or K2's row at the shape (B, d) of args[1]: its time per call
+    through the Function (fn), as a direct launch and of its plain
+    version (CUDA events over 200 calls), its device time alone and the
+    launch floor from traces, and its bound."""
+    b, d = args[1].shape
+    dev_ms, floor, _ = device_times(lambda: direct(*args), SYMBOL[kern.name])
+    bound = bound_ms(*cost(b, d))
+    return {"shape": [b, d], "plan": plan._asdict(),
+            "ms": cuda_ms(lambda: fn(*args), 200),
+            "direct_ms": cuda_ms(lambda: direct(*args), 200),
+            "plain_ms": cuda_ms(lambda: plain(*args), 200),
+            "device_ms_alone": dev_ms, "floor_ms": floor,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
 def check_k1(g, dev):
     """Phase 2: K1 against its plain version at every plan's edge, bit for
     bit, with the Python plan mirror held to the compiled chooser; its
@@ -1117,17 +1155,9 @@ def check_k1(g, dev):
             if not torch.equal(out, ref):
                 raise AssertionError(f"K1 ({b}, {d}) differs from circ_math")
             if (b, d) == (N_SAMPLES, DIM):
-                dev_ms, floor, _ = device_times(lambda: _launch_k1(sb, y, w),
-                                                SYMBOL[K1.name])
-                bound = bound_ms(*k1_cost(b, d))
-                row = {"max_abs_err": err, "shape": [b, d],
-                       "plan": plan._asdict(),
-                       "ms": cuda_ms(lambda: circulant_apply(sb, y, w), 200),
-                       "direct_ms": cuda_ms(lambda: _launch_k1(sb, y, w),
-                                            200),
-                       "plain_ms": cuda_ms(lambda: circ_math(sb, y, w), 200),
-                       "device_ms_alone": dev_ms, "floor_ms": floor,
-                       "bound_ms": bound[0], "bound_by": bound[1]}
+                row = dict(timed_row(K1, plan, circulant_apply, _launch_k1,
+                                     circ_math, (sb, y, w), k1_cost),
+                           max_abs_err=err)
     log(f"K1 at {row['shape']}: device {row['device_ms_alone']:.5f} ms "
         f"(launch floor {row['floor_ms']:.5f} ms), bound "
         f"{row['bound_ms']:.5f} ms ({row['bound_by']}), per call "
@@ -1193,19 +1223,9 @@ def check_k2(gen, g, dev):
                 raise AssertionError(f"K2 ({b}, {d}) differs from "
                                      "rk4_math_fwd")
             if (b, d) == (TRAIN_BATCH, DIM):
-                dev_ms, floor, _ = device_times(
-                    lambda: _launch_k2(sb3, x, w), SYMBOL[K2.name])
-                bound = bound_ms(*k2_cost(b, d))
-                row = {"max_abs_err": err, "shape": [b, d],
-                       "plan": plan._asdict(),
-                       "ms": cuda_ms(lambda: circulant_rk4_step(sb3, x, w),
-                                     200),
-                       "plain_ms": cuda_ms(lambda: rk4_math_fwd(sb3, x, w),
-                                           200),
-                       "direct_ms": cuda_ms(lambda: _launch_k2(sb3, x, w),
-                                            200),
-                       "device_ms_alone": dev_ms, "floor_ms": floor,
-                       "bound_ms": bound[0], "bound_by": bound[1]}
+                row = dict(timed_row(K2, plan, circulant_rk4_step, _launch_k2,
+                                     rk4_math_fwd, (sb3, x, w), k2_cost),
+                           max_abs_err=err)
         log(f"K2 at {row['shape']}: device {row['device_ms_alone']:.5f} ms "
             f"(launch floor {row['floor_ms']:.5f} ms), bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']}), per call "
@@ -1224,10 +1244,11 @@ def check_k2(gen, g, dev):
     return row, check_solve(gen, g, dev)
 
 
-def check_solve(gen, g, dev):
-    """K2's solve at the SSM loss's (64, 128, 256) on the grf16 SDE, with
-    the steps per row from grf16's t draws and the edge cases (all 0, all
-    64): bit for bit against step_loop on the same normals (a K2 launch
+def check_solve(gen, g, dev, b=TRAIN_BATCH, dim=DIM, steps=TRAIN_STEPS,
+                what="grf16"):
+    """K2's solve at the SSM loss's shape (by default grf16's (64, 128,
+    256)) on the arm's SDE, with the steps per row from the arm's t draws
+    and the edge cases (all 0, all n): bit for bit against step_loop on the same normals (a K2 launch
     per step), within 1e-6 of rk4_solve_select_math; its device time per
     select case (the per-row step counts beside it: rows near 64 set a
     latency-bound launch); then against the loop: device time from traces
@@ -1240,10 +1261,10 @@ def check_solve(gen, g, dev):
     from sdeflow_tpu_torch.sde.msgm import sqrt_beta_table
 
     sde = gen.base_sde
-    n, b = sde.num_steps_forward, TRAIN_BATCH
-    if n != TRAIN_STEPS:
-        raise AssertionError(f"grf16's forward solve takes {n} steps")
-    if kernel_plan(K2, b, DIM) != rk4_plan(b, DIM):
+    n = sde.num_steps_forward
+    if n != steps:
+        raise AssertionError(f"{what}'s forward solve takes {n} steps")
+    if kernel_plan(K2, b, dim) != rk4_plan(b, dim):
         raise AssertionError("K2's plan mirror differs at the solve's shape")
     flow = ForwardFlow(base_sde=sde, T=sde.T)
     delta = float(sde.T) / n
@@ -1251,11 +1272,13 @@ def check_solve(gen, g, dev):
     sb = sqrt_beta_table(sde.beta_min, sde.beta_max, delta, n, dev,
                          torch.float32)
     x0 = gen.latent_sample(g, b)
-    z = torch.randn(n, b, DIM, generator=g, device=dev)
-    cases = {"grf16 t draws": forward_select(gen, g, b, n),
+    z = torch.randn(n, b, dim, generator=g, device=dev)
+    drawn = f"{what} t draws"
+    cases = {drawn: forward_select(gen, g, b, n),
              "all 0": torch.zeros(b, dtype=torch.int64, device=dev),
              f"all {n}": torch.full((b,), n, dtype=torch.int64, device=dev)}
-    rec = {"shape": [n, b, DIM], "cases": {}}
+    rec = {"shape": [n, b, dim], "plan": rk4_plan(b, dim)._asdict(),
+           "cases": {}}
     with torch.no_grad():
         for name, sel in cases.items():
             before = K2_SOLVE.launches
@@ -1274,7 +1297,7 @@ def check_solve(gen, g, dev):
             torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
             dev_ms, floor, _ = device_times(
                 lambda: _launch_solve(x0, z, sb, sel, sd), SYMBOL[K2_SOLVE.name])
-            bound = bound_ms(*solve_cost(sel, DIM, n))
+            bound = bound_ms(*solve_cost(sel, dim, n))
             rec["cases"][name] = {
                 "max_abs_err_loop": err_loop, "max_abs_err": err_plain,
                 "steps_max": int(sel.max().item()),
@@ -1286,8 +1309,8 @@ def check_solve(gen, g, dev):
                 f"max |solve - K2 loop| = {err_loop:.3g}, max |solve - plain| "
                 f"= {err_plain:.3g}; device {dev_ms:.5f} ms (launch floor "
                 f"{floor:.5f} ms), bound {bound[0]:.5f} ms ({bound[1]})")
-        sel = cases["grf16 t draws"]
-        rec.update(rec["cases"]["grf16 t draws"])
+        sel = cases[drawn]
+        rec.update(rec["cases"][drawn])
         rec["ms"] = cuda_ms(lambda: circulant_rk4_solve_select(
             x0, z, sb, sel, sd), 100)
         rec["direct_ms"] = cuda_ms(lambda: _launch_solve(x0, z, sb, sel, sd),
@@ -4072,16 +4095,17 @@ def dit_step_want(is_msgm):
     return want
 
 
-def dit_cli_run(g, dev, card, args, bf16):
-    """``sdeflow_tpu_torch.run.main`` with args (grf16_dit or
-    grf16_production_dit) in a temporary cwd and results directory, every
-    kernel count set to 0 just before and read just after: each arm's
-    bare SSM steps with their launches (dit_step_want), finite losses,
-    moving parameters (bf16: the net computing in bf16, parameters, Adam
-    moments and EMA fp32), each arm's request with its K1 launches and
-    norms (bf16: the corrector's step sizes), the MSGM request replayed on
-    the plain path (fp32: within 1e-3·max |x|; bf16: phase 22's gates),
-    and the metrics."""
+def msgm_cli_run(g, dev, card, args, bf16, net_type="DiT2D", dim=DIM):
+    """``sdeflow_tpu_torch.run.main`` with args (a preset whose score net,
+    of type net_type at width dim, reaches no kernel: grf16_dit,
+    grf16_production_dit, lorenz63_unet1d, lorenz63_dit) in a temporary
+    cwd and results directory, every kernel count set to 0 just before and
+    read just after: each arm's bare SSM steps with their launches
+    (dit_step_want), finite losses, moving parameters (bf16: the net
+    computing in bf16, parameters, Adam moments and EMA fp32), each arm's
+    request with its K1 launches and norms (bf16: the corrector's step
+    sizes), the MSGM request replayed on the plain path (fp32: within
+    1e-3·max |x|; bf16: phase 22's gates), and the metrics."""
     import tempfile
 
     import numpy as np
@@ -4118,14 +4142,14 @@ def dit_cli_run(g, dev, card, args, bf16):
                 rec["launches"] = launch_counts()
         finally:
             os.chdir(cwd)
-    what = "grf16_production_dit" if bf16 else "grf16_dit"
+    what = args[args.index("--preset") + 1]
     log(f"{what} run: {rec['driver_s']:.1f} s, launches {rec['launches']}")
     others = {k: n for k, n in rec["launches"].items()
               if n and k not in DIT_KERNELS}
     missing = [k for k in DIT_KERNELS if not rec["launches"][k]]
     if missing or others:
         raise AssertionError(f"{what}: never launched {missing}; launched "
-                             f"{others} (the DiT reaches no kernel)")
+                             f"{others} (the {net_type} reaches no kernel)")
 
     # training: both arms, their bare steps and launches
     arms = {"SGM": "SGM", "MSGM": "MSGM_sparseTenslogNorm"}
@@ -4151,8 +4175,8 @@ def dit_cli_run(g, dev, card, args, bf16):
         want_dt = torch.bfloat16 if bf16 else torch.float32
         if not (torch.isfinite(losses).all() and moved > 0
                 and dtypes == {"torch.float32"}
-                and type(net).__name__ == "DiT2D"
-                and net.block0.qkv.compute_dtype == want_dt):
+                and type(net).__name__ == net_type
+                and net.compute_dtype == want_dt):
             raise AssertionError(f"{arm}: losses {losses}, moved {moved}, "
                                  f"dtypes {dtypes}, net {type(net)}")
         ms = [r["ms"] for r in mine]
@@ -4161,7 +4185,8 @@ def dit_cli_run(g, dev, card, args, bf16):
             max_memory_allocated=max(r["peak"] for r in mine),
             launches_per_step=mine[-1]["launches"], losses=losses.tolist(),
             param_moved=moved, state_dtypes=sorted(dtypes))
-        log(f"{card}: {what} {arm} bare SSM steps at batch {TRAIN_BATCH}: "
+        log(f"{card}: {what} {arm} bare SSM steps at batch "
+            f"{mine[-1]['args'][2].shape[0]}: "
             f"{rec['train'][arm]['ms_per_step_after_first']:.1f} ms/step "
             f"(steps 2-{DRIVER_ITERATIONS}; the first {ms[0]:.1f} ms), peak "
             f"{rec['train'][arm]['max_memory_allocated'] / 2**20:.1f} MiB, "
@@ -4177,7 +4202,7 @@ def dit_cli_run(g, dev, card, args, bf16):
     for i, ((arm, is_msgm), r) in enumerate(zip(
             (("SGM", False), ("MSGM", True)), gens)):
         xs = r["out"]
-        if tuple(xs.shape) != (n_steps + 1, N_SAMPLES, DIM) or \
+        if tuple(xs.shape) != (n_steps + 1, N_SAMPLES, dim) or \
                 not torch.isfinite(xs).all():
             raise AssertionError(f"{arm}: trajectory {tuple(xs.shape)}")
         want = dict(dit_step_want(False),
@@ -4259,24 +4284,26 @@ def dit_cli_run(g, dev, card, args, bf16):
     return rec
 
 
-def dit_traces(preset, g, dev):
-    """Where a DiT MSGM arm's time goes (random weights): a traced bare SSM
-    step at batch 128 (the driver's Trainer) and a traced 2-step request of
-    1,024 samples with the preset's sampler."""
+def dit_traces(preset, g, dev, dim=DIM, randomize=True):
+    """Where an MSGM arm's time goes (random weights): a traced bare SSM
+    step at the preset's batch (the driver's Trainer) and a traced 2-step
+    request of 1,024 samples with the preset's sampler."""
     from sdeflow_tpu_torch import build_msgm_arm, get_preset, make_sampler_fn
     from sdeflow_tpu_torch.experiments import driver as drv
 
     cfg = get_preset(preset)
     sw = cfg.sweep
+    batch = sw.batch_sizes[0]
     model, gen = build_msgm_arm(cfg, g, device=dev)
-    randomize_(model, g)
-    sampler = drv.make_sampler(cfg, DIM, device=dev)
-    trainer = drv.make_trainer(cfg, gen, sampler, TRAIN_BATCH, log_fn=log)
+    if randomize:
+        randomize_(model, g)
+    sampler = drv.make_sampler(drv.arm_config(cfg, True), dim, device=dev)
+    trainer = drv.make_trainer(cfg, gen, sampler, batch, log_fn=log)
     rec = {"ssm_step": trace(lambda: trainer.train_step(
-        trainer.state, g, sampler.sample(g, TRAIN_BATCH)))}
-    log_trace(f"one {preset} MSGM SSM step at batch {TRAIN_BATCH}",
+        trainer.state, g, sampler.sample(g, batch)))}
+    log_trace(f"one {preset} MSGM SSM step at batch {batch}",
               rec["ssm_step"])
-    fn = make_sampler_fn(gen, N_SAMPLES, DIM, PROFILED_STEPS,
+    fn = make_sampler_fn(gen, N_SAMPLES, dim, PROFILED_STEPS,
                          method=sw.backward_method, norm_correction=True,
                          corrector_steps=sw.corrector_steps, snr=sw.snr,
                          device=dev)
@@ -4291,14 +4318,10 @@ def core_path(g, dev, card):
     MSGM GaussianCauchy run with a dense G through the Trainer, and the CLI
     on swissroll, gaussian (d = 2 … 32) and cauchy; none launches a kernel
     (K1 and K2 never see a dense G)."""
-    import tempfile
-
     import numpy as np
 
-    from sdeflow_tpu_torch import run as run_mod
     from sdeflow_tpu_torch.data import GaussianCauchy, SwissRoll
     from sdeflow_tpu_torch.eval import compute_mmd
-    from sdeflow_tpu_torch.experiments import driver as drv
     from sdeflow_tpu_torch.models import MLP
     from sdeflow_tpu_torch.ops.integrators import integrate_sde
     from sdeflow_tpu_torch.ops.kernels import common
@@ -4387,40 +4410,9 @@ def core_path(g, dev, card):
                              f"{rel}")
 
     # the CLI on the toy presets
-    rec["cli"] = {}
-    for preset in CORE_CLI_PRESETS:
-        builds = []
-        cwd = os.getcwd()
-        with tempfile.TemporaryDirectory() as tmp:
-            os.chdir(tmp)
-            try:
-                with spied(drv, "build_msgm_arm", builds):
-                    common.reset_launches()
-                    t0 = time.perf_counter()
-                    res = run_mod.main([
-                        "--preset", preset, "--iterations",
-                        str(CORE_CLI_ITERATIONS), "--eval-mmd", "--no-plots",
-                        "--results-dir", os.path.join(tmp, "results")])
-                    torch.cuda.synchronize()
-                    seconds = time.perf_counter() - t0
-            finally:
-                os.chdir(cwd)
-        no_launch(f"the {preset} CLI run")
-        dims = res["dims"]
-        G = [list(b["out"][1].base_sde.G.shape) for b in builds]
-        if G != [[d] * 3 for d in dims]:
-            raise AssertionError(f"{preset}: dense G {G} for dims {dims}")
-        sq = {k: np.sqrt(np.maximum(res[k], 0)).ravel().tolist()
-              for k in ("mmd_sgm", "mmd_msgm", "mmd_ref")}
-        if not all(np.isfinite(v).all() for v in sq.values()):
-            raise AssertionError(f"{preset}: sqrt-MMD {sq}")
-        rec["cli"][preset] = dict(seconds=seconds, dims=dims, G=G,
-                                  sqrt_mmd=sq)
-        log(f"{card}: CLI {preset} --iterations {CORE_CLI_ITERATIONS}: "
-            f"{seconds:.1f} s, dims {dims}, dense G {G}; sqrt-MMD SGM "
-            f"{[round(v, 4) for v in sq['mmd_sgm']]}, MSGM "
-            f"{[round(v, 4) for v in sq['mmd_msgm']]}, floor "
-            f"{[round(v, 4) for v in sq['mmd_ref']]}")
+    rec["cli"] = {preset: dense_cli_run(card, [
+        "--preset", preset, "--iterations", str(CORE_CLI_ITERATIONS),
+        "--eval-mmd", "--no-plots"]) for preset in CORE_CLI_PRESETS}
     return rec
 
 
@@ -4429,10 +4421,10 @@ def check_core_dit(g, dev, card):
     the CLI with their checks and traces; then the core MLP path."""
     t0 = time.perf_counter()
     rec = {"card": card}
-    rec["dit"] = dit_cli_run(g, dev, card, DIT_ARGS, bf16=False)
+    rec["dit"] = msgm_cli_run(g, dev, card, DIT_ARGS, bf16=False)
     rec["dit_traces"] = dit_traces("grf16_dit", g, dev)
-    rec["dit_production"] = dit_cli_run(g, dev, card, DIT_PROD_ARGS,
-                                        bf16=True)
+    rec["dit_production"] = msgm_cli_run(g, dev, card, DIT_PROD_ARGS,
+                                         bf16=True)
     rec["dit_production_traces"] = dit_traces("grf16_production_dit", g, dev)
     rec["launches"] = {k: rec["dit"]["launches"][k]
                        + rec["dit_production"]["launches"][k]
@@ -5063,6 +5055,165 @@ def check_unet_export(g, dev, card, job):
     return rec
 
 
+# -- phase 29: the signal regime, file-backed Lorenz-63 data and UNet1D --------
+# the fixture (tools/l63_fixture.py): windows of 1,000 steps of X, enough
+# of them that the 2:1 split's train set holds N_SAMPLES rows; the CLI runs
+# at phase 20's reduction on each arm's own batch (lorenz63's 256)
+L63_DIM, L63_WINDOWS = 1000, 1536
+SIGNAL_FLAGS = ["--iterations", str(DRIVER_ITERATIONS), "--num-samples",
+                str(N_SAMPLES), "--steps-backward", str(STEPS), "--eval-mmd",
+                "--no-plots"]
+
+
+def k_rows(b, dim, g, dev):
+    """K1 and K2 at (b, dim), bit for bit against their plain versions,
+    plans mirrored, with their times and bounds (timed_row)."""
+    from sdeflow_tpu_torch.ops.kernels.circulant import (
+        K1, K2, _launch_k1, _launch_k2, circ_math, circulant_apply,
+        circulant_plan, circulant_rk4_step, kernel_plan, rk4_math_fwd,
+        rk4_plan)
+
+    y = torch.randn(b, dim, generator=g, device=dev)
+    w = torch.randn(b, dim, generator=g, device=dev)
+    sb = 1.0 + torch.rand(b, 1, generator=g, device=dev)
+    sb3 = 1.0 + torch.rand(b, 3, generator=g, device=dev)
+    w2 = 0.25 * w
+    rows = {}
+    for kern, plan, fn, direct, plain, args, cost in (
+            (K1, circulant_plan(b, dim), circulant_apply, _launch_k1,
+             circ_math, (sb, y, w), k1_cost),
+            (K2, rk4_plan(b, dim), circulant_rk4_step, _launch_k2,
+             rk4_math_fwd, (sb3, y, w2), k2_cost)):
+        if kernel_plan(kern, b, dim) != plan:
+            raise AssertionError(f"{kern.name} ({b}, {dim}): plan mirror "
+                                 f"{plan} != {kernel_plan(kern, b, dim)}")
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        err = (out - ref).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{kern.name} ({b}, {dim}) differs from its "
+                                 f"plain version by {err:.3g}")
+        rows[kern.name] = r = dict(timed_row(kern, plan, fn, direct, plain,
+                                             args, cost), max_abs_err=err)
+        log(f"{kern.name} ({b}, {dim}) {plan.kind} plan ({plan.per_lane} "
+            f"floats per lane, vec {plan.vec}): bit for bit with its plain "
+            f"version; device {r['device_ms_alone']:.5f} ms (launch floor "
+            f"{r['floor_ms']:.5f} ms), bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), per call {r['ms']:.4f} ms, direct "
+            f"{r['direct_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    return rows
+
+
+def dense_cli_run(card, args):
+    """``run.main`` with args on a preset with a dense G and the MLP
+    (swissroll, gaussian, cauchy, lorenz63) in a temporary cwd and results
+    directory: no kernel launched, each MSGM arm's G of d³, finite
+    metrics."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.kernels import common
+
+    builds = []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with spied(drv, "build_msgm_arm", builds):
+                common.reset_launches()
+                t0 = time.perf_counter()
+                res = run_mod.main([*args, "--results-dir",
+                                    os.path.join(tmp, "results")])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = launch_counts()
+        finally:
+            os.chdir(cwd)
+    what = args[args.index("--preset") + 1]
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    G = [list(b["out"][1].base_sde.G.shape) for b in builds]
+    if G != [[d] * 3 for d in res["dims"]]:
+        raise AssertionError(f"{what}: dense G {G} for dims {res['dims']}")
+    sq = {k: np.sqrt(np.maximum(res[k], 0)).ravel().tolist()
+          for k in ("mmd_sgm", "mmd_msgm", "mmd_ref")}
+    if not all(np.isfinite(v).all() for v in sq.values()):
+        raise AssertionError(f"{what}: sqrt-MMD {sq}")
+    log(f"{card}: CLI {what}: {seconds:.1f} s, no kernel launched, dims "
+        f"{res['dims']}, dense G {G}; sqrt-MMD SGM "
+        f"{[round(v, 4) for v in sq['mmd_sgm']]}, MSGM "
+        f"{[round(v, 4) for v in sq['mmd_msgm']]}, floor "
+        f"{[round(v, 4) for v in sq['mmd_ref']]}")
+    return dict(seconds=seconds, dims=res["dims"], G=G, sqrt_mmd=sq)
+
+
+def check_signal(g, dev, card):
+    """Phase 29: a Lorenz-63 fixture written under a temporary root, then
+    through the CLI with --data-root: lorenz63_unet1d (UNet1D at full
+    width, d = 1000, the circulant MSGM SDE) with msgm_cli_run's checks;
+    K1 and K2 at its SSM step's and its request's shapes and K2's 16-step
+    solve, bit for bit against their plain versions, timed; a traced MSGM
+    SSM step and 2-step request; lorenz63_dit likewise; lorenz63 (d = 16,
+    dense G, MLP) with no kernel."""
+    import tempfile
+
+    from sdeflow_tpu_torch import build_msgm_arm, get_preset
+    from sdeflow_tpu_torch.data import get_data_root, set_data_root
+
+    t_start = time.perf_counter()
+    cfg = get_preset("lorenz63_unet1d")
+    tc, batch = cfg.train, cfg.sweep.batch_sizes[0]
+    if (cfg.data.dims, tc.nn_archi, tc.dense_tensor, tc.num_steps_forward,
+            L63_DIM % 32 == 0) != ((L63_DIM,), "Unet1D", False, 16, False):
+        raise AssertionError("lorenz63_unet1d: not the circulant d = 1000 "
+                             "UNet1D preset of 16 forward steps")
+    rec = {"card": card}
+    prev_root = get_data_root()
+    with tempfile.TemporaryDirectory() as root:
+        from tools.l63_fixture import ensure_fixture
+
+        t0 = time.perf_counter()
+        ensure_fixture(root, window_len=L63_DIM, n_windows=L63_WINDOWS)
+        rec["fixture_s"] = time.perf_counter() - t0
+        log(f"Lorenz-63 fixture of {L63_WINDOWS} windows x {L63_DIM}: "
+            f"{rec['fixture_s']:.1f} s")
+
+        def args(preset):
+            return ["--preset", preset, "--data-root", root, *SIGNAL_FLAGS]
+
+        try:
+            set_data_root(root)  # for the arms built here; the CLI sets it
+            rec["unet1d"] = msgm_cli_run(g, dev, card,
+                                         args("lorenz63_unet1d"), bf16=False,
+                                         net_type="UNet1D", dim=L63_DIM)
+            _, gen = build_msgm_arm(cfg, g, device=dev)  # the CLI's root
+            with torch.no_grad():
+                rec["k"] = {f"{b}x{L63_DIM}": k_rows(b, L63_DIM, g, dev)
+                            for b in (batch, N_SAMPLES)}
+                rec["solve"] = check_solve(gen, g, dev, b=batch, dim=L63_DIM,
+                                           steps=tc.num_steps_forward,
+                                           what="lorenz63_unet1d")
+            rec["unet1d_traces"] = dit_traces("lorenz63_unet1d", g, dev,
+                                              dim=L63_DIM, randomize=False)
+            rec["dit"] = msgm_cli_run(g, dev, card, args("lorenz63_dit"),
+                                      bf16=False, net_type="DiT1D",
+                                      dim=L63_DIM)
+            rec["dense"] = dense_cli_run(card, args("lorenz63"))
+        finally:
+            set_data_root(prev_root)
+    rec["launches"] = {k: rec["unet1d"]["launches"][k]
+                       + rec["dit"]["launches"][k] for k in
+                       rec["unet1d"]["launches"]}
+    rec["seconds"] = time.perf_counter() - t_start
+    log(f"phase 29: {rec['seconds']:.1f} s, launches in the three CLI runs "
+        f"{dict((k, v) for k, v in rec['launches'].items() if v)}")
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -5077,7 +5228,7 @@ def main(argv=None):
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
                                        "unfused_bf16", "attn_bf16",
                                        "samplers", "core_dit",
-                                       "unet_export"),
+                                       "unet_export", "signal"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -5094,7 +5245,9 @@ def main(argv=None):
                     "exact NLL through the CLI on grf16; core_dit runs "
                     "phase 27, the DiT presets and the core MLP path; "
                     "unet_export runs phase 28, the learned potential, "
-                    "remat, the U-Net's other options and serving export")
+                    "remat, the U-Net's other options and serving export; "
+                    "signal runs phase 29, the Lorenz-63 presets on a "
+                    "fixture through --data-root")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5164,6 +5317,10 @@ def main(argv=None):
         return 0
     if opts.only == "core_dit":
         record["core_dit"] = check_core_dit(g, dev, card)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "signal":
+        record["signal"] = check_signal(g, dev, card)
         write_record(opts.record, record)
         return 0
     job = ExportJob()  # phase 28's exports, in a process of their own
@@ -5381,6 +5538,11 @@ def main(argv=None):
     # labels) and serving export ------------------------------------------
     unet_export = check_unet_export(g, dev, card, job)
     record["unet_export"] = unet_export
+
+    phase("29")
+    # -- 29. the signal regime: file-backed Lorenz-63 data, UNet1D, d = 1000 -
+    signal = check_signal(g, dev, card)
+    record["signal"] = signal
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
@@ -5644,6 +5806,18 @@ def main(argv=None):
         kernel = k.get("counter", k["name"])
         k["unet_export_launches"] = unet_export["entry_launches"].get(
             f"{ENTRY[kernel]}_{'bf16' if 'counter' in k else 'f32'}", 0)
+        # phase 29's CLI runs launch K1 and K2's solve, fp32 entries
+        k["signal_launches"] = (0 if "counter" in k
+                                else signal["launches"][k["name"]])
+    # K1, K2 and K2's solve at d = 1000 (their general plans), phase 29
+    for k in kernels[:3]:
+        if k["id"] == "K2 solve":
+            k["signal_d1000"] = dict(signal["solve"],
+                                     launches=signal["launches"][k["name"]])
+        else:
+            k["signal_d1000"] = {
+                shape: rows[k["name"]] for shape, rows in signal["k"].items()}
+            k["signal_d1000"]["launches"] = signal["launches"][k["name"]]
     for k in kernels:
         missing = {"name", "route", "source", "replaces", "launches",
                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5659,7 +5833,8 @@ def main(argv=None):
             f"{k['launches_per']}; {k['driver_launches']} in the driver's "
             f"run, {k['samplers_launches']} in phase 26's, "
             f"{k['core_dit_launches']} in phase 27's, "
-            f"{k['unet_export_launches']} in phase 28's")
+            f"{k['unet_export_launches']} in phase 28's, "
+            f"{k['signal_launches']} in phase 29's")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

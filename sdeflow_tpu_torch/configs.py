@@ -1,21 +1,17 @@
-"""Typed experiment configuration and the grf preset chain.
+"""Typed experiment configuration and every named preset.
 
 Port of sdeflow_tpu/configs.py (TrainConfig, SweepConfig, DataConfig,
-PlotConfig, ExperimentConfig with its ``debug`` shrink, the toy presets
-and the ``_piv_large`` → ``_grf`` → ``_grf_dit`` / ``_grf_production`` →
-``_grf_production_dit`` chain, :95-250, 318-372, 375-428, 558-565), with
-the fields those presets set and the driver, the serve and the training
-paths of the MSGM and SGM arms read; each keeps the JAX default.
-``_grf(npixel)`` takes any square image, as the JAX one does
-(``_grf(128)`` is the SGM DSM slice's configuration). The registered
-presets, each also with the ``_dbg`` suffix: swissroll, gaussian,
-gaussianCauchy, cauchy, grf16, grf32, grf16_dit, grf16_production and
-grf16_production_dit. The JAX package's ``steps_per_dispatch`` (its
-``lax.scan`` dispatch of several train steps) has no counterpart: the
-Trainer takes one step at a time (a CUDA graph of the step is ROADMAP
-Queue 1 item 17). The other presets come with item 13; the plot options
-are carried as data, and only ``save_results`` is read (the plots come
-with item 13).
+PlotConfig, ExperimentConfig with its ``debug`` shrink, and all 23
+presets, :20-563), with the fields the presets set and the driver, the
+serve and the training paths of the MSGM and SGM arms read; each keeps
+the JAX default. ``_grf(npixel)`` takes any square image, as the JAX one
+does (``_grf(128)`` is the SGM DSM slice's configuration). Every preset
+also resolves with the ``_dbg`` suffix. The JAX package's
+``steps_per_dispatch`` (its ``lax.scan`` dispatch of several train steps)
+has no counterpart: the Trainer takes one step at a time (a CUDA graph of
+the step is ROADMAP Queue 1 item 17); nor has ``print_ram`` (item 15).
+The plot options are carried as data, and only ``save_results`` is read
+(the plots come with item 13b).
 """
 
 from __future__ import annotations
@@ -57,6 +53,7 @@ class TrainConfig:
     num_res_blocks: int = 2
     attention_resolutions: Tuple[int, ...] = (2, 4)
     attention_impl: str = "auto"
+    emb_dim: int = 128  # UNet1D's time embedding width
     # the DiT score nets (nn_archi "DiT" and "DiT2D", models/dit.py)
     dit_patch: int = 16
     dit_width: int = 512
@@ -92,15 +89,25 @@ class DataConfig:
     datatype: str = "swissroll"
     dims: Tuple[int, ...] = (2,)
     normalized: bool = True
+    mixed_times: bool = False  # a random train/test split (ERA5, POD)
     correlation: bool = True  # gaussian, gaussianCauchy, cauchy
+    few_data: bool = False  # train on at most the sweep's ntrain_max rows
+    # PIV
     large_image: bool = False
     smoothing: int = 0
+    localized: bool = False
+    n_dim_l96: int = 100  # the simulated Lorenz-96 system's size
+    # ERA5
+    season: str = "all"
+    use_deseason: bool = False
+    era5_variables: Optional[Tuple[str, ...]] = None
+    concatenate_re: bool = False  # POD: both Reynolds numbers at once
 
 
 @dataclass(frozen=True)
 class PlotConfig:
     """Plot options, carried as data; the driver reads ``save_results``
-    (the plots come with ROADMAP Queue 1 item 13)."""
+    (the plots come with ROADMAP Queue 1 item 13b)."""
 
     scatter_plots: bool = True
     noising_plots: bool = True
@@ -185,6 +192,67 @@ def _cauchy():
     )
 
 
+def _lorenz63():
+    """The dense-G d = 16 Lorenz-63 regime: β and t_eps divided by 10,
+    128 forward steps, a rolling checkpoint, no fair budget."""
+    ratio = 10.0
+    return ExperimentConfig(
+        name="lorenz63",
+        train=TrainConfig(
+            beta_min=0.1 / ratio,
+            beta_max=20.0 / ratio,
+            beta_min_sgm=0.1 / ratio,
+            beta_max_sgm=20.0 / ratio,
+            t_eps=1e-3 / ratio,
+            num_steps_forward=128,
+            use_checkpoint=True,
+        ),
+        sweep=SweepConfig(fair_comparison=False),
+        data=DataConfig(datatype="lorenz63", dims=(16,)),
+        plots=PlotConfig(plot_xlim=4.0, val_hist=8.0, offset_dimplot=8),
+    )
+
+
+def _lorenz63_unet1d():
+    """lorenz63 at d = 1000 on UNet1D with a circulant G (sparse tensor),
+    16 forward steps."""
+    base = _lorenz63()
+    return replace(
+        base,
+        name="lorenz63_unet1d",
+        train=replace(base.train, dense_tensor=False, nn_archi="Unet1D",
+                      num_steps_forward=16),
+        data=replace(base.data, dims=(1000,)),
+    )
+
+
+def _lorenz63_dit():
+    """lorenz63_unet1d on the DiT1D score net."""
+    base = _lorenz63_unet1d()
+    return replace(base, name="lorenz63_dit",
+                   train=replace(base.train, nn_archi="DiT"))
+
+
+def _piv_small():
+    """PIV's 4×4 flat mode: β and t_eps divided by 4, at most 1,024 train
+    rows."""
+    ratio = 4.0
+    return ExperimentConfig(
+        name="piv_small",
+        train=TrainConfig(
+            beta_min=0.1 / ratio,
+            beta_max=20.0 / ratio,
+            beta_min_sgm=0.1 / ratio,
+            beta_max_sgm=20.0 / ratio,
+            t_eps=1e-3 / ratio,
+        ),
+        sweep=SweepConfig(ntrain_maxs=(2**10,)),
+        data=DataConfig(datatype="piv", dims=(16,), few_data=True,
+                        localized=True),
+        plots=PlotConfig(plot_xlim=6.0, val_hist=12.0),
+    )
+
+
 def _piv_large(npixel=32):
     ratio = 1 / 4 if npixel == 16 else 1 / 8
     return ExperimentConfig(
@@ -259,16 +327,119 @@ def _grf_production_dit(npixel=16):
     )
 
 
+def _pod():
+    return ExperimentConfig(
+        name="pod",
+        data=DataConfig(datatype="pod", dims=(16,), mixed_times=True),
+        sweep=SweepConfig(Res=(300, 3900)),
+        plots=PlotConfig(val_hist=6.0),
+    )
+
+
+def _era5():
+    return ExperimentConfig(
+        name="era5",
+        data=DataConfig(
+            datatype="era5",
+            dims=(30,),
+            normalized=False,
+            era5_variables=(
+                "10m_u_component_of_wind",
+                "10m_v_component_of_wind",
+                "vorticity",
+            ),
+        ),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
+def _era5temp():
+    return ExperimentConfig(
+        name="era5temp",
+        data=DataConfig(
+            datatype="era5temp",
+            dims=(10,),
+            normalized=False,
+            use_deseason=True,
+            era5_variables=("2m_temperature",),
+        ),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
+def _era5vorttemp():
+    return ExperimentConfig(
+        name="era5vorttemp",
+        train=TrainConfig(beta_max=5.0, beta_max_sgm=5.0),
+        data=DataConfig(
+            datatype="era5vorttemp",
+            dims=(16,),
+            normalized=False,
+            season="winter",
+            use_deseason=True,
+            mixed_times=True,
+            era5_variables=("2m_temperature", "vorticity"),
+        ),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
+def _lorenz96():
+    return ExperimentConfig(
+        name="lorenz96",
+        data=DataConfig(datatype="lorenz96", dims=(8,)),
+        plots=PlotConfig(plot_xlim=4.0, val_hist=8.0),
+    )
+
+
+def _eof_pressure():
+    return ExperimentConfig(
+        name="eof_pressure",
+        data=DataConfig(datatype="eof_pressure", dims=(8,), normalized=False),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
+def _weather_station():
+    return ExperimentConfig(
+        name="weather_station",
+        data=DataConfig(datatype="weather_station", dims=(30,)),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
+def _ncar():
+    return ExperimentConfig(
+        name="ncar",
+        data=DataConfig(datatype="ncar", dims=(90,), normalized=False),
+        plots=PlotConfig(plot_xlim=5.0, val_hist=10.0),
+    )
+
+
 PRESETS = {
     "swissroll": _swissroll,
     "gaussian": _gaussian,
     "gaussianCauchy": _gaussian_cauchy,
     "cauchy": _cauchy,
+    "lorenz63": _lorenz63,
+    "lorenz63_unet1d": _lorenz63_unet1d,
+    "lorenz63_dit": _lorenz63_dit,
+    "piv_small": _piv_small,
+    "piv16": lambda: _piv_large(16),
+    "piv32": lambda: _piv_large(32),
     "grf16": lambda: _grf(16),
     "grf32": lambda: _grf(32),
     "grf16_dit": lambda: _grf_dit(16),
     "grf16_production": lambda: _grf_production(16),
     "grf16_production_dit": lambda: _grf_production_dit(16),
+    "pod": _pod,
+    "era5": _era5,
+    "era5temp": _era5temp,
+    "era5vorttemp": _era5vorttemp,
+    "lorenz96": _lorenz96,
+    "eof_pressure": _eof_pressure,
+    "weather_station": _weather_station,
+    "ncar": _ncar,
 }
 
 
@@ -277,8 +448,6 @@ def get_preset(name: str) -> ExperimentConfig:
     dbg = name.endswith("_dbg")
     base = name[: -len("_dbg")] if dbg else name
     if base not in PRESETS:
-        raise NotImplementedError(
-            f"preset {base!r}: ported presets are {sorted(PRESETS)}; the "
-            "rest come with ROADMAP Queue 1 item 13")
+        raise KeyError(f"unknown preset {base!r}; available: {sorted(PRESETS)}")
     cfg = PRESETS[base]()
     return cfg.debug() if dbg else cfg

@@ -2,11 +2,14 @@
 the plug-in reverse SDE and scored by √MMD and SWD.
 
 Port of sdeflow_tpu/experiments/driver.py:40-222, 224-700: ``make_model``
-(the MLP, the U-Net and the DiT score nets; UNet1D raises), the data
-samplers of the toy presets (swissroll, gaussian, gaussianCauchy, cauchy)
-and of ``datatype="grf"``, ``resolve_std_norm``, the generation program
+(the MLP, the U-Net, UNet1D and the DiT score nets), ``make_sampler`` (every
+datatype: the toy presets' swissroll, gaussian, gaussianCauchy and cauchy,
+``grf``, and the file-backed piv, lorenz63, lorenz96, pod, era5*,
+eof_pressure, weather_station and ncar under the data root),
+``resolve_std_norm``, the generation program
 ``generate`` (``_jit_generate``), and ``ExperimentDriver``: the sweep over
-complexity × dimension × {SGM, MSGM} × iterations × batch size, each arm
+complexity (train-set size, Lorenz-96 size or Reynolds number) ×
+dimension × {SGM, MSGM} × iterations × batch size, each arm
 built (``_build_arm``; the MSGM arm on unnormalized data, as every arm of
 swissroll), trained by ``train_arm`` with its fair budget
 (``fair_budgets``), checkpointed,
@@ -18,8 +21,8 @@ package's file names. Each run samples by the sweep's sampler (the reverse
 SDE, the PF-ODE or DPM-Solver; an MSGM arm under "dpm" falls back, logged,
 to the SDE with RK4, as in the JAX driver), and ``eval_nll`` reports each
 trained arm's exact PF-ODE NLL in bits/dim (``_eval_nll``,
-``nll_bits_per_dim.json``). The plots and the file-backed datasets raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item.
+``nll_bits_per_dim.json``). The plots raise ``NotImplementedError``
+naming their ROADMAP Queue 1 item (13b).
 
 Random streams: the JAX driver reseeds each arm from ``PRNGKey(seed)``, so
 both arms see the same test set and the same train set for the MMD floor.
@@ -42,13 +45,14 @@ import numpy as np
 import torch
 
 from sdeflow_tpu_torch.configs import ExperimentConfig
-from sdeflow_tpu_torch.data import synthetic
+from sdeflow_tpu_torch.data import filebacked, synthetic
 from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
 from sdeflow_tpu_torch.eval.mmd import compute_mmd, sliced_wasserstein
 from sdeflow_tpu_torch.eval.nll import nll_summary
 from sdeflow_tpu_torch.experiments.naming import run_name_root, simulation_name
 from sdeflow_tpu_torch.models.dit import DiT1D, DiT2D
 from sdeflow_tpu_torch.models.mlp import MLP
+from sdeflow_tpu_torch.models.unet1d import UNet1D
 from sdeflow_tpu_torch.models.vorticity import VorticityUNet
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.ops.rng import fold_in, fold_seed
@@ -69,8 +73,8 @@ COMPUTE_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 
 
 def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
-    """The score net of `cfg` (``cfg.train.nn_archi``: MLP, Unet, DiT or
-    DiT2D) on `device` (random weights, fp32), computing in
+    """The score net of `cfg` (``cfg.train.nn_archi``: MLP, Unet, Unet1D,
+    DiT or DiT2D) on `device` (random weights, fp32), computing in
     ``cfg.train.compute_dtype`` (float32 or bfloat16); the U-Net's
     AttentionBlocks take ``cfg.train.attention_impl`` ("auto" or
     "unfused"; "ring" raises)."""
@@ -82,8 +86,9 @@ def make_model(cfg: ExperimentConfig, dim, premodule, device="cuda"):
         model = MLP(input_dim=dim, hidden_dim=128,
                     premodule=premodule, dtype=dtype)
     elif tc.nn_archi == "Unet1D":
-        raise NotImplementedError(
-            "nn_archi='Unet1D': ROADMAP Queue 1 item 11 (UNet1D)")
+        model = UNet1D(input_dim=dim, base_channels=tc.base_channels,
+                       channel_mults=tc.channel_mults, premodule=premodule,
+                       emb_dim=tc.emb_dim, dtype=dtype)
     elif tc.nn_archi == "DiT":
         model = DiT1D(input_dim=dim, patch=tc.dit_patch, width=tc.dit_width,
                       depth=tc.dit_depth, heads=tc.dit_heads,
@@ -118,13 +123,19 @@ SYNTHETIC = {"gaussian": synthetic.Gaussian,
              "cauchy": synthetic.Cauchy}
 
 
-def make_sampler(cfg: ExperimentConfig, dim, device="cuda", generator=None):
+def make_sampler(cfg: ExperimentConfig, dim, device="cuda", generator=None,
+                 complexity=None):
     """The dataset of `cfg` at dimension `dim` on `device`: swissroll and
     grf draw nothing at build time; gaussian, gaussianCauchy and cauchy
     draw their matrix from `generator` (on `device`), with the config's
-    correlation and normalized flags."""
+    correlation and normalized flags; the file-backed datatypes read their
+    files under the data root. `complexity` is the sweep's: the train-set
+    size cap for piv, lorenz63 and pod, the Lorenz-96 system size for
+    lorenz96 (the config's n_dim_l96 when None or infinite), the Reynolds
+    number for pod (300 when None)."""
     dc = cfg.data
     dt = dc.datatype
+    ntrain_max = complexity if complexity is not None else np.inf
     if dt == "swissroll":
         return synthetic.SwissRoll(device=device)
     if dt in SYNTHETIC:
@@ -137,8 +148,37 @@ def make_sampler(cfg: ExperimentConfig, dim, device="cuda", generator=None):
         return synthetic.SmoothedGRF(npixel=int(round(dim**0.5)),
                                      ell=float(dc.smoothing or 2),
                                      device=device)
-    raise NotImplementedError(
-        f"datatype={dt!r}: ROADMAP Queue 1 item 13 (file-backed data)")
+    if dt == "piv":
+        return filebacked.PIV(
+            dim, normalized=dc.normalized, large_image=dc.large_image,
+            smoothing=dc.smoothing, localized=dc.localized,
+            few_data=dc.few_data, ntrain_max=ntrain_max, device=device)
+    if dt == "lorenz63":
+        return filebacked.Lorenz63(
+            dim, normalized=dc.normalized, few_data=dc.few_data,
+            ntrain_max=ntrain_max, device=device)
+    if dt == "lorenz96":
+        n_dim = (dc.n_dim_l96 if complexity is None
+                 or not np.isfinite(complexity) else int(complexity))
+        return filebacked.Lorenz96(n_dim, dim, normalized=dc.normalized,
+                                   device=device)
+    if dt == "pod":
+        return filebacked.PODmodes(
+            int(complexity or 300), dim, normalized=dc.normalized,
+            mixed_times=dc.mixed_times, concatenate_re=dc.concatenate_re,
+            few_data=dc.few_data, ntrain_max=ntrain_max, device=device)
+    if dt.startswith("era5"):  # era5, era5temp, era5vorttemp
+        return filebacked.ERA5(
+            dim, variables=dc.era5_variables, season=dc.season,
+            use_deseason=dc.use_deseason, mixed_times=dc.mixed_times,
+            device=device)
+    if dt == "eof_pressure":
+        return filebacked.EOFPressure(dim, device=device)
+    if dt == "weather_station":
+        return filebacked.WeatherStation(dim, device=device)
+    if dt == "ncar":
+        return filebacked.NCARWeatherStation(dim, device=device)
+    raise ValueError(f"Unknown datatype: {dt}")
 
 
 def arm_config(cfg: ExperimentConfig, is_msgm):
@@ -154,10 +194,15 @@ def arm_config(cfg: ExperimentConfig, is_msgm):
 def resolve_std_norm(sampler, normalized, real_dim, device="cuda"):
     """Per-dimension std that de-normalizes samples before the metrics:
     the sampler's ``get_std`` when the arm is normalized and it has one
-    (every synthetic sampler but SwissRoll), else ones (the file-backed
-    samplers' capability check comes with ROADMAP Queue 1 item 13)."""
+    (every synthetic sampler but SwissRoll), else ones. A file-backed
+    sampler that inherits ``ArraySampler.get_std`` has one only if its
+    loader computed a std (weather_station, ncar and eof_pressure
+    standardize inside the loader and compute none)."""
     if normalized and hasattr(sampler, "get_std"):
-        return sampler.get_std()
+        inherited = (getattr(type(sampler), "get_std", None)
+                     is filebacked.ArraySampler.get_std)
+        if not inherited or hasattr(sampler, "std"):
+            return sampler.get_std()
     return torch.ones((real_dim,), device=resolve_device(device))
 
 
@@ -362,17 +407,13 @@ def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
     return trainer, gen, loss
 
 
-def _check_ported(cfg: ExperimentConfig, make_plots):
+def _check_ported(make_plots):
     """Raise for what the driver does not run yet, before any training."""
     if make_plots:
         raise NotImplementedError(
             "plots (the noising diagnostics, pairplots and convergence "
-            "plots): ROADMAP Queue 1 item 13; run with make_plots=False "
+            "plots): ROADMAP Queue 1 item 13b; run with make_plots=False "
             "(--no-plots)")
-    if cfg.data.datatype not in ("swissroll", "grf", *SYNTHETIC):
-        raise NotImplementedError(
-            f"datatype={cfg.data.datatype!r}: ROADMAP Queue 1 item 13 "
-            "(file-backed data)")
 
 
 class ExperimentDriver:
@@ -380,7 +421,7 @@ class ExperimentDriver:
 
     def __init__(self, cfg: ExperimentConfig, log_fn=print, make_plots=True,
                  device="cuda"):
-        _check_ported(cfg, make_plots)
+        _check_ported(make_plots)
         self.cfg = cfg
         self.log = log_fn
         self.device = resolve_device(device)
@@ -422,7 +463,7 @@ class ExperimentDriver:
         folder_results = cfg.results_dir
         os.makedirs(folder_results, exist_ok=True)
 
-        for i_cx in range(len(complexitys)):
+        for i_cx, complexity in enumerate(complexitys):
             for i_dim, dim in enumerate(dims):
                 for is_msgm in sw.msgms:
                     # arm-specific defaults (reference MSGM_higherDim.py:
@@ -435,7 +476,7 @@ class ExperimentDriver:
                     key_sampler, key_test, key_arm = (fold_in(arm_gen, i)
                                                       for i in (0, 1, 2))
                     sampler = make_sampler(arm_cfg, dim, self.device,
-                                           key_sampler)
+                                           key_sampler, complexity)
                     os.makedirs(os.path.join(folder_results, sampler.name),
                                 exist_ok=True)
                     xtest = sampler.sampletest(key_test, sw.num_samples)
@@ -611,7 +652,7 @@ class ExperimentDriver:
 
     def load_mmd_and_plot(self, folder=None):
         """Reload the saved metric arrays without rerunning the sweep (the
-        convergence plots come with ROADMAP Queue 1 item 13)."""
+        convergence plots come with ROADMAP Queue 1 item 13b)."""
         folder = folder or self.cfg.results_dir
         self.results = dict(
             mmd_sgm=np.load(self._mmd_path(folder, "SGM")),

@@ -5,6 +5,10 @@ maps by name onto the port's module of the same dotted path:
 
 - ``nn.Conv1d``, ``nn.Conv2d``, ``nn.Conv3d``: WIO, HWIO or DHWIO
   ``kernel`` -> OIW, OIHW or OIDHW ``weight``;
+- ``nn.ConvTranspose1d/2d/3d``: flax ``nn.ConvTranspose``'s (*spatial, I,
+  O) ``kernel`` -> (I, O, *spatial) ``weight``, flipped along every
+  spatial axis (flax's transposed convolution does not flip its kernel,
+  PyTorch's does);
 - ``nn.Linear``: Dense (in, out) ``kernel`` -> (out, in) ``weight``;
 - ``nn.Embedding``: Embed ``embedding`` -> ``weight``, the same layout;
 - anything else (GroupNorm32, and the DenseParams holders of the
@@ -23,10 +27,15 @@ import torch
 from torch import nn
 
 _CONVS = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
+_TRANSPOSED = (nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d)
 
 
 def _to_torch(mod, name, arr):
     """(torch name, array) of the flax leaf `name` of `mod`."""
+    if isinstance(mod, _TRANSPOSED) and name == "kernel":
+        n = arr.ndim
+        spatial = tuple(range(n - 2))
+        return "weight", arr.flip(spatial).permute(n - 2, n - 1, *spatial)
     if isinstance(mod, (*_CONVS, nn.Linear)) and name == "kernel":
         # (*spatial, I, O) -> (O, I, *spatial); Dense (in, out) -> (out, in)
         n = arr.ndim
@@ -38,6 +47,10 @@ def _to_torch(mod, name, arr):
 
 def _to_flax(mod, name, arr):
     """The inverse of ``_to_torch``."""
+    if isinstance(mod, _TRANSPOSED) and name == "weight":
+        n = arr.ndim
+        return "kernel", arr.permute(*range(2, n), 0, 1).flip(
+            tuple(range(n - 2)))
     if isinstance(mod, (*_CONVS, nn.Linear)) and name == "weight":
         n = arr.ndim
         return "kernel", arr.permute(*range(2, n), 1, 0)

@@ -7,11 +7,15 @@
     python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --no-plots --eval-mmd
     python -m sdeflow_tpu_torch.run --preset grf16_production --no-plots
     python -m sdeflow_tpu_torch.run --preset grf16 --sampler ode --eval-nll --no-plots
+    python -m sdeflow_tpu_torch.run --preset lorenz63_unet1d --data-root ROOT --eval-mmd --no-plots
 
 Port of sdeflow_tpu/run.py:15-252. It runs on CUDA unless given --cpu,
 and raises when no CUDA device is present instead of falling back to the
-CPU. The flags that need parts not ported yet raise NotImplementedError,
-naming their ROADMAP Queue 1 item, before anything is built or trained.
+CPU. ``--data-root`` points the file-backed presets at a directory in the
+layout of ``../MSGM-data/`` (the default); no data is fetched, and
+tools/l63_fixture.py writes the Lorenz-63 one. The flags that need parts
+not ported yet raise NotImplementedError, naming their ROADMAP Queue 1
+item, before anything is built or trained.
 """
 
 from __future__ import annotations
@@ -133,9 +137,7 @@ def _unported(args):
         (args.attention_impl == "ring", "--attention-impl ring",
          "14 (parallel)"),
         (args.print_ram, "--print-ram", "15 (utils)"),
-        (args.data_root is not None, "--data-root",
-         "13 (file-backed data)"),
-        (not args.no_plots, "plots (pass --no-plots)", "13 (plotting)"),
+        (not args.no_plots, "plots (pass --no-plots)", "13b (plotting)"),
     ]
     return next(((flag, item) for hit, flag, item in checks if hit), None)
 
@@ -159,6 +161,10 @@ def main(argv=None):
     from sdeflow_tpu_torch.experiments.driver import ExperimentDriver
     from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 
+    if args.data_root:
+        from sdeflow_tpu_torch.data import set_data_root
+
+        set_data_root(args.data_root)
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = get_preset(args.preset)
     sweep = cfg.sweep

@@ -26,7 +26,7 @@ from sdeflow_tpu_torch import configs, run
 from sdeflow_tpu_torch.data import GaussianCauchy
 from sdeflow_tpu_torch.experiments.driver import (
     ExperimentDriver, arm_config, build_msgm_arm, make_model, make_sampler)
-from sdeflow_tpu_torch.models import MLP, DiT1D, DiT2D
+from sdeflow_tpu_torch.models import MLP, DiT1D, DiT2D, UNet1D
 from sdeflow_tpu_torch.ops.integrators import integrate_sde
 from sdeflow_tpu_torch.ops.rng import fold_in
 from sdeflow_tpu_torch.sde.msgm import MSGMSde
@@ -68,8 +68,9 @@ def test_make_model_builds_each_archi():
     m = make_model(archi("DiT2D", dit_width=32, dit_depth=1, dit_patch=4),
                    64, None, device="cpu")
     assert isinstance(m, DiT2D) and m.flatten_order == "F"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_model(archi("Unet1D"), 16, None, device="cpu")
+    m = make_model(archi("Unet1D", base_channels=8, channel_mults=(1, 2)),
+                   16, None, device="cpu")
+    assert isinstance(m, UNet1D) and m.depth == 2 and m.premodule is None
     with pytest.raises(ValueError, match="square"):
         make_model(archi("DiT2D"), 10, None, device="cpu")
 

@@ -12,8 +12,7 @@ UNPORTED = [
     (["--tp", "2"], "item 14"),
     (["--attention-impl", "ring"], "item 14"),
     (["--print-ram"], "item 15"),
-    (["--data-root", "data"], "item 13"),
-    ([], "item 13"),  # plots: no --no-plots
+    ([], "item 13b"),  # plots: no --no-plots
 ]
 
 

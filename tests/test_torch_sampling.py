@@ -252,7 +252,7 @@ def test_grf16_preset_and_arm_match_jax():
         ours.train, nn_archi="DiT2D", dit_patch=4, dit_width=32,
         dit_depth=1)), 256, None, device="cpu")
     assert type(dit).__name__ == "DiT2D" and dit.flatten_order == "F"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_model(replace(ours, train=replace(ours.train,
-                                               nn_archi="Unet1D")),
-                   256, None, device="cpu")
+    unet1d = make_model(replace(ours, train=replace(
+        ours.train, nn_archi="Unet1D", base_channels=8)), 256, None,
+        device="cpu")
+    assert type(unet1d).__name__ == "UNet1D" and unet1d.input_dim == 256
