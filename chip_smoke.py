@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--record PATH]
                           [--only gn|driver|bf16|k7|unfused_bf16|attn_bf16|
-                                  samplers|core_dit|unet_export|signal]
+                                  samplers|core_dit|unet_export|signal|
+                                  plots]
 
 Drives the port's paths on the grf16 MSGM arm at full width (the
 VorticityUNet score net with random weights from a seed, the circulant MSGM
@@ -33,7 +34,9 @@ reverse pass runs K5b; remat; dims 1 and 3; labels; exported programs,
 whose kernels are the registered sdeflow operators); and the signal
 regime on file-backed Lorenz-63 data (lorenz63_unet1d, UNet1D at d = 1000,
 where K1, K2 and K2's solve take their general plans; lorenz63_dit;
-lorenz63 with a dense G). It
+lorenz63 with a dense G); and the CLI with its figures on grf16 and
+lorenz63_unet1d (each MSGM arm's noising trajectory: K2's single step),
+with the profiling utilities. It
 holds every CUDA kernel of those paths against its plain PyTorch version:
 
 1. prints the card's name and power limit, builds the kernels from
@@ -346,14 +349,40 @@ holds every CUDA kernel of those paths against its plain PyTorch version:
    loop of K2 steps), timed beside its bound; a traced MSGM SSM step and
    2-step request; lorenz63_dit (DiT1D, d = 1000 padded to 1,008) through
    the CLI with the same checks, and lorenz63 (d = 16, dense G, MLP),
-   which launches no kernel.
+   which launches no kernel;
+30. the plots and the profiling utilities (``--only plots``): whether
+   matplotlib is importable on the card, and its version;
+   ``device_seconds`` of K1 at (1024, 256) within a factor of 2 of its
+   CUDA-event time per call (phase 2's), ``memory_report``'s card figures
+   equal to ``torch.cuda.memory_stats``, ``peak_flops`` the table's entry
+   for the card's name, ``trace`` writing a Chrome trace that holds every
+   K1 kernel the profiler saw (three windows of 200 calls: at once, after
+   a 20 ms lead, each synchronized); where the card has no matplotlib,
+   both CLI runs' ImportError (naming --no-plots) before anything is
+   built; then, every kernel count set to 0 just before each CLI run and
+   read just after, ``run.main`` with its figures on (phase 20's flags
+   without --no-plots, and --print-ram) on grf16 and (phase 29's) on
+   lorenz63_unet1d on a fixture: each MSGM arm's noising trajectory of
+   the test set exactly 64 (grf16, (1024, 256), K2's warp plan) or 16
+   (lorenz63_unet1d, (1024, 1000), its general plan) K2 single steps, the
+   SGM arm's none, each bit for bit with its replay on the plain path
+   from the same draws, MSGM's norms kept; the rest of each run's
+   launches those of phase 20's and phase 29's runs; every file the JAX
+   driver writes for the preset present and non-empty, and no other
+   (without matplotlib: the driver's plotting calls swapped for their
+   figures' numbers through the port's functions on the card's tensors,
+   ``figure_numbers``, each finite, no PNG, and the files besides the
+   figures); each ``RAM:`` line's card figures equal to
+   ``torch.cuda.memory_stats`` at that moment; the seconds inside the
+   plotting calls against the run's.
 
 Ends with the kernel table as one JSON line (K1, K2, K2's solve, K3, K5,
 K5b, K6, K4, K7a, K7b, the bf16 variants of K3, K5, K5b with their
 launches in the production run and those of K6, K4, K7a, K7b with their
 launches in phases 24 and 25, each with its launches in the driver's
 run, in phase 26's two runs, in phase 27's two DiT runs, in phase
-28's runs (by entry point, fp32 and bf16 apart) and in phase 29's runs,
+28's runs (by entry point, fp32 and bf16 apart), in phase 29's runs and
+in phase 30's,
 with K1's, K2's and the solve's d = 1000 times: per
 call through the autograd.Function and as a
 direct launch, device time, bound, plain version, the launch floor for
@@ -376,7 +405,8 @@ that tree: ``k7_timing``); attn_bf16 the same for the bf16 kernels K6 at
 (128, 1024, 128), K4 at (4, 4096, 64) and (16, 4096, 64), K7a and K7b at
 (128, 4096, 64) beside SDPA, the bf16 DSM step with its trace and phase
 24's batch-16 request with its trace (``attn_bf16_timing``); samplers
-phase 26; core_dit phase 27; unet_export phase 28; signal phase 29.
+phase 26; core_dit phase 27; unet_export phase 28; signal phase 29;
+plots phase 30.
 """
 
 from __future__ import annotations
@@ -389,6 +419,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -2352,7 +2383,7 @@ def check_driver(g, dev, card):
         os.chdir(tmp)
         try:
             with counted_steps(steps), spied(drv, "generate", gens), \
-                    spied(drv, "score_samples", scores):
+                    spied(drv, "postprocessing", scores):
                 common.reset_launches()
                 t0 = time.perf_counter()
                 results = run_mod.main(args)
@@ -2457,7 +2488,7 @@ def check_driver(g, dev, card):
     rec["results"] = {k: results[k].ravel().tolist() for k in drv.METRICS}
     rec["metrics"] = {}
     for arm, c in zip(("SGM", "MSGM"), scores):
-        xs, xtest = c["args"][0], c["args"][1]
+        xs, xtest = c["args"][1], c["args"][2]
         xg = torch.as_tensor(filter_blowups(xs[-1])[0][:DRIVER_SCORED],
                              device=dev)
         xt = xtest[:DRIVER_SCORED]
@@ -2874,7 +2905,7 @@ def production_run(g, dev, card, args, route, replay=True):
             # kernel - plain 0.013-0.100 of the rms, and from the fp32 run
             # the kernel run 0.021-0.111, the plain bf16 run 0.029-0.153)
             with counted_steps(steps), spied(drv, "generate", gens), \
-                    spied(drv, "score_samples", scores), \
+                    spied(drv, "postprocessing", scores), \
                     swapped([(integrators, "langevin_corrector",
                               corrector)] + replay * [
                                   (torch.backends.cudnn, "deterministic",
@@ -4130,7 +4161,7 @@ def msgm_cli_run(g, dev, card, args, bf16, net_type="DiT2D", dim=DIM):
         os.chdir(tmp)
         try:
             with counted_steps(steps), spied(drv, "generate", gens), \
-                    spied(drv, "score_samples", scores), \
+                    spied(drv, "postprocessing", scores), \
                     swapped([(integrators, "langevin_corrector",
                               corrector)]):
                 common.reset_launches()
@@ -5214,6 +5245,515 @@ def check_signal(g, dev, card):
     return rec
 
 
+# -- phase 30: the plots and the profiling utilities ---------------------------
+# the CLI with its default figures: grf16 at phase 20's reduction with
+# --print-ram, and lorenz63_unet1d on phase 29's fixture at its reduction;
+# each MSGM arm's noising trajectory (the test set, num_steps_forward RK4
+# steps: grf16 64 at (1024, 256) on K2's warp plan, lorenz63_unet1d 16 at
+# (1024, 1000) on its general plan) is K2's single step on the CLI
+PLOT_ARGS = [*(a for a in DRIVER_ARGS if a != "--no-plots"), "--print-ram"]
+PLOT_SIGNAL_FLAGS = [a for a in SIGNAL_FLAGS if a != "--no-plots"]
+# the launches of those runs besides the noising trajectories: phase 20's
+# driver run and phase 29's lorenz63_unet1d run (both arms' 8 SSM steps,
+# the ELBO prints at steps 1 and 8, one request each), from the code
+DRIVER_LAUNCHES = {"circulant_apply": 306, "circulant_rk4_solve": 10,
+                   "fused_attention_block": 3036, "group_norm_silu": 9660,
+                   "group_norm_silu_bwd": 560}
+SIGNAL_LAUNCHES = {"circulant_apply": 306, "circulant_rk4_solve": 10}
+TRACE_CALLS = 200  # K1 calls in each of check_utils' traces
+# (what, seconds slept in the window before the calls, a synchronize
+# after each call)
+TRACE_WINDOWS = (("at once", 0.0, False), ("after a 20 ms lead", 0.02, False),
+                 ("each synchronized", 0.0, True))
+
+
+def cli_config(args):
+    """The preset of a CLI argument list with its sweep overrides, as
+    ``run.main`` builds it."""
+    from sdeflow_tpu_torch import get_preset
+
+    def flag(name, cast):
+        return cast(args[args.index(name) + 1])
+
+    cfg = get_preset(flag("--preset", str))
+    return dataclasses.replace(cfg, sweep=dataclasses.replace(
+        cfg.sweep, iterationss=(flag("--iterations", int),),
+        num_samples=flag("--num-samples", int),
+        num_stepss_backward=(flag("--steps-backward", int),)))
+
+
+def jax_plot_files(cfg, names, complexitys):
+    """Every file the JAX driver writes with its figures on and eval_mmd
+    for cfg (one dimension, iteration count, batch size, step count and
+    run), names the two arms' samplers' (SGM, MSGM), relative to the
+    results directory (sdeflow_tpu/experiments/driver.py:384-422, 466-481,
+    592-615, 702-767 and sdeflow_tpu/plotting/plots.py)."""
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.experiments.naming import (
+        run_name_root, simulation_name)
+
+    tc, sw, dim = cfg.train, cfg.sweep, cfg.data.dims[0]
+    steps = sw.num_stepss_backward[0]
+    n_dup = min(10, sw.num_samples)
+    kind = ("image" if dim == int(round(dim**0.5))**2 and dim >= 256
+            else "timeserie")
+    files = {f"global{m}file_{a}_1runs.npy" for m in ("MMD", "SWD")
+             for a in ("SGM", "MSGM", "ref")}
+    files |= {f"MMD_wBckWardSteps_d={dim}_Ntrain={c}.png"
+              for c in complexitys}
+    for is_msgm, name in zip((False, True), names):
+        files.add(name + ".png")  # the test set's pair grid
+        batch, iters = drv.fair_budgets(
+            cfg, is_msgm, sw.ssm_intT_ref and is_msgm, dim,
+            sw.batch_sizes[0], sw.iterationss[0], log_fn=lambda *_: None)
+        root = run_name_root(
+            name, "MSGM_sparseTenslogNorm" if is_msgm else "SGM",
+            sw.iterationss[0], drv.init_samples(cfg, iters, batch), batch,
+            tc.num_steps_forward, tc.beta_min, tc.beta_max, tc.beta_min_sgm,
+            tc.beta_max_sgm, is_msgm, nn_archi=tc.nn_archi,
+            premodule="NormalizeLogRadius" if is_msgm else None, lr=tc.lr,
+            vtype=tc.vtype, ssm_intT=sw.ssm_intT_ref and is_msgm,
+            fair_comparison=sw.fair_comparison)
+        fwd = range(0, tc.num_steps_forward + 1,
+                    max(1, tc.num_steps_forward // 8))
+        files |= {root + s for s in ("_cov.png", "_Forward.png",
+                                     "_checkpoint_final")}
+        files |= {f"{root}_Forward_{kind}Att{i}_sample{k}_.png" for i in fwd
+                  for k in range(n_dup if i == 0 else 1)}
+        sim = os.path.relpath(simulation_name(
+            ".", root, tc.t_eps, steps, sw.include_t0_reverse), ".")
+        files |= {sim + s for s in (".npy", "_traj.npy", ".png",
+                                    "_multDim.png", "_survival.png")}
+        files |= {f"{sim}_Gen_{kind}Att{i}_sample{k}_.png"
+                  for i in range(0, steps + 1, max(1, steps // 8))
+                  for k in range(n_dup if i == steps else 1)}
+    return sorted(files)
+
+
+def check_noising(what, r, is_msgm, n_steps, plan):
+    """A noising trajectory's record (timed_call of integrate_sde): its
+    shape, finite, norms kept (MSGM), exactly n_steps K2 single steps on
+    the MSGM arm on `plan` and no kernel on the SGM arm, and its replay on
+    the plain path from the same draws bit for bit."""
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.kernels.circulant import rk4_plan
+
+    xs, xtest = r["out"], r["args"][1]
+    n, d = xtest.shape
+    if tuple(xs.shape) != (n_steps + 1, n, d) or \
+            not torch.isfinite(xs).all():
+        raise AssertionError(f"{what}: noising trajectory {tuple(xs.shape)}")
+    want = {k: 0 for k in r["launches"]}
+    if is_msgm:
+        want["circulant_rk4_step"] = n_steps
+        if rk4_plan(n, d).kind != plan:
+            raise AssertionError(f"{what}: K2 at {(n, d)} takes the "
+                                 f"{rk4_plan(n, d).kind} plan, not {plan}")
+    if r["launches"] != want:
+        raise AssertionError(f"{what}: noising launches {r['launches']} != "
+                             f"{want}")
+    norms = xs.norm(dim=2)
+    kept = bool(torch.allclose(norms, norms[0].expand_as(norms), rtol=1e-5,
+                               atol=0))
+    if kept is not is_msgm:
+        raise AssertionError(f"{what}: noising norms kept = {kept}")
+    xp, launches, plain_ms = replayed(r, drv.integrate_sde)
+    if any(launches.values()) or not torch.equal(xs, xp):
+        raise AssertionError(f"{what}: the noising trajectory's plain replay "
+                             f"differs by {(xs - xp).abs().max().item():.3g} "
+                             f"(launches {launches})")
+    out = dict(shape=list(xs.shape), ms=r["ms"], plain_ms=plain_ms,
+               launches=r["launches"], k2_plan=plan if is_msgm else None)
+    log(f"{what} noising trajectory {tuple(xs.shape)}: {r['ms']:.1f} ms, "
+        f"K2 {r['launches']['circulant_rk4_step']} single steps"
+        f"{f' ({plan} plan)' if is_msgm else ''}, norms kept {kept}, bit "
+        f"for bit with its plain replay ({plain_ms:.1f} ms)")
+    return out
+
+
+def figure_numbers(numbers):
+    """Where the card has no matplotlib: the driver's plotting calls
+    swapped for their figures' numbers through the port's functions, on
+    the card's tensors, drawn nowhere. The up-front check passes; each
+    test set's pair grid is its columns (def_pd) and their histograms;
+    the noising report its forward-convergence stats, covariance panels
+    and film strip's 2D histograms; each run's postprocessing runs without
+    its figures (make_plots=False: the .npy and the metric block), then
+    its pair grid's step histograms and KDE curves, its survival curves
+    and its denoising strip's 2D histograms; the convergence plots are the
+    square roots of the saved MMD² arrays (negatives at 0, as drawn).
+    Each call appends (figure,
+    every number finite) to `numbers`."""
+    import numpy as np
+
+    from sdeflow_tpu_torch.eval import forward_convergence_stats
+    from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
+    from sdeflow_tpu_torch.eval.survival import survival_analysis
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.plotting import plots as P
+
+    def finite(*arrays):
+        return all(a is not None and np.isfinite(
+            np.asarray(a, dtype=np.float64)).all() for a in arrays)
+
+    def frame(x, std_norm, std_test_plot, datatype, kw):
+        keys = ("dimplot", "offset_dimplot", "crop_data_plot", "plot_crop",
+                "columns_plot")
+        return P.def_pd(x, std_norm, std_test_plot, datatype,
+                        **{k: kw[k] for k in keys if k in kw})
+
+    def strip(xs, inds, std_test_plot, kw):
+        off = kw.get("offset_dimplot", 0)
+        val = kw.get("val_hist", 3.0) * (
+            P._np(std_test_plot)[off] if std_test_plot is not None else 1.0)
+        return [P.histogram_2d(xs[i], val, off)[0] for i in inds]
+
+    def pair_grid(xtest, std_norm, std_test_plot, datatype, name_simu,
+                  **kw):
+        test = frame(xtest, std_norm, std_test_plot, datatype, kw)
+        hists = [np.histogram(c[np.isfinite(c)], bins="auto")[0]
+                 for c in test.values.T]
+        numbers.append(("test set pair grid", finite(test.values, *hists)))
+
+    def noising(xtest, xs_forward, num_steps_forward, name_simu_root,
+                noising_plots=True, std_test_plot=None, log_fn=print, **kw):
+        stats = {k: float(v) for k, v in forward_convergence_stats(
+            xtest, xs_forward[-1]).items()}
+        log_fn(f"forward convergence {stats}")
+        panels = P.covariance_panels(xtest, xs_forward[-1])
+        inds = range(0, num_steps_forward + 1,
+                     max(1, num_steps_forward // 8))
+        hists = strip(xs_forward, inds, std_test_plot, kw) \
+            if noising_plots else []
+        numbers.append(("noising report", finite(
+            list(stats.values()), *panels.values(), *hists)))
+        return stats
+
+    def post(inds, xs, xtest, std_norm, std_test_plot, datatype, name_simu,
+             **kw):
+        out = P.postprocessing(inds, xs, xtest, std_norm, std_test_plot,
+                               datatype, name_simu, **dict(kw,
+                                                           make_plots=False))
+        xgen = filter_blowups(xs[-1])[0]
+        test, gen = (frame(x, std_norm, std_test_plot, datatype, kw)
+                     for x in (xtest, xgen))
+        curves = [P.step_histogram(c) for c in test.values.T]
+        curves += [P.kde_curve(c) for c in gen.values.T]  # None: not drawn
+        out["survival"] = surv = survival_analysis(x=xgen, x_ref=xtest)
+        numbers.append(("run", finite(
+            *(a for c in curves for a in (c or (None,))),
+            surv["reference"]["S"], surv["generated"]["S"],
+            *strip(xs, inds, std_test_plot, kw))))
+        return out
+
+    def convergence(self, folder):
+        numbers.append(("convergence", finite(*(
+            np.sqrt(np.maximum(self.results[k], 0.0))
+            for k in ("mmd_sgm", "mmd_msgm", "mmd_ref")))))
+
+    return swapped([(drv, "require_matplotlib", lambda: None),
+                    (drv, "pairplots_single", pair_grid),
+                    (drv, "preprocessing", noising),
+                    (drv, "postprocessing", post),
+                    (drv.ExperimentDriver, "_convergence_plots",
+                     convergence)])
+
+
+def plots_cli_run(card, args, want_rest, n_steps, plan, draw, ram=False):
+    """``run.main(args)`` with its figures on in a temporary cwd and results
+    directory, every kernel count set to 0 just before and read just
+    after: each arm's noising trajectory (check_noising), the run's other
+    launches equal to want_rest, the seconds inside the plotting calls
+    (their metric block excluded) against the run's, and with ram each
+    ``RAM:`` line's card figures against ``torch.cuda.memory_stats`` at
+    that moment. With draw, every file the JAX driver writes for the
+    preset present and nothing else, each non-empty; without (no
+    matplotlib), the figures' numbers instead (figure_numbers), each
+    finite, and the files that are not figures."""
+    import tempfile
+
+    import numpy as np
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.experiments import driver as drv
+    from sdeflow_tpu_torch.ops.kernels import common
+    from sdeflow_tpu_torch.plotting import plots as plots_mod
+    from sdeflow_tpu_torch.training import train as train_mod
+
+    what = args[args.index("--preset") + 1]
+    fwd, samplers, drawn, metrics, lines, numbers = [], [], [], [], [], []
+    report = train_mod.memory_report
+
+    def reported():  # the line, then the allocator's figures at once
+        line = report()
+        lines.append((line, torch.cuda.memory_stats()))
+        return line
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        results_dir = os.path.join(tmp, "results")
+        os.chdir(tmp)
+        try:
+            with contextlib.ExitStack() as stack:
+                if not draw:  # entered first: the spies below wrap these
+                    stack.enter_context(figure_numbers(numbers))
+                for module, name, calls in (
+                        (drv, "integrate_sde", fwd),
+                        (drv, "make_sampler", samplers),
+                        (drv, "pairplots_single", drawn),
+                        (drv, "preprocessing", drawn),
+                        (drv, "postprocessing", drawn),
+                        (drv.ExperimentDriver, "_convergence_plots", drawn),
+                        (plots_mod, "sample_metrics", metrics)):
+                    stack.enter_context(spied(module, name, calls))
+                stack.enter_context(swapped([(train_mod, "memory_report",
+                                              reported)]))
+                common.reset_launches()
+                t0 = time.perf_counter()
+                results = run_mod.main([*args, "--results-dir", results_dir])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = launch_counts()
+            files = sorted(os.path.relpath(os.path.join(d, f), results_dir)
+                           for d, _, fs in os.walk(results_dir) for f in fs)
+            empty = [f for f in files
+                     if not os.path.getsize(os.path.join(results_dir, f))]
+        finally:
+            os.chdir(cwd)
+    rec = {"card": card, "args": args, "seconds": seconds,
+           "launches": launches}
+    if len(fwd) != 2:
+        raise AssertionError(f"{what}: {len(fwd)} noising trajectories")
+    cfg = cli_config(args)
+    n_fwd = cfg.train.num_steps_forward
+    rec["noising"] = {arm: check_noising(f"{what} {arm}", r, is_msgm, n_fwd,
+                                         plan)
+                      for (arm, is_msgm), r in zip(
+                          (("SGM", False), ("MSGM", True)), fwd)}
+    rest = {k: n - sum(r["launches"][k] for r in fwd)
+            for k, n in launches.items()}
+    want = {k: want_rest.get(k, 0) for k in launches}
+    if rest != want:
+        raise AssertionError(f"{what}: launches besides the noising "
+                             f"trajectories {rest} != {want}")
+    for k in drv.METRICS:
+        if not np.isfinite(results[k]).all():
+            raise AssertionError(f"{what}: results[{k!r}] = {results[k]}")
+
+    names = [s["out"].name for s in samplers]
+    want_files = jax_plot_files(cfg, names, results["complexitys"])
+    if not draw:  # the figures' numbers, and the files besides the figures
+        calls = collections.Counter(f for f, _ in numbers)
+        bad = [f for f, ok in numbers if not ok]
+        if calls != {"test set pair grid": 2, "noising report": 2,
+                     "run": 2, "convergence": 1} or bad:
+            raise AssertionError(f"{what}: figure numbers {dict(calls)}, "
+                                 f"not finite in {bad}")
+        rec["figure_numbers"] = dict(calls)
+        want_files = [f for f in want_files if not f.endswith(".png")]
+    if files != want_files or empty:
+        raise AssertionError(
+            f"{what}: files absent {sorted(set(want_files) - set(files))}, "
+            f"unexpected {sorted(set(files) - set(want_files))}, empty "
+            f"{empty}")
+    rec["figures"] = sum(f.endswith(".png") for f in files)
+    plot_s = (sum(r["ms"] for r in drawn)
+              - sum(r["ms"] for r in metrics)) / 1e3
+    rec["plot_s"], rec["plot_share"] = plot_s, plot_s / seconds
+    log(f"{card}: {what} with figures "
+        f"{'drawn' if draw else 'as numbers (no matplotlib)'}: "
+        f"{seconds:.1f} s, of which {plot_s:.1f} s "
+        f"({rec['plot_share']:.1%}) in the plotting calls; "
+        f"{rec['figures']} figures, all {len(want_files)} files "
+        f"{'the JAX driver writes' if draw else 'besides the figures'} "
+        f"present and non-empty; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+
+    if ram:
+        if len(lines) != 2 * 2:  # the prints at steps 1 and 8, per arm
+            raise AssertionError(f"{what}: {len(lines)} RAM lines")
+        pattern = re.compile(r"RAM: host rss ([\d,]+) MiB, device in_use "
+                             r"([\d,]+) MiB peak ([\d,]+) MiB limit "
+                             r"([\d,]+) MiB")
+        for line, stats in lines:
+            m = pattern.fullmatch(line)
+            want_mib = [f"{stats[k] / 2**20:,.0f}" for k in (
+                "allocated_bytes.all.current", "allocated_bytes.all.peak")]
+            if not m or [m.group(2), m.group(3)] != want_mib:
+                raise AssertionError(f"{what}: {line!r} against the "
+                                     f"allocator's {want_mib} MiB")
+        rec["ram_lines"] = [line for line, _ in lines]
+        log(f"{card}: {len(lines)} RAM lines, each card figure equal to "
+            f"torch.cuda.memory_stats at that moment; the last: "
+            f"{lines[-1][0]}")
+    return rec
+
+
+def check_utils(g, dev, card, k1_ms=None):
+    """The profiling utilities on the card: device_seconds of K1 at
+    (1024, 256) against its CUDA-event time per call (phase 2's, measured
+    again here), memory_report's card figures against
+    torch.cuda.memory_stats, peak_flops' entry for the card's name, and a
+    trace naming K1's kernel."""
+    import tempfile
+
+    from sdeflow_tpu_torch.ops.kernels.circulant import circulant_apply
+    from sdeflow_tpu_torch.utils import profiling
+
+    y = torch.randn(N_SAMPLES, DIM, generator=g, device=dev)
+    w = torch.randn(N_SAMPLES, DIM, generator=g, device=dev)
+    sb = 1.0 + torch.rand(N_SAMPLES, 1, generator=g, device=dev)
+    rec = {"card": card}
+    with torch.no_grad():
+        ms = cuda_ms(lambda: circulant_apply(sb, y, w), 200)
+        secs = profiling.device_seconds(
+            lambda i: circulant_apply(sb, y, w)[i % N_SAMPLES, 0])
+    ref = k1_ms if k1_ms is not None else ms
+    rec.update(k1_device_seconds_ms=secs * 1e3, k1_cuda_event_ms=ms,
+               k1_phase2_ms=k1_ms)
+    log(f"{card}: device_seconds of K1 at ({N_SAMPLES}, {DIM}): "
+        f"{secs * 1e3:.4f} ms a step (with one add) against "
+        f"{ref:.4f} ms a call by CUDA events "
+        f"({'phase 2' if k1_ms is not None else 'measured here'})")
+    if not 0.5 <= secs * 1e3 / ref <= 2.0:
+        raise AssertionError("device_seconds of K1 is not within a factor "
+                             "of 2 of its CUDA-event time")
+
+    line, stats = profiling.memory_report(), torch.cuda.memory_stats()
+    total = torch.cuda.mem_get_info()[1]
+    want = [f"{v / 2**20:,.0f}" for v in (
+        stats["allocated_bytes.all.current"],
+        stats["allocated_bytes.all.peak"], total)]
+    m = re.fullmatch(r"RAM: host rss [\d,]+ MiB, device in_use ([\d,]+) MiB "
+                     r"peak ([\d,]+) MiB limit ([\d,]+) MiB", line)
+    if not m or list(m.groups()) != want:
+        raise AssertionError(f"memory_report {line!r} against {want} MiB")
+    rec["memory_report"] = line
+
+    name = torch.cuda.get_device_name(0)
+    entry = next((v for k, v in profiling.PEAK_FLOPS.items()
+                  if k in name.lower()), None)
+    peak = profiling.peak_flops()
+    if entry is None or peak is not entry:
+        raise AssertionError(f"peak_flops for {name!r}: {peak}")
+    rec["peak_flops"] = peak
+
+    rec["trace"] = {}
+    for what, lead_s, sync in TRACE_WINDOWS:
+        with tempfile.TemporaryDirectory() as tmp:
+            with torch.no_grad():
+                circulant_apply(sb, y, w)
+                torch.cuda.synchronize()
+                with profiling.trace(tmp) as prof:
+                    time.sleep(lead_s)
+                    for _ in range(TRACE_CALLS):
+                        circulant_apply(sb, y, w)
+                        if sync:
+                            torch.cuda.synchronize()
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        # K1's kernel as the profiler saw it on the card, then in the file,
+        # with the operator and launch calls on the host
+        seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and SYMBOL["circulant_apply"] in e.name]
+        k1 = {e.name for e in seen}
+        counts = dict(
+            profiler=len(seen),
+            file=sum(e.get("name") in k1 for e in events),
+            ops=sum(e.get("name") == "sdeflow::circulant_apply"
+                    for e in events),
+            launch_calls=sum(e.get("cat") == "cuda_runtime"
+                             and "LaunchKernel" in e.get("name", "")
+                             for e in events))
+        kernel_ts = [e["ts"] for e in events if e.get("name") in k1]
+        op_ts = [e["ts"] for e in events
+                 if e.get("name") == "sdeflow::circulant_apply"]
+        if kernel_ts and op_ts:  # µs from the first operator call
+            counts["first_kernel_after_first_op_us"] = min(kernel_ts) - \
+                min(op_ts)
+        rec["trace"][what] = counts
+        log(f"{card}: trace of {TRACE_CALLS} K1 calls {what}: {counts}")
+        if counts["file"] != counts["profiler"] or not counts["file"]:
+            raise AssertionError(f"trace.json holds {counts['file']} K1 "
+                                 f"kernels, the profiler saw "
+                                 f"{counts['profiler']}")
+    log(f"{card}: memory_report {line!r} equal to torch.cuda.memory_stats; "
+        f"peak_flops {peak}")
+    return rec
+
+
+def check_plots(g, dev, card, k1_ms=None, driver_launches=None):
+    """Phase 30: whether matplotlib is on the card; the profiling
+    utilities (check_utils); where matplotlib is absent, both runs'
+    ImportError before anything is built; then the CLI with its figures on
+    grf16 (phase 20's flags without --no-plots, with --print-ram) and on
+    lorenz63_unet1d (phase 29's, on a fixture), plots_cli_run's checks,
+    the figures drawn or, without matplotlib, their numbers."""
+    import tempfile
+
+    from sdeflow_tpu_torch import run as run_mod
+    from sdeflow_tpu_torch.data import get_data_root, set_data_root
+
+    t_start = time.perf_counter()
+    try:
+        import matplotlib
+        version = matplotlib.__version__
+    except ImportError:
+        version = None
+    rec = {"card": card, "matplotlib": version}
+    log(f"{card}: matplotlib importable: "
+        f"{'yes, ' + version if version else 'no'}")
+    rec["utils"] = check_utils(g, dev, card, k1_ms)
+    if driver_launches is not None and any(
+            driver_launches[k] != n for k, n in DRIVER_LAUNCHES.items()):
+        raise AssertionError(f"phase 20 launched {driver_launches}, not "
+                             f"{DRIVER_LAUNCHES}")
+    prev_root = get_data_root()
+    with tempfile.TemporaryDirectory() as root:
+        from tools.l63_fixture import ensure_fixture
+
+        ensure_fixture(root, window_len=L63_DIM, n_windows=L63_WINDOWS)
+        signal_args = ["--preset", "lorenz63_unet1d", "--data-root", root,
+                       *PLOT_SIGNAL_FLAGS]
+        try:
+            if not version:
+                for args in (PLOT_ARGS, signal_args):
+                    with tempfile.TemporaryDirectory() as tmp:
+                        res = os.path.join(tmp, "results")
+                        try:
+                            run_mod.main([*args, "--results-dir", res])
+                        except ImportError as e:
+                            if "--no-plots" not in str(e) or \
+                                    os.path.exists(res):
+                                raise
+                        else:
+                            raise AssertionError("a CLI run drew without "
+                                                 "matplotlib")
+                log("both CLI runs raised ImportError naming --no-plots "
+                    "before building")
+            rec["grf16"] = plots_cli_run(card, PLOT_ARGS, DRIVER_LAUNCHES,
+                                         64, "warp", bool(version), ram=True)
+            rec["lorenz63_unet1d"] = plots_cli_run(
+                card, signal_args, SIGNAL_LAUNCHES, 16, "general",
+                bool(version))
+        finally:
+            set_data_root(prev_root)
+    runs = [rec["grf16"], rec["lorenz63_unet1d"]]
+    if version:
+        log(f"plots rendered: yes (matplotlib {version}), "
+            f"{sum(r['figures'] for r in runs)} PNGs")
+    else:
+        log("plots rendered: no (matplotlib absent); both CLI runs went "
+            "through the driver with the figures' numbers computed on the "
+            "card and no PNG written")
+    rec["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in runs[0]["launches"]}
+    rec["seconds"] = time.perf_counter() - t_start
+    log(f"phase 30: {rec['seconds']:.1f} s, launches "
+        f"{dict((k, v) for k, v in rec['launches'].items() if v)}")
+    return rec
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -5228,7 +5768,7 @@ def main(argv=None):
     ap.add_argument("--only", choices=("gn", "driver", "bf16", "k7",
                                        "unfused_bf16", "attn_bf16",
                                        "samplers", "core_dit",
-                                       "unet_export", "signal"),
+                                       "unet_export", "signal", "plots"),
                     help="build the kernels and run only this part: gn "
                     "times K5 and K5b at both GroupNorm mixes with a traced "
                     "DSM step; driver runs phase 20, the experiment driver "
@@ -5247,7 +5787,9 @@ def main(argv=None):
                     "unet_export runs phase 28, the learned potential, "
                     "remat, the U-Net's other options and serving export; "
                     "signal runs phase 29, the Lorenz-63 presets on a "
-                    "fixture through --data-root")
+                    "fixture through --data-root; plots runs phase 30, the "
+                    "profiling utilities and the CLI with its figures on "
+                    "grf16 and lorenz63_unet1d")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5321,6 +5863,10 @@ def main(argv=None):
         return 0
     if opts.only == "signal":
         record["signal"] = check_signal(g, dev, card)
+        write_record(opts.record, record)
+        return 0
+    if opts.only == "plots":
+        record["plots"] = check_plots(g, dev, card)
         write_record(opts.record, record)
         return 0
     job = ExportJob()  # phase 28's exports, in a process of their own
@@ -5543,6 +6089,13 @@ def main(argv=None):
     # -- 29. the signal regime: file-backed Lorenz-63 data, UNet1D, d = 1000 -
     signal = check_signal(g, dev, card)
     record["signal"] = signal
+
+    phase("30")
+    # -- 30. the plots and the profiling utilities: the CLI with its figures
+    # on grf16 and lorenz63_unet1d (K2's single step in each MSGM noising
+    # trajectory) -------------------------------------------------------
+    plots = check_plots(g, dev, card, k1["ms"], drive)
+    record["plots"] = plots
 
     phase("table")
     # -- the kernel table ----------------------------------------------------
@@ -5809,6 +6362,10 @@ def main(argv=None):
         # phase 29's CLI runs launch K1 and K2's solve, fp32 entries
         k["signal_launches"] = (0 if "counter" in k
                                 else signal["launches"][k["name"]])
+        # phase 30's CLI runs with figures: phase 20's and 29's launches
+        # and K2's single step in each MSGM noising trajectory
+        k["plots_launches"] = (0 if "counter" in k
+                               else plots["launches"][k["name"]])
     # K1, K2 and K2's solve at d = 1000 (their general plans), phase 29
     for k in kernels[:3]:
         if k["id"] == "K2 solve":
@@ -5834,7 +6391,8 @@ def main(argv=None):
             f"run, {k['samplers_launches']} in phase 26's, "
             f"{k['core_dit_launches']} in phase 27's, "
             f"{k['unet_export_launches']} in phase 28's, "
-            f"{k['signal_launches']} in phase 29's")
+            f"{k['signal_launches']} in phase 29's, "
+            f"{k['plots_launches']} in phase 30's")
     record["kernels"] = kernels
     phase("end")
     log("phases start at (s): " + ", ".join(

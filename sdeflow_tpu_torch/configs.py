@@ -9,9 +9,7 @@ does (``_grf(128)`` is the SGM DSM slice's configuration). Every preset
 also resolves with the ``_dbg`` suffix. The JAX package's
 ``steps_per_dispatch`` (its ``lax.scan`` dispatch of several train steps)
 has no counterpart: the Trainer takes one step at a time (a CUDA graph of
-the step is ROADMAP Queue 1 item 17); nor has ``print_ram`` (item 15).
-The plot options are carried as data, and only ``save_results`` is read
-(the plots come with item 13b).
+the step is ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -43,6 +41,7 @@ class TrainConfig:
     weight_decay: float = 0.0
     lr_warmup_steps: int = 0
     print_every: int = 10_000
+    print_ram: bool = False  # log memory_report() at each print
     save_every: int = 100_000  # tagged on-disk checkpoints
     use_checkpoint: bool = False  # rolling on-disk checkpoint, resumed
     ema_rate: Optional[float] = None
@@ -106,8 +105,7 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class PlotConfig:
-    """Plot options, carried as data; the driver reads ``save_results``
-    (the plots come with ROADMAP Queue 1 item 13b)."""
+    """Plot options; the driver reads all of them (plotting/plots.py)."""
 
     scatter_plots: bool = True
     noising_plots: bool = True

@@ -1,4 +1,5 @@
-"""Sample-quality metrics: Gaussian-kernel MMD and sliced Wasserstein.
+"""Sample-quality metrics: Gaussian-kernel MMD and sliced Wasserstein, and
+the metric block of a sampling run (``sample_metrics``).
 
 Port of sdeflow_tpu/eval/mmd.py:25-100. The kernel is
 k(x, y) = exp(−‖x−y‖²/d²), the reference's bandwidth; each row block of
@@ -90,3 +91,34 @@ def sliced_wasserstein(generator, x, y, num_projections=128, p=2,
         px = torch.sort(x @ dirs, dim=0).values
         py = torch.sort(y @ dirs, dim=0).values
     return torch.mean(torch.abs(px - py) ** p) ** (1.0 / p)
+
+
+def sample_metrics(xgen, xtest, x_train, std_norm, *, max_n, log_fn=print):
+    """The metric block of one sampling run (the JAX package's
+    ``postprocessing``, sdeflow_tpu/plotting/plots.py:516-544): the MMD and
+    SWD of the generated samples xgen (kept rows, e.g. numpy) and of the
+    train samples x_train to the test samples xtest, on n − 1 rows (the
+    reference's quirk, n ≤ max_n), scaled by std_norm, on xtest's device,
+    with one fixed direction set for the SWD of every arm and run. Returns
+    dict(mmd, mmd_ref, swd, swd_ref)."""
+    dev = xtest.device
+    n = min(xtest.shape[0], max_n)
+    n = min(n, xgen.shape[0] + 1, x_train.shape[0] + 1)
+    xt = xtest[: n - 1]
+    xg = torch.as_tensor(xgen[: n - 1], device=dev)
+    xtr = x_train[: n - 1]
+    sn = std_norm.to(device=dev, dtype=xt.dtype)
+    result = dict(mmd_ref=float(compute_mmd(sn * xtr, sn * xt)),
+                  mmd=float(compute_mmd(sn * xg, sn * xt)))
+    log_fn(f"MMD train to test = {result['mmd_ref'] ** 0.5}")
+    log_fn(f"MMD gen. to test = {result['mmd'] ** 0.5}")
+
+    def swd(a, b):  # the same directions for every arm and run
+        g = torch.Generator(device=dev).manual_seed(0)
+        return float(sliced_wasserstein(g, sn * a, sn * b))
+
+    result["swd_ref"] = swd(xtr, xt)
+    result["swd"] = swd(xg, xt)
+    log_fn(f"SWD train to test = {result['swd_ref']}")
+    log_fn(f"SWD gen. to test = {result['swd']}")
+    return result

@@ -1,8 +1,8 @@
 """The experiment driver: both arms of a preset trained by SSM, sampled by
-the plug-in reverse SDE and scored by √MMD and SWD.
+the plug-in reverse SDE, scored by √MMD and SWD, and plotted.
 
-Port of sdeflow_tpu/experiments/driver.py:40-222, 224-700: ``make_model``
-(the MLP, the U-Net, UNet1D and the DiT score nets), ``make_sampler`` (every
+Port of sdeflow_tpu/experiments/driver.py:40-767: ``make_model`` (the MLP,
+the U-Net, UNet1D and the DiT score nets), ``make_sampler`` (every
 datatype: the toy presets' swissroll, gaussian, gaussianCauchy and cauchy,
 ``grf``, and the file-backed piv, lorenz63, lorenz96, pod, era5*,
 eof_pressure, weather_station and ncar under the data root),
@@ -14,22 +14,27 @@ built (``_build_arm``; the MSGM arm on unnormalized data, as every arm of
 swissroll), trained by ``train_arm`` with its fair budget
 (``fair_budgets``), checkpointed,
 sampled over the backward step counts and repeat runs with its base SDE's
-own ``norm_correction``, and scored by the metric block of the JAX package's
-``postprocessing`` (sdeflow_tpu/plotting/plots.py:480-545) without its
-plots (``score_samples``); the 5-D result arrays are saved under the JAX
+own ``norm_correction``, and passed to ``postprocessing``
+(plotting/plots.py: the last state saved, the metrics with eval_mmd, the
+figures with make_plots); the 5-D result arrays are saved under the JAX
 package's file names. Each run samples by the sweep's sampler (the reverse
 SDE, the PF-ODE or DPM-Solver; an MSGM arm under "dpm" falls back, logged,
 to the SDE with RK4, as in the JAX driver), and ``eval_nll`` reports each
 trained arm's exact PF-ODE NLL in bits/dim (``_eval_nll``,
-``nll_bits_per_dim.json``). The plots raise ``NotImplementedError``
-naming their ROADMAP Queue 1 item (13b).
+``nll_bits_per_dim.json``). With make_plots, as the JAX driver does: the
+test set's pair grid per arm, the forward noising diagnostics of each arm
+before its training (``integrate_sde`` of the forward flow from the test
+samples by RK4, the circulant MSGM's steps by kernel K2, then
+``preprocessing``), each run's figures, and the √MMD convergence plots
+after the sweep (under eval_mmd) and in ``load_mmd_and_plot``. The driver
+raises ImportError at construction where make_plots finds no matplotlib.
 
 Random streams: the JAX driver reseeds each arm from ``PRNGKey(seed)``, so
 both arms see the same test set and the same train set for the MMD floor.
 Here each arm starts a ``torch.Generator`` from ``cfg.seed`` and folds one
 stream per purpose off it (ops/rng.py): the test set's, and the arm's own
-build, train and sample streams, and the data sampler's (the matrix of
-gaussian, gaussianCauchy and cauchy); each sampling run folds
+build, noising, train and sample streams, and the data sampler's (the
+matrix of gaussian, gaussianCauchy and cauchy); each sampling run folds
 i_steps·1000 + i_run off the sample stream, the MMD train set 777.
 """
 
@@ -46,16 +51,19 @@ import torch
 
 from sdeflow_tpu_torch.configs import ExperimentConfig
 from sdeflow_tpu_torch.data import filebacked, synthetic
-from sdeflow_tpu_torch.eval.diagnostics import filter_blowups
-from sdeflow_tpu_torch.eval.mmd import compute_mmd, sliced_wasserstein
 from sdeflow_tpu_torch.eval.nll import nll_summary
 from sdeflow_tpu_torch.experiments.naming import run_name_root, simulation_name
 from sdeflow_tpu_torch.models.dit import DiT1D, DiT2D
 from sdeflow_tpu_torch.models.mlp import MLP
 from sdeflow_tpu_torch.models.unet1d import UNet1D
 from sdeflow_tpu_torch.models.vorticity import VorticityUNet
+from sdeflow_tpu_torch.ops.integrators import integrate_sde
 from sdeflow_tpu_torch.ops.kernels.common import resolve_device
 from sdeflow_tpu_torch.ops.rng import fold_in, fold_seed
+from sdeflow_tpu_torch.plotting.plots import (
+    pairplots_single, postprocessing, preprocessing, pyplot,
+    require_matplotlib)
+from sdeflow_tpu_torch.sde.forward import ForwardFlow
 from sdeflow_tpu_torch.sde.msgm import MSGMSde
 from sdeflow_tpu_torch.sde.reverse import PluginReverseSDE
 from sdeflow_tpu_torch.sde.sgm import SGMSde
@@ -223,42 +231,16 @@ def generate(gen, generator, num_samples, dim, num_steps, method,
     return fn(generator)
 
 
-def score_samples(xs, xtest, x_train, std_norm, name_simu, *, max_n,
-                  save_results=True, log_fn=print):
-    """The metric block of one sampling run: save the last state of the
-    trajectory xs to ``name_simu + ".npy"``, drop blown-up rows, and the
-    MMD and SWD of the generated and of the train samples to the test
-    samples, on n − 1 rows (the reference's quirk, n ≤ max_n), scaled by
-    std_norm, with one fixed direction set for the SWD of every arm and
-    run. Returns dict(nan_count, mmd, mmd_ref, swd, swd_ref)."""
-    xgen = xs[-1]
-    if save_results:
-        np.save(name_simu + ".npy", _host(xgen))
-    xgen, nan_count = filter_blowups(xgen)
-    if nan_count > 0:
-        log_fn(f"Number of rows with NaN or large value: {nan_count}")
-    result = dict(nan_count=nan_count)
-    dev = xtest.device
-    n = min(xtest.shape[0], max_n)
-    n = min(n, xgen.shape[0] + 1, x_train.shape[0] + 1)
-    xt = xtest[: n - 1]
-    xg = torch.as_tensor(xgen[: n - 1], device=dev)
-    xtr = x_train[: n - 1]
-    sn = std_norm.to(device=dev, dtype=xt.dtype)
-    result["mmd_ref"] = float(compute_mmd(sn * xtr, sn * xt))
-    result["mmd"] = float(compute_mmd(sn * xg, sn * xt))
-    log_fn(f"MMD train to test = {result['mmd_ref'] ** 0.5}")
-    log_fn(f"MMD gen. to test = {result['mmd'] ** 0.5}")
+def _gaussian_pdf(xx):
+    return np.exp(-0.5 * xx**2) / np.sqrt(2 * np.pi)
 
-    def swd(a, b):  # the same directions for every arm and run
-        g = torch.Generator(device=dev).manual_seed(0)
-        return float(sliced_wasserstein(g, sn * a, sn * b))
 
-    result["swd_ref"] = swd(xtr, xt)
-    result["swd"] = swd(xg, xt)
-    log_fn(f"SWD train to test = {result['swd_ref']}")
-    log_fn(f"SWD gen. to test = {result['swd']}")
-    return result
+def _cauchy_pdf(xx, scale=1.0 / 50):
+    return scale / (np.pi * (xx**2 + scale**2))
+
+
+# the reference pdfs of the uncorrelated toy datasets' marginals
+PDF_THEOR = {"gaussian": _gaussian_pdf, "cauchy": _cauchy_pdf}
 
 
 def _host(x):
@@ -346,13 +328,14 @@ def init_samples(cfg: ExperimentConfig, iterations, batch_size):
 def make_trainer(cfg: ExperimentConfig, gen, sampler, batch_size,
                  log_fn=print, checkpoint_path=None):
     """The arm's SSM Trainer with the config's optimizer, cadence,
-    checkpoint cadence and EMA, as the JAX driver builds it; checkpoints go
-    to checkpoint_path when given."""
+    checkpoint cadence, memory report (print_ram) and EMA, as the JAX
+    driver builds it; checkpoints go to checkpoint_path when given."""
     tc = cfg.train
     return Trainer(
         gen, sampler, lr=tc.lr, batch_size=batch_size, loss="ssm",
         print_every=tc.print_every, save_every=tc.save_every,
-        checkpoint_path=checkpoint_path, log_fn=log_fn, ema_rate=tc.ema_rate,
+        checkpoint_path=checkpoint_path, log_fn=log_fn,
+        print_ram=tc.print_ram, ema_rate=tc.ema_rate,
         ema_warmup=tc.ema_warmup, grad_clip=tc.grad_clip,
         weight_decay=tc.weight_decay, lr_warmup_steps=tc.lr_warmup_steps)
 
@@ -407,23 +390,16 @@ def train_msgm_arm(cfg: ExperimentConfig, generator, *, iterations=None,
     return trainer, gen, loss
 
 
-def _check_ported(make_plots):
-    """Raise for what the driver does not run yet, before any training."""
-    if make_plots:
-        raise NotImplementedError(
-            "plots (the noising diagnostics, pairplots and convergence "
-            "plots): ROADMAP Queue 1 item 13b; run with make_plots=False "
-            "(--no-plots)")
-
-
 class ExperimentDriver:
     """Runs the comparison sweep of one ExperimentConfig on `device`."""
 
     def __init__(self, cfg: ExperimentConfig, log_fn=print, make_plots=True,
                  device="cuda"):
-        _check_ported(make_plots)
+        if make_plots:
+            require_matplotlib()  # before anything is built or trained
         self.cfg = cfg
         self.log = log_fn
+        self.make_plots = make_plots
         self.device = resolve_device(device)
         self.results = {}
         self.nll_results = {}
@@ -454,7 +430,7 @@ class ExperimentDriver:
         their ``_traj.npy`` files instead of generated (the arms are built
         but not trained)."""
         cfg = self.cfg
-        sw, dc = cfg.sweep, cfg.data
+        sw, dc, pc = cfg.sweep, cfg.data, cfg.plots
         complexitys = self._complexitys()
         dims = list(dc.dims)
         shape = (len(dims), len(complexitys), len(sw.num_stepss_backward),
@@ -483,28 +459,48 @@ class ExperimentDriver:
                     real_dim = int(xtest.shape[1])
                     std_norm = resolve_std_norm(sampler, normalized,
                                                 real_dim, self.device)
+                    std_test = xtest.std(dim=0, correction=0)
+                    std_test_plot = (torch.ones_like(std_test) / std_norm
+                                     if dc.datatype == "cauchy" else std_test)
+                    dimplot = min(pc.dimplot_max, real_dim)
+                    columns_plot = list(range(1 + pc.offset_dimplot,
+                                              1 + pc.offset_dimplot + dimplot))
+                    if self.make_plots:
+                        pairplots_single(
+                            xtest, std_norm, std_test_plot, dc.datatype,
+                            sampler.name, dimplot=dimplot,
+                            offset_dimplot=pc.offset_dimplot,
+                            crop_data_plot=pc.crop_data_plot,
+                            plot_crop=pc.plot_crop, plot_xlim=pc.plot_xlim,
+                            columns_plot=columns_plot, dpi=pc.dpi,
+                            height_seaborn=pc.height_seaborn,
+                            results_dir=folder_results)
                     for i_iter, iterations_ref in enumerate(sw.iterationss):
                         for batch_size_ref in sw.batch_sizes:
                             self._run_arm(
                                 key_arm, sampler, xtest, std_norm,
-                                dim=real_dim, is_msgm=is_msgm,
+                                std_test_plot, dim=real_dim, is_msgm=is_msgm,
                                 ssm_intT=ssm_intT,
                                 iterations_ref=iterations_ref,
                                 batch_size_ref=batch_size_ref,
                                 indices=(i_dim, i_cx, i_iter),
-                                arrays=arrays, just_load=just_load)
+                                arrays=arrays, dimplot=dimplot,
+                                columns_plot=columns_plot,
+                                just_load=just_load)
 
         self.results = dict(arrays, dims=dims, complexitys=complexitys,
                             nll_bits_per_dim=self.nll_results)
         if sw.eval_mmd:
             self._save_mmd_arrays(folder_results)
+            if self.make_plots:
+                self._convergence_plots(folder_results)
         return self.results
 
-    def _run_arm(self, key, sampler, xtest, std_norm, *, dim, is_msgm,
-                 ssm_intT, iterations_ref, batch_size_ref, indices, arrays,
-                 just_load):
+    def _run_arm(self, key, sampler, xtest, std_norm, std_test_plot, *, dim,
+                 is_msgm, ssm_intT, iterations_ref, batch_size_ref, indices,
+                 arrays, dimplot, columns_plot, just_load):
         cfg = self.cfg
-        tc, sw, pc = cfg.train, cfg.sweep, cfg.plots
+        tc, sw, dc, pc = cfg.train, cfg.sweep, cfg.data, cfg.plots
         i_dim, i_cx, i_iter = indices
         folder_results = cfg.results_dir
         premodule = "NormalizeLogRadius" if is_msgm else None
@@ -515,8 +511,8 @@ class ExperimentDriver:
         num_samples_init = init_samples(cfg, iterations, batch_size)
         self.log(f"num_samples_init = {num_samples_init}")
 
-        key_build, key_train, key_sample = (
-            fold_in(key, i) for i in (0, 2, 3))  # 1: the noising plots
+        key_build, key_fwd, key_train, key_sample = (
+            fold_in(key, i) for i in range(4))
         _, gen = self._build_arm(key_build, dim, is_msgm, num_samples_init,
                                  sampler)
 
@@ -535,6 +531,23 @@ class ExperimentDriver:
             is_msgm, nn_archi=tc.nn_archi, premodule=premodule, lr=tc.lr,
             vtype=tc.vtype, ssm_intT=ssm_intT,
             fair_comparison=sw.fair_comparison)
+
+        # forward-SDE noising diagnostics (reference MSGM_higherDim.py:
+        # 779-788): the circulant MSGM's RK4 steps run kernel K2
+        if self.make_plots:
+            flow = ForwardFlow(base_sde=gen.base_sde, T=gen.base_sde.T)
+            xs_forward = integrate_sde(
+                flow, xtest, key_fwd, tc.num_steps_forward, method="rk4",
+                keep_all=True, include_t0=True,
+                norm_correction=bool(gen.base_sde.norm_correction))
+            preprocessing(
+                xtest, xs_forward, tc.num_steps_forward, name_root,
+                offset_dimplot=pc.offset_dimplot,
+                noising_plots=pc.noising_plots,
+                folder_results=folder_results, val_hist=pc.val_hist,
+                std_norm=std_norm, std_test_plot=std_test_plot,
+                log_fn=self.log)
+            del xs_forward
 
         # train (reference MSGM_higherDim.py:790-850)
         checkpoint_path = (
@@ -555,12 +568,23 @@ class ExperimentDriver:
             self.log("eval_nll skipped: --just-load restores saved samples, "
                      "not a trained model")
 
+        # the theoretical pdf over the pair grid's diagonal for uncorrelated
+        # gaussian and cauchy (reference MSGM_higherDim.py:522-558)
+        pdf_theor, plot_ref_pdf = None, pc.plot_ref_pdf
+        if not dc.correlation and dc.datatype in PDF_THEOR:
+            pdf_theor, plot_ref_pdf = PDF_THEOR[dc.datatype], True
+
         # reverse-sampling sweep (reference MSGM_higherDim.py:852-916)
         x_train_for_mmd = sampler.sample(fold_in(key_sample, 777),
                                          sw.num_samples)
         eff_sampler, eff_method = self._effective_sampler(gen)
         for i_steps, num_steps_backward in enumerate(sw.num_stepss_backward):
             self.log(f"Generation : num_steps_backward = {num_steps_backward}")
+            fig_step = max(1, int(num_steps_backward / 8))
+            if sw.include_t0_reverse:
+                inds = range(0, num_steps_backward + 1, fig_step)
+            else:
+                inds = range(fig_step - 1, num_steps_backward, fig_step)
             for i_run in range(sw.nruns_mmd):
                 name_simu = simulation_name(
                     folder_results, name_root, tc.t_eps, num_steps_backward,
@@ -586,12 +610,26 @@ class ExperimentDriver:
                     if pc.save_results:
                         np.save(name_simu + "_traj.npy", _host(xs))
 
+                if not (self.make_plots or sw.eval_mmd):
+                    continue
+                out = postprocessing(
+                    inds, xs, xtest, std_norm, std_test_plot, dc.datatype,
+                    name_simu, dimplot=dimplot,
+                    offset_dimplot=pc.offset_dimplot,
+                    crop_data_plot=pc.crop_data_plot, plot_crop=pc.plot_crop,
+                    plot_xlim=pc.plot_xlim, plot_ref_pdf=plot_ref_pdf,
+                    pdf_theor=pdf_theor, log_scale_pdf=pc.log_scale_pdf,
+                    columns_plot=columns_plot,
+                    scatter_plots=pc.scatter_plots,
+                    denoising_plots=pc.denoising_plots,
+                    include_t0_reverse=sw.include_t0_reverse, dpi=pc.dpi,
+                    height_seaborn=pc.height_seaborn, val_hist=pc.val_hist,
+                    save_results=pc.save_results and not just_load,
+                    first_run=(i_run == 0),
+                    mmd_inputs=((x_train_for_mmd, sw.num_samples)
+                                if sw.eval_mmd else None),
+                    make_plots=self.make_plots, log_fn=self.log)
                 if sw.eval_mmd:
-                    out = score_samples(
-                        xs, xtest, x_train_for_mmd, std_norm, name_simu,
-                        max_n=sw.num_samples,
-                        save_results=pc.save_results and not just_load,
-                        log_fn=self.log)
                     idx = (i_dim, i_cx, i_steps, i_iter, i_run)
                     arm = "msgm" if is_msgm else "sgm"
                     arrays["mmd_ref"][idx] = out["mmd_ref"]
@@ -651,8 +689,9 @@ class ExperimentDriver:
         return list(sw.Res) if dc.datatype == "pod" else list(sw.ntrain_maxs)
 
     def load_mmd_and_plot(self, folder=None):
-        """Reload the saved metric arrays without rerunning the sweep (the
-        convergence plots come with ROADMAP Queue 1 item 13b)."""
+        """Reload the saved metric arrays without rerunning the sweep and,
+        with make_plots, draw the convergence plots (the reference's
+        justLoadmmmd mode, MSGM_higherDim.py:920-930)."""
         folder = folder or self.cfg.results_dir
         self.results = dict(
             mmd_sgm=np.load(self._mmd_path(folder, "SGM")),
@@ -666,6 +705,8 @@ class ExperimentDriver:
             swd_path = self._mmd_path(folder, arm, metric="SWD")
             if os.path.exists(swd_path):
                 self.results[res_key] = np.load(swd_path)
+        if self.make_plots:
+            self._convergence_plots(folder)
         return self.results
 
     def _save_mmd_arrays(self, folder):
@@ -673,3 +714,61 @@ class ExperimentDriver:
             for arm in ("SGM", "MSGM", "ref"):
                 np.save(self._mmd_path(folder, arm, metric),
                         self.results[f"{metric.lower()}_{arm.lower()}"])
+
+    def _convergence_plots(self, folder):
+        """√MMD (mean over the runs, 10-90 % band) of each arm and of the
+        train floor against the backward step counts, and where the sweep
+        has several, the iterations, the dimension and the train-set size
+        (reference: MSGM_higherDim.py:938-1176)."""
+        import matplotlib.ticker as mticker
+
+        plt = pyplot()
+        sw = self.cfg.sweep
+        res = self.results
+        dims, complexitys = res["dims"], res["complexitys"]
+
+        def stats(arr):
+            s = np.sqrt(np.maximum(arr, 0.0))
+            return (s.mean(axis=4), np.quantile(s, 0.1, axis=4),
+                    np.quantile(s, 0.9, axis=4))
+
+        curves = [(label, stats(res[key])) for label, key in (
+            ("SGM", "mmd_sgm"), ("MSGM", "mmd_msgm"),
+            ("train data", "mmd_ref"))]
+
+        def plot_axis(xvals, slicer, xlabel, fname):
+            fig = plt.figure(figsize=(5 * 0.7 * 1.3, 3 * 0.7))
+            for label, (m, q10, q90) in curves:
+                plt.loglog(xvals, slicer(m), label=label)
+                plt.fill_between(xvals, slicer(q10), slicer(q90), alpha=0.2)
+            plt.xlabel(xlabel)
+            plt.ylabel("MMD")
+            ax = plt.gca()
+            ax.set_xticks(list(xvals))
+            ax.xaxis.set_major_locator(mticker.FixedLocator(list(xvals)))
+            plt.tight_layout()
+            ax.legend(loc="center left", bbox_to_anchor=(1, 0.5))
+            fig.savefig(os.path.join(folder, fname), bbox_inches="tight")
+            plt.close(fig)
+
+        for i_dim in range(len(dims)):
+            for i_cx in range(len(complexitys)):
+                plot_axis(
+                    list(sw.num_stepss_backward),
+                    lambda m, i=i_dim, c=i_cx: m[i, c, :, 0].flatten(),
+                    "nb timesteps in backward SDE",
+                    f"MMD_wBckWardSteps_d={dims[i_dim]}"
+                    f"_Ntrain={complexitys[i_cx]}.png")
+                if len(sw.iterationss) > 1:
+                    plot_axis(
+                        list(sw.iterationss),
+                        lambda m, i=i_dim, c=i_cx: m[i, c, 0, :].flatten(),
+                        "effective number of iterations",
+                        f"MMD_wIte_d={dims[i_dim]}"
+                        f"_Ntrain={complexitys[i_cx]}.png")
+        if len(dims) > 1:
+            plot_axis(dims, lambda m: m[:, 0, 0, 0].flatten(), "dimension",
+                      "MMD_wDim.png")
+        if len(complexitys) > 1 and np.all(np.isfinite(complexitys)):
+            plot_axis(complexitys, lambda m: m[0, :, 0, 0].flatten(),
+                      "Training set size", "MMD_wNtrain.png")

@@ -1,21 +1,26 @@
 """Command-line entry point of the port, with the JAX package's flags:
 
-    python -m sdeflow_tpu_torch.run --no-plots --eval-mmd   # swissroll
-    python -m sdeflow_tpu_torch.run --preset swissroll_dbg --cpu --no-plots
-    python -m sdeflow_tpu_torch.run --preset grf16_dit_dbg --cpu --no-plots
+    python -m sdeflow_tpu_torch.run --eval-mmd                  # swissroll
+    python -m sdeflow_tpu_torch.run --preset swissroll_dbg --cpu
+    python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --eval-mmd --print-ram
+    python -m sdeflow_tpu_torch.run --preset grf16 --eval-mmd
     python -m sdeflow_tpu_torch.run --preset grf16 --eval-mmd --no-plots
-    python -m sdeflow_tpu_torch.run --preset grf16_dbg --cpu --no-plots --eval-mmd
     python -m sdeflow_tpu_torch.run --preset grf16_production --no-plots
-    python -m sdeflow_tpu_torch.run --preset grf16 --sampler ode --eval-nll --no-plots
-    python -m sdeflow_tpu_torch.run --preset lorenz63_unet1d --data-root ROOT --eval-mmd --no-plots
+    python -m sdeflow_tpu_torch.run --preset grf16 --sampler ode --eval-nll
+    python -m sdeflow_tpu_torch.run --preset lorenz63_unet1d --data-root ROOT --eval-mmd
 
 Port of sdeflow_tpu/run.py:15-252. It runs on CUDA unless given --cpu,
 and raises when no CUDA device is present instead of falling back to the
-CPU. ``--data-root`` points the file-backed presets at a directory in the
-layout of ``../MSGM-data/`` (the default); no data is fetched, and
-tools/l63_fixture.py writes the Lorenz-63 one. The flags that need parts
-not ported yet raise NotImplementedError, naming their ROADMAP Queue 1
-item, before anything is built or trained.
+CPU. The figures (plotting/plots.py) are drawn unless --no-plots is given,
+which needs matplotlib: without it the run raises ImportError, naming
+--no-plots, before anything is built or trained. --print-ram logs the
+host's and the card's memory at each training print. ``--data-root``
+points the file-backed presets at a directory in the layout of
+``../MSGM-data/`` (the default); no data is fetched, and
+tools/l63_fixture.py writes the Lorenz-63 one. --dp, --tp and
+--attention-impl ring need the parallel module, not ported yet: they
+raise NotImplementedError, naming ROADMAP Queue 1 item 14, before
+anything is built or trained.
 """
 
 from __future__ import annotations
@@ -130,16 +135,10 @@ def build_parser():
 
 
 def _unported(args):
-    """The first flag that needs an unported part, as (flag, Queue 1
-    item), or None."""
-    checks = [
-        (args.dp > 1 or args.tp > 1, "--dp/--tp > 1", "14 (parallel)"),
-        (args.attention_impl == "ring", "--attention-impl ring",
-         "14 (parallel)"),
-        (args.print_ram, "--print-ram", "15 (utils)"),
-        (not args.no_plots, "plots (pass --no-plots)", "13b (plotting)"),
-    ]
-    return next(((flag, item) for hit, flag, item in checks if hit), None)
+    """The first flag that needs the unported parallel module, or None."""
+    checks = [(args.dp > 1 or args.tp > 1, "--dp/--tp > 1"),
+              (args.attention_impl == "ring", "--attention-impl ring")]
+    return next((flag for hit, flag in checks if hit), None)
 
 
 def main(argv=None):
@@ -155,7 +154,7 @@ def main(argv=None):
     unported = _unported(args)
     if unported is not None:
         raise NotImplementedError(
-            f"{unported[0]}: ROADMAP Queue 1 item {unported[1]}")
+            f"{unported}: ROADMAP Queue 1 item 14 (parallel)")
 
     from sdeflow_tpu_torch.configs import get_preset
     from sdeflow_tpu_torch.experiments.driver import ExperimentDriver
@@ -210,6 +209,8 @@ def main(argv=None):
             train = replace(train, **{field: getattr(args, flag)})
     if args.no_ema_warmup:
         train = replace(train, ema_warmup=False)
+    if args.print_ram:
+        train = replace(train, print_ram=True)
     cfg = replace(cfg, train=train, sweep=sweep,
                   results_dir=args.results_dir, seed=args.seed)
 

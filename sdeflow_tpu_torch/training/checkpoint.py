@@ -8,8 +8,8 @@ the step count, the generator's state, the iteration, and the base SDE's
 tensors (MSGM's sorted ``r_T`` radii and the KDE constants of its radial
 prior), which a resumed run must not rebuild from fresh data draws: that
 would change the latent law. ``r_T`` is sorted again at restore, as the
-JAX package does (:110-124). Serving export (``torch.export``) comes with
-ROADMAP Queue 1 item 12.
+JAX package does (:110-124). Serving export (``torch.export`` of a
+sampler) is ``serving.export_sampler``, not a checkpoint.
 """
 
 from __future__ import annotations

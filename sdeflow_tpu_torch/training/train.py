@@ -28,6 +28,7 @@ from sdeflow_tpu_torch.eval.elbo import evaluate
 from sdeflow_tpu_torch.ops.rng import fold_in
 from sdeflow_tpu_torch.training.checkpoint import (
     checkpoint_exists, load_checkpoint, save_checkpoint)
+from sdeflow_tpu_torch.utils.profiling import memory_report
 
 
 @dataclass
@@ -161,7 +162,8 @@ def make_train_chunk(optimizer, sample_fn, batch_size, loss="ssm",
 
 class Trainer:
     """Host-side loop with the JAX Trainer's cadence: loss and ELBO prints
-    with ms/step at step 1, every print_every steps and at the end; with a
+    with ms/step at step 1, every print_every steps and at the end (with
+    print_ram, each followed by the ``memory_report`` line); with a
     checkpoint_path, a rolling checkpoint there at each print and a tagged
     one at ``<checkpoint_path>_<step>`` at each save_every multiple. The
     optimizer is ``build_optimizer``'s over the score net's parameters."""
@@ -176,8 +178,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded training (mesh): ROADMAP Queue 1 item 14")
-        if print_ram:
-            raise NotImplementedError("print_ram: ROADMAP Queue 1 item 15")
         net = gen_sde.score_net
         low = sorted({str(p.dtype) for p in net.parameters()
                       if p.dtype in (torch.bfloat16, torch.float16)})
@@ -198,6 +198,7 @@ class Trainer:
         self.save_every = save_every
         self.checkpoint_path = checkpoint_path
         self.log_fn = log_fn
+        self.print_ram = print_ram
         self.train_step = make_train_step(self.optimizer, loss, ema_rate,
                                           ema_warmup)
         self.history = []
@@ -249,6 +250,8 @@ class Trainer:
                         float(loss), float(elbo), float(elbo_std)))
                 self.history.append(dict(step=i, loss=float(loss),
                                          elbo=float(elbo)))
+                if self.print_ram:
+                    self.log_fn(memory_report())
             if path and (do_print or do_tag):
                 save_checkpoint(path, self.state, generator, i - 1,
                                 self.optimizer)

@@ -1,8 +1,10 @@
 """The port stands alone: importing it (every submodule) and chip_smoke.py
-loads no JAX, no flax, nothing of the JAX package and neither pandas nor
-netCDF4 (the card has neither), no source of the package names either of
-those two, and its entry points (the sampler, the file-backed data)
-refuse to fall back to the CPU quietly when no CUDA device is present."""
+loads no JAX, no flax, nothing of the JAX package, no pandas, netCDF4 or
+seaborn (the card has none of them) and no matplotlib (imported only by
+the calls that draw), no source of the package names pandas, netCDF4 or
+seaborn at any depth, and its entry points (the sampler, the file-backed
+data) refuse to fall back to the CPU quietly when no CUDA device is
+present."""
 
 import os
 import re
@@ -21,7 +23,8 @@ for m in pkgutil.walk_packages(sdeflow_tpu_torch.__path__, "sdeflow_tpu_torch.")
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdeflow_tpu",
-                                    "pandas", "netCDF4"))
+                                    "pandas", "netCDF4", "seaborn",
+                                    "matplotlib"))
 assert not bad, bad
 from sdeflow_tpu_torch.data import ArraySampler
 from sdeflow_tpu_torch.serving import make_sampler_fn
@@ -39,7 +42,8 @@ print("isolated")
 
 
 def test_no_source_of_the_port_names_pandas_or_netcdf4():
-    pattern = re.compile(r"^\s*(import|from)\s+(pandas|netCDF4)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(pandas|netCDF4|seaborn)\b",
+                         re.M)
     sources = [*sorted((ROOT / "sdeflow_tpu_torch").rglob("*.py")),
                ROOT / "chip_smoke.py"]
     assert len(sources) > 40

@@ -18,6 +18,7 @@ and their displacement over the steps rtol 1e-3 (a difference of float32
 numbers near 1 that moved by about lr = 1e-3 per step keeps three
 digits)."""
 
+import re
 from dataclasses import replace
 
 import numpy as np
@@ -304,8 +305,11 @@ def test_trainer_runs_three_steps_on_the_cpu():
     for (n, p), (_, q) in zip(ema_net.named_parameters(),
                               net.named_parameters()):
         torch.testing.assert_close(p, state.ema_params[n])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(gen, data, print_ram=True)
+    ram_logs = []  # print_ram: the memory_report line after each print
+    Trainer(gen, data, batch_size=3, print_ram=True,
+            log_fn=ram_logs.append).run(torch.Generator().manual_seed(4), 1)
+    assert [m.split()[0] for m in ram_logs] == ["|", "RAM:"]
+    assert re.fullmatch(r"RAM: host rss [\d,]+ MiB", ram_logs[1])
     with pytest.raises(NotImplementedError, match="item 14"):
         Trainer(gen, data, mesh=object())
 
